@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+Run from the repository root on a machine with an H100 (no arguments):
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `llm_qat_tpu_torch/csrc/`, holds each
+kernel against its plain PyTorch version at GPT-2 124M widths, drives the
+serving path (calibrate → quantize_for_inference → prefill → mega decode →
+int4 LM head → greedy sampling) through `InferenceEngine.generate` with
+random weights from a seed, checks from the launch counters that the path
+went through both kernels, times the kernels, their plain versions and the
+library yardstick with CUDA events, and prints:
+
+- the card's name and power limit (nvidia-smi);
+- one line per comparison, its error beside its tolerance;
+- a `timings` JSON line and a `kernels` JSON line;
+- last, `{"ok": true, "device": {...}}`.
+
+Any failed check raises, so the script exits non-zero and prints no result
+line. Without a CUDA device, or without the repository beside it, it exits
+non-zero too. It imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12     # H100 SXM int8 tensor cores, dense
+
+# Kernel vs plain tolerances. Both kernels compute in float32, as the JAX
+# kernels do, and sum in another order than their plain versions, so the two
+# differ by float32 rounding. In the decode step such a difference now and
+# then moves a value across a rounding boundary (a ±7 activation code, a KV
+# code, or a bf16 rounding at `_rt`); that row then differs by a
+# quantization step, and through later layers the difference grows. So the
+# step is held tightly one layer at a time, and loosely at full depth. The
+# limits were set from the spread measured on the card (PERF.md, PR 1).
+# Row error = max |kernel - plain| over a batch row / max |plain h_out|.
+MEGA_ROW_TIGHT = {"float32": 1e-5, "bfloat16": 4e-3}   # float rounding only
+MEGA_TIGHT_SHARE = 0.9      # share of rows within the tight limit, at least
+MEGA_LAYER_MAX = 2e-2       # any row, one layer alone
+MEGA_LAYER_CODE_SHARE = 1e-3  # appended K/V codes that differ (by one code)
+MEGA_LAYER_SCALE_REL = 1e-4   # appended K/V row scales, relative
+MEGA_STEP_MAX = 5e-1        # any row, all 12 layers
+FLASH_ABS_TOL = 1e-5
+# The served tokens: the kernel path's greedy tokens replayed through the
+# plain path (teacher forcing), against the floor that the plain path sets
+# against itself when its kernels' outputs move by a few float32 ulps:
+# argmax agreement at most this far below the floor's, and mean |logit
+# difference| at most this many times the floor's.
+TOKEN_AGREE_MARGIN = 0.1
+LOGIT_FLOOR_FACTOR = 2.0
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms over `iters` calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.models import inference
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.models.inference import (
+        InferenceEngine,
+        _lm_head,
+        _ln,
+        init_layer_caches,
+        quantize_for_inference,
+    )
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import mega_decode as md
+    from llm_qat_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from llm_qat_tpu_torch.train.calibration_manager import (
+        calibrate_input_quantizers,
+        calibrate_weight_quantizers,
+    )
+
+    # full-precision float32 matmuls (the exact integer dots rely on it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+    # 2. build
+    t = time.time()
+    _build.build_all()
+    print(f"build: {time.time() - t:.1f} s (nvcc, sm_90a, both kernels in parallel)",
+          flush=True)
+
+    # GPT-2 124M with the bench's quant config, random weights from seed 0;
+    # LoRA B banks drawn small and non-zero so the LoRA branch does work
+    cfg = SPModelConfig(
+        model=GPT2Config(),
+        quant=QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"},
+                          per_channel=False),
+        compute_dtype="bfloat16")
+    m = cfg.model
+    V, d, L, H = m.vocab_size, m.n_embd, m.n_layer, m.n_head
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    for lin in ("c_attn", "attn_proj", "c_fc", "mlp_proj"):
+        lb = params["blocks"][lin]["lora_B"]
+        params["blocks"][lin]["lora_B"] = 0.02 * torch.randn(
+            lb.shape, generator=gen, device=dev)
+    t = time.time()
+    params = calibrate_weight_quantizers(params, cfg)
+    cal = [torch.randint(0, V, (2, 64), generator=gen, device=dev) for _ in range(3)]
+    params = calibrate_input_quantizers(params, cfg, cal)
+    torch.cuda.synchronize()
+    print(f"calibration: {time.time() - t:.1f} s", flush=True)
+
+    # 3. kernels vs plain versions at GPT-2 widths. The decode step runs
+    #    at full depth and, to keep a rounding-boundary difference from
+    #    cascading through the layers, each layer alone on the same input.
+    B = 8
+    errs = {"mega_decode_step_kv8": 0.0, "flash_attention": 0.0}
+    failures = []
+    trees = {
+        4: quantize_for_inference(params, cfg, 4, weight_format="int4_xla"),
+        8: quantize_for_inference(params, cfg, 8, weight_format="int8_xla"),
+    }
+    for tree in trees.values():
+        tree.pop("_static")
+
+    def compare_step(h, mw, caches0, pos, kw):
+        """Kernel vs plain on copies of caches0: (row errors, differing
+        codes, codes, largest code difference, scale relative error, h_out
+        max abs error)."""
+        ck = [c.clone() for c in caches0]
+        cp = [c.clone() for c in caches0]
+        out_k = md.mega_decode_step_kv8(h, mw, *ck, pos, **kw)
+        out_p = md.mega_decode_step_kv8_plain(h, mw, *cp, pos, **kw)
+        rows = ((out_k[0] - out_p[0]).abs().amax(dim=1)
+                / out_p[0].abs().max()).tolist()
+        kvb = kw["kv_bits"]
+        dcode = torch.cat([(md._kv_codes(a[:, :, pos], kvb) - md._kv_codes(b[:, :, pos], kvb))
+                           .flatten() for a, b in zip(out_k[1:3], out_p[1:3])])
+        srel = max(((a[:, :, pos] - b[:, :, pos]).abs() / b[:, :, pos]).max().item()
+                   for a, b in zip(out_k[3:], out_p[3:]))
+        rest = [t for t in range(caches0[0].shape[2]) if t != pos]
+        if not all(torch.equal(a[:, :, rest], c[:, :, rest])
+                   for a, c in zip(out_k[1:], caches0)):
+            failures.append("mega step touched cache rows other than pos")
+        return (rows, int((dcode != 0).sum()), dcode.numel(),
+                int(dcode.abs().max()), srel, (out_k[0] - out_p[0]).abs().max().item())
+
+    cases = [(4, 4, True), (8, 8, False)]  # (weight bits, kv bits, int8 LoRA)
+    spread = {}  # (depth, act) -> row errors
+    for wbits, kv_bits, lora_i8 in cases:
+        tree = trees[wbits]
+        mw = md.pack_mega_weights(tree, cfg, lora_int8=lora_i8)
+        check((mw.at.dtype == torch.int8) == lora_i8, "LoRA bank dtype")
+        aq = float(tree["blocks"]["c_attn"]["qmax"][0]) if wbits == 4 else 127.0
+        T = 384
+        dc = d if kv_bits == 8 else d // 2
+        lo = -127 if kv_bits == 8 else -128
+        caches0 = [torch.randint(lo, 128, (L, B, T, dc), generator=gen, device=dev,
+                                 dtype=torch.int8) for _ in range(2)]
+        caches0 += [0.01 + 0.04 * torch.rand((L, B, T), generator=gen, device=dev)
+                    for _ in range(2)]
+        for act in (torch.float32, torch.bfloat16):
+            an = str(act)[6:]
+            for pos in (64, 300):
+                h = 0.5 * torch.randn((B, d), generator=gen, device=dev)
+                kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act,
+                          aq_max=aq, tbp=64, kv_bits=kv_bits, tiles_per_step=4)
+                runs = {"step": [compare_step(h, mw, caches0, pos, kw)],
+                        "layer": [compare_step(
+                            h, md.MegaWeights(*(t[l:l + 1] for t in mw)),
+                            [c[l:l + 1] for c in caches0], pos, kw) for l in range(L)]}
+                for depth, res in runs.items():
+                    rows = [e for r in res for e in r[0]]
+                    ndiff, ncode = sum(r[1] for r in res), sum(r[2] for r in res)
+                    cmax, srel = max(r[3] for r in res), max(r[4] for r in res)
+                    spread.setdefault((depth, an), []).extend(rows)
+                    tols = (f"row tol {MEGA_STEP_MAX:g}; codes and scales not held at "
+                            f"full depth" if depth == "step" else
+                            f"row tol {MEGA_LAYER_MAX:g}; codes tol {MEGA_LAYER_CODE_SHARE:g}"
+                            f" of them, by 1; scale tol {MEGA_LAYER_SCALE_REL:g}")
+                    print(f"mega w{wbits} kv{kv_bits} lora_{'i8' if lora_i8 else 'bf16'} "
+                          f"{an} pos {pos} {depth}: row err max {max(rows):.3e}; "
+                          f"codes differing {ndiff}/{ncode} (largest {cmax}); "
+                          f"scale rel err {srel:.2e} ({tols})", flush=True)
+                    tag = f"mega w{wbits} kv{kv_bits} {an} pos {pos} {depth}"
+                    if depth == "step":
+                        errs["mega_decode_step_kv8"] = max(errs["mega_decode_step_kv8"],
+                                                           res[0][5])
+                        if not max(rows) <= MEGA_STEP_MAX:
+                            failures.append(f"{tag}: row err {max(rows):.3e}")
+                        continue
+                    if not max(rows) <= MEGA_LAYER_MAX:
+                        failures.append(f"{tag}: row err {max(rows):.3e}")
+                    if not (cmax <= 1 and ndiff <= MEGA_LAYER_CODE_SHARE * ncode):
+                        failures.append(f"{tag}: {ndiff} codes differ, largest by {cmax}")
+                    if not srel <= MEGA_LAYER_SCALE_REL:
+                        failures.append(f"{tag}: scale rel err {srel:.2e}")
+    for (depth, an), rows in sorted(spread.items()):
+        rs = sorted(rows)
+        share = sum(e <= MEGA_ROW_TIGHT[an] for e in rs) / len(rs)
+        q = {f"p{int(100 * f)}": rs[min(len(rs) - 1, int(f * len(rs)))]
+             for f in (0.5, 0.9, 0.99)}
+        held = f"tol >= {MEGA_TIGHT_SHARE}" if depth == "layer" else "not held"
+        print(f"mega {depth} {an}: {len(rs)} rows, within {MEGA_ROW_TIGHT[an]:g}: "
+              f"{share:.3f} ({held}); quantiles "
+              + " ".join(f"{k} {v:.2e}" for k, v in q.items())
+              + f"; max {rs[-1]:.2e} (tol {MEGA_STEP_MAX if depth == 'step' else MEGA_LAYER_MAX:g})",
+              flush=True)
+        if depth == "layer" and share < MEGA_TIGHT_SHARE:
+            failures.append(f"mega layer {an}: {share:.3f} of rows within "
+                            f"{MEGA_ROW_TIGHT[an]:g}")
+    for T in (128, 512):
+        q, k, v = (torch.randn((B, H, T, d // H), generator=gen, device=dev)
+                   for _ in range(3))
+        err = (flash_attention(q, k, v) - flash_attention_plain(q, k, v)).abs().max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"flash (8,12,{T},64) f32: max abs err {err:.3e} (tol {FLASH_ABS_TOL:g})",
+              flush=True)
+        if not err <= FLASH_ABS_TOL:
+            failures.append(f"flash T={T}: max abs err {err:.3e}")
+    check(not failures, "; ".join(failures))
+
+    # 4. the main path: greedy serving at full GPT-2 width, B=8, prompt 128
+    #    (reaches the flash prefill), 64 new tokens
+    T0, NEW = 128, 64
+    kw_eng = dict(bits=4, max_batch=B, max_len=T0 + NEW, weight_format="int4_xla",
+                  lm_head_bits=4, kv_layout="mega", kv_bits=4, mega_tbp=64)
+    eng = InferenceEngine(params, cfg, **kw_eng)
+    prompt = torch.randint(0, V, (B, T0), generator=gen, device=dev)
+    flash_attention.launches = 0
+    md.mega_decode_step_kv8.launches = 0
+    out = eng.generate(prompt, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "mega_decode_step_kv8": md.mega_decode_step_kv8.launches}
+    print(f"main path launches: {launches}", flush=True)
+    check(launches["flash_attention"] > 0, "main path ran the flash kernel")
+    check(launches["mega_decode_step_kv8"] > 0, "main path ran the mega kernel")
+    check(tuple(out.shape) == (B, T0 + NEW), "generate shape")
+    check(torch.equal(out[:, :T0], prompt), "prompt kept")
+    toks = out[:, T0:]
+    check(bool(((toks >= 0) & (toks < V)).all()), "token ids in range")
+
+    ref = InferenceEngine(params, cfg, use_kernels=False, **kw_eng)
+    ref_out = ref.generate(prompt, max_new_tokens=NEW)
+    free_agree = (ref_out[:, T0:] == toks).float().mean().item()
+
+    def replay(e):
+        """Teacher-forced per-step logits of `toks` through engine e."""
+        caches = init_layer_caches(cfg, B, -(-(T0 + NEW) // 32) * 32, e.dtype,
+                                   device=dev)
+        logits, caches = e.prefill(prompt, caches)
+        kc, vc, ks, vs = e._to_mega(caches)
+        steps = [logits[:, -1]]
+        for i in range(NEW - 1):
+            last, kc, vc, ks, vs = e.mega_step(toks[:, i], T0 + i, kc, vc, ks, vs)
+            steps.append(last)
+        return torch.stack(steps, dim=1)
+
+    lk, lp = replay(eng), replay(ref)
+    check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
+          "finite logits")
+    check(torch.equal(lk.argmax(-1), toks), "generate equals its own replay")
+
+    # The floor: the plain path against itself with the output of each
+    # kernel's plain version moved by a few float32 ulps (relative noise of
+    # 2^-22). With random weights the served logits are nearly flat and 12
+    # layers of 4-bit codes amplify such a difference; the kernels must agree
+    # with the plain path about as well as this does.
+    noise = torch.Generator(device=dev).manual_seed(1)
+
+    def jitter(x):
+        return x * (1 + 2.0 ** -22 * torch.randn(x.shape, generator=noise, device=dev))
+
+    plain_fns = (inference.flash_attention_plain, inference.mega_decode_step_kv8_plain)
+    inference.flash_attention_plain = lambda *a: jitter(plain_fns[0](*a))
+    inference.mega_decode_step_kv8_plain = lambda *a, **k: (
+        lambda out: (jitter(out[0]),) + tuple(out[1:]))(plain_fns[1](*a, **k))
+    lj = replay(ref)
+    inference.flash_attention_plain, inference.mega_decode_step_kv8_plain = plain_fns
+
+    def agreement(x, y):
+        """(argmax agreement, mean |x - y| / std(y))."""
+        return ((x.argmax(-1) == y.argmax(-1)).float().mean().item(),
+                ((x - y).abs().mean() / y.std()).item())
+
+    forced_agree, logit_rel = agreement(lk, lp)
+    floor_agree, floor_rel = agreement(lj, lp)
+    print(f"served tokens vs plain versions: teacher-forced argmax agreement "
+          f"{forced_agree:.4f} (floor {floor_agree:.4f}, tol floor - "
+          f"{TOKEN_AGREE_MARGIN}); logits mean abs err / std {logit_rel:.3e} "
+          f"(floor {floor_rel:.3e}, tol {LOGIT_FLOOR_FACTOR}x floor); "
+          f"free-running agreement {free_agree:.4f}", flush=True)
+    check(forced_agree >= floor_agree - TOKEN_AGREE_MARGIN,
+          "served tokens agree with the plain path")
+    check(logit_rel <= LOGIT_FLOOR_FACTOR * floor_rel,
+          "served logits agree with the plain path")
+
+    # 5. time on the card
+    timings = {}
+    # main-path shapes: flash (8,12,128,64) f32 once per layer; a mega step
+    # at pos 160 of a 192-row cache
+    q, k, v = (torch.randn((B, H, T0, d // H), generator=gen, device=dev)
+               for _ in range(3))
+    timings["flash_ms"] = cuda_ms(lambda: flash_attention(q, k, v), 50)
+    timings["flash_plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v), 20)
+    timings["flash_sdpa_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+    q5, k5, v5 = (torch.randn((B, H, 512, d // H), generator=gen, device=dev)
+                  for _ in range(3))
+    timings["flash_T512_ms"] = cuda_ms(lambda: flash_attention(q5, k5, v5), 20)
+    timings["flash_T512_plain_ms"] = cuda_ms(lambda: flash_attention_plain(q5, k5, v5), 10)
+    timings["flash_T512_sdpa_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q5, k5, v5, is_causal=True), 20)
+
+    def mega_setup(T, pos):
+        caches = init_layer_caches(cfg, B, T, eng.dtype, device=dev)
+        kc, vc, ks, vs = eng._to_mega(caches)
+        kc.random_(-128, 128)
+        vc.random_(-128, 128)
+        h = 0.5 * torch.randn((B, d), generator=gen, device=dev)
+        args = (h, eng.mega, kc, vc, ks, vs, pos)
+        kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=eng.dtype,
+                  aq_max=eng._aq_max, tbp=64, kv_bits=4, tiles_per_step=4)
+        return args, kw
+
+    def mega_bytes(mw, pos):
+        """Bytes one step must move: the weight tiles, the LoRA tiles and
+        per-tile vectors it reads (of the 12-tile bank, LoRA-A tiles 0, 3,
+        4, 8-11 and LoRA-B, scale and bias tiles 0-7, 11; the rest is
+        zero padding), LN vectors, activation scales, h in and out, the KV
+        prefix [0, pos) with its row scales, and the appended rows."""
+        a_tiles, b_tiles = [0, 3, 4, 8, 9, 10, 11], [0, 1, 2, 3, 4, 5, 6, 7, 11]
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        dc = d // 2  # KV4 code bytes per row
+        weights = (nbytes(mw.wt) + nbytes(mw.ln) + nbytes(mw.xs)
+                   + nbytes(mw.at[:, a_tiles]) + nbytes(mw.at_s[:, a_tiles])
+                   + sum(nbytes(t[:, b_tiles]) for t in (mw.bt, mw.bt_s, mw.ws, mw.bias)))
+        kv = 2 * L * B * pos * (dc + 4)
+        return weights + kv + 2 * B * d * 4 + 2 * L * B * (dc + 4)
+
+    mega_ops = 2 * B * L * 12 * d * d  # int8 multiply-adds of the 12 tiles
+    # device time per CUDA kernel inside a decode step (main-path shapes),
+    # the mean over 5 steps at pos 160
+    args, kw = mega_setup(192, 160)
+    md.mega_decode_step_kv8(*args, **kw)
+    torch.cuda.synchronize()
+    n_prof = 5
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            md.mega_decode_step_kv8(*args, **kw)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count:
+            name = ev.key.split("(")[0]
+            per_kernel[name] = {"launches_per_step": ev.count / n_prof,
+                                "us_per_step": ev.self_device_time_total / n_prof}
+    print("mega step device time by kernel (pos 160, B=8) "
+          + json.dumps(per_kernel), flush=True)
+    for tag, T, pos in (("", 192, 160), ("_bench", 576, 320)):
+        args, kw = mega_setup(T, pos)
+        timings[f"mega{tag}_ms"] = cuda_ms(lambda: md.mega_decode_step_kv8(*args, **kw), 50)
+        timings[f"mega{tag}_plain_ms"] = cuda_ms(
+            lambda: md.mega_decode_step_kv8_plain(*args, **kw), 3, warmup=1)
+        nbytes = mega_bytes(eng.mega, pos)
+        timings[f"mega{tag}_bytes"] = nbytes
+        timings[f"mega{tag}_bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                                   mega_ops / PEAK_INT8_OPS)
+    mega_bound_by = ("bytes" if mega_bytes(eng.mega, 160) / HBM_BYTES_PER_S
+                     >= mega_ops / PEAK_INT8_OPS else "operations")
+    hf = _ln(torch.randn((B, 1, d), generator=gen, device=dev).to(eng.dtype),
+             eng.iparams["ln_f"]["g"], eng.iparams["ln_f"]["b"], m.layer_norm_epsilon)
+    timings["lm_head_ms"] = cuda_ms(lambda: _lm_head(eng.iparams, hf, eng._planes), 50)
+
+    # end to end at the bench shapes: B=8, prompt 64, 512 new tokens
+    eng_b = InferenceEngine(params, cfg, **dict(kw_eng, max_len=64 + 512))
+    pb = torch.randint(0, V, (B, 64), generator=gen, device=dev)
+    eng_b.generate(pb, max_new_tokens=4)
+    wall = {}
+    for n in (1, 512):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng_b.generate(pb, max_new_tokens=n)
+        torch.cuda.synchronize()
+        wall[n] = time.perf_counter() - t
+    timings["generate_512_s"] = wall[512]
+    timings["decode_tok_s"] = B * 511 / (wall[512] - wall[1])
+    timings["decode_ms_per_token_step"] = 1e3 * (wall[512] - wall[1]) / 511
+    print("timings " + json.dumps(timings), flush=True)
+
+    flash_bytes = 4 * B * H * T0 * (d // H) * 4
+    flash_flops = 2 * B * H * (d // H) * T0 * (T0 + 1)
+    flash_bound_s = max(flash_bytes / HBM_BYTES_PER_S, flash_flops / PEAK_F32_FLOPS)
+    kernels = [
+        {"name": "mega_decode_step_kv8", "route": "cuda",
+         "source": "llm_qat_tpu_torch/csrc/mega_decode.cu",
+         "replaces": "llm_qat_tpu/ops/mega_decode.py:740",
+         "launches": launches["mega_decode_step_kv8"],
+         "max_abs_err": errs["mega_decode_step_kv8"],
+         "ms": timings["mega_ms"], "plain_ms": timings["mega_plain_ms"],
+         "bound_ms": timings["mega_bound_ms"], "bound_by": mega_bound_by,
+         "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "llm_qat_tpu/ops/attention.py:46",
+         "launches": launches["flash_attention"],
+         "max_abs_err": errs["flash_attention"],
+         "ms": timings["flash_ms"], "plain_ms": timings["flash_plain_ms"],
+         "bound_ms": 1e3 * flash_bound_s,
+         "bound_by": ("bytes" if flash_bytes / HBM_BYTES_PER_S
+                      >= flash_flops / PEAK_F32_FLOPS else "operations"),
+         "library_ms": timings["flash_sdpa_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,285 @@
+"""Switchable-precision GPT-2 forward over stacked parameter banks.
+
+Counterpart of `llm_qat_tpu/models/sp_model.py` (forward only). Parameters
+are a nested dict of tensors with the JAX package's names and layouts:
+(in, out) weights, per-precision banks with a leading precision axis `P`,
+and blocks stacked on a leading layer axis. The active precision is an index
+into the banks, so switching precision re-specialises nothing.
+
+Per quantized linear: `w` (in, out), `b` (out,), `wq_scale`/`wq_zp` (P, out)
+or (P, 1), `iq_scale`/`iq_zp` (P, in) or (P, 1), `lora_A` (P, in, r),
+`lora_B` (P, r, out). The switchable LayerNorm holds gamma/beta banks (P, d).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.attention import causal_attention_reference
+from ..ops.matmul import matmul_bf16
+from ..quant.calibration import dynamic_scale_flat
+from ..quant.functional import fake_quant_flat
+from .config import QuantConfig, SPModelConfig
+
+
+def torch_dtype(name) -> torch.dtype:
+    """"bfloat16"/"float32"/torch.dtype → torch.dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+
+
+class PrecTables(NamedTuple):
+    """Static per-precision lookup tables, indexed by `prec`."""
+
+    bits: torch.Tensor  # float32[P]
+    kind: torch.Tensor  # int32[P]
+    scaling: torch.Tensor  # float32[P] — LoRA alpha/rank (0 when disabled)
+
+
+def prec_tables(qcfg: QuantConfig, device="cpu") -> PrecTables:
+    dev = torch.device(device)
+    return PrecTables(
+        bits=torch.as_tensor(qcfg.bits_table(), device=dev),
+        kind=torch.as_tensor(qcfg.kind_table(), device=dev),
+        scaling=torch.as_tensor(qcfg.scaling_table(), device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def _uniform(gen, shape, bound, device):
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return u * (2.0 * bound) - bound
+
+
+def _init_linear(gen, L, d_in, d_out, qcfg: QuantConfig, device):
+    P, r = qcfg.n_prec, qcfg.max_rank
+    # base linear: torch nn.Linear default init (kaiming uniform, 1/sqrt(in))
+    w = _uniform(gen, (L, d_in, d_out), 1.0 / math.sqrt(d_in), device)
+    ch_w = d_out if qcfg.per_channel else 1
+    ch_i = d_in if qcfg.per_channel else 1
+    # LoRA A: kaiming_uniform(a=sqrt(5)) on (in, r) → U(±1/sqrt(r)); the
+    # slots whose rank is 0 (the 32-bit slot) are zero
+    lora_A = _uniform(gen, (L, P, d_in, r), 1.0 / math.sqrt(max(r, 1)), device)
+    enabled = torch.as_tensor(
+        [1.0 if s > 0 else 0.0 for s in qcfg.scaling_table()],
+        dtype=torch.float32, device=device)
+    lora_A = lora_A * enabled[None, :, None, None]
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    return {
+        "w": w,
+        "b": z(L, d_out),
+        "wq_scale": torch.ones((L, P, ch_w), dtype=torch.float32, device=device),
+        "wq_zp": z(L, P, ch_w),
+        "iq_scale": torch.ones((L, P, ch_i), dtype=torch.float32, device=device),
+        "iq_zp": z(L, P, ch_i),
+        "lora_A": lora_A,
+        "lora_B": z(L, P, r, d_out),
+    }
+
+
+def _init_ln(shape_lead, d, P, device):
+    return {
+        "g": torch.ones((*shape_lead, P, d), dtype=torch.float32, device=device),
+        "b": torch.zeros((*shape_lead, P, d), dtype=torch.float32, device=device),
+    }
+
+
+def init_sp_params(gen: torch.Generator, cfg: SPModelConfig,
+                   device=None) -> Dict[str, Any]:
+    """Initialize the SP parameter dict from a `torch.Generator`.
+
+    Same distributions and layouts as the JAX `init_sp_params`; the numbers
+    differ because the generators differ (tests move JAX parameters over
+    with `bridge.params_from_numpy` instead).
+    """
+    dev = resolve_device(device)
+    m, q = cfg.model, cfg.quant
+    L, d, P = m.n_layer, m.n_embd, q.n_prec
+    wte = 0.02 * torch.randn((m.vocab_size, d), generator=gen, device=dev)
+    wpe = 0.01 * torch.randn((m.n_positions, d), generator=gen, device=dev)
+    blocks = {
+        "ln1": _init_ln((L,), d, P, dev),
+        "c_attn": _init_linear(gen, L, d, 3 * d, q, dev),
+        "attn_proj": _init_linear(gen, L, d, d, q, dev),
+        "ln2": _init_ln((L,), d, P, dev),
+        "c_fc": _init_linear(gen, L, d, 4 * d, q, dev),
+        "mlp_proj": _init_linear(gen, L, 4 * d, d, q, dev),
+    }
+    return {"wte": wte, "wpe": wpe, "blocks": blocks,
+            "ln_f": _init_ln((), d, P, dev)}
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+
+def dynamic_scale(x, bits, kind, channel_dim: Optional[int],
+                  symmetric: bool = True, eps: float = 1e-5):
+    """(scale, zero_point) computed from `x` with bits/kind given as
+    tensors; same values as the JAX `lax.switch` version."""
+    return dynamic_scale_flat(x, bits, kind, channel_dim, symmetric, eps)
+
+
+def _input_stats(x, per_channel: bool, eps: float):
+    """Min/max stats of a linear's input in both quantizer domains."""
+    axes = tuple(range(x.ndim - 1)) if per_channel else tuple(range(x.ndim))
+    xf = x.to(torch.float32)
+    la = torch.log2(torch.clamp(xf.abs(), min=eps))
+    return {
+        "mm_min": torch.amin(xf, dim=axes),
+        "mm_max": torch.amax(xf, dim=axes),
+        "lg_min": torch.amin(la, dim=axes),
+        "lg_max": torch.amax(la, dim=axes),
+    }
+
+
+def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
+              calibration_mode: bool = False, collect_stats: bool = False,
+              input_passthrough: bool = False):
+    """Quantized linear with per-bit LoRA (the JAX "flat" path).
+
+    Returns (out, stats|None). At the 32-bit slot the quantizers pass
+    through and scaling==0 zeroes the LoRA branch. `input_passthrough=True`
+    is the input-calibration phase: the input quantizer is off while the
+    weight quantizer stays active.
+    """
+    q = cfg.quant
+    bits = tables.bits[prec]
+    kind = tables.kind[prec]
+    stats = _input_stats(x, q.per_channel, q.eps) if collect_stats else None
+    cdt = torch_dtype(cfg.compute_dtype)
+    mm = lambda a, b: matmul_bf16(a, b, cdt)
+
+    if input_passthrough:
+        xq = x
+    else:
+        xq = fake_quant_flat(x, p["iq_scale"][prec], p["iq_zp"][prec], bits,
+                             kind, q.symmetric, q.eps)
+    wq = fake_quant_flat(p["w"], p["wq_scale"][prec][None, :],
+                         p["wq_zp"][prec][None, :], bits, kind, q.symmetric,
+                         q.eps)
+    base = mm(xq, wq) + p["b"]
+
+    if not calibration_mode and q.max_rank > 0:
+        A = p["lora_A"][prec]
+        B = p["lora_B"][prec]
+        ch = 1 if q.per_channel else None
+        a_s, a_z = dynamic_scale_flat(A, bits, kind, ch, q.symmetric, q.eps)
+        b_s, b_z = dynamic_scale_flat(B, bits, kind, ch, q.symmetric, q.eps)
+        Aq = fake_quant_flat(A, a_s, a_z, bits, kind, q.symmetric, q.eps)
+        Bq = fake_quant_flat(B, b_s, b_z, bits, kind, q.symmetric, q.eps)
+        # the LoRA branch sees the *raw* input
+        base = base + tables.scaling[prec] * mm(mm(x, Aq), Bq)
+    return base, stats
+
+
+def switchable_layernorm(x, ln, prec, eps: float):
+    """Per-precision-affine LayerNorm: biased variance over the feature dim,
+    gamma/beta gathered from the (P, d) bank by `prec`."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + eps)
+    return (ln["g"][prec] * xn + ln["b"][prec]).to(x.dtype)
+
+
+def _layer(tree, li):
+    return {k: _layer(v, li) if isinstance(v, dict) else v[li]
+            for k, v in tree.items()}
+
+
+def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
+             calibration_mode=False, collect_stats=False,
+             input_passthrough=False):
+    """Pre-LN residual block with dense causal attention."""
+    m = cfg.model
+    B, T, C = x.shape
+    lin = lambda h, name: sp_linear(h, bp[name], prec, tables, cfg,
+                                    calibration_mode, collect_stats,
+                                    input_passthrough)
+
+    h = switchable_layernorm(x, bp["ln1"], prec, m.layer_norm_epsilon)
+    qkv, s1 = lin(h, "c_attn")
+    q, k, v = torch.split(qkv, C, dim=-1)
+
+    def heads(t):
+        return t.reshape(B, T, m.n_head, m.head_dim).permute(0, 2, 1, 3)
+
+    # AMP-faithful attention: q/k/v in compute_dtype on the flat path
+    cdt = torch_dtype(cfg.compute_dtype)
+    cast = (lambda t: t.to(cdt)) if (cfg.linear_impl != "cond"
+                                     and cdt != torch.float32) else (lambda t: t)
+    attn = causal_attention_reference(cast(heads(q)), cast(heads(k)),
+                                      cast(heads(v)), mask=mask)
+    attn = attn.to(x.dtype).permute(0, 2, 1, 3).reshape(B, T, C)
+    attn_out, s2 = lin(attn, "attn_proj")
+    x = x + attn_out
+
+    h2 = switchable_layernorm(x, bp["ln2"], prec, m.layer_norm_epsilon)
+    fc, s3 = lin(h2, "c_fc")
+    fc = F.gelu(fc)  # exact erf
+    proj, s4 = lin(fc, "mlp_proj")
+    x = x + proj
+
+    stats = None
+    if collect_stats:
+        stats = {"c_attn": s1, "attn_proj": s2, "c_fc": s3, "mlp_proj": s4}
+    return x, stats
+
+
+def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
+               tables: Optional[PrecTables] = None, mask=None, labels=None,
+               calibration_mode: bool = False, collect_stats: bool = False,
+               input_passthrough: bool = False):
+    """Full SP LM forward (eval mode). Returns a dict with `logits`,
+    `trunk`, optional `stats` ({linear: {stat: (L, ch)}}) and optional
+    `loss` (shifted CE ignoring -100 labels)."""
+    dev = params["wte"].device
+    if tables is None:
+        tables = prec_tables(cfg.quant, dev)
+    prec = int(prec)
+    B, T = input_ids.shape
+    h = params["wte"][input_ids] + params["wpe"][:T][None]
+
+    per_layer = []
+    for li in range(cfg.model.n_layer):
+        h, s = sp_block(h, _layer(params["blocks"], li), prec, tables, cfg,
+                        mask=mask, calibration_mode=calibration_mode,
+                        collect_stats=collect_stats,
+                        input_passthrough=input_passthrough)
+        per_layer.append(s)
+
+    h = switchable_layernorm(h, params["ln_f"], prec,
+                             cfg.model.layer_norm_epsilon)
+    logits = matmul_bf16(h, params["wte"].T, torch_dtype(cfg.compute_dtype))
+    out = {"logits": logits, "trunk": h}
+    if collect_stats:
+        out["stats"] = {
+            name: {k: torch.stack([s[name][k] for s in per_layer])
+                   for k in per_layer[0][name]}
+            for name in per_layer[0]
+        }
+    if labels is not None:
+        out["loss"] = lm_cross_entropy(logits, labels)
+    return out
+
+
+def lm_cross_entropy(logits, labels):
+    """Shifted LM cross-entropy, mean over labels != -100."""
+    shift_logits = logits[:, :-1].to(torch.float32)
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

@@ -1,0 +1,118 @@
+"""Builds the port's CUDA kernels with `nvcc` and loads them with `ctypes`.
+
+Each source in `llm_qat_tpu_torch/csrc/` is compiled on its own into a
+shared library with a plain C interface, for `sm_90a`, at first use:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -lineinfo -o build/kernels/lib<name>-<hash>.so <name>.cu
+
+The library lands in `build/kernels/` at the checkout's root (listed in
+`.gitignore`); its file name carries a hash of the source and the flags, so
+an edited source is rebuilt. Nothing is built when a module is imported.
+`build_all()` starts one `nvcc` per source at once and waits for all.
+`load()` sets the argument types of each library's entry points once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-lineinfo"]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source name -> {C entry point: argument types}; each returns a CUDA error
+# code (0 on success)
+KERNELS: Dict[str, Dict[str, list]] = {
+    "flash_attention": {
+        "flash_attention_fwd_f32": [_P] * 4 + [_I] * 3 + [_F, _P]},
+    "mega_decode": {
+        "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P]},
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("llm_qat_tpu_torch: nvcc not found; the CUDA kernels "
+                       "are built on a machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(ARCH + BASE_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH, *BASE_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):"
+                           f"\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
+
+
+def build_all() -> None:
+    """Compile every kernel source in parallel (one nvcc each)."""
+    jobs = {name: _start(name) for name in KERNELS}
+    errors = []
+    for name, job in jobs.items():
+        try:
+            _finish(name, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel source `name`, built if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.kernels_error_string.argtypes = [ctypes.c_int]
+        lib.kernels_error_string.restype = ctypes.c_char_p
+        for fn_name, argtypes in KERNELS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.kernels_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")

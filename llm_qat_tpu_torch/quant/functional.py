@@ -1,0 +1,105 @@
+"""Fake-quantization forward math (counterpart of `llm_qat_tpu/quant/functional.py`).
+
+Semantics match the JAX package, which matches the reference:
+- minmax symmetric:  q = clamp(round(x/s), -(2^(b-1)-1), 2^(b-1)-1); out = q*s
+- minmax asymmetric: q = clamp(round(x/s + zp), 0, 2^b-1); out = (q-zp)*s
+- log: sign/magnitude quantization of log2|x| normalized into
+  [log_min, log_min+log_range], zeros (|x|<eps) preserved exactly.
+
+`torch.round` rounds half to even, like `jnp.round`. `num_bits` and `kind`
+may be tensors, so one call serves every precision of a bank. Only the
+forward is ported here; the straight-through estimators
+(`torch.autograd.Function`s) come with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KIND_MINMAX = 0
+KIND_LOG = 1
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _as(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _minmax_fwd_math(x, scale, zero_point, num_bits, symmetric):
+    """Forward math of minmax fake-quant."""
+    b = _as(num_bits, x)
+    scale = _as(scale, x)
+    zero_point = _as(zero_point, x)
+    if symmetric:
+        qmax = torch.exp2(b - 1.0) - 1.0
+        q = torch.round(x / scale)
+        q = torch.minimum(torch.maximum(q, -qmax), qmax)
+        return q * scale
+    qmax = torch.exp2(b) - 1.0
+    q = torch.round(x / scale + zero_point)
+    q = torch.minimum(torch.maximum(q, torch.zeros_like(qmax)), qmax)
+    return (q - zero_point) * scale
+
+
+def _log_fwd_math(x, log_min, log_range, num_bits, symmetric, eps):
+    """Forward math of log fake-quant."""
+    b = _as(num_bits, x)
+    log_min = _as(log_min, x)
+    log_range = _as(log_range, x)
+
+    zero_mask = torch.abs(x) < eps
+    sign_x = torch.sign(x)
+    abs_x = torch.clamp(torch.abs(x), min=eps)
+    log_abs = torch.log2(abs_x)
+
+    log_norm = (log_abs - log_min) / torch.clamp(log_range, min=eps)
+    log_norm = torch.clamp(log_norm, 0.0, 1.0)
+
+    full = torch.exp2(b) - 1.0
+    if symmetric:
+        n_levels = torch.exp2(b - 1.0) - 1.0
+        centered = log_norm - 0.5
+        q = torch.round(centered * 2.0 * n_levels)
+        q = torch.minimum(torch.maximum(q, -n_levels), n_levels)
+        q = (q / (2.0 * n_levels) + 0.5) * full
+        q_norm = q / full
+    else:
+        q = torch.round(log_norm * full)
+        q = torch.minimum(torch.maximum(q, torch.zeros_like(full)), full)
+        q_norm = q / full
+
+    x_hat = q_norm * log_range + log_min
+    magnitude = torch.exp2(x_hat)
+    out = magnitude * sign_x
+    return torch.where(zero_mask, torch.zeros_like(x), out)
+
+
+def fake_quant(x, scale, zero_point, num_bits, kind, symmetric=True, eps=1e-5):
+    """Dispatch between minmax / log / pass-through.
+
+    `num_bits >= 32` passes through. For the log kind, `zero_point` holds
+    log_min and `scale` holds log_range (the reference's buffer reuse). The
+    JAX version dispatches with `lax.cond`/`lax.switch`; the forward value
+    is the same as `fake_quant_flat`'s, which this delegates to.
+    """
+    return fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric, eps)
+
+
+def _flat_fwd_math(x, scale, zero_point, num_bits, kind, symmetric, eps):
+    """Both quantizer domains computed, selected by `kind`/`num_bits`."""
+    mm = _minmax_fwd_math(x, scale, zero_point, num_bits, symmetric)
+    lg = _log_fwd_math(x, zero_point, scale, num_bits, symmetric, eps)
+    kind_t = torch.as_tensor(kind, device=x.device).to(torch.int32)
+    q = torch.where(kind_t == KIND_LOG, lg, mm)
+    return torch.where(_as(num_bits, x) >= 32.0, x, q)
+
+
+def fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric=True,
+                    eps=1e-5):
+    """Conditional-free fake-quant forward. Quantizer operands are cast to
+    float32 at this boundary, as in the JAX package."""
+    return _flat_fwd_math(x, _f32(scale, x), _f32(zero_point, x),
+                          _f32(num_bits, x), _f32(kind, x), symmetric, eps)

@@ -1,0 +1,163 @@
+"""PyTorch port: import isolation, device policy, bridge, quantizer math,
+sampling filters — each held against the JAX package on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import llm_qat_tpu.models as J
+from llm_qat_tpu.models.generate import _filter_logits as j_filter
+from llm_qat_tpu.quant import calibration as jcal
+from llm_qat_tpu.quant import functional as jf
+from llm_qat_tpu_torch import bridge
+from llm_qat_tpu_torch.device import resolve_device
+from llm_qat_tpu_torch.models import config as tc
+from llm_qat_tpu_torch.models.generate import _filter_logits as t_filter
+from llm_qat_tpu_torch.quant import calibration as tcal
+from llm_qat_tpu_torch.quant import functional as tf
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every port module and chip_smoke.py import without JAX or llm_qat_tpu."""
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import llm_qat_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'llm_qat_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'llm_qat_tpu' or m.startswith('llm_qat_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    """device="cuda" (the default) raises when no card is present; the CPU is
+    used only when asked for."""
+    from llm_qat_tpu_torch.models.inference import init_layer_caches
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tc.tiny_test_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_sp_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_layer_caches(cfg, 1, 8, device="cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_bridge_round_trip_is_exact():
+    cfg = J.tiny_test_config((4, 8, 32))
+    params = jax.tree.map(np.asarray, J.init_sp_params(jax.random.PRNGKey(0), cfg))
+    params["extra_bf16"] = np.asarray(jnp.asarray(params["wte"], jnp.bfloat16))
+    tp = bridge.params_from_numpy(params, "cpu")
+    assert tp["extra_bf16"].dtype == torch.bfloat16
+    assert tp["blocks"]["c_attn"]["lora_A"].shape == (2, 3, 32, 4)
+    back = bridge.params_to_numpy(tp)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    for path, a in flat_a:
+        b = flat_b[path]
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+
+
+def test_config_tables_match():
+    jq = J.QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"})
+    tq = tc.QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"})
+    for name in ("bits_table", "kind_table", "rank_table", "scaling_table"):
+        np.testing.assert_array_equal(getattr(jq, name)(), getattr(tq, name)())
+    assert (jq.max_rank, jq.prec_index(8), jq.kind_name(4)) == (
+        tq.max_rank, tq.prec_index(8), tq.kind_name(4))
+    assert (tf.KIND_MINMAX, tf.KIND_LOG) == (jf.KIND_MINMAX, jf.KIND_LOG)
+
+
+def _quant_inputs(kind, bits):
+    rng = np.random.default_rng(bits * 10 + kind)
+    x = rng.normal(0, 1.0, (6, 16)).astype(np.float32)
+    x[0, :3] = 0.0  # exact zeros (kept by the log kind)
+    if kind == jf.KIND_LOG:
+        la = np.log2(np.maximum(np.abs(x), 1e-5))
+        zp = la.min(axis=0, keepdims=True)           # log_min
+        scale = la.max(axis=0, keepdims=True) - zp   # log_range
+    else:
+        scale = np.abs(x).max(axis=0, keepdims=True) / (2.0 ** (bits - 1) - 1)
+        zp = np.zeros_like(scale)
+    return x, scale.astype(np.float32), zp.astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["fake_quant", "fake_quant_flat"])
+@pytest.mark.parametrize("kind", [jf.KIND_MINMAX, jf.KIND_LOG])
+@pytest.mark.parametrize("bits", [4, 8, 32])
+def test_fake_quant_matches_jax(fn, kind, bits):
+    """Tolerance: minmax is exact (same round-half-even grid); log goes
+    through log2/exp2, whose float32 results may differ by an ulp between
+    XLA and PyTorch, so 1e-6 relative."""
+    x, scale, zp = _quant_inputs(kind, bits)
+    want = np.asarray(getattr(jf, fn)(jnp.asarray(x), scale, zp, float(bits), kind))
+    got = getattr(tf, fn)(torch.tensor(x), torch.tensor(scale), torch.tensor(zp),
+                          float(bits), kind).numpy()
+    if kind == jf.KIND_MINMAX:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", [jf.KIND_MINMAX, jf.KIND_LOG])
+@pytest.mark.parametrize("channel_dim", [None, 1])
+def test_dynamic_scale_flat_matches_jax(kind, channel_dim):
+    """Exact for minmax; log2 may differ by an ulp, so 1e-6 relative."""
+    x = np.random.default_rng(3).normal(0, 0.3, (3, 32, 4)).astype(np.float32)
+    ws, wz = jax.vmap(lambda a: jcal.dynamic_scale_flat(a, 4.0, kind,
+                                                        channel_dim))(x)
+    ts, tz = tcal.dynamic_scale_flat(torch.tensor(x), 4.0, kind, channel_dim,
+                                     batch_dims=1)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ws), rtol=1e-6)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(wz), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", [jf.KIND_MINMAX, jf.KIND_LOG])
+@pytest.mark.parametrize("channel_dim", [None, 1])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_sp_model_dynamic_scale_matches_jax(kind, channel_dim, symmetric):
+    """sp_model.dynamic_scale (the JAX `lax.switch` version's counterpart)
+    on a LoRA-bank-shaped (in, r) tensor: exact for minmax, 1e-6 relative
+    for log (log2 may differ by an ulp)."""
+    from llm_qat_tpu.models import sp_model as jsp
+    from llm_qat_tpu_torch.models import sp_model as tsp
+
+    x = np.random.default_rng(4).normal(0, 0.3, (32, 4)).astype(np.float32)
+    ws, wz = jsp.dynamic_scale(jnp.asarray(x), jnp.float32(4.0), jnp.int32(kind),
+                               channel_dim, symmetric)
+    ts, tz = tsp.dynamic_scale(torch.tensor(x), 4.0, kind, channel_dim, symmetric)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ws), rtol=1e-6)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(wz), rtol=1e-6)
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [
+    (1.0, None, None), (0.7, 5, None), (1.3, None, 0.9), (0.9, 20, 0.8)])
+def test_filter_logits_matches_jax(temperature, top_k, top_p):
+    """Kept/removed sets must agree exactly and kept logits to float32
+    rounding (same division); the top-p cumsum is summed in another order,
+    which this seeded input does not bring to a tie at the threshold."""
+    logits = np.random.default_rng(7).normal(0, 3.0, (4, 64)).astype(np.float32)
+    want = np.asarray(j_filter(jnp.asarray(logits), temperature, top_k, top_p))
+    got = t_filter(torch.tensor(logits), temperature, top_k, top_p).numpy()
+    np.testing.assert_array_equal(got <= -1e29, want <= -1e29)
+    np.testing.assert_allclose(got, want, rtol=1e-6)

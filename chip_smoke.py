@@ -6,16 +6,28 @@ Run from the repository root on a machine with an H100 (no arguments):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `llm_qat_tpu_torch/csrc/`, holds each
-kernel against its plain PyTorch version at GPT-2 124M widths, drives the
-serving path (calibrate → quantize_for_inference → prefill → mega decode →
-int4 LM head → greedy sampling) through `InferenceEngine.generate` with
-random weights from a seed, checks from the launch counters that the path
-went through both kernels, times the kernels, their plain versions and the
-library yardstick with CUDA events, and prints:
+kernel against its plain PyTorch version at GPT-2 124M widths, and drives
+two paths with random weights from a seed, each with the launch counters
+set to 0 just before it and read just after:
+
+- serving (calibrate → quantize_for_inference → prefill → mega decode →
+  int4 LM head → greedy sampling) through `InferenceEngine.generate`, which
+  must go through the flash prefill kernel and the decode-step kernel;
+- SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
+  make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
+  then clip + AdamW), which must go through the flash forward+LSE and flash
+  backward kernels once per layer and micro-step; then one step with the
+  kernels against the same step on their plain versions, held against the
+  floor the plain path sets against itself under a few ulps of jitter.
+
+It times the kernels, their plain versions, the library yardstick and the
+train iteration with CUDA events and the host clock, profiles one train
+iteration, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - one line per comparison, its error beside its tolerance;
-- a `timings` JSON line and a `kernels` JSON line;
+- `timings`, `train_timings` and `train_profile` JSON lines and a `kernels`
+  JSON line;
 - last, `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -35,6 +47,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12     # H100 SXM int8 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
 
 # Kernel vs plain tolerances. Both kernels compute in float32, as the JAX
 # kernels do, and sum in another order than their plain versions, so the two
@@ -59,6 +72,34 @@ FLASH_ABS_TOL = 1e-5
 # difference| at most this many times the floor's.
 TOKEN_AGREE_MARGIN = 0.1
 LOGIT_FLOOR_FACTOR = 2.0
+# Kernels #5 (flash forward + LSE) and #6 (flash backward) against their
+# plain versions on the same inputs. float32 outputs: within FLASH_TRAIN_F32
+# of max |plain| (sums in another order). bf16 outputs, element by element:
+# within FLASH_TRAIN_BF16_ULPS bf16 ulps at the max |plain| of the element's
+# row (a float32 value a rounding apart may round to the neighbouring bf16
+# value, and the forward rounds P at its row's running max, the plain
+# version at the final max), plus FLASH_TRAIN_F32 of max |plain| (in row 0,
+# dP = D in exact arithmetic, so dS and the dq row are float32 cancellation
+# noise in both versions). Where both round P and dS at the same scale
+# (the backward, which recomputes P from the LSE, and the forward's first
+# 64 query rows, whose keys lie in one k tile), they differ only by float32
+# summation order, so at most FLASH_TRAIN_BF16_DIFF_SHARE of those bf16
+# outputs may differ at all: a kernel that skipped the rounding of P or dS
+# would move a third of them or more. LSE (float32 in both) within
+# FLASH_TRAIN_LSE_ABS. The spread measured on the card is in PERF.md.
+FLASH_TRAIN_F32 = 1e-5
+FLASH_TRAIN_BF16_ULPS = 2
+FLASH_TRAIN_BF16_DIFF_SHARE = 2e-2
+FLASH_TRAIN_LSE_ABS = 1e-5
+# The train step with the kernels against the same step on their plain
+# versions, from the same state with the same student slots, feature layers
+# and dropout draws. The floor is the plain step against itself with the
+# plain flash outputs moved by about one bf16 ulp (relative noise 2^-8 before
+# the rounding to bf16; 2^-22 on the float32 LSE). Each relative difference
+# (loss, teacher loss, grad norm, and the parameter update over all trainable
+# leaves) must stay within TRAIN_FLOOR_FACTOR times the floor's. Measured on
+# the card (PERF.md): 0.25x to 3.9x the floor.
+TRAIN_FLOOR_FACTOR = 4.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -81,6 +122,286 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bf16_row_ulps(got, want, atol):
+    """(|got - want| - atol) per element, in bf16 ulps at the max |want| of
+    the element's row (the last axis): 2^(floor(log2 rowmax) - 7)."""
+    import torch
+
+    top = want.float().abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
+    err = ((got.float() - want.float()).abs() - atol).clamp(min=0)
+    return err / torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def flash_train_vs_plain(gen, dev, B, H, D, failures):
+    """Kernels #5 and #6 against their plain versions at T = 1024 and 256,
+    bf16 and float32. Returns the largest absolute errors at the main path's
+    shape (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd": ..}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+
+    errs = {}
+    for T in (1024, 256):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
+                           for _ in range(4))
+            o, lse = att.flash_fwd_lse(q, k, v)
+            grads = att.flash_bwd(q, k, v, o, lse, do)
+            po, plse = att.flash_fwd_lse_plain(q, k, v)
+            pgrads = att.flash_bwd_plain(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            tag = f"({B},{H},{T},{D}) {str(dt)[6:]}"
+            lse_err = (lse - plse).abs().max().item()
+            parts = [f"lse {lse_err:.2e} (tol {FLASH_TRAIN_LSE_ABS:g})"]
+            if not lse_err <= FLASH_TRAIN_LSE_ABS:
+                failures.append(f"flash_fwd_lse {tag}: lse err {lse_err:.3e}")
+            abs_errs = {}
+            for name, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads), (po, *pgrads)):
+                err = (got.float() - want.float()).abs().max().item()
+                abs_errs[name] = err
+                if dt == torch.float32:
+                    rel = err / want.float().abs().max().item()
+                    parts.append(f"{name} {rel:.2e} of max (tol {FLASH_TRAIN_F32:g})")
+                    ok = rel <= FLASH_TRAIN_F32
+                else:
+                    ulps = bf16_row_ulps(got, want, FLASH_TRAIN_F32 * want.float().abs().max()
+                                         ).max().item()
+                    same_scale = (slice(None),) * 2 + (slice(0, 64),) if name == "o" else ()
+                    share = (got[same_scale] != want[same_scale]).float().mean().item()
+                    parts.append(
+                        f"{name} {ulps:.2f} bf16 ulps of its row's max (tol "
+                        f"{FLASH_TRAIN_BF16_ULPS}), differing {share:.2e} of "
+                        f"{'rows 0-63' if name == 'o' else 'all'} (tol "
+                        f"{FLASH_TRAIN_BF16_DIFF_SHARE:g})")
+                    ok = ulps <= FLASH_TRAIN_BF16_ULPS and share <= FLASH_TRAIN_BF16_DIFF_SHARE
+                if not ok:
+                    failures.append(f"flash train {tag} {name}: err {err:.3e}")
+            print(f"flash train kernels vs plain {tag}: " + "; ".join(parts), flush=True)
+            if T == 1024 and dt == torch.bfloat16:
+                errs = {"flash_fwd_lse": max(abs_errs["o"], lse_err),
+                        "flash_bwd": max(abs_errs[n] for n in ("dq", "dk", "dv"))}
+    return errs
+
+
+def train_path(dev):
+    """The training main path at GPT-2 124M, B = 8, T = 1024, accum 8, bf16
+    compute. Returns (cfg, tcfg, state after 3 steps, train_step, batches,
+    main-path launches)."""
+    import torch
+
+    from llm_qat_tpu_torch.models.config import (
+        GPT2Config,
+        QuantConfig,
+        SPModelConfig,
+        TrainConfig,
+    )
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_mask
+
+    cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=(4, 8, 32)),
+                        compute_dtype="bfloat16")
+    tcfg = TrainConfig(batch_size=8, max_seq_length=1024, gradient_accumulation_steps=8)
+    m = cfg.model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    batches = [torch.randint(0, m.vocab_size, (tcfg.batch_size, tcfg.max_seq_length),
+                             generator=gen, device=dev) for _ in range(3)]
+    t = time.time()
+    params = CalibrationManager(cfg, len(batches)).calibrate_all_precisions(params, batches)
+    torch.cuda.synchronize()
+    print(f"train calibration: {time.time() - t:.1f} s (3 batches of "
+          f"({tcfg.batch_size}, {tcfg.max_seq_length}), bits 4 and 8)", flush=True)
+    init_state, train_step = make_sp_train_step(cfg, tcfg)
+    state = init_state(params)
+    att.flash_fwd_lse.launches = 0
+    att.flash_bwd.launches = 0
+    metrics = []
+    t = time.time()
+    for i in range(3):
+        state, mt = train_step(state, batches[i], gen)
+        metrics.append({k: v.tolist() for k, v in mt.items()})
+    torch.cuda.synchronize()
+    launches = {"flash_fwd_lse": att.flash_fwd_lse.launches,
+                "flash_bwd": att.flash_bwd.launches}
+    print(f"train main path: 3 steps in {time.time() - t:.1f} s (first includes "
+          f"warm-up); launches {launches}; metrics {json.dumps(metrics)}", flush=True)
+    per_iter = m.n_layer * tcfg.gradient_accumulation_steps
+    check(launches == {"flash_fwd_lse": 3 * per_iter, "flash_bwd": 3 * per_iter},
+          f"main path ran #5 and #6 {per_iter} times each per iteration")
+    check(all(math.isfinite(x[k]) for x in metrics
+              for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm")),
+          "finite losses and grad norm")
+    slots = {cfg.quant.prec_index(b) for b in cfg.quant.student_bits}
+    check(all(set(x["precisions"]) <= slots for x in metrics), "precisions are student slots")
+    for path, trainable in optim.leaves_with_paths(trainable_mask(params)):
+        before, after = optim.get_leaf(params, path), optim.get_leaf(state.params, path)
+        if trainable:
+            check(not torch.equal(before, after), f"trainable {path} moved")
+        else:
+            check(torch.equal(before, after), f"frozen {path} bit-identical")
+    print("train main path: frozen leaves (wte, wpe, wq_*/iq_* banks) bit-identical, "
+          "every trainable leaf moved", flush=True)
+    return cfg, tcfg, state, train_step, batches, launches
+
+
+def train_step_vs_plain(cfg, tcfg, state, batches, dev, failures):
+    """One step from `state` with the kernels and with their plain versions
+    (same slots, layers and dropout draws), against the jitter floor."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_paths
+
+    n = tcfg.gradient_accumulation_steps - 1
+    precs = [i % 2 for i in range(n)]                        # both student slots
+    layers = [(3 * i) % (cfg.model.n_layer + 1) for i in range(n)]
+    paths = trainable_paths(state.params)
+
+    def run(fwd, bwd):
+        """One step from `state` with the flash path's forward and backward
+        set to fwd and bwd."""
+        saved = att.flash_fwd_lse, att.flash_bwd
+        att.flash_fwd_lse, att.flash_bwd = fwd, bwd
+        try:
+            _, step = make_sp_train_step(cfg, tcfg)
+            new, mt = step(state, batches[1], torch.Generator(device=dev).manual_seed(7),
+                           precs=precs, layers=layers)
+        finally:
+            att.flash_fwd_lse, att.flash_bwd = saved
+        delta = [optim.get_leaf(new.params, p) - optim.get_leaf(state.params, p)
+                 for p in paths]
+        return {k: float(mt[k]) for k in ("loss", "teacher_loss", "grad_norm")}, delta
+
+    kern = run(att.flash_fwd_lse, att.flash_bwd)
+    plain = run(att.flash_fwd_lse_plain, att.flash_bwd_plain)
+    noise = torch.Generator(device=dev).manual_seed(1)
+
+    def jitter(x, rel):
+        e = rel * torch.randn(x.shape, generator=noise, device=dev)
+        return (x.float() * (1 + e)).to(x.dtype)
+
+    def jittered_fwd(*a):
+        o, lse = att.flash_fwd_lse_plain(*a)
+        return jitter(o, 2.0 ** -8), jitter(lse, 2.0 ** -22)
+
+    floor = run(jittered_fwd,
+                lambda *a: tuple(jitter(g, 2.0 ** -8) for g in att.flash_bwd_plain(*a)))
+
+    def diffs(x, ref):
+        out = {k: abs(x[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]}
+        num = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(x[1], ref[1])))
+        den = torch.sqrt(sum((b ** 2).sum() for b in ref[1]))
+        out["update"] = (num / den).item()
+        return out
+
+    got, base = diffs(kern, plain), diffs(floor, plain)
+    print("train step kernels vs plain (relative): "
+          + "; ".join(f"{k} {got[k]:.3e} (floor {base[k]:.3e}, tol "
+                      f"{TRAIN_FLOOR_FACTOR}x floor)" for k in got)
+          + f"; kernel step {json.dumps(kern[0])}, plain step {json.dumps(plain[0])}",
+          flush=True)
+    for k in got:
+        if not got[k] <= TRAIN_FLOOR_FACTOR * base[k]:
+            failures.append(f"train step {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
+
+
+def train_timings(state, train_step, batches, accum, dev, B, H, D):
+    """Train iteration time and profile; kernels #5/#6, their plain versions,
+    SDPA, and dense vs flash attention at T = 256, 512, 1024."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.ops import attention as att
+
+    tm = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = train_step(state, batches[i], gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    T = batches[0].shape[1]
+    it = sum(walls) / len(walls)
+    tm["train_iter_ms"] = 1e3 * it
+    tm["train_iter_ms_each"] = [1e3 * w for w in walls]
+    tm["train_tokens_per_s"] = batches[0].numel() / it
+    tm["train_microstep_tokens_per_s"] = accum * batches[0].numel() / it
+    tm["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # Device time by kernel over one profiled iteration. The profiler may
+    # drop records over the iteration's ~50k launches: the flash kernels'
+    # recorded counts are printed beside the counts their wrappers made
+    # (one flash_fwd per forward; flash_bwd_rowdot, _dkdv and _dq per
+    # backward), and the idle share, 1 - recorded busy time / the mean wall
+    # time of the unprofiled iterations above, is an upper bound.
+    att.flash_fwd_lse.launches = att.flash_bwd.launches = 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(state, batches[0], gen)
+        torch.cuda.synchronize()
+    made = {"flash_fwd": att.flash_fwd_lse.launches, "flash_bwd": att.flash_bwd.launches}
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count:
+            by_kernel[ev.key[:80]] = (ev.count, ev.self_device_time_total / 1e3)
+    busy = sum(ms for _, ms in by_kernel.values())
+    flash = {name: v for name, v in by_kernel.items() if " flash_" in name}
+    recorded = {}
+    for name, (c, _) in flash.items():
+        short = name.split("<")[0][5:]
+        recorded[short] = recorded.get(short, 0) + c
+    expected = {short: made["flash_fwd" if short == "flash_fwd" else "flash_bwd"]
+                for short in recorded}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    print("train_profile " + json.dumps({
+        "unprofiled_iteration_wall_ms": 1e3 * it, "device_busy_ms_recorded": busy,
+        "idle_share_upper_bound": 1 - busy / (1e3 * it),
+        "flash_kernels_ms": sum(ms for _, ms in flash.values()),
+        "flash_launches_recorded": recorded, "flash_launches_made": expected,
+        "all_flash_launches_recorded": recorded == expected and len(recorded) == 4,
+        "kernel_launches_recorded": sum(c for c, _ in by_kernel.values()),
+        "top10": [{"kernel": name, "launches": c, "ms": ms} for name, (c, ms) in top]}),
+        flush=True)
+
+    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = att.flash_fwd_lse(q, k, v)
+    tm["flash_fwd_lse_ms"] = cuda_ms(lambda: att.flash_fwd_lse(q, k, v), 20)
+    tm["flash_fwd_lse_plain_ms"] = cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 5)
+    tm["flash_bwd_ms"] = cuda_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10)
+    tm["flash_bwd_plain_ms"] = cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3)
+    tm["sdpa_fwd_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    qr, kr, vr = (t_.clone().requires_grad_(True) for t_ in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    tm["sdpa_bwd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 20)
+    tm["sdpa_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), (qr, kr, vr), do), 20)
+    cross = {}
+    for Tc in (256, 512, 1024):
+        qc, kc, vc, dc = (torch.randn((B, H, Tc, D), generator=gen, device=dev)
+                          .to(torch.bfloat16).requires_grad_(True) for _ in range(4))
+        row = {}
+        for name, fn in (("dense", att.causal_attention_reference),
+                         ("flash", att.flash_attention_trainable)):
+            with torch.no_grad():
+                row[f"{name}_fwd_ms"] = cuda_ms(lambda: fn(qc, kc, vc), 10)
+            row[f"{name}_fwd_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(fn(qc, kc, vc), (qc, kc, vc), dc), 10)
+        cross[Tc] = row
+    tm["dense_vs_flash"] = cross
+    print("train_timings " + json.dumps(tm), flush=True)
+    return tm
 
 
 def main() -> int:
@@ -124,8 +445,8 @@ def main() -> int:
     # 2. build
     t = time.time()
     _build.build_all()
-    print(f"build: {time.time() - t:.1f} s (nvcc, sm_90a, both kernels in parallel)",
-          flush=True)
+    print(f"build: {time.time() - t:.1f} s (nvcc, sm_90a, one process per source, "
+          f"in parallel)", flush=True)
 
     # GPT-2 124M with the bench's quant config, random weights from seed 0;
     # LoRA B banks drawn small and non-zero so the LoRA branch does work
@@ -257,6 +578,7 @@ def main() -> int:
               flush=True)
         if not err <= FLASH_ABS_TOL:
             failures.append(f"flash T={T}: max abs err {err:.3e}")
+    errs.update(flash_train_vs_plain(gen, dev, B, H, d // H, failures))
     check(not failures, "; ".join(failures))
 
     # 4. the main path: greedy serving at full GPT-2 width, B=8, prompt 128
@@ -334,6 +656,11 @@ def main() -> int:
           "served tokens agree with the plain path")
     check(logit_rel <= LOGIT_FLOOR_FACTOR * floor_rel,
           "served logits agree with the plain path")
+
+    # 4b. the training main path, then one step against the plain versions
+    tcfg_model, tcfg, tstate, train_step, tbatches, tlaunch = train_path(dev)
+    train_step_vs_plain(tcfg_model, tcfg, tstate, tbatches, dev, failures)
+    check(not failures, "; ".join(failures))
 
     # 5. time on the card
     timings = {}
@@ -431,6 +758,8 @@ def main() -> int:
     timings["decode_tok_s"] = B * 511 / (wall[512] - wall[1])
     timings["decode_ms_per_token_step"] = 1e3 * (wall[512] - wall[1]) / 511
     print("timings " + json.dumps(timings), flush=True)
+    tt = train_timings(tstate, train_step, tbatches, tcfg.gradient_accumulation_steps, dev,
+                       B, H, d // H)
 
     flash_bytes = 4 * B * H * T0 * (d // H) * 4
     flash_flops = 2 * B * H * (d // H) * T0 * (T0 + 1)
@@ -455,6 +784,26 @@ def main() -> int:
                       >= flash_flops / PEAK_F32_FLOPS else "operations"),
          "library_ms": timings["flash_sdpa_ms"]},
     ]
+    # kernels #5/#6 at the training path's shape: (B, H, T, D) bf16
+    Tt, Dh = tbatches[0].shape[1], d // H
+    pairs = B * H * Tt * (Tt + 1) // 2            # causal (q, k) pairs
+    op_bytes = B * H * Tt * Dh * 2                # one bf16 operand
+    lse_bytes = B * H * Tt * 4
+    for name, line, n_tensors, n_products, lib in (
+            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_ms"]),
+            ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_ms"])):
+        nbytes = n_tensors * op_bytes + lse_bytes
+        flops = n_products * 2 * Dh * pairs
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"llm_qat_tpu/ops/attention.py:{line}",
+            "launches": tlaunch[name], "max_abs_err": errs[name],
+            "ms": tt[f"{name}_ms"], "plain_ms": tt[f"{name}_plain_ms"],
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
+                         else "operations"),
+            "library_ms": lib})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,16 +3,15 @@
 Counterpart of `llm_qat_tpu/models/config.py`: the same frozen dataclasses and
 static precision tables. Every bank-indexed quantity (num_bits, quantizer
 kind, LoRA scaling) is precomputed into small numpy arrays, so the active
-precision is a single index into stacked parameter banks. Only the classes
-the serving slice needs are ported; `CPTConfig` and `TrainConfig` come with
-the training slices.
+precision is a single index into stacked parameter banks. `CPTConfig`
+comes with the CPT slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -139,9 +138,13 @@ class SPModelConfig:
     """Full switchable-precision model configuration.
 
     `compute_dtype` is the matmul operand dtype of the SP forward.
-    `attention_impl` and `linear_impl` are kept for config parity with the
-    JAX package; the port's SP forward runs dense attention and the flat
-    linear (the kernels those options select come with the training slice).
+    `attention_impl`: "dense" and "flash" force the path; "auto" takes the
+    trainable flash kernels on a CUDA tensor when the shape allows it (no
+    mask, T % 128 == 0, head_dim 64/128) and T >= `ops.attention.FLASH_MIN_T`,
+    and dense attention elsewhere. `linear_impl`: "auto"/"flat" run the flat
+    quantized linear; "fused" selects kernels that are not ported yet and
+    raises; "cond" differs from "flat" only in skipping the AMP cast of q/k/v
+    (the JAX "cond" path also leaves the matmul cotangent unrounded).
     """
 
     model: GPT2Config = field(default_factory=GPT2Config)
@@ -153,6 +156,38 @@ class SPModelConfig:
 
     def replace(self, **kw) -> "SPModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """SP training hyperparameters (the JAX package's `TrainConfig`)."""
+
+    batch_size: int = 32
+    max_seq_length: int = 256
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    adam_epsilon: float = 1e-8
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    max_grad_norm: float = 1.0
+    num_iterations: int = 550
+    gradient_accumulation_steps: int = 8
+    eval_interval: int = 50
+    distill_alpha_kl: float = 1.0
+    distill_alpha_feature: float = 1e-7
+    distill_temperature: float = 3.0
+    distill_accumulative: bool = False  # random-layer (False) vs all-layers feature loss
+    # True lets the feature term carry gradient into the student (the
+    # default detaches both sides, so the term adds loss value only)
+    distill_feature_grad: bool = False
+    # dtype of the cached teacher softmax probabilities shared by every
+    # student micro-step; "bfloat16" rounds p_t, so sum(p_t) != 1
+    distill_cache_dtype: str = "float32"
+    unroll_students: bool = False
+    # "scan" and "unroll" run the same Python loop over the students;
+    # "vmap" is not ported. None -> "unroll" if unroll_students else "scan".
+    student_mode: Optional[str] = None
+    calibration_batches: int = 10
 
 
 def tiny_test_config(n_prec_bits=(4, 32)) -> SPModelConfig:

@@ -1,6 +1,6 @@
-"""Switchable-precision GPT-2 forward over stacked parameter banks.
+"""Switchable-precision GPT-2 over stacked parameter banks, forward and backward.
 
-Counterpart of `llm_qat_tpu/models/sp_model.py` (forward only). Parameters
+Counterpart of `llm_qat_tpu/models/sp_model.py`. Parameters
 are a nested dict of tensors with the JAX package's names and layouts:
 (in, out) weights, per-precision banks with a leading precision axis `P`,
 and blocks stacked on a leading layer axis. The active precision is an index
@@ -9,6 +9,11 @@ into the banks, so switching precision re-specialises nothing.
 Per quantized linear: `w` (in, out), `b` (out,), `wq_scale`/`wq_zp` (P, out)
 or (P, 1), `iq_scale`/`iq_zp` (P, in) or (P, 1), `lora_A` (P, in, r),
 `lora_B` (P, r, out). The switchable LayerNorm holds gamma/beta banks (P, d).
+
+Gradients are autograd's, through the STEs of `quant.functional`, the
+bf16-both-directions `matmul_bf16`, the LayerNorm's hand-written backward
+and the flash attention kernels. Only leaves that require grad take any
+gradient work: a frozen tied `wte` costs no (vocab, d) gradient.
 """
 
 from __future__ import annotations
@@ -18,9 +23,10 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import causal_attention_reference
+from ..ops.attention import FLASH_MIN_T, causal_attention
 from ..ops.matmul import matmul_bf16
 from ..quant.calibration import dynamic_scale_flat
 from ..quant.functional import fake_quant_flat
@@ -153,6 +159,10 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
     weight quantizer stays active.
     """
     q = cfg.quant
+    if cfg.linear_impl == "fused" and not (input_passthrough or calibration_mode):
+        raise NotImplementedError(
+            "linear_impl='fused' runs the fused QAT linear kernels #14-#16, "
+            "which are not ported yet (ROADMAP B)")
     bits = tables.bits[prec]
     kind = tables.kind[prec]
     stats = _input_stats(x, q.per_channel, q.eps) if collect_stats else None
@@ -182,14 +192,48 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
     return base, stats
 
 
-def switchable_layernorm(x, ln, prec, eps: float):
-    """Per-precision-affine LayerNorm: biased variance over the feature dim,
-    gamma/beta gathered from the (P, d) bank by `prec`."""
+def _ln_stats(x, eps):
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-    xn = (xf - mean) * torch.rsqrt(var + eps)
-    return (ln["g"][prec] * xn + ln["b"][prec]).to(x.dtype)
+    return xf, mean, torch.rsqrt(var + eps)
+
+
+class _LayerNormCVJP(torch.autograd.Function):
+    """LayerNorm with the hand-written single-pass backward (the standard
+    identity); it saves x and the two row statistics, not xn."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        xf, mean, rstd = _ln_stats(x, eps)
+        ctx.save_for_backward(x, mean, rstd, g)
+        return (g * ((xf - mean) * rstd) + b).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, g = ctx.saved_tensors
+        dyf = dy.to(torch.float32)
+        xn = (x.to(torch.float32) - mean) * rstd
+        lead = tuple(range(dyf.ndim - 1))
+        dg = torch.sum(dyf * xn, dim=lead) if ctx.needs_input_grad[1] else None
+        db = torch.sum(dyf, dim=lead) if ctx.needs_input_grad[2] else None
+        t = dyf * g
+        dx = (t - t.mean(dim=-1, keepdim=True)
+              - xn * (t * xn).mean(dim=-1, keepdim=True)) * rstd
+        return dx.to(x.dtype), dg, db, None
+
+
+LN_IMPL = "cvjp"  # "cvjp" (hand-written backward) | "autodiff" (A/B switch)
+
+
+def switchable_layernorm(x, ln, prec, eps: float):
+    """Per-precision-affine LayerNorm: biased variance over the feature dim,
+    gamma/beta gathered from the (P, d) bank by `prec`. The backward is
+    `_LayerNormCVJP`'s unless `LN_IMPL` is "autodiff"."""
+    if LN_IMPL == "cvjp":
+        return _LayerNormCVJP.apply(x, ln["g"][prec], ln["b"][prec], eps)
+    xf, mean, rstd = _ln_stats(x, eps)
+    return (ln["g"][prec] * ((xf - mean) * rstd) + ln["b"][prec]).to(x.dtype)
 
 
 def _layer(tree, li):
@@ -197,10 +241,32 @@ def _layer(tree, li):
             for k, v in tree.items()}
 
 
+def _unstack(tree, n):
+    """The layer-stacked tree as n per-layer trees (`unbind`, whose backward
+    stacks the n gradients once)."""
+    per = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for li in range(n):
+            per[li][k] = parts[li]
+    return per
+
+
+def _no_ring_attention(attention_fn):
+    if attention_fn is not None:
+        raise NotImplementedError(
+            "attention_fn (ring attention) comes with the parallel slice "
+            "(ROADMAP A.9)")
+
+
 def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
              calibration_mode=False, collect_stats=False,
-             input_passthrough=False):
-    """Pre-LN residual block with dense causal attention."""
+             input_passthrough=False, attention_fn=None):
+    """Pre-LN residual block. Attention follows `cfg.attention_impl`: "flash"
+    forces the trainable flash path (where the shape allows it), "auto"
+    takes it for CUDA tensors from T = FLASH_MIN_T on, and the dense path
+    runs elsewhere."""
+    _no_ring_attention(attention_fn)
     m = cfg.model
     B, T, C = x.shape
     lin = lambda h, name: sp_linear(h, bp[name], prec, tables, cfg,
@@ -214,12 +280,16 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
     def heads(t):
         return t.reshape(B, T, m.n_head, m.head_dim).permute(0, 2, 1, 3)
 
-    # AMP-faithful attention: q/k/v in compute_dtype on the flat path
+    # AMP-faithful attention: q/k/v in compute_dtype on the flat path; the
+    # cast back below hands the backward a cotangent in compute_dtype
     cdt = torch_dtype(cfg.compute_dtype)
     cast = (lambda t: t.to(cdt)) if (cfg.linear_impl != "cond"
                                      and cdt != torch.float32) else (lambda t: t)
-    attn = causal_attention_reference(cast(heads(q)), cast(heads(k)),
-                                      cast(heads(v)), mask=mask)
+    impl = cfg.attention_impl
+    use_flash = impl == "flash" or (impl == "auto" and x.is_cuda
+                                    and T >= FLASH_MIN_T)
+    attn = causal_attention(cast(heads(q)), cast(heads(k)), cast(heads(v)),
+                            mask=mask, use_flash=use_flash)
     attn = attn.to(x.dtype).permute(0, 2, 1, 3).reshape(B, T, C)
     attn_out, s2 = lin(attn, "attn_proj")
     x = x + attn_out
@@ -237,32 +307,66 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
 
 
 def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
-               tables: Optional[PrecTables] = None, mask=None, labels=None,
+               tables: Optional[PrecTables] = None, inputs_embeds=None,
+               mask=None, labels=None, deterministic: bool = True,
+               dropout_gen: Optional[torch.Generator] = None,
                calibration_mode: bool = False, collect_stats: bool = False,
-               input_passthrough: bool = False):
-    """Full SP LM forward (eval mode). Returns a dict with `logits`,
-    `trunk`, optional `stats` ({linear: {stat: (L, ch)}}) and optional
-    `loss` (shifted CE ignoring -100 labels)."""
+               input_passthrough: bool = False,
+               output_hidden_states: bool = False,
+               hidden_states_grad: bool = False, remat: bool = False,
+               attention_fn=None):
+    """Full SP LM forward. Returns a dict with `logits`, `trunk` (the live
+    ln_f output), optional `hidden_states`, `stats` ({linear: {stat:
+    (L, ch)}}) and `loss` (shifted CE ignoring -100 labels).
+
+    `deterministic=False` applies the embedding dropout, its mask drawn from
+    `dropout_gen`. `hidden_states` is (L+1, B, T, d): each block's input,
+    then the final ln_f output, detached unless `hidden_states_grad`.
+    `remat` recomputes each block in the backward (`torch.utils.checkpoint`).
+    """
+    _no_ring_attention(attention_fn)
     dev = params["wte"].device
     if tables is None:
         tables = prec_tables(cfg.quant, dev)
     prec = int(prec)
-    B, T = input_ids.shape
-    h = params["wte"][input_ids] + params["wpe"][:T][None]
+    if inputs_embeds is not None:
+        h = inputs_embeds
+        T = h.shape[1]
+    else:
+        T = input_ids.shape[1]
+        h = params["wte"][input_ids] + params["wpe"][:T][None]
 
-    per_layer = []
-    for li in range(cfg.model.n_layer):
-        h, s = sp_block(h, _layer(params["blocks"], li), prec, tables, cfg,
-                        mask=mask, calibration_mode=calibration_mode,
-                        collect_stats=collect_stats,
+    if not deterministic and cfg.model.embd_pdrop > 0.0:
+        keep = 1.0 - cfg.model.embd_pdrop
+        drop = torch.rand(h.shape, generator=dropout_gen, device=h.device) < keep
+        h = torch.where(drop, h / keep, torch.zeros_like(h))
+
+    def block(x, bp):
+        return sp_block(x, bp, prec, tables, cfg, mask=mask,
+                        calibration_mode=calibration_mode,
+                        collect_stats=collect_stats and not remat,
                         input_passthrough=input_passthrough)
+
+    per_layer, h_in = [], []
+    for bp in _unstack(params["blocks"], cfg.model.n_layer):
+        if output_hidden_states:
+            h_in.append(h if hidden_states_grad else h.detach())
+        if remat:
+            h = checkpoint(lambda x, bp=bp: block(x, bp)[0], h,
+                           use_reentrant=False)
+            s = None
+        else:
+            h, s = block(h, bp)
         per_layer.append(s)
 
     h = switchable_layernorm(h, params["ln_f"], prec,
                              cfg.model.layer_norm_epsilon)
     logits = matmul_bf16(h, params["wte"].T, torch_dtype(cfg.compute_dtype))
     out = {"logits": logits, "trunk": h}
-    if collect_stats:
+    if output_hidden_states:
+        h_in.append(h if hidden_states_grad else h.detach())
+        out["hidden_states"] = torch.stack(h_in)
+    if collect_stats and not remat:
         out["stats"] = {
             name: {k: torch.stack([s[name][k] for s in per_layer])
                    for k in per_layer[0][name]}

@@ -1,18 +1,29 @@
-"""Quantizer calibration helpers (counterpart of `llm_qat_tpu/quant/calibration.py`).
+"""Quantizer calibration (counterpart of `llm_qat_tpu/quant/calibration.py`).
 
-Only what the flat `sp_linear` forward needs is ported: `reduction_axes`
-and the conditional-free inline calibration `dynamic_scale_flat`. The
-running-stats fold (`update_stats`/`finalize`/`calibrate_tensor`) comes with
-the training slice.
+A pure fold over batches: `init_stats` / `update_stats` build a `QuantStats`
+of running min/max, and `finalize` turns it into `(scale, zero_point)` with
+the reference's formulas. `fold_stats` folds a batch whose min/max the
+model's stat-collecting forward already took (the calibration manager's
+input quantizers). Per-channel keeps `channel_dim` and reduces every
+other axis (keepdims); per-tensor reduces all of them. `dynamic_scale_flat`
+is the conditional-free inline calibration of the LoRA banks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from .functional import KIND_LOG
+
+
+class QuantStats(NamedTuple):
+    """Running min/max statistics and the number of batches folded in."""
+
+    running_min: torch.Tensor
+    running_max: torch.Tensor
+    count: torch.Tensor  # int32 scalar
 
 
 def reduction_axes(ndim: int, channel_dim: Optional[int]) -> tuple:
@@ -25,6 +36,70 @@ def reduction_axes(ndim: int, channel_dim: Optional[int]) -> tuple:
         return tuple(range(ndim))
     actual = channel_dim if channel_dim >= 0 else ndim + channel_dim
     return tuple(d for d in range(ndim) if d != actual)
+
+
+def batch_min_max(x, axes: Sequence[int], kind: int, eps: float = 1e-5):
+    """Per-batch (min, max) with keepdims, in the quantizer's stat domain:
+    plain min/max for minmax, min/max of log2(max(|x|, eps)) for log."""
+    x = x.to(torch.float32)
+    if kind == KIND_LOG:
+        x = torch.log2(torch.clamp(x.abs(), min=eps))
+    axes = tuple(axes)
+    return _amin(x, axes), _amax(x, axes)
+
+
+def init_stats(shape=(), device=None) -> QuantStats:
+    """Empty stats; the first `update_stats` overwrites min/max entirely."""
+    return QuantStats(
+        running_min=torch.full(shape, float("inf"), device=device),
+        running_max=torch.full(shape, float("-inf"), device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def fold_stats(stats: QuantStats, bmin, bmax) -> QuantStats:
+    """Fold one batch's (min, max), already in the stat domain, into the
+    running stats."""
+    return QuantStats(
+        running_min=torch.minimum(stats.running_min, bmin),
+        running_max=torch.maximum(stats.running_max, bmax),
+        count=stats.count + 1,
+    )
+
+
+def update_stats(stats: QuantStats, x, channel_dim: Optional[int], kind: int,
+                 eps: float = 1e-5) -> QuantStats:
+    """Fold one batch into the running stats."""
+    return fold_stats(stats, *batch_min_max(
+        x, reduction_axes(x.ndim, channel_dim), kind, eps))
+
+
+def finalize(stats: QuantStats, num_bits, kind: int, symmetric: bool = True,
+             eps: float = 1e-5):
+    """(scale, zero_point) from collected stats, shaped like the stats.
+
+    log: zero_point = log_min, scale = log_range = log_max - log_min;
+    minmax symmetric: scale = max(|min|, |max|, eps) / (2^(b-1) - 1), zp 0;
+    minmax asymmetric: scale = max(max - min, eps) / (2^b - 1),
+    zp = round(-min / scale).
+    """
+    rmin, rmax = stats.running_min, stats.running_max
+    b = torch.as_tensor(num_bits, dtype=torch.float32, device=rmin.device)
+    if kind == KIND_LOG:
+        return rmax - rmin, rmin
+    if symmetric:
+        abs_max = torch.clamp(torch.maximum(rmin.abs(), rmax.abs()), min=eps)
+        scale = abs_max / (torch.exp2(b - 1.0) - 1.0)
+        return scale, torch.zeros_like(scale)
+    scale = torch.clamp(rmax - rmin, min=eps) / (torch.exp2(b) - 1.0)
+    return scale, torch.round(-rmin / scale)
+
+
+def calibrate_tensor(x, num_bits, kind: int, channel_dim: Optional[int] = None,
+                     symmetric: bool = True, eps: float = 1e-5):
+    """One-shot calibration of one tensor (one stat pass, then finalize)."""
+    stats = update_stats(init_stats(device=x.device), x, channel_dim, kind, eps)
+    return finalize(stats, num_bits, kind, symmetric, eps)
 
 
 def _amin(x, axes):

@@ -6,10 +6,14 @@ Semantics match the JAX package, which matches the reference:
 - log: sign/magnitude quantization of log2|x| normalized into
   [log_min, log_min+log_range], zeros (|x|<eps) preserved exactly.
 
+Backward (straight-through estimators, `torch.autograd.Function`s): the
+identity for minmax and pass-through, gradient values clamped to [-10, 10]
+for the log kind below 32 bits. The quantizer operands (scale, zero point,
+bits, kind) get no gradient, so scales computed from a live tensor (the
+LoRA banks' `dynamic_scale_flat`) carry none back into it.
+
 `torch.round` rounds half to even, like `jnp.round`. `num_bits` and `kind`
-may be tensors, so one call serves every precision of a bank. Only the
-forward is ported here; the straight-through estimators
-(`torch.autograd.Function`s) come with the training slice.
+may be tensors, so one call serves every precision of a bank.
 """
 
 from __future__ import annotations
@@ -42,6 +46,21 @@ def _minmax_fwd_math(x, scale, zero_point, num_bits, symmetric):
     q = torch.round(x / scale + zero_point)
     q = torch.minimum(torch.maximum(q, torch.zeros_like(qmax)), qmax)
     return (q - zero_point) * scale
+
+
+class _MinmaxSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, zero_point, num_bits, symmetric):
+        return _minmax_fwd_math(x, scale, zero_point, num_bits, symmetric)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None, None
+
+
+def fake_quant_minmax(x, scale, zero_point, num_bits, symmetric=True):
+    """Min-max fake quantization with the identity STE backward."""
+    return _MinmaxSTE.apply(x, scale, zero_point, num_bits, symmetric)
 
 
 def _log_fwd_math(x, log_min, log_range, num_bits, symmetric, eps):
@@ -77,13 +96,29 @@ def _log_fwd_math(x, log_min, log_range, num_bits, symmetric, eps):
     return torch.where(zero_mask, torch.zeros_like(x), out)
 
 
+class _LogSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, log_min, log_range, num_bits, symmetric, eps):
+        return _log_fwd_math(x, log_min, log_range, num_bits, symmetric, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, -10.0, 10.0), None, None, None, None, None
+
+
+def fake_quant_log(x, log_min, log_range, num_bits, symmetric=True, eps=1e-5):
+    """Log-domain fake quantization; the STE clamps gradient values to
+    [-10, 10]."""
+    return _LogSTE.apply(x, log_min, log_range, num_bits, symmetric, eps)
+
+
 def fake_quant(x, scale, zero_point, num_bits, kind, symmetric=True, eps=1e-5):
     """Dispatch between minmax / log / pass-through.
 
     `num_bits >= 32` passes through. For the log kind, `zero_point` holds
     log_min and `scale` holds log_range (the reference's buffer reuse). The
-    JAX version dispatches with `lax.cond`/`lax.switch`; the forward value
-    is the same as `fake_quant_flat`'s, which this delegates to.
+    JAX version dispatches with `lax.cond`/`lax.switch`; its value and its
+    gradient are `fake_quant_flat`'s, which this delegates to.
     """
     return fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric, eps)
 
@@ -97,9 +132,26 @@ def _flat_fwd_math(x, scale, zero_point, num_bits, kind, symmetric, eps):
     return torch.where(_as(num_bits, x) >= 32.0, x, q)
 
 
+class _FlatSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, zero_point, num_bits, kind, symmetric, eps):
+        ctx.save_for_backward(num_bits, kind)
+        return _flat_fwd_math(x, scale, zero_point, num_bits, kind, symmetric,
+                              eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_bits, kind = ctx.saved_tensors
+        clamp = (kind.to(torch.int32) == KIND_LOG) & (num_bits < 32.0)
+        gx = torch.where(clamp, torch.clamp(g, -10.0, 10.0), g)
+        return gx, None, None, None, None, None, None
+
+
 def fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric=True,
                     eps=1e-5):
-    """Conditional-free fake-quant forward. Quantizer operands are cast to
-    float32 at this boundary, as in the JAX package."""
-    return _flat_fwd_math(x, _f32(scale, x), _f32(zero_point, x),
+    """Conditional-free fake quantization with one STE: the identity for
+    minmax and pass-through, the ±10 clamp for the log kind below 32 bits,
+    selected by the same `kind`/`num_bits` operands. Quantizer operands are
+    cast to float32 at this boundary, as in the JAX package."""
+    return _FlatSTE.apply(x, _f32(scale, x), _f32(zero_point, x),
                           _f32(num_bits, x), _f32(kind, x), symmetric, eps)

@@ -5,11 +5,14 @@ Counterpart of `llm_qat_tpu/train/calibration_manager.py`:
   reduction pass per precision over the stacked (L, in, out) weights;
 - input quantizers from N forward batches at the target precision with LoRA
   disabled and input quantizers passing through; the per-layer min/max
-  stats are folded across batches and finalized into the (L, P, ch) banks.
+  stats are folded across batches (`quant/calibration.py`'s `QuantStats`)
+  and finalized into the (L, P, ch) banks.
 
 Per-tensor mode reduces the collected per-channel stats to scalars. The
 functions return a new top-level dict and leave the input dict's banks
-untouched.
+untouched. `CalibrationManager` keeps which precisions are calibrated, as
+the trainer's caller does before training. The LoRA quantizers keep no
+state: `sp_linear` computes their scales from the live A/B.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ..models.config import SPModelConfig
 from ..models.sp_model import PrecTables, prec_tables, sp_forward
+from ..quant.calibration import QuantStats, batch_min_max, finalize, fold_stats, init_stats
 from ..quant.functional import KIND_LOG, KIND_MINMAX
 
 LINEAR_NAMES = ("c_attn", "attn_proj", "c_fc", "mlp_proj")
@@ -29,26 +33,14 @@ def _kind(q, bits):
     return KIND_LOG if q.kind_name(bits) == "log" else KIND_MINMAX
 
 
-def _minmax_scale(mn, mx, bits: float, symmetric: bool, eps: float):
-    if symmetric:
-        abs_max = torch.clamp(torch.maximum(mn.abs(), mx.abs()), min=eps)
-        scale = abs_max / (2.0 ** (bits - 1.0) - 1.0)
-        return scale, torch.zeros_like(scale)
-    rng_val = torch.clamp(mx - mn, min=eps)
-    scale = rng_val / (2.0 ** bits - 1.0)
-    return scale, torch.round(-mn / scale)
-
-
 def _weight_scale_for(w, bits: float, kind: int, per_channel: bool,
                       symmetric: bool, eps: float):
-    """Scale/zp for stacked weights w: (L, d_in, d_out), channel = d_out."""
+    """Scale/zp for stacked weights w: (L, d_in, d_out), channel = d_out;
+    (L, d_out) per channel, (L, 1) per tensor."""
     axes = (1,) if per_channel else (1, 2)
-    if kind == KIND_LOG:
-        la = torch.log2(torch.clamp(w.abs(), min=eps))
-        mn = torch.amin(la, dim=axes)
-        return torch.amax(la, dim=axes) - mn, mn  # scale=log_range, zp=log_min
-    return _minmax_scale(torch.amin(w, dim=axes), torch.amax(w, dim=axes),
-                         bits, symmetric, eps)
+    stats = QuantStats(*batch_min_max(w, axes, kind, eps), count=1)
+    scale, zp = finalize(stats, bits, kind, symmetric, eps)
+    return scale.flatten(1), zp.flatten(1)
 
 
 def _copy_blocks(params):
@@ -70,8 +62,6 @@ def calibrate_weight_quantizers(params, cfg: SPModelConfig):
                 continue
             scale, zp = _weight_scale_for(lin["w"], float(bits), _kind(q, bits),
                                           q.per_channel, q.symmetric, q.eps)
-            if not q.per_channel:
-                scale, zp = scale[:, None], zp[:, None]
             wq_scale[:, p_idx] = scale
             wq_zp[:, p_idx] = zp
         lin["wq_scale"], lin["wq_zp"] = wq_scale, wq_zp
@@ -80,35 +70,21 @@ def calibrate_weight_quantizers(params, cfg: SPModelConfig):
 
 @torch.no_grad()
 def _collect_input_stats(params, cfg: SPModelConfig, tables: PrecTables,
-                         prec_idx: int, batches: Sequence[torch.Tensor]):
-    """Fold input stats over calibration batches at one precision."""
-    agg = None
+                         prec_idx: int, kind: int, batches: Sequence[torch.Tensor]):
+    """{linear: QuantStats (L, ch)} of the inputs at one precision, in
+    `kind`'s stat domain, folded over the calibration batches."""
+    dom = "lg" if kind == KIND_LOG else "mm"
+    agg = {}
     dev = params["wte"].device
     for ids in batches:
         stats = sp_forward(params, torch.as_tensor(ids, device=dev), prec_idx,
                            cfg, tables=tables, calibration_mode=True,
                            collect_stats=True, input_passthrough=True)["stats"]
-        if agg is None:
-            agg = stats
-            continue
-        agg = {
-            name: {
-                "mm_min": torch.minimum(agg[name]["mm_min"], stats[name]["mm_min"]),
-                "mm_max": torch.maximum(agg[name]["mm_max"], stats[name]["mm_max"]),
-                "lg_min": torch.minimum(agg[name]["lg_min"], stats[name]["lg_min"]),
-                "lg_max": torch.maximum(agg[name]["lg_max"], stats[name]["lg_max"]),
-            }
-            for name in agg
-        }
+        for name, s in stats.items():
+            mn, mx = s[f"{dom}_min"], s[f"{dom}_max"]
+            prev = agg.get(name) or init_stats(mn.shape, dev)
+            agg[name] = fold_stats(prev, mn, mx)
     return agg
-
-
-def _finalize_input_scales(s, bits: float, kind: int, symmetric: bool,
-                           eps: float):
-    """Stats dict {mm_min, mm_max, lg_min, lg_max} (L, ch) → (scale, zp)."""
-    if kind == KIND_LOG:
-        return s["lg_max"] - s["lg_min"], s["lg_min"]
-    return _minmax_scale(s["mm_min"], s["mm_max"], bits, symmetric, eps)
 
 
 def calibrate_input_quantizers(params, cfg: SPModelConfig,
@@ -125,20 +101,53 @@ def calibrate_input_quantizers(params, cfg: SPModelConfig,
     for bits in precisions:
         if bits >= 32:
             continue
-        p_idx = q.prec_index(bits)
-        stats = _collect_input_stats(params, cfg, tables, p_idx, batches)
+        p_idx, kind = q.prec_index(bits), _kind(q, bits)
+        stats = _collect_input_stats(params, cfg, tables, p_idx, kind, batches)
         params = _copy_blocks(params)
         for name in LINEAR_NAMES:
-            s = stats[name]
+            st = stats[name]
             if not q.per_channel:
-                s = {k: (torch.amin(v, dim=-1, keepdim=True) if "min" in k
-                         else torch.amax(v, dim=-1, keepdim=True))
-                     for k, v in s.items()}
-            scale, zp = _finalize_input_scales(s, float(bits), _kind(q, bits),
-                                               q.symmetric, q.eps)
+                st = st._replace(
+                    running_min=torch.amin(st.running_min, dim=-1, keepdim=True),
+                    running_max=torch.amax(st.running_max, dim=-1, keepdim=True))
+            scale, zp = finalize(st, float(bits), kind, q.symmetric, q.eps)
             lin = params["blocks"][name]
             iq_scale, iq_zp = lin["iq_scale"].clone(), lin["iq_zp"].clone()
             iq_scale[:, p_idx] = scale
             iq_zp[:, p_idx] = zp
             lin["iq_scale"], lin["iq_zp"] = iq_scale, iq_zp
     return params
+
+
+class CalibrationManager:
+    """Calibrates the weight and input quantizer banks and tracks which
+    student precisions are calibrated."""
+
+    def __init__(self, cfg: SPModelConfig, calibration_batches: int = 10):
+        self.cfg = cfg
+        self.calibration_batches = calibration_batches
+        self.calibrated: set = set()
+
+    def _calibrate(self, params, batches, precisions):
+        params = calibrate_weight_quantizers(params, self.cfg)
+        return calibrate_input_quantizers(
+            params, self.cfg, list(batches)[: self.calibration_batches],
+            precisions)
+
+    def calibrate_all_precisions(self, params, batches: Sequence[torch.Tensor]):
+        """Calibrate every student precision."""
+        params = self._calibrate(params, batches, self.cfg.quant.student_bits)
+        self.calibrated.update(self.cfg.quant.student_bits)
+        return params
+
+    def ensure_calibrated(self, params, bits: int,
+                          batches: Sequence[torch.Tensor]):
+        """Calibrate `bits` if it is not yet."""
+        if self.is_calibrated(bits):
+            return params
+        params = self._calibrate(params, batches, [bits])
+        self.calibrated.add(bits)
+        return params
+
+    def is_calibrated(self, bits: int) -> bool:
+        return bits >= 32 or bits in self.calibrated

@@ -19,9 +19,16 @@ from llm_qat_tpu_torch.models.inference import (
     init_layer_caches,
     quantize_for_inference,
 )
-from llm_qat_tpu_torch.models.sp_model import init_sp_params
+from llm_qat_tpu_torch.models.sp_model import init_sp_params, sp_forward
 from llm_qat_tpu_torch.ops import mega_decode as md
-from llm_qat_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+from llm_qat_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_bwd,
+    flash_bwd_plain,
+    flash_fwd_lse,
+    flash_fwd_lse_plain,
+)
 from llm_qat_tpu_torch.train.calibration_manager import (
     calibrate_input_quantizers,
     calibrate_weight_quantizers,
@@ -154,3 +161,89 @@ def test_engine_runs_both_kernels(cuda_device):
     assert bool(torch.isfinite(lk).all())
     assert err.mean() <= 0.12 * lp.std()
     assert (lk.argmax(-1) == lp.argmax(-1)).float().mean() >= 0.8
+
+
+def bf16_row_ulps(got, want, atol):
+    """(|got - want| - atol) per element, in bf16 ulps at the max |want| of
+    the element's row (the last axis): 2^(floor(log2 rowmax) - 7)."""
+    top = want.float().abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
+    err = ((got.float() - want.float()).abs() - atol).clamp(min=0)
+    return err / torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [128, 200, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_train_kernels_match_plain(cuda_device, dtype, T, D):
+    """Kernels #5 and #6 against their plain versions on the same inputs
+    (the backward on the kernel's own o and lse), ragged T = 200 included.
+    float32: O, dq, dk, dv within 1e-5 of max |plain| (sums in another
+    order). bf16, element by element: within 2 bf16 ulps at the max |plain|
+    of the element's row (a float32 value a rounding apart may round to the
+    neighbouring bf16 value, and the forward rounds P at its row's running
+    max, the plain version at the final max), plus 1e-5 of max |plain| (in
+    row 0, dP = D in exact arithmetic, so dS and the dq row are float32
+    cancellation noise in both versions). Where both round P and dS at
+    the same scale (the backward; the forward's first 64 query rows, whose
+    keys lie in one k tile) they differ only by float32 summation order, so
+    at most 2% of those bf16 outputs may differ at all; skipping the
+    rounding of P or dS would move a third or more. LSE (float32 in both):
+    1e-5 absolute."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + D)
+    q, k, v, do = (torch.randn((2, 3, T, D), generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    f0, b0 = flash_fwd_lse.launches, flash_bwd.launches
+    o, lse = flash_fwd_lse(q, k, v)
+    grads = flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (flash_fwd_lse.launches, flash_bwd.launches) == (f0 + 1, b0 + 1)
+    po, plse = flash_fwd_lse_plain(q, k, v)
+    pgrads = flash_bwd_plain(q, k, v, o, lse, do)
+    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (2, 3, T, 1)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=0)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads), (po, *pgrads)):
+        assert got.dtype == dtype, name
+        if dtype == torch.float32:
+            err = (got - want).abs().max().item()
+            assert err <= 1e-5 * want.abs().max().item(), (name, err)
+            continue
+        ulps = bf16_row_ulps(got, want, 1e-5 * want.float().abs().max()).max().item()
+        rows = slice(0, 64) if name == "o" else slice(None)
+        share = (got[:, :, rows] != want[:, :, rows]).float().mean().item()
+        print(name, "max bf16 ulps of the row's max", ulps, "share differing", share)
+        assert ulps <= 2, (name, ulps)
+        assert share <= 2e-2, (name, share)
+
+
+def test_flash_train_wrappers_check_their_inputs(cuda_device):
+    q = torch.randn((1, 2, 128, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd_lse(*(torch.randn((1, 2, 128, 32), device=cuda_device),) * 3)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        flash_fwd_lse(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_lse(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
+    o, lse = flash_fwd_lse(q, q, q)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd(q, q, q, o, lse[..., 0], q)
+
+
+@pytest.mark.parametrize("T,flash", [(512, False), (1024, True)])
+def test_auto_attention_takes_flash_from_1024_on_the_card(cuda_device, T, flash):
+    """attention_impl="auto" runs kernels #5 (forward) and #6 (backward)
+    once per layer for CUDA tensors from T = 1024, and the dense path
+    below."""
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=1024, n_embd=128, n_layer=2,
+                            n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 32)), compute_dtype="bfloat16")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = init_sp_params(g, cfg, device=cuda_device)
+    p["blocks"]["c_attn"]["w"].requires_grad_(True)  # upstream of every attention
+    ids = torch.randint(0, 512, (2, T), generator=g, device=cuda_device)
+    f0, b0 = flash_fwd_lse.launches, flash_bwd.launches
+    sp_forward(p, ids, 1, cfg, labels=ids)["loss"].backward()
+    torch.cuda.synchronize()
+    n = cfg.model.n_layer if flash else 0
+    assert (flash_fwd_lse.launches - f0, flash_bwd.launches - b0) == (n, n)
+    assert bool(torch.isfinite(p["blocks"]["c_attn"]["w"].grad).all())

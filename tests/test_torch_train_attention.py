@@ -1,0 +1,134 @@
+"""PyTorch port, training slice: the trainable flash path's plain versions
+against the JAX Pallas kernels #5 and #6 (interpret mode) on the CPU, and
+the `attention_impl` dispatch."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_qat_tpu.ops import attention as ja
+from llm_qat_tpu_torch import bridge
+from llm_qat_tpu_torch.models import config as tc
+from llm_qat_tpu_torch.models import sp_model as tsp
+from llm_qat_tpu_torch.ops import attention as ta
+
+# Errors relative to max |reference|. float32: sums in another order
+# (measured up to 3e-7). bf16: both round P (and dS) to bf16 at the same
+# points, but a float32 value one ulp apart may round to the neighbouring
+# bf16 value, and at T = 256 the Pallas kernel rounds P against the running
+# max of its first K/V block, so outputs may differ by up to one bf16 ulp
+# of the largest output (2^-8; measured 5.3e-4).
+TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -8}
+
+
+def _qkv(T, dtype, seed=0, D=64):
+    rng = np.random.default_rng(seed)
+    qkv = [rng.normal(0, 1.0, (2, 2, T, D)).astype(np.float32) for _ in range(3)]
+    do = rng.normal(0, 1.0, (2, 2, T, D)).astype(np.float32)
+    jd = jnp.dtype(dtype)
+    j = [jnp.asarray(x, jd) for x in qkv + [do]]
+    t = [bridge.params_from_numpy(np.asarray(x), "cpu") for x in j]
+    return j, t
+
+
+def _close(got, want, dtype, what):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= TOL[dtype], f"{what}: rel err {err:.3e} > {TOL[dtype]:.3e}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [128, 256])
+def test_flash_fwd_lse_plain_matches_pallas(dtype, T):
+    """O and LSE of `flash_fwd_lse_plain` against `_flash_fwd_call` in
+    interpret mode with the JAX package's own block sizes (at T = 256 the
+    K/V stream has two blocks). Errors relative to max |reference|."""
+    (q, k, v, _), (tq, tk, tv, _) = _qkv(T, dtype, seed=T)
+    bq, bk = ja.flash_blocks(T)
+    jo, jl = ja._flash_fwd_call(q, k, v, bq, bk, True)
+    to, tl = ta.flash_fwd_lse_plain(tq, tk, tv)
+    assert to.dtype == tq.dtype and tl.dtype == torch.float32
+    assert tuple(tl.shape) == jl.shape
+    _close(to, jo, dtype, "O")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_plain_matches_pallas(dtype):
+    """dq, dk, dv through the port's `flash_attention_trainable` (CPU: the
+    plain versions) against `jax.vjp` of the JAX `flash_attention_trainable`
+    in interpret mode, with a cotangent in the operand dtype."""
+    (q, k, v, do), (tq, tk, tv, tdo) = _qkv(128, dtype, seed=7)
+    out, vjp = jax.vjp(lambda a, b, c: ja.flash_attention_trainable(a, b, c, 128, 128, True),
+                       q, k, v)
+    want = vjp(do)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    got_o = ta.flash_attention_trainable(*leaves)
+    got_o.backward(tdo)
+    _close(got_o.detach(), out, dtype, "O")
+    for name, leaf, w in zip("qkv", leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        _close(leaf.grad, w, dtype, "d" + name)
+
+
+def test_flash_bwd_plain_matches_dense_autograd():
+    """In float32 the written-out backward equals autograd of the dense
+    reference (the same function) to float32 rounding."""
+    _, (q, k, v, do) = _qkv(96, "float32", seed=3)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ta.causal_attention_reference(*a).backward(do)
+    o, lse = ta.flash_fwd_lse_plain(q, k, v)
+    for got, leaf in zip(ta.flash_bwd_plain(q, k, v, o, lse, do), a):
+        np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), atol=2e-5)
+
+
+def test_flash_rule_and_constants_match_jax():
+    assert ta.FLASH_MIN_T == ja.FLASH_MIN_T
+    for T, D, mask in [(128, 64, None), (1024, 128, None), (200, 64, None),
+                       (256, 32, None), (256, 64, np.ones((1, 256)))]:
+        assert ta.flash_supported(T, D, mask) == ja.flash_supported(T, D, mask)
+
+
+def _tiny_cfg(impl, n_positions=128):
+    return tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=64, n_positions=n_positions, n_embd=128,
+                            n_layer=1, n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 32),
+                             lora_rank_per_bit={4: 4, 32: 0},
+                             lora_alpha_per_bit={4: 8, 32: 0}),
+        attention_impl=impl)
+
+
+@pytest.mark.parametrize("impl,T,flash", [
+    ("dense", 128, False), ("flash", 128, True), ("flash", 96, False),
+    ("auto", 128, False), ("auto", 1024, False)])
+def test_attention_impl_selects_the_path(monkeypatch, impl, T, flash):
+    """"flash" forces the trainable flash path where the shape allows it;
+    "auto" takes it only for CUDA tensors (from T = 1024), so on the CPU it
+    runs dense at every length, as the JAX package does off the TPU."""
+    calls = []
+    real = ta.flash_attention_trainable
+    monkeypatch.setattr(ta, "flash_attention_trainable",
+                        lambda *a: calls.append(1) or real(*a))
+    cfg = _tiny_cfg(impl, max(T, 128))
+    params = tsp.init_sp_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ids = torch.randint(0, 64, (1, T), generator=torch.Generator().manual_seed(1))
+    out = tsp.sp_forward(params, ids, 1, cfg)
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert bool(calls) == flash
+
+
+def test_fused_linear_and_ring_attention_raise():
+    """Options whose kernels or modules are not ported raise instead of
+    running something else."""
+    cfg = _tiny_cfg("auto").replace(linear_impl="fused")
+    params = tsp.init_sp_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ids = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="#14-#16"):
+        tsp.sp_forward(params, ids, 0, cfg)
+    tsp.sp_forward(params, ids, 0, cfg, calibration_mode=True, input_passthrough=True)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tsp.sp_forward(params, ids, 0, _tiny_cfg("auto"), attention_fn=lambda *a: a[0])

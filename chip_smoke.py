@@ -15,18 +15,23 @@ set to 0 just before it and read just after:
   must go through the flash prefill kernel and the decode-step kernel;
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
-  then clip + AdamW), which must go through the flash forward+LSE and flash
-  backward kernels once per layer and micro-step; then one step with the
-  kernels against the same step on their plain versions, held against the
-  floor the plain path sets against itself under a few ulps of jitter.
+  then clip + AdamW), twice from the same calibrated parameters: on the
+  flat linear, which must go through the flash forward+LSE and flash
+  backward kernels once per layer and micro-step, and on the fused QAT
+  linear (`linear_impl="fused"`), which must also go through the fused
+  forward, dx and dW kernels once per linear, layer and micro-step; after
+  each, one step with the kernels against the same step on their plain
+  versions, held against the floor the plain path sets against itself
+  under a few ulps of jitter.
 
-It times the kernels, their plain versions, the library yardstick and the
-train iteration with CUDA events and the host clock, profiles one train
-iteration, and prints:
+It times the kernels, their plain versions, the library yardsticks and
+both train iterations with CUDA events and the host clock, profiles one
+iteration of each path, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - one line per comparison, its error beside its tolerance;
-- `timings`, `train_timings` and `train_profile` JSON lines and a `kernels`
+- `timings`, `train_profile`, `fused_train_profile`, `train_timings`,
+  `flash_timings` and `fused_kernel_timings` JSON lines and a `kernels`
   JSON line;
 - last, `{"ok": true, "device": {...}}`.
 
@@ -100,6 +105,21 @@ FLASH_TRAIN_LSE_ABS = 1e-5
 # leaves) must stay within TRAIN_FLOOR_FACTOR times the floor's. Measured on
 # the card (PERF.md): 0.25x to 3.9x the floor.
 TRAIN_FLOOR_FACTOR = 4.0
+# Kernels #14-#16 (the fused QAT linear) against their plain versions at the
+# four GPT-2 linear shapes (M = 8192, rank 64, bf16), each slot: every
+# output within FUSED_REL of max |plain|. Both compute the same weight codes
+# (the same float32 operations, none contracted into an FMA) and exact
+# float32 products of bf16 operands, so they differ by the order of the
+# float32 sums only. The spread measured on the card is in PERF.md.
+FUSED_REL = 1e-5
+# The fused train step with the kernels against the same step on their plain
+# versions: the floor moves the plain versions' float32 outputs by this
+# relative noise, about the size of the kernels' own differences.
+FUSED_JITTER = 2.0 ** -20
+# A one-draw floor is itself noisy: on an H100 one draw of the loss's floor
+# read 1.7e-7 (a few float32 ulps of a loss of 1.37) against the kernels'
+# 6.98e-7, 4.0x. The fused floor is the largest over this many noise draws.
+FUSED_FLOOR_DRAWS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,10 +205,14 @@ def flash_train_vs_plain(gen, dev, B, H, D, failures):
     return errs
 
 
-def train_path(dev):
-    """The training main path at GPT-2 124M, B = 8, T = 1024, accum 8, bf16
-    compute. Returns (cfg, tcfg, state after 3 steps, train_step, batches,
-    main-path launches)."""
+LINEARS = ("c_attn", "attn_proj", "c_fc", "mlp_proj")
+
+
+def train_setup(dev):
+    """GPT-2 124M training config (bits 4/8/32, default kinds, rank 64, bf16
+    compute), B = 8, T = 1024, accum 8; random weights from seed 0,
+    calibrated by CalibrationManager on 3 batches. Returns (cfg, tcfg,
+    params, batches, generator)."""
     import torch
 
     from llm_qat_tpu_torch.models.config import (
@@ -198,10 +222,7 @@ def train_path(dev):
         TrainConfig,
     )
     from llm_qat_tpu_torch.models.sp_model import init_sp_params
-    from llm_qat_tpu_torch.ops import attention as att
-    from llm_qat_tpu_torch.train import optim
     from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
-    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_mask
 
     cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=(4, 8, 32)),
                         compute_dtype="bfloat16")
@@ -216,45 +237,76 @@ def train_path(dev):
     torch.cuda.synchronize()
     print(f"train calibration: {time.time() - t:.1f} s (3 batches of "
           f"({tcfg.batch_size}, {tcfg.max_seq_length}), bits 4 and 8)", flush=True)
+    return cfg, tcfg, params, batches, gen
+
+
+def train_counters():
+    """The launch counters of the training path's kernels (#5, #6, #14-#16)."""
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    return (att.flash_fwd_lse, att.flash_bwd, fl.fused_linear_fwd, fl.fused_linear_bwd_dx,
+            fl.fused_linear_bwd_dw)
+
+
+def train_path(cfg, tcfg, params, batches, gen, tag):
+    """A training main path: 3 steps of `make_sp_train_step` from the
+    calibrated `params` at `cfg.linear_impl`, with every training kernel's
+    counter set to 0 just before and read just after. Per iteration: #5 and
+    #6 once per layer and micro-step (96); #14, #15 and #16 once per linear,
+    layer and micro-step (384) on the fused path, never on the flat one.
+    Returns (state after 3 steps, train_step, main-path launches)."""
+    import torch
+
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_mask
+
     init_state, train_step = make_sp_train_step(cfg, tcfg)
     state = init_state(params)
-    att.flash_fwd_lse.launches = 0
-    att.flash_bwd.launches = 0
+    counters = train_counters()
+    for fn in counters:
+        fn.launches = 0
     metrics = []
     t = time.time()
     for i in range(3):
         state, mt = train_step(state, batches[i], gen)
         metrics.append({k: v.tolist() for k, v in mt.items()})
     torch.cuda.synchronize()
-    launches = {"flash_fwd_lse": att.flash_fwd_lse.launches,
-                "flash_bwd": att.flash_bwd.launches}
-    print(f"train main path: 3 steps in {time.time() - t:.1f} s (first includes "
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"{tag} main path: 3 steps in {time.time() - t:.1f} s (first includes "
           f"warm-up); launches {launches}; metrics {json.dumps(metrics)}", flush=True)
-    per_iter = m.n_layer * tcfg.gradient_accumulation_steps
-    check(launches == {"flash_fwd_lse": 3 * per_iter, "flash_bwd": 3 * per_iter},
-          f"main path ran #5 and #6 {per_iter} times each per iteration")
+    per_iter = cfg.model.n_layer * tcfg.gradient_accumulation_steps
+    fused = 4 * per_iter if cfg.linear_impl == "fused" else 0
+    want = {fn.__name__: 3 * (per_iter if fn.__name__.startswith("flash") else fused)
+            for fn in counters}
+    check(launches == want, f"{tag} main path ran #5/#6 {per_iter} and #14-#16 {fused} "
+          f"times each per iteration: {launches}")
     check(all(math.isfinite(x[k]) for x in metrics
               for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm")),
-          "finite losses and grad norm")
+          f"{tag}: finite losses and grad norm")
     slots = {cfg.quant.prec_index(b) for b in cfg.quant.student_bits}
     check(all(set(x["precisions"]) <= slots for x in metrics), "precisions are student slots")
     for path, trainable in optim.leaves_with_paths(trainable_mask(params)):
         before, after = optim.get_leaf(params, path), optim.get_leaf(state.params, path)
         if trainable:
-            check(not torch.equal(before, after), f"trainable {path} moved")
+            check(not torch.equal(before, after), f"{tag}: trainable {path} moved")
         else:
-            check(torch.equal(before, after), f"frozen {path} bit-identical")
-    print("train main path: frozen leaves (wte, wpe, wq_*/iq_* banks) bit-identical, "
+            check(torch.equal(before, after), f"{tag}: frozen {path} bit-identical")
+    print(f"{tag} main path: frozen leaves (wte, wpe, wq_*/iq_* banks) bit-identical, "
           "every trainable leaf moved", flush=True)
-    return cfg, tcfg, state, train_step, batches, launches
+    return state, train_step, launches
 
 
-def train_step_vs_plain(cfg, tcfg, state, batches, dev, failures):
-    """One step from `state` with the kernels and with their plain versions
-    (same slots, layers and dropout draws), against the jitter floor."""
+def step_vs_plain(cfg, tcfg, state, batches, dev, failures, module, names, jitter_rels, tag,
+                  draws=1):
+    """One step from `state` with the kernels of `module` named `names` and
+    with their plain versions (`<name>_plain`; same slots, layers and
+    dropout draws), against the floor: the plain step with each plain
+    version's outputs moved by relative noise of `jitter_rels` (one tuple
+    per name, one entry per output), each metric's largest difference over
+    `draws` noise draws."""
     import torch
 
-    from llm_qat_tpu_torch.ops import attention as att
     from llm_qat_tpu_torch.train import optim
     from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_paths
 
@@ -263,35 +315,41 @@ def train_step_vs_plain(cfg, tcfg, state, batches, dev, failures):
     layers = [(3 * i) % (cfg.model.n_layer + 1) for i in range(n)]
     paths = trainable_paths(state.params)
 
-    def run(fwd, bwd):
-        """One step from `state` with the flash path's forward and backward
-        set to fwd and bwd."""
-        saved = att.flash_fwd_lse, att.flash_bwd
-        att.flash_fwd_lse, att.flash_bwd = fwd, bwd
+    def run(fns):
+        """One step from `state` with module's `names` set to fns."""
+        saved = [getattr(module, nm) for nm in names]
+        for nm, fn in zip(names, fns):
+            setattr(module, nm, fn)
         try:
             _, step = make_sp_train_step(cfg, tcfg)
             new, mt = step(state, batches[1], torch.Generator(device=dev).manual_seed(7),
                            precs=precs, layers=layers)
         finally:
-            att.flash_fwd_lse, att.flash_bwd = saved
+            for nm, fn in zip(names, saved):
+                setattr(module, nm, fn)
         delta = [optim.get_leaf(new.params, p) - optim.get_leaf(state.params, p)
                  for p in paths]
         return {k: float(mt[k]) for k in ("loss", "teacher_loss", "grad_norm")}, delta
 
-    kern = run(att.flash_fwd_lse, att.flash_bwd)
-    plain = run(att.flash_fwd_lse_plain, att.flash_bwd_plain)
+    plain_fns = [getattr(module, nm + "_plain") for nm in names]
+    kern = run([getattr(module, nm) for nm in names])
+    plain = run(plain_fns)
     noise = torch.Generator(device=dev).manual_seed(1)
 
     def jitter(x, rel):
         e = rel * torch.randn(x.shape, generator=noise, device=dev)
         return (x.float() * (1 + e)).to(x.dtype)
 
-    def jittered_fwd(*a):
-        o, lse = att.flash_fwd_lse_plain(*a)
-        return jitter(o, 2.0 ** -8), jitter(lse, 2.0 ** -22)
+    def jittered(fn, rels):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if isinstance(out, torch.Tensor):
+                return jitter(out, rels[0])
+            return tuple(None if o is None else jitter(o, rel) for o, rel in zip(out, rels))
+        return wrapped
 
-    floor = run(jittered_fwd,
-                lambda *a: tuple(jitter(g, 2.0 ** -8) for g in att.flash_bwd_plain(*a)))
+    floors = [run([jittered(f, rels) for f, rels in zip(plain_fns, jitter_rels)])
+              for _ in range(draws)]
 
     def diffs(x, ref):
         out = {k: abs(x[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]}
@@ -300,27 +358,103 @@ def train_step_vs_plain(cfg, tcfg, state, batches, dev, failures):
         out["update"] = (num / den).item()
         return out
 
-    got, base = diffs(kern, plain), diffs(floor, plain)
-    print("train step kernels vs plain (relative): "
-          + "; ".join(f"{k} {got[k]:.3e} (floor {base[k]:.3e}, tol "
-                      f"{TRAIN_FLOOR_FACTOR}x floor)" for k in got)
+    got, each = diffs(kern, plain), [diffs(f, plain) for f in floors]
+    base = {k: max(d[k] for d in each) for k in got}
+    print(f"{tag} train step kernels vs plain (relative): "
+          + "; ".join(f"{k} {got[k]:.3e} (floor {base[k]:.3e}"
+                      + (f", draws {' '.join(f'{d[k]:.2e}' for d in each)}" if draws > 1 else "")
+                      + f", tol {TRAIN_FLOOR_FACTOR}x floor)" for k in got)
           + f"; kernel step {json.dumps(kern[0])}, plain step {json.dumps(plain[0])}",
           flush=True)
     for k in got:
         if not got[k] <= TRAIN_FLOOR_FACTOR * base[k]:
-            failures.append(f"train step {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
+            failures.append(f"{tag} train step {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
 
 
-def train_timings(state, train_step, batches, accum, dev, B, H, D):
-    """Train iteration time and profile; kernels #5/#6, their plain versions,
-    SDPA, and dense vs flash attention at T = 256, 512, 1024."""
+def fused_operands(cfg, params, slot, lin, M, gen, dev):
+    """Kernels #14-#16's operands for linear `lin` of layer 0 of the
+    calibrated training parameters at precision `slot`, M rows: xq is a
+    standard normal input fake-quantized with the layer's input scales,
+    xa and bq LoRA-sized bf16 operands, g a bf16 cotangent. Returns the
+    argument tuples of the three wrappers and the bf16 quantized weight."""
     import torch
-    import torch.nn.functional as F
 
-    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.models.sp_model import prec_tables
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+    from llm_qat_tpu_torch.quant.functional import fake_quant_flat
 
-    tm = {}
-    gen = torch.Generator(device=dev).manual_seed(3)
+    q = cfg.quant
+    tables = prec_tables(q, dev)
+    p = {k: v[0] for k, v in params["blocks"][lin].items()}
+    K, N = p["w"].shape
+    r = q.max_rank
+    bf = torch.bfloat16
+    bits, kind = tables.bits[slot], tables.kind[slot]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    xq = fake_quant_flat(rnd(M, K), p["iq_scale"][slot], p["iq_zp"][slot], bits, kind,
+                         q.symmetric, q.eps).to(bf)
+    ws = p["wq_scale"][slot].expand(N).contiguous()
+    wz = p["wq_zp"][slot].expand(N).contiguous()
+    scalars = torch.stack([bits, kind.float(), tables.scaling[slot],
+                           torch.zeros((), device=dev)])
+    w = p["w"].contiguous()
+    bq, g = (0.05 * rnd(r, N)).to(bf), (1e-3 * rnd(M, N)).to(bf)
+    fwd = (xq, (0.5 * rnd(M, r)).to(bf), w, ws, wz, bq, p["b"].contiguous(), scalars,
+           q.symmetric, q.eps)
+    dx = (g, w, ws, wz, bq, scalars, q.symmetric, q.eps)
+    dw = (xq, g, scalars)
+    wq = fl.fq_tile_plain(w, ws, wz, bits, kind.float(), q.symmetric, q.eps).to(bf)
+    return fwd, dx, dw, wq
+
+
+def fused_linear_vs_plain(cfg, params, dev, M, failures):
+    """Kernels #14, #15, #16 against their plain versions at the four GPT-2
+    linear shapes, M rows, each slot. Returns the largest absolute error
+    of each kernel."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {"fused_linear_fwd": 0.0, "fused_linear_bwd_dx": 0.0, "fused_linear_bwd_dw": 0.0}
+    rels = {k: [] for k in errs}
+    for lin in LINEARS:
+        for slot in range(cfg.quant.n_prec):
+            fwd, dx, dw, _ = fused_operands(cfg, params, slot, lin, M, gen, dev)
+            got = {"fused_linear_fwd": (fl.fused_linear_fwd(*fwd),),
+                   "fused_linear_bwd_dx": fl.fused_linear_bwd_dx(*dx),
+                   "fused_linear_bwd_dw": (fl.fused_linear_bwd_dw(*dw),)}
+            want = {"fused_linear_fwd": (fl.fused_linear_fwd_plain(*fwd),),
+                    "fused_linear_bwd_dx": fl.fused_linear_bwd_dx_plain(*dx),
+                    "fused_linear_bwd_dw": (fl.fused_linear_bwd_dw_plain(*dw),)}
+            torch.cuda.synchronize()
+            parts = []
+            for name in errs:
+                for o, (a, b) in zip(("out",) if name.endswith("fwd") else
+                                     ("dxq", "dxa") if name.endswith("dx") else ("dw",),
+                                     zip(got[name], want[name])):
+                    err = (a - b).abs().max().item()
+                    rel = err / max(b.abs().max().item(), 1e-30)  # dxa is 0 at 32 bits
+                    errs[name] = max(errs[name], err)
+                    rels[name].append(rel)
+                    parts.append(f"{o} {rel:.2e}")
+                    if not rel <= FUSED_REL:
+                        failures.append(f"fused {lin} slot {slot} {o}: {rel:.3e} of max")
+            K, N = fwd[2].shape
+            print(f"fused kernels vs plain {lin} (M={M}, K={K}, N={N}, r={fwd[1].shape[1]}) "
+                  f"slot {slot}, error / max |plain| (tol {FUSED_REL:g}): " + "; ".join(parts),
+                  flush=True)
+    for name, rs in rels.items():
+        print(f"fused {name} vs plain: {len(rs)} outputs, error / max |plain| max "
+              f"{max(rs):.2e}, median {sorted(rs)[len(rs) // 2]:.2e}", flush=True)
+    return errs
+
+
+def iteration_timings(state, train_step, batches, accum, gen):
+    """Mean wall time of 3 train iterations (host clock around steps that
+    end in a synchronise), tokens/s and peak memory. Returns (dict, state)."""
+    import torch
+
     walls = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(3):
@@ -329,49 +463,69 @@ def train_timings(state, train_step, batches, accum, dev, B, H, D):
         state, _ = train_step(state, batches[i], gen)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-    T = batches[0].shape[1]
     it = sum(walls) / len(walls)
-    tm["train_iter_ms"] = 1e3 * it
-    tm["train_iter_ms_each"] = [1e3 * w for w in walls]
-    tm["train_tokens_per_s"] = batches[0].numel() / it
-    tm["train_microstep_tokens_per_s"] = accum * batches[0].numel() / it
-    tm["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return {"iter_ms": 1e3 * it, "iter_ms_each": [1e3 * w for w in walls],
+            "tokens_per_s": batches[0].numel() / it,
+            "microstep_tokens_per_s": accum * batches[0].numel() / it,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, state
 
-    # Device time by kernel over one profiled iteration. The profiler may
-    # drop records over the iteration's ~50k launches: the flash kernels'
-    # recorded counts are printed beside the counts their wrappers made
-    # (one flash_fwd per forward; flash_bwd_rowdot, _dkdv and _dq per
-    # backward), and the idle share, 1 - recorded busy time / the mean wall
-    # time of the unprofiled iterations above, is an upper bound.
-    att.flash_fwd_lse.launches = att.flash_bwd.launches = 0
+
+def iteration_profile(state, train_step, batch, gen, it_ms, tag):
+    """Device time by kernel over one profiled iteration. The profiler may
+    drop records over an iteration's tens of thousands of launches: the
+    port's kernels' recorded counts are printed beside the counts their
+    wrappers made (one flash_fwd per #5; flash_bwd_rowdot, _dkdv and _dq per
+    #6; fl_fwd per #14, fl_bwd_dx per #15; fl_bwd_dw and fl_dw_reduce per
+    #16, all of whose main-path shapes split M), and the idle share,
+    1 - recorded busy time / the mean wall time of unprofiled iterations,
+    is an upper bound."""
+    import torch
+
+    counters = train_counters()
+    for fn in counters:
+        fn.launches = 0
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        train_step(state, batches[0], gen)
+        train_step(state, batch, gen)
         torch.cuda.synchronize()
-    made = {"flash_fwd": att.flash_fwd_lse.launches, "flash_bwd": att.flash_bwd.launches}
+    n5, n6, n14, n15, n16 = (fn.launches for fn in counters)
+    made = {"flash_fwd": n5, "flash_bwd_rowdot": n6, "flash_bwd_dkdv": n6,
+            "flash_bwd_dq": n6, "fl_fwd": n14, "fl_bwd_dx": n15, "fl_bwd_dw": n16,
+            "fl_dw_reduce": n16}
+    made = {k: v for k, v in made.items() if v}
     by_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count:
             by_kernel[ev.key[:80]] = (ev.count, ev.self_device_time_total / 1e3)
     busy = sum(ms for _, ms in by_kernel.values())
-    flash = {name: v for name, v in by_kernel.items() if " flash_" in name}
-    recorded = {}
-    for name, (c, _) in flash.items():
-        short = name.split("<")[0][5:]
-        recorded[short] = recorded.get(short, 0) + c
-    expected = {short: made["flash_fwd" if short == "flash_fwd" else "flash_bwd"]
-                for short in recorded}
+    recorded, port_ms = {}, 0.0
+    for name, (c, ms) in by_kernel.items():
+        short = name.split("(")[0].split("<")[0].replace("void ", "").strip()
+        if short in made:
+            recorded[short] = recorded.get(short, 0) + c
+            port_ms += ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
-    print("train_profile " + json.dumps({
-        "unprofiled_iteration_wall_ms": 1e3 * it, "device_busy_ms_recorded": busy,
-        "idle_share_upper_bound": 1 - busy / (1e3 * it),
-        "flash_kernels_ms": sum(ms for _, ms in flash.values()),
-        "flash_launches_recorded": recorded, "flash_launches_made": expected,
-        "all_flash_launches_recorded": recorded == expected and len(recorded) == 4,
+    prof_out = {
+        "unprofiled_iteration_wall_ms": it_ms, "device_busy_ms_recorded": busy,
+        "idle_share_upper_bound": 1 - busy / it_ms, "port_kernels_ms": port_ms,
+        "port_launches_recorded": recorded, "port_launches_made": made,
+        "all_port_launches_recorded": recorded == made,
         "kernel_launches_recorded": sum(c for c, _ in by_kernel.values()),
-        "top10": [{"kernel": name, "launches": c, "ms": ms} for name, (c, ms) in top]}),
-        flush=True)
+        "top10": [{"kernel": name, "launches": c, "ms": ms} for name, (c, ms) in top]}
+    print(f"{tag}train_profile " + json.dumps(prof_out), flush=True)
+    return prof_out
 
+
+def flash_timings(dev, B, H, T, D):
+    """Kernels #5/#6, their plain versions, SDPA, and dense vs flash
+    attention at T = 256, 512, 1024."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.ops import attention as att
+
+    tm = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(4))
     o, lse = att.flash_fwd_lse(q, k, v)
@@ -400,8 +554,49 @@ def train_timings(state, train_step, batches, accum, dev, B, H, D):
                 lambda: torch.autograd.grad(fn(qc, kc, vc), (qc, kc, vc), dc), 10)
         cross[Tc] = row
     tm["dense_vs_flash"] = cross
-    print("train_timings " + json.dumps(tm), flush=True)
     return tm
+
+
+def fused_bytes_flops(name, M, K, N, r):
+    """Bytes each of #14-#16 must move (each input read once, each output
+    written once; bf16 operands, float32 weight and outputs) and its flops."""
+    if name == "fused_linear_fwd":
+        return 2 * M * K + 4 * K * N + 2 * M * r + 2 * r * N + 4 * M * N, 2 * M * N * (K + r)
+    if name == "fused_linear_bwd_dx":
+        return 2 * M * N + 4 * K * N + 2 * r * N + 4 * M * K + 4 * M * r, 2 * M * N * (K + r)
+    return 2 * M * K + 2 * M * N + 4 * K * N, 2 * M * K * N
+
+
+def fused_timings(cfg, params, dev, M):
+    """#14, #15 and #16 and their plain versions at the four GPT-2 linear
+    shapes, each slot, and as the library yardstick the product alone:
+    torch.mm of the already quantized bf16 operands with a float32 result
+    (no PyTorch call computes the fake-quant and the GEMM together).
+    Returns {slot: {linear: {kernel: (ms, plain ms, product-alone ms)}}}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    f32 = torch.float32
+    out = {}
+    for slot in range(cfg.quant.n_prec):
+        per = out.setdefault(slot, {})
+        for lin in LINEARS:
+            fwd, dx, dw, wq = fused_operands(cfg, params, slot, lin, M, gen, dev)
+            xq, g = fwd[0], dx[0]
+            lib = {"fused_linear_fwd": lambda: torch.mm(xq, wq, out_dtype=f32),
+                   "fused_linear_bwd_dx": lambda: torch.mm(g, wq.T, out_dtype=f32),
+                   "fused_linear_bwd_dw": lambda: torch.mm(xq.T, g, out_dtype=f32)}
+            row = {}
+            for name, args in (("fused_linear_fwd", fwd), ("fused_linear_bwd_dx", dx),
+                               ("fused_linear_bwd_dw", dw)):
+                kern, plain = getattr(fl, name), getattr(fl, name + "_plain")
+                row[name] = (cuda_ms(lambda: kern(*args), 10),
+                             cuda_ms(lambda: plain(*args), 3, warmup=1),
+                             cuda_ms(lib[name], 10))
+            per[lin] = row
+    return out
 
 
 def main() -> int:
@@ -424,6 +619,8 @@ def main() -> int:
     )
     from llm_qat_tpu_torch.models.sp_model import init_sp_params
     from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import fused_linear as fl
     from llm_qat_tpu_torch.ops import mega_decode as md
     from llm_qat_tpu_torch.ops.attention import flash_attention, flash_attention_plain
     from llm_qat_tpu_torch.train.calibration_manager import (
@@ -657,9 +854,24 @@ def main() -> int:
     check(logit_rel <= LOGIT_FLOOR_FACTOR * floor_rel,
           "served logits agree with the plain path")
 
-    # 4b. the training main path, then one step against the plain versions
-    tcfg_model, tcfg, tstate, train_step, tbatches, tlaunch = train_path(dev)
-    train_step_vs_plain(tcfg_model, tcfg, tstate, tbatches, dev, failures)
+    # 4b. training: kernels #14-#16 against their plain versions at the
+    #     GPT-2 linear shapes, then the flat and the fused main paths from
+    #     the same calibrated parameters, each with one step against the
+    #     same step on its kernels' plain versions
+    tcfg_model, tcfg, tparams, tbatches, tgen = train_setup(dev)
+    Mt = tcfg.batch_size * tcfg.max_seq_length
+    errs.update(fused_linear_vs_plain(tcfg_model, tparams, dev, Mt, failures))
+    check(not failures, "; ".join(failures))
+    tstate, train_step, tlaunch = train_path(tcfg_model, tcfg, tparams, tbatches, tgen, "flat")
+    step_vs_plain(tcfg_model, tcfg, tstate, tbatches, dev, failures, att,
+                  ("flash_fwd_lse", "flash_bwd"), ((2.0 ** -8, 2.0 ** -22), (2.0 ** -8,) * 3),
+                  "flat")
+    fcfg = tcfg_model.replace(linear_impl="fused")
+    fstate, fstep, flaunch = train_path(fcfg, tcfg, tparams, tbatches, tgen, "fused")
+    step_vs_plain(fcfg, tcfg, fstate, tbatches, dev, failures, fl,
+                  ("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw"),
+                  ((FUSED_JITTER,), (FUSED_JITTER,) * 2, (FUSED_JITTER,)), "fused",
+                  draws=FUSED_FLOOR_DRAWS)
     check(not failures, "; ".join(failures))
 
     # 5. time on the card
@@ -758,8 +970,17 @@ def main() -> int:
     timings["decode_tok_s"] = B * 511 / (wall[512] - wall[1])
     timings["decode_ms_per_token_step"] = 1e3 * (wall[512] - wall[1]) / 511
     print("timings " + json.dumps(timings), flush=True)
-    tt = train_timings(tstate, train_step, tbatches, tcfg.gradient_accumulation_steps, dev,
-                       B, H, d // H)
+    accum = tcfg.gradient_accumulation_steps
+    it_flat, tstate = iteration_timings(tstate, train_step, tbatches, accum, tgen)
+    iteration_profile(tstate, train_step, tbatches[0], tgen, it_flat["iter_ms"], "")
+    it_fused, fstate = iteration_timings(fstate, fstep, tbatches, accum, tgen)
+    iteration_profile(fstate, fstep, tbatches[0], tgen, it_fused["iter_ms"], "fused_")
+    print("train_timings " + json.dumps({"flat": it_flat, "fused": it_fused}), flush=True)
+    tt = flash_timings(dev, B, H, tbatches[0].shape[1], d // H)
+    print("flash_timings " + json.dumps(tt), flush=True)
+    ft = fused_timings(tcfg_model, tparams, dev, Mt)
+    print("fused_kernel_timings (ms, plain ms, product-alone ms) " + json.dumps(ft),
+          flush=True)
 
     flash_bytes = 4 * B * H * T0 * (d // H) * 4
     flash_flops = 2 * B * H * (d // H) * T0 * (T0 + 1)
@@ -804,6 +1025,26 @@ def main() -> int:
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
                          else "operations"),
             "library_ms": lib})
+    # kernels #14-#16 summed over the four linears of one layer at the
+    # training path's shapes, at the 8-bit log slot (the dearest fake-quant)
+    r = tcfg_model.quant.max_rank
+    shapes = [tuple(tparams["blocks"][lin]["w"].shape[1:]) for lin in LINEARS]
+    log_slot = tcfg_model.quant.prec_index(8)
+    for name, line in (("fused_linear_fwd", 134), ("fused_linear_bwd_dx", 225),
+                       ("fused_linear_bwd_dw", 263)):
+        row = [ft[log_slot][lin][name] for lin in LINEARS]
+        bf = [fused_bytes_flops(name, Mt, K, N, r) for K, N in shapes]
+        t_bytes = [b / HBM_BYTES_PER_S for b, _ in bf]
+        t_ops = [f / PEAK_BF16_FLOPS for _, f in bf]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "llm_qat_tpu_torch/csrc/fused_linear.cu",
+            "replaces": f"llm_qat_tpu/ops/fused_linear.py:{line}",
+            "launches": flaunch[name], "max_abs_err": errs[name],
+            "ms": sum(x[0] for x in row), "plain_ms": sum(x[1] for x in row),
+            "bound_ms": 1e3 * sum(max(a, b) for a, b in zip(t_bytes, t_ops)),
+            "bound_by": "operations" if sum(t_ops) >= sum(t_bytes) else "bytes",
+            "library_ms": sum(x[2] for x in row)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

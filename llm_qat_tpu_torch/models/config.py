@@ -142,9 +142,13 @@ class SPModelConfig:
     trainable flash kernels on a CUDA tensor when the shape allows it (no
     mask, T % 128 == 0, head_dim 64/128) and T >= `ops.attention.FLASH_MIN_T`,
     and dense attention elsewhere. `linear_impl`: "auto"/"flat" run the flat
-    quantized linear; "fused" selects kernels that are not ported yet and
-    raises; "cond" differs from "flat" only in skipping the AMP cast of q/k/v
-    (the JAX "cond" path also leaves the matmul cotangent unrounded).
+    quantized linear (`matmul_bf16`, whose backward rounds the cotangent to
+    `compute_dtype` before its products); "fused" runs the fused QAT linear
+    kernels #14-#16 (`ops.fused_linear.sp_linear_fused`) where the JAX shape
+    gate `fused_linear_supported` passes, outside calibration, and the flat
+    linear elsewhere; "cond" multiplies through the casts to
+    `compute_dtype`, so its backward multiplies the unrounded float32
+    cotangent and rounds each product, and it skips the AMP cast of q/k/v.
     """
 
     model: GPT2Config = field(default_factory=GPT2Config)

@@ -11,8 +11,9 @@ or (P, 1), `iq_scale`/`iq_zp` (P, in) or (P, 1), `lora_A` (P, in, r),
 `lora_B` (P, r, out). The switchable LayerNorm holds gamma/beta banks (P, d).
 
 Gradients are autograd's, through the STEs of `quant.functional`, the
-bf16-both-directions `matmul_bf16`, the LayerNorm's hand-written backward
-and the flash attention kernels. Only leaves that require grad take any
+bf16-both-directions `matmul_bf16` (or the fused linear kernels of
+`ops.fused_linear` at `linear_impl="fused"`), the LayerNorm's hand-written
+backward and the flash attention kernels. Only leaves that require grad take any
 gradient work: a frozen tied `wte` costs no (vocab, d) gradient.
 """
 
@@ -27,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import FLASH_MIN_T, causal_attention
+from ..ops.fused_linear import fused_linear_supported, sp_linear_fused
 from ..ops.matmul import matmul_bf16
 from ..quant.calibration import dynamic_scale_flat
 from ..quant.functional import fake_quant_flat
@@ -151,7 +153,14 @@ def _input_stats(x, per_channel: bool, eps: float):
 def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
               calibration_mode: bool = False, collect_stats: bool = False,
               input_passthrough: bool = False):
-    """Quantized linear with per-bit LoRA (the JAX "flat" path).
+    """Quantized linear with per-bit LoRA, on the path `cfg.linear_impl`
+    selects, as in the JAX package: "fused" runs `sp_linear_fused` (kernels
+    #14-#16) where `fused_linear_supported` passes, outside calibration and
+    input pass-through, and the flat path otherwise; "auto" and "flat" run
+    the flat path (`matmul_bf16`: g rounded to `compute_dtype` before the
+    backward products); "cond" multiplies through the casts, so autograd
+    multiplies the unrounded float32 g and rounds each product to
+    `compute_dtype`.
 
     Returns (out, stats|None). At the 32-bit slot the quantizers pass
     through and scaling==0 zeroes the LoRA branch. `input_passthrough=True`
@@ -159,15 +168,17 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
     weight quantizer stays active.
     """
     q = cfg.quant
-    if cfg.linear_impl == "fused" and not (input_passthrough or calibration_mode):
-        raise NotImplementedError(
-            "linear_impl='fused' runs the fused QAT linear kernels #14-#16, "
-            "which are not ported yet (ROADMAP B)")
     bits = tables.bits[prec]
     kind = tables.kind[prec]
     stats = _input_stats(x, q.per_channel, q.eps) if collect_stats else None
+    if (cfg.linear_impl == "fused" and not (input_passthrough or calibration_mode)
+            and fused_linear_supported(x, p, q)):
+        return sp_linear_fused(x, p, prec, bits, kind, tables.scaling[prec], cfg), stats
     cdt = torch_dtype(cfg.compute_dtype)
-    mm = lambda a, b: matmul_bf16(a, b, cdt)
+    if cfg.linear_impl == "cond":
+        mm = lambda a, b: a.to(cdt).to(torch.float32) @ b.to(cdt).to(torch.float32)
+    else:
+        mm = lambda a, b: matmul_bf16(a, b, cdt)
 
     if input_passthrough:
         xq = x

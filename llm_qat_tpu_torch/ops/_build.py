@@ -23,6 +23,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -38,6 +40,10 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P]},
     "mega_decode": {
         "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P]},
+    "fused_linear": {
+        "fused_linear_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "fused_linear_bwd_dx": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "fused_linear_bwd_dw": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -111,6 +117,12 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of t's device, as the entry
+    points take it: kernels launch on PyTorch's current stream."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

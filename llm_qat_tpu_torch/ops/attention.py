@@ -100,7 +100,7 @@ def flash_attention(q, k, v):
     lib = _build.load("flash_attention")
     rc = lib.flash_attention_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D,
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(D), _build.stream(q))
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -174,10 +174,6 @@ def _check_operands(what, named, like):
                          f"{like.shape[3]}")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def flash_fwd_lse(q, k, v):
     """Causal flash forward with log-sum-exp (kernel #5). q,k,v: (B, H, T, D)
     float32 or bf16, any T. Returns (o in q's dtype, lse (B, H, T, 1)
@@ -193,7 +189,7 @@ def flash_fwd_lse(q, k, v):
     rc = lib.flash_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-        _stream(q))
+        _build.stream(q))
     _build.check(lib, rc, "flash_fwd_lse")
     flash_fwd_lse.launches += 1
     return o, lse
@@ -223,7 +219,7 @@ def flash_bwd(q, k, v, o, lse, do):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B * H, T, D, int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(D), _stream(q))
+        1.0 / math.sqrt(D), _build.stream(q))
     _build.check(lib, rc, "flash_bwd")
     flash_bwd.launches += 1
     return dq, dk, dv

@@ -533,7 +533,7 @@ def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
             int(lora_round), _KSPLIT]
     rc = lib.mega_decode_step_kv(
         *[t.data_ptr() for t in ptrs], *ints, float(eps), float(aq_max),
-        1.0 / math.sqrt(head_dim), torch.cuda.current_stream(h.device).cuda_stream)
+        1.0 / math.sqrt(head_dim), _build.stream(h))
     _build.check(lib, rc, "mega_decode_step_kv8")
     mega_decode_step_kv8.launches += 1
     return h_out, k_cache, v_cache, k_scale, v_scale

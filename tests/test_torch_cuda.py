@@ -247,3 +247,131 @@ def test_auto_attention_takes_flash_from_1024_on_the_card(cuda_device, T, flash)
     n = cfg.model.n_layer if flash else 0
     assert (flash_fwd_lse.launches - f0, flash_bwd.launches - b0) == (n, n)
     assert bool(torch.isfinite(p["blocks"]["c_attn"]["w"].grad).all())
+
+
+def _fused_inputs(dev, M, K, N, r, slot, dtype, seed=0):
+    """Operands of kernels #14-#16 on the card: a weight with its calibrated
+    per-column scales at slot (4-bit minmax, 8-bit log, 32-bit), operand-
+    dtype activations, LoRA factors and cotangent, a bias and the scalars."""
+    from llm_qat_tpu_torch.quant.calibration import calibrate_tensor
+
+    bits, kind = ((4.0, 0), (8.0, 1), (32.0, 0))[slot]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    w = (torch.rand((K, N), generator=g, device=dev) - 0.5) / 8
+    ws, wz = (t.reshape(-1) for t in calibrate_tensor(w, min(bits, 8.0), kind, channel_dim=1))
+    scalars = torch.tensor([bits, float(kind), 2.0, 0.0], device=dev)
+    return dict(xq=rnd(M, K).to(dtype), xa=rnd(M, r).to(dtype), w=w, ws=ws.contiguous(),
+                wz=wz.contiguous(), bq=(0.1 * rnd(r, N)).to(dtype), bias=0.1 * rnd(N),
+                scalars=scalars, g=rnd(M, N).to(dtype))
+
+
+# Kernels #14-#16 against their plain versions: the weight codes are equal
+# (the same float32 operations in the same order), the bf16 products exact
+# in float32 in both, so outputs differ by float32 summation order only;
+# within 1e-5 of max |plain| (dW: of its largest unclamped sum). Measured
+# up to 4.4e-6.
+FUSED_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("slot", [0, 1, 2])
+@pytest.mark.parametrize("M,K,N,r", [(256, 256, 384, 16), (200, 96, 136, 8),
+                                     (1024, 768, 2304, 64), (512, 3072, 768, 0)])
+def test_fused_linear_kernels_match_plain(cuda_device, dtype, slot, M, K, N, r):
+    """#14, #15 and #16 against `fused_linear_*_plain` at each slot and
+    operand type, ragged tiles (M = 200, K = 96, N = 136) and no LoRA
+    (r = 0) included; each wrapper counts one launch."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, M, K, N, r, slot, dtype, seed=M + K + slot)
+    fwd_args = (a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
+                a["scalars"], True, 1e-5)
+    dx_args = (a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True, 1e-5)
+    before = (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+              fl.fused_linear_bwd_dw.launches)
+    out = fl.fused_linear_fwd(*fwd_args)
+    dxq, dxa = fl.fused_linear_bwd_dx(*dx_args)
+    dw = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
+    torch.cuda.synchronize()
+    assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+            fl.fused_linear_bwd_dw.launches) == tuple(b + 1 for b in before)
+    pout = fl.fused_linear_fwd_plain(*fwd_args)
+    pdxq, pdxa = fl.fused_linear_bwd_dx_plain(*dx_args)
+    pdw = fl.fused_linear_bwd_dw_plain(a["xq"], a["g"], a["scalars"])
+    pairs = [("out", out, pout), ("dxq", dxq, pdxq), ("dw", dw, pdw)]
+    if r > 0:
+        pairs.append(("dxa", dxa, pdxa))
+    else:
+        assert dxa is None and pdxa is None
+    for name, got, want in pairs:
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        # dW's sums round at their unclamped size (the log slot clamps to ±10)
+        top = ((a["xq"].float().T @ a["g"].float()) if name == "dw" else want).abs().max()
+        err = (got - want).abs().max().item() / top.item()
+        print(name, "error / max |plain|", err)
+        assert err <= FUSED_TOL, (name, err)
+
+
+def test_fused_dw_kernel_clamps(cuda_device):
+    """At the 8-bit log slot #16 clamps dW to ±10 (g scaled up so that most
+    of dW is clamped), as its plain version does; at the 4-bit minmax slot
+    it does not."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    for slot, clamped in ((1, True), (0, False)):
+        a = _fused_inputs(cuda_device, 1024, 768, 768, 64, slot, torch.bfloat16, seed=9)
+        g = (50.0 * a["g"].float()).to(torch.bfloat16)
+        dw = fl.fused_linear_bwd_dw(a["xq"], g, a["scalars"])
+        pdw = fl.fused_linear_bwd_dw_plain(a["xq"], g, a["scalars"])
+        assert (dw.abs().max().item() == 10.0) == clamped
+        if clamped:
+            assert (dw.abs() == 10.0).float().mean().item() > 0.5
+        # the sums' rounding scales with the unclamped magnitude
+        top = (a["xq"].float().T @ g.float()).abs().max().item()
+        assert (dw - pdw).abs().max().item() <= FUSED_TOL * top
+
+
+def test_fused_linear_wrappers_check_their_inputs(cuda_device):
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, 256, 128, 128, 8, 0, torch.bfloat16)
+    args = [a[k] for k in ("xq", "xa", "w", "ws", "wz", "bq", "bias", "scalars")]
+    with pytest.raises(ValueError, match="w must be"):
+        fl.fused_linear_fwd(*args[:2], a["w"].to(torch.bfloat16), *args[3:], True, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_linear_fwd(*args[:2], a["w"].T.contiguous().T, *args[3:], True, 1e-5)
+    with pytest.raises(ValueError, match="g_bf must be"):
+        fl.fused_linear_bwd_dw(a["xq"].float(), a["g"], a["scalars"])
+    with pytest.raises(ValueError, match="CUDA"):
+        fl.fused_linear_bwd_dx(a["g"].half(), *[a[k] for k in ("w", "ws", "wz", "bq",
+                                                                "scalars")], True, 1e-5)
+
+
+def test_fused_sp_linear_runs_the_kernels(cuda_device):
+    """linear_impl="fused" on the card: one forward and backward of a small
+    SP model launches #14, #15 and #16 once per linear (w is trainable)."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 8, 32),
+                             lora_rank_per_bit={b: 8 for b in range(2, 17)} | {32: 0}),
+        compute_dtype="bfloat16", linear_impl="fused")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = init_sp_params(g, cfg, device=cuda_device)
+    p = calibrate_weight_quantizers(p, cfg)
+    p = calibrate_input_quantizers(
+        p, cfg, [torch.randint(0, 512, (2, 128), generator=g, device=cuda_device)])
+    for lin in ("c_attn", "attn_proj", "c_fc", "mlp_proj"):
+        p["blocks"][lin]["w"].requires_grad_(True)
+    ids = torch.randint(0, 512, (2, 128), generator=g, device=cuda_device)
+    for prec in (0, 1, 2):
+        before = (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+                  fl.fused_linear_bwd_dw.launches)
+        sp_forward(p, ids, prec, cfg, labels=ids)["loss"].backward()
+        torch.cuda.synchronize()
+        n = 4 * cfg.model.n_layer
+        assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+                fl.fused_linear_bwd_dw.launches) == tuple(b + n for b in before)
+    assert bool(torch.isfinite(p["blocks"]["c_fc"]["w"].grad).all())

@@ -121,14 +121,31 @@ def test_attention_impl_selects_the_path(monkeypatch, impl, T, flash):
     assert bool(calls) == flash
 
 
-def test_fused_linear_and_ring_attention_raise():
-    """Options whose kernels or modules are not ported raise instead of
-    running something else."""
+def test_fused_linear_and_ring_attention_raise(monkeypatch):
+    """linear_impl="fused" runs: the fused linear (here its plain versions)
+    where the JAX shape gate passes (M = 256, K = 128, rank 8), the flat
+    linear elsewhere (M = 8, and calibration with the input quantizer in
+    pass-through), as in the JAX package. Ring attention, whose module is
+    not ported, raises instead of running something else."""
+    from llm_qat_tpu_torch.ops import fused_linear as tfl
+
+    calls = []
+    real = tfl.fused_linear_fwd
+    monkeypatch.setattr(tfl, "fused_linear_fwd", lambda *a: calls.append(1) or real(*a))
     cfg = _tiny_cfg("auto").replace(linear_impl="fused")
+    cfg = cfg.replace(quant=tc.QuantConfig(bit_widths=(4, 32), lora_rank_per_bit={4: 8, 32: 0},
+                                           lora_alpha_per_bit={4: 8, 32: 0}))
     params = tsp.init_sp_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="#14-#16"):
-        tsp.sp_forward(params, ids, 0, cfg)
-    tsp.sp_forward(params, ids, 0, cfg, calibration_mode=True, input_passthrough=True)
+    ids = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(1))
+    out = tsp.sp_forward(params, ids, 0, cfg)
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert len(calls) == 4 * cfg.model.n_layer
+    flat = tsp.sp_forward(params, ids, 0, cfg.replace(linear_impl="flat"))
+    torch.testing.assert_close(out["logits"], flat["logits"], atol=1e-3, rtol=0)
+    for kw, short in (({}, True), ({"calibration_mode": True, "input_passthrough": True}, False)):
+        calls.clear()
+        x = ids[:1, :8] if short else ids
+        out = tsp.sp_forward(params, x, 0, cfg, **kw)
+        assert bool(torch.isfinite(out["logits"]).all()) and calls == []
     with pytest.raises(NotImplementedError, match="A.9"):
         tsp.sp_forward(params, ids, 0, _tiny_cfg("auto"), attention_fn=lambda *a: a[0])

@@ -1,10 +1,19 @@
-// Whole-model decode step with an int8 / int4 KV cache, for sm_90a.
+// Whole-model decode step, for sm_90a, in three attention variants.
 //
-// Replaces the Pallas kernel `_mega_kernel_kv8` (non-per-slot mode) behind
-// `mega_decode_step_kv8` in llm_qat_tpu/ops/mega_decode.py. The Python
-// wrapper is llm_qat_tpu_torch/ops/mega_decode.py::mega_decode_step_kv8,
-// and `mega_decode_step_kv8_plain` beside it computes the same function in
-// plain PyTorch.
+// Replaces three Pallas kernels of llm_qat_tpu/ops/mega_decode.py:
+//   `_mega_kernel_kv8` (per_slot=False) behind `mega_decode_step_kv8`:
+//     int8 / int4 KV codes with row scales, one shared position (entry
+//     point mega_decode_step_kv, attention kernel k_attn);
+//   `_mega_kernel` behind `mega_decode_step`: a float32 or bf16
+//     head-interleaved cache (mega_decode_step_f, k_attn_f);
+//   `_mega_kernel_kv8` (per_slot=True) behind `mega_decode_step_cb`:
+//     continuous batching, per-slot lengths over read-only main caches
+//     plus a chunk-local recent buffer appended at a uniform rpos
+//     (mega_decode_step_cb, k_attn with a recent block).
+// Only the attention touches the caches, so the three share every other
+// kernel (k_row, k_lora_a, k_gemv) and the host sequence (run_step). The
+// Python wrappers are in llm_qat_tpu_torch/ops/mega_decode.py, each with a
+// plain PyTorch version beside it that computes the same function.
 //
 // Bound. One token per sequence streams every weight it uses once: at
 // GPT-2 124M with int4 tiles that is 12 layers x 12 tiles x (384 x 768)
@@ -15,7 +24,9 @@
 // scale bytes, 74.5 KB per position at B = 8). At B = 8 the step is a GEMV,
 // far below the card's operations-per-byte line, so it is bound by
 // device-memory bytes (3.35 TB/s on an H100 SXM): 64.8 MB, 19.3 us, at
-// pos 160.
+// pos 160. The float-cache step reads 2 x d x 2 bytes per bf16 cache row
+// instead (95.2 MB, 28.4 us, at B = 8 and pos 143); the per-slot step reads
+// each slot's own main prefix plus its recent rows.
 //
 // Design. The TPU kernel runs a sequential (layer, tile) grid and carries
 // the hidden state between grid steps in VMEM; CUDA blocks run in no order,
@@ -43,6 +54,11 @@
 // under a megabyte: each kernel waits on short chains of dependent loads and
 // block barriers, far from the byte bound (a persistent kernel that streams
 // the weights over every SM is the later fix).
+// Per slot, the TPU kernel streams every slot's main prefix up to the
+// batch's longest and masks; here each (b, h) block stops at its own
+// length, which gives the same result: a block that a row masks entirely
+// adds exactly 0 once the row has a score, and before that its running max
+// is -1e30, so the final correction exp(m - m_f) zeroes what it added.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +72,7 @@
 #define BCH 8          // batch rows per GEMV block
 #define ATTN_THREADS 128
 #define LB_SPLIT 4      // K-slices whose blocks also compute LoRA-B partials
+#define MAX_SLOTS 256   // batch rows of a per-slot step (lengths passed by value)
 
 extern "C" const char* kernels_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -466,13 +483,21 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32) k_gemv(GemvArgs a) {
   else lora_b_cols<2>(a, xas, nb, b0, to, c, redf);
 }
 
+
 // ---------------------------------------------------------------------------
-// k_attn: one block per (b, h). Quantizes q per (b, h) row and the new K/V
-// row per row (absmax over all d lanes), streams the cached rows [0, pos)
-// in tbp-row blocks with s8 score and PV dots and probabilities quantized
-// per block, merges the new token in float32 from its dequantized codes,
-// and appends the new codes and scales at row `pos` (never read here).
+// k_attn: one block per (b, h), int8 / int4 codes with per-row scales.
+// Quantizes q per (b, h) row and the new K/V row per row (absmax over all d
+// lanes), streams the cached rows [0, lens[b]) of the main caches in
+// tbp-row blocks with s8 score and PV dots and probabilities quantized per
+// block, then (continuous batching) the one recent block [0, rlim), merges
+// the new token in float32 from its dequantized codes, and appends the new
+// codes and scales at row `wpos` of the write target (the main caches at
+// the shared position, or the recent buffer at rpos; a row never read here).
 // ---------------------------------------------------------------------------
+
+struct SlotLen {
+  int v[MAX_SLOTS];
+};
 
 __device__ __forceinline__ int kv_word(const int8_t* row, int lane, int d2, int kv_bits) {
   // 4 codes of lanes [lane, lane+4) (lane % 4 == 0) as sign-extended bytes
@@ -487,19 +512,93 @@ __device__ __forceinline__ int kv_code(const int8_t* row, int lane, int d2, int 
   return lane < d2 ? ((v << 28) >> 28) : (v >> 4);
 }
 
+struct AttnSmem {
+  float* acc;      // D
+  float* red;      // 33
+  float* sb;       // tbp
+  int* pvp;        // ATTN_THREADS
+  int8_t* qcode;   // D
+  int8_t* pq;      // tbp
+};
+
+// One tbp-row block [t0, t0 + tbp) of a batch row's cache (kb/vb codes,
+// ksb/vsb scales), rows < lim valid: the online-softmax update of m, l, acc.
+__device__ void attn_block_kv8(const int8_t* kb, const int8_t* vb, const float* ksb,
+                               const float* vsb, int t0, int lim, int tbp, int h, int D,
+                               int d2, int dc, int kv_bits, float qs, const AttnSmem& s,
+                               float& m, float& l) {
+  const int tid = threadIdx.x;
+  const int lane_i = tid % D, npart = blockDim.x / D, part_i = tid / D;
+  float lmax = NEG_INF;
+  for (int t = tid; t < tbp; t += blockDim.x) {
+    const int tt = t0 + t;
+    float sv = NEG_INF;
+    if (tt < lim) {
+      const int8_t* row = kb + (size_t)tt * dc;
+      int s32 = 0;
+#pragma unroll 4
+      for (int i4 = 0; i4 < D; i4 += 4)
+        s32 = __dp4a(*reinterpret_cast<const int*>(s.qcode + i4),
+                     kv_word(row, h * D + i4, d2, kv_bits), s32);
+      sv = (float)s32 * qs * ksb[tt];
+    }
+    s.sb[t] = sv;
+    lmax = fmaxf(lmax, sv);
+  }
+  const float m_new = fmaxf(m, block_max(lmax, s.red));
+  const float corr = expf(m - m_new);
+  float ls = 0.f;
+  float lpm = 0.f;
+  for (int t = tid; t < tbp; t += blockDim.x) {
+    const float p = expf(s.sb[t] - m_new);
+    ls += p;
+    const float psc = (t0 + t < lim) ? p * vsb[t0 + t] : 0.f;
+    s.sb[t] = psc;
+    lpm = fmaxf(lpm, psc);
+  }
+  const float psum = block_sum(ls, s.red);
+  l = l * corr + psum;
+  const float ps = fmaxf(block_max(lpm, s.red), 1e-30f) / 127.f;
+  for (int t = tid; t < tbp; t += blockDim.x) s.pq[t] = (int8_t)q8f(s.sb[t], ps, 127.f);
+  __syncthreads();
+  int pv = 0;
+  if (part_i < npart) {
+    const int tmax = min(tbp, lim - t0);
+#pragma unroll 8
+    for (int t = part_i; t < tmax; t += npart)
+      pv += (int)s.pq[t] * kv_code(vb + (size_t)(t0 + t) * dc, h * D + lane_i, d2, kv_bits);
+  }
+  s.pvp[tid] = pv;
+  __syncthreads();
+  if (tid < D) {
+    int tot = 0;
+    for (int p = 0; p < npart; ++p) tot += s.pvp[p * D + tid];
+    s.acc[tid] = s.acc[tid] * corr + (float)tot * ps;
+  }
+  m = m_new;
+  __syncthreads();
+}
+
+// kc/vc/ksc/vsc: this layer's main caches (B, T, dc) / (B, T), rows
+// [0, lens[b]) read; kr..vsr: this layer's recent buffer (B, Tr, dc) /
+// (B, Tr), rows [0, rlim) read, or null; kw..vsw: the write target (B, Tw,
+// dc) / (B, Tw), row wpos written.
 __global__ void __launch_bounds__(ATTN_THREADS)
-k_attn(const float* __restrict__ qkv, int8_t* kc, int8_t* vc, float* ksc,
-       float* vsc, float* __restrict__ attn, int B, int H, int D, int d, int T,
-       int pos, int tbp, int kv_bits, float sm_scale, int act_bf16) {
+k_attn(const float* __restrict__ qkv, const int8_t* kc, const int8_t* vc, const float* ksc,
+       const float* vsc, int T, SlotLen lens, const int8_t* kr, const int8_t* vr,
+       const float* ksr, const float* vsr, int Tr, int rlim, int8_t* kw, int8_t* vw,
+       float* ksw, float* vsw, int Tw, int wpos, float* __restrict__ attn, int H, int D,
+       int d, int tbp, int kv_bits, float sm_scale, int act_bf16) {
   extern __shared__ float asmf[];
   float* qf = asmf;             // D
   float* vn = qf + D;           // D
-  float* acc = vn + D;          // D
-  float* red = acc + D;         // 33
-  float* sb = red + 33;         // tbp
-  int* pvp = reinterpret_cast<int*>(sb + tbp);          // ATTN_THREADS
-  int8_t* qcode = reinterpret_cast<int8_t*>(pvp + ATTN_THREADS);  // D
-  int8_t* pq = qcode + D;       // tbp
+  AttnSmem s;
+  s.acc = vn + D;                                        // D
+  s.red = s.acc + D;                                     // 33
+  s.sb = s.red + 33;                                     // tbp
+  s.pvp = reinterpret_cast<int*>(s.sb + tbp);            // ATTN_THREADS
+  s.qcode = reinterpret_cast<int8_t*>(s.pvp + ATTN_THREADS);  // D
+  s.pq = s.qcode + D;                                    // tbp
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
   const int d2 = d / 2, dc = kv_bits == 8 ? d : d2;
@@ -513,79 +612,152 @@ k_attn(const float* __restrict__ qkv, int8_t* kc, int8_t* vc, float* ksc,
     const float v = qrow[h * D + i] * sm_scale;
     qf[i] = v;
     qa = fmaxf(qa, fabsf(v));
-    acc[i] = 0.f;
+    s.acc[i] = 0.f;
   }
-  const float qs = fmaxf(block_max(qa, red), 1e-8f) / 127.f;
+  const float qs = fmaxf(block_max(qa, s.red), 1e-8f) / 127.f;
   float ka = 0.f, va = 0.f;
   for (int i = tid; i < d; i += blockDim.x) {
     ka = fmaxf(ka, fabsf(krow[i]));
     va = fmaxf(va, fabsf(vrow[i]));
   }
-  const float ks_new = fmaxf(block_max(ka, red), 1e-8f) / kvq;
-  const float vs_new = fmaxf(block_max(va, red), 1e-8f) / kvq;
+  const float ks_new = fmaxf(block_max(ka, s.red), 1e-8f) / kvq;
+  const float vs_new = fmaxf(block_max(va, s.red), 1e-8f) / kvq;
   float sn = 0.f;
   for (int i = tid; i < D; i += blockDim.x) {
-    qcode[i] = (int8_t)q8f(qf[i], qs, 127.f);
+    s.qcode[i] = (int8_t)q8f(qf[i], qs, 127.f);
     const float kn = q8f(krow[h * D + i], ks_new, kvq) * ks_new;
     vn[i] = q8f(vrow[h * D + i], vs_new, kvq) * vs_new;
     sn += qf[i] * kn;
   }
-  const float s_new = block_sum(sn, red);  // syncs: qcode/vn visible
+  const float s_new = block_sum(sn, s.red);  // syncs: qcode/vn visible
 
-  const int8_t* kb = kc + (size_t)b * T * dc;
-  const int8_t* vb = vc + (size_t)b * T * dc;
-  const float* ksb = ksc + (size_t)b * T;
-  const float* vsb = vsc + (size_t)b * T;
+  float m = NEG_INF, l = 0.f;
+  const int lim = lens.v[b];
+  const int nblk = (lim + tbp - 1) / tbp;
+  for (int j = 0; j < nblk; ++j)
+    attn_block_kv8(kc + (size_t)b * T * dc, vc + (size_t)b * T * dc, ksc + (size_t)b * T,
+                   vsc + (size_t)b * T, j * tbp, lim, tbp, h, D, d2, dc, kv_bits, qs, s, m, l);
+  if (kr && rlim > 0)
+    attn_block_kv8(kr + (size_t)b * Tr * dc, vr + (size_t)b * Tr * dc, ksr + (size_t)b * Tr,
+                   vsr + (size_t)b * Tr, 0, rlim, tbp, h, D, d2, dc, kv_bits, qs, s, m, l);
+
+  const float m_f = fmaxf(m, s_new);
+  const float corr = expf(m - m_f);
+  const float p_new = expf(s_new - m_f);
+  const float l_f = l * corr + p_new;
+  for (int i = tid; i < D; i += blockDim.x) {
+    const float out = s.acc[i] * corr + p_new * vn[i];
+    attn[(size_t)b * d + h * D + i] = rt(out / fmaxf(l_f, 1e-30f), act_bf16);
+  }
+
+  // append: this block writes the code bytes [h*D, (h+1)*D) ∩ [0, dc)
+  int8_t* kwr = kw + ((size_t)b * Tw + wpos) * dc;
+  int8_t* vwr = vw + ((size_t)b * Tw + wpos) * dc;
+  const int j1 = min((h + 1) * D, dc);
+  for (int jb = h * D + tid; jb < j1; jb += blockDim.x) {
+    if (kv_bits == 8) {
+      kwr[jb] = (int8_t)q8f(krow[jb], ks_new, kvq);
+      vwr[jb] = (int8_t)q8f(vrow[jb], vs_new, kvq);
+    } else {
+      const int klo = (int)q8f(krow[jb], ks_new, kvq), khi = (int)q8f(krow[jb + d2], ks_new, kvq);
+      const int vlo = (int)q8f(vrow[jb], vs_new, kvq), vhi = (int)q8f(vrow[jb + d2], vs_new, kvq);
+      kwr[jb] = (int8_t)((klo & 0xF) | (khi << 4));
+      vwr[jb] = (int8_t)((vlo & 0xF) | (vhi << 4));
+    }
+  }
+  if (h == 0 && tid == 0) {
+    ksw[(size_t)b * Tw + wpos] = ks_new;
+    vsw[(size_t)b * Tw + wpos] = vs_new;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k_attn_f: one block per (b, h) over a float head-interleaved cache (T is
+// float or bf16; replaces the attention of the Pallas `_mega_kernel`).
+// q*sm_scale is rounded to the cache dtype for the score dots, each block's
+// probabilities before the P.V sum, and the new K/V go through the cache
+// dtype before their own score (against the unrounded q) and merge. Warps
+// take whole rows for the scores (lanes over the head's D values), and the
+// threads split rows x D lanes for P.V. The new K/V are appended at `pos`.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T> __device__ __forceinline__ float in_cdt(float x) {
+  return to_f(from_f<T>(x));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATTN_THREADS)
+k_attn_f(const float* __restrict__ qkv, T* kc, T* vc, float* __restrict__ attn, int H,
+         int D, int d, int Tc, int pos, int tbp, float sm_scale, int act_bf16) {
+  extern __shared__ float asmf[];
+  float* qm = asmf;           // D
+  float* acc = qm + D;        // D
+  float* red = acc + D;       // 33
+  float* sb = red + 33;       // tbp
+  float* pvp = sb + tbp;      // ATTN_THREADS
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const float* qrow = qkv + (size_t)b * 3 * d + h * D;
+  const float* krow = qrow + d;
+  const float* vrow = qrow + 2 * d;
+  float sn = 0.f;
+  for (int i = tid; i < D; i += blockDim.x) {
+    const float q = qrow[i] * sm_scale;
+    qm[i] = in_cdt<T>(q);
+    acc[i] = 0.f;
+    sn += q * in_cdt<T>(krow[i]);
+  }
+  const float s_new = block_sum(sn, red);  // syncs: qm/acc visible
+
+  const T* kb = kc + (size_t)b * Tc * d + h * D;
+  const T* vb = vc + (size_t)b * Tc * d + h * D;
+  const int lane_i = tid % D, npart = blockDim.x / D, part_i = tid / D;
   float m = NEG_INF, l = 0.f;
   const int nblk = (pos + tbp - 1) / tbp;
-  const int lane_i = tid % D, npart = blockDim.x / D, part_i = tid / D;
   for (int j = 0; j < nblk; ++j) {
     const int t0 = j * tbp;
-    float lmax = NEG_INF;
-    for (int t = tid; t < tbp; t += blockDim.x) {
+    for (int t = warp; t < tbp; t += nwarp) {
       const int tt = t0 + t;
-      float sv = NEG_INF;
-      if (tt < pos) {
-        const int8_t* row = kb + (size_t)tt * dc;
-        int s32 = 0;
-#pragma unroll 4
-        for (int i4 = 0; i4 < D; i4 += 4)
-          s32 = __dp4a(*reinterpret_cast<const int*>(qcode + i4),
-                       kv_word(row, h * D + i4, d2, kv_bits), s32);
-        sv = (float)s32 * qs * ksb[tt];
-      }
-      sb[t] = sv;
-      lmax = fmaxf(lmax, sv);
+      float part = 0.f;
+      if (tt < pos)
+        for (int i = lane; i < D; i += 32) part += qm[i] * to_f(kb[(size_t)tt * d + i]);
+      part = warp_sum(part);
+      if (lane == 0) sb[t] = tt < pos ? part : NEG_INF;
     }
+    __syncthreads();
+    float lmax = NEG_INF;
+    for (int t = tid; t < tbp; t += blockDim.x) lmax = fmaxf(lmax, sb[t]);
     const float m_new = fmaxf(m, block_max(lmax, red));
     const float corr = expf(m - m_new);
     float ls = 0.f;
-    float lpm = 0.f;
     for (int t = tid; t < tbp; t += blockDim.x) {
       const float p = expf(sb[t] - m_new);
       ls += p;
-      const float psc = (t0 + t < pos) ? p * vsb[t0 + t] : 0.f;
-      sb[t] = psc;
-      lpm = fmaxf(lpm, psc);
+      sb[t] = in_cdt<T>(p);
     }
-    const float psum = block_sum(ls, red);
-    l = l * corr + psum;
-    const float ps = fmaxf(block_max(lpm, red), 1e-30f) / 127.f;
-    for (int t = tid; t < tbp; t += blockDim.x) pq[t] = (int8_t)q8f(sb[t], ps, 127.f);
-    __syncthreads();
-    int pv = 0;
+    l = l * corr + block_sum(ls, red);  // syncs: the rounded sb are visible
+    float pv = 0.f;
     if (part_i < npart) {
       const int tmax = min(tbp, pos - t0);
-#pragma unroll 8
       for (int t = part_i; t < tmax; t += npart)
-        pv += (int)pq[t] * kv_code(vb + (size_t)(t0 + t) * dc, h * D + lane_i, d2, kv_bits);
+        pv += sb[t] * to_f(vb[(size_t)(t0 + t) * d + lane_i]);
     }
     pvp[tid] = pv;
     __syncthreads();
     if (tid < D) {
-      int tot = 0;
+      float tot = 0.f;
       for (int p = 0; p < npart; ++p) tot += pvp[p * D + tid];
-      acc[tid] = acc[tid] * corr + (float)tot * ps;
+      acc[tid] = acc[tid] * corr + tot;
     }
     m = m_new;
     __syncthreads();
@@ -596,28 +768,15 @@ k_attn(const float* __restrict__ qkv, int8_t* kc, int8_t* vc, float* ksc,
   const float p_new = expf(s_new - m_f);
   const float l_f = l * corr + p_new;
   for (int i = tid; i < D; i += blockDim.x) {
-    const float out = acc[i] * corr + p_new * vn[i];
+    const float out = acc[i] * corr + p_new * in_cdt<T>(vrow[i]);
     attn[(size_t)b * d + h * D + i] = rt(out / fmaxf(l_f, 1e-30f), act_bf16);
   }
-
-  // append: this block writes the code bytes [h*D, (h+1)*D) ∩ [0, dc)
-  int8_t* kw = kc + ((size_t)b * T + pos) * dc;
-  int8_t* vw = vc + ((size_t)b * T + pos) * dc;
-  const int j1 = min((h + 1) * D, dc);
-  for (int jb = h * D + tid; jb < j1; jb += blockDim.x) {
-    if (kv_bits == 8) {
-      kw[jb] = (int8_t)q8f(krow[jb], ks_new, kvq);
-      vw[jb] = (int8_t)q8f(vrow[jb], vs_new, kvq);
-    } else {
-      const int klo = (int)q8f(krow[jb], ks_new, kvq), khi = (int)q8f(krow[jb + d2], ks_new, kvq);
-      const int vlo = (int)q8f(vrow[jb], vs_new, kvq), vhi = (int)q8f(vrow[jb + d2], vs_new, kvq);
-      kw[jb] = (int8_t)((klo & 0xF) | (khi << 4));
-      vw[jb] = (int8_t)((vlo & 0xF) | (vhi << 4));
-    }
-  }
-  if (h == 0 && tid == 0) {
-    ksc[(size_t)b * T + pos] = ks_new;
-    vsc[(size_t)b * T + pos] = vs_new;
+  // append this head's lanes of row pos
+  T* kw = kc + ((size_t)b * Tc + pos) * d + h * D;
+  T* vw = vc + ((size_t)b * Tc + pos) * d + h * D;
+  for (int i = tid; i < D; i += blockDim.x) {
+    kw[i] = from_f<T>(krow[i]);
+    vw[i] = from_f<T>(vrow[i]);
   }
 }
 
@@ -625,14 +784,79 @@ k_attn(const float* __restrict__ qkv, int8_t* kc, int8_t* vc, float* ksc,
 // host side: one decode step on `stream`
 // ---------------------------------------------------------------------------
 
+// The attention of a step: which kernel, and the caches it reads and
+// appends to.
+struct Attn {
+  int kind;      // 0 codes at a shared pos (#1), 1 float cache (#3), 2 per-slot (#4)
+  int T, pos, tbp, kv_bits, cdt;
+  void* kc;      // kind 0/2: (L, B, T, dc) int8 codes; kind 1: (L, B, T, d) float/bf16
+  void* vc;
+  float* ksc;    // kind 0/2: (L, B, T) row scales
+  float* vsc;
+  int8_t* kr;    // kind 2: the recent buffer (L, B, Tr, dc) + (L, B, Tr) scales
+  int8_t* vr;
+  float* ksr;
+  float* vsr;
+  int Tr, rpos;
+  SlotLen lens;  // kinds 0/2: rows of the main caches each batch row reads
+};
+
+static int set_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+static int launch_attn(const Attn& A, int l, const float* qkv, float* attn, int B, int H,
+                       int d, float sm_scale, int act_bf16, cudaStream_t stream) {
+  const int D = d / H;
+  int rc;
+  if (A.kind == 1) {
+    const size_t off = (size_t)l * B * A.T * d;
+    const size_t smem = sizeof(float) * (2 * D + 33 + A.tbp + ATTN_THREADS);
+    if (A.cdt == 0) {
+      if ((rc = set_smem((const void*)k_attn_f<float>, smem))) return rc;
+      k_attn_f<float><<<B * H, ATTN_THREADS, smem, stream>>>(
+          qkv, static_cast<float*>(A.kc) + off, static_cast<float*>(A.vc) + off, attn, H, D,
+          d, A.T, A.pos, A.tbp, sm_scale, act_bf16);
+    } else {
+      if ((rc = set_smem((const void*)k_attn_f<__nv_bfloat16>, smem))) return rc;
+      k_attn_f<__nv_bfloat16><<<B * H, ATTN_THREADS, smem, stream>>>(
+          qkv, static_cast<__nv_bfloat16*>(A.kc) + off, static_cast<__nv_bfloat16*>(A.vc) + off,
+          attn, H, D, d, A.T, A.pos, A.tbp, sm_scale, act_bf16);
+    }
+    return (int)cudaGetLastError();
+  }
+  const int dc = A.kv_bits == 8 ? d : d / 2;
+  const size_t lo = (size_t)l * B * A.T;
+  int8_t* kc = static_cast<int8_t*>(A.kc) + lo * dc;
+  int8_t* vc = static_cast<int8_t*>(A.vc) + lo * dc;
+  float* ksc = A.ksc + lo;
+  float* vsc = A.vsc + lo;
+  const int8_t *kr = nullptr, *vr = nullptr;
+  const float *ksr = nullptr, *vsr = nullptr;
+  int8_t *kw = kc, *vw = vc;
+  float *ksw = ksc, *vsw = vsc;
+  int Tw = A.T, wpos = A.pos;
+  if (A.kind == 2) {
+    const size_t ro = (size_t)l * B * A.Tr;
+    kw = A.kr + ro * dc; vw = A.vr + ro * dc; ksw = A.ksr + ro; vsw = A.vsr + ro;
+    kr = kw; vr = vw; ksr = ksw; vsr = vsw;
+    Tw = A.Tr; wpos = A.rpos;
+  }
+  const size_t smem = sizeof(float) * (3 * D + 33 + A.tbp)
+                      + sizeof(int) * ATTN_THREADS + (size_t)D + A.tbp + 16;
+  if ((rc = set_smem((const void*)k_attn, smem))) return rc;
+  k_attn<<<B * H, ATTN_THREADS, smem, stream>>>(
+      qkv, kc, vc, ksc, vsc, A.T, A.lens, kr, vr, ksr, vsr, A.Tr, A.rpos, kw, vw, ksw, vsw,
+      Tw, wpos, attn, H, D, d, A.tbp, A.kv_bits, sm_scale, act_bf16);
+  return (int)cudaGetLastError();
+}
+
 static int launch_row(const RowArgs& a, cudaStream_t stream) {
   const int xmax = a.part ? (a.n_cols > a.K ? a.n_cols : a.K) : a.K;
   const size_t smem = sizeof(float) * (33 + xmax);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(k_row, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int rc = set_smem((const void*)k_row, smem);
+  if (rc) return rc;
   k_row<<<a.B, ROW_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -640,83 +864,82 @@ static int launch_row(const RowArgs& a, cudaStream_t stream) {
 static int launch_gemv(const GemvArgs& a, int ksplit, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (GEMV_WARPS * BCH * GEMV_COLS + BCH * a.r)
                       + (size_t)BCH * a.K;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(k_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int rc = set_smem((const void*)k_gemv, smem);
+  if (rc) return rc;
   dim3 grid(a.n_cols / GEMV_COLS, ksplit, (a.B + BCH - 1) / BCH);
   k_gemv<<<grid, GEMV_WARPS * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mega_decode_step_kv(
-    const float* h_in, float* h_out, const int8_t* wt, const float* ws,
-    const float* bias, const void* at, const void* bt, const float* at_s,
-    const float* bt_s, const float* ln, const float* xs, int8_t* kc, int8_t* vc,
-    float* ksc, float* vsc, int8_t* qx, float* xa, float* xf, int32_t* part,
-    float* plb, float* qkv, float* attn, float* g, int L, int B, int d, int H, int T, int r,
-    int pos, int tbp, int wbits, int kv_bits, int has_lora, int lora_dt,
-    int act_bf16, int lora_round, int ksplit, float eps, float aq_max,
-    float sm_scale, cudaStream_t stream) {
-  const int D = d / H, dk = wbits == 4 ? d / 2 : d, dc = kv_bits == 8 ? d : d / 2;
-  const size_t esz = lora_dt == 0 ? 4 : (lora_dt == 1 ? 2 : 1);
-  int rc = (int)cudaMemcpyAsync(h_out, h_in, sizeof(float) * B * d,
+// The weights, scratch and shape of a step (everything but its attention).
+struct Step {
+  const float* h_in; float* h_out; const int8_t* wt; const float* ws; const float* bias;
+  const void* at; const void* bt; const float* at_s; const float* bt_s; const float* ln;
+  const float* xs; int8_t* qx; float* xa; float* xf; int32_t* part; float* plb; float* qkv;
+  float* attn; float* g;
+  int L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16, lora_round, ksplit;
+  float eps, aq_max, sm_scale;
+};
+
+static int run_step(const Step& S, const Attn& A, cudaStream_t stream) {
+  const int L = S.L, B = S.B, d = S.d, r = S.r, has_lora = S.has_lora;
+  const int dk = S.wbits == 4 ? d / 2 : d;
+  const size_t esz = S.lora_dt == 0 ? 4 : (S.lora_dt == 1 ? 2 : 1);
+  float* h_out = S.h_out;
+  int rc = (int)cudaMemcpyAsync(h_out, S.h_in, sizeof(float) * B * d,
                                 cudaMemcpyDeviceToDevice, stream);
   if (rc) return rc;
 
   for (int l = 0; l < L; ++l) {
-    const int8_t* wl = wt + (size_t)l * N_TILES * dk * d;
-    const float* xsl = xs + l * 4;
-    const char* btl = static_cast<const char*>(bt) + (size_t)l * N_TILES * r * d * esz;
+    const int8_t* wl = S.wt + (size_t)l * N_TILES * dk * d;
+    const float* xsl = S.xs + l * 4;
+    const char* btl = static_cast<const char*>(S.bt) + (size_t)l * N_TILES * r * d * esz;
 
     RowArgs base = {};
     base.B = B; base.d = d; base.r = r; base.has_lora = has_lora;
-    base.lora_dt = lora_dt; base.lora_round = lora_round; base.act_bf16 = act_bf16;
-    base.ws = ws + (size_t)l * N_TILES * d; base.bias = bias + (size_t)l * N_TILES * d;
-    base.plb = plb; base.bt_s = bt_s + l * N_TILES;
-    base.h = h_out; base.eps = eps; base.aq = aq_max; base.qx = qx; base.xf = xf;
-    base.ksplit = ksplit;
+    base.lora_dt = S.lora_dt; base.lora_round = S.lora_round; base.act_bf16 = S.act_bf16;
+    base.ws = S.ws + (size_t)l * N_TILES * d; base.bias = S.bias + (size_t)l * N_TILES * d;
+    base.plb = S.plb; base.bt_s = S.bt_s + l * N_TILES;
+    base.h = h_out; base.eps = S.eps; base.aq = S.aq_max; base.qx = S.qx; base.xf = S.xf;
+    base.ksplit = S.ksplit;
 
     // prologue of a linear: LN (ln_off >= 0) or not, then quantization, of
     // layer `lp` (the next layer's for the mlp epilogue)
     auto prep_of = [&](RowArgs& a, int K, int ln_off, int lp, int xs_i) {
       a.prep = ln_off >= 0 ? 2 : 1; a.K = K;
-      const float* lnp = ln + (size_t)lp * 4 * d;
+      const float* lnp = S.ln + (size_t)lp * 4 * d;
       a.ln_g = lnp + (ln_off >= 0 ? ln_off : 0) * d;
       a.ln_b = lnp + (ln_off >= 0 ? ln_off + 1 : 1) * d;
-      a.prep_xs = xs + lp * 4 + xs_i;
+      a.prep_xs = S.xs + lp * 4 + xs_i;
     };
     // k_row, then the LoRA-A of its prepared row from tile a_tile of layer lp
     auto row = [&](const RowArgs& a, int lp, int a_tile) {
       int e = launch_row(a, stream);
       if (e || !a.prep || !has_lora) return e;
       const int jn = r % 8 == 0 ? 8 : r;
-      const void* atp = static_cast<const char*>(at)
+      const void* atp = static_cast<const char*>(S.at)
                         + ((size_t)lp * N_TILES + a_tile) * d * r * esz;
       const size_t smem = sizeof(float) * a.K;
-      if (smem > 48 * 1024) {
-        e = (int)cudaFuncSetAttribute(k_lora_a, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem);
-        if (e) return e;
-      }
+      if ((e = set_smem((const void*)k_lora_a, smem))) return e;
       k_lora_a<<<dim3(B, r / jn), LORA_THREADS, smem, stream>>>(
-          xf, a.K, d, atp, at_s + lp * N_TILES + a_tile, r, jn, lora_dt, lora_round, xa);
+          S.xf, a.K, d, atp, S.at_s + lp * N_TILES + a_tile, r, jn, S.lora_dt, S.lora_round,
+          S.xa);
       return (int)cudaGetLastError();
     };
     auto epi_of = [&](RowArgs& a, int n_cols, int tile0, int xs_i, int finish, float* y) {
-      a.part = part; a.n_cols = n_cols; a.epi_tile0 = tile0; a.epi_xs = xsl + xs_i;
+      a.part = S.part; a.n_cols = n_cols; a.epi_tile0 = tile0; a.epi_xs = xsl + xs_i;
       a.finish = finish; a.y = y;
     };
     // GEMV of a linear: weight tiles from w_tile, LoRA-B tiles from b_tile
     auto gemv = [&](int K, int w_tile, int n_cols, int n_in, int b_tile) {
       GemvArgs ga = {};
-      ga.qx = qx; ga.K = K; ga.wt = reinterpret_cast<const uint8_t*>(wl + (size_t)w_tile * dk * d);
-      ga.d = d; ga.dk = dk; ga.wbits = wbits; ga.n_cols = n_cols; ga.n_in = n_in; ga.B = B;
-      ga.part = part; ga.has_lora = has_lora; ga.r = r; ga.lora_dt = lora_dt;
-      ga.lora_round = lora_round; ga.xa = xa; ga.bt = btl + (size_t)b_tile * r * d * esz;
-      ga.plb = plb;
-      return launch_gemv(ga, ksplit, stream);
+      ga.qx = S.qx; ga.K = K;
+      ga.wt = reinterpret_cast<const uint8_t*>(wl + (size_t)w_tile * dk * d);
+      ga.d = d; ga.dk = dk; ga.wbits = S.wbits; ga.n_cols = n_cols; ga.n_in = n_in; ga.B = B;
+      ga.part = S.part; ga.has_lora = has_lora; ga.r = r; ga.lora_dt = S.lora_dt;
+      ga.lora_round = S.lora_round; ga.xa = S.xa; ga.bt = btl + (size_t)b_tile * r * d * esz;
+      ga.plb = S.plb;
+      return launch_gemv(ga, S.ksplit, stream);
     };
 
     if (l == 0) {  // LN1 + qkv prologue of the first layer
@@ -727,32 +950,20 @@ extern "C" int mega_decode_step_kv(
     }
     // qkv: 3 out-tiles, epilogue stores the float32 row
     if ((rc = gemv(d, 0, 3 * d, 1, 0))) return rc;
-    { RowArgs a = base; epi_of(a, 3 * d, 0, 0, 0, qkv);
+    { RowArgs a = base; epi_of(a, 3 * d, 0, 0, 0, S.qkv);
       if ((rc = row(a, l, 0))) return rc; }
     // attention + append
-    {
-      const size_t smem = sizeof(float) * (3 * D + 33 + tbp)
-                          + sizeof(int) * ATTN_THREADS + (size_t)D + tbp + 16;
-      if (smem > 48 * 1024) {
-        rc = (int)cudaFuncSetAttribute(k_attn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-        if (rc) return rc;
-      }
-      k_attn<<<B * H, ATTN_THREADS, smem, stream>>>(
-          qkv, kc + (size_t)l * B * T * dc, vc + (size_t)l * B * T * dc,
-          ksc + (size_t)l * B * T, vsc + (size_t)l * B * T, attn, B, H, D, d, T,
-          pos, tbp, kv_bits, sm_scale, act_bf16);
-      if ((rc = (int)cudaGetLastError())) return rc;
-    }
+    if ((rc = launch_attn(A, l, S.qkv, S.attn, B, S.H, d, S.sm_scale, S.act_bf16, stream)))
+      return rc;
     // proj prologue, GEMV, epilogue + residual + LN2 + fc prologue
-    { RowArgs a = base; a.src = attn; prep_of(a, d, -1, l, 1);
+    { RowArgs a = base; a.src = S.attn; prep_of(a, d, -1, l, 1);
       if ((rc = row(a, l, 3))) return rc; }
     if ((rc = gemv(d, 3, d, 1, 3))) return rc;
     { RowArgs a = base; epi_of(a, d, 3, 1, 1, nullptr); prep_of(a, d, 2, l, 2);
       if ((rc = row(a, l, 4))) return rc; }
     // fc, epilogue + GELU + mlp prologue over 4d
     if ((rc = gemv(d, 4, 4 * d, 1, 4))) return rc;
-    { RowArgs a = base; epi_of(a, 4 * d, 4, 2, 2, g); prep_of(a, 4 * d, -1, l, 3);
+    { RowArgs a = base; epi_of(a, 4 * d, 4, 2, 2, S.g); prep_of(a, 4 * d, -1, l, 3);
       if ((rc = row(a, l, 8))) return rc; }
     // mlp over 4 row tiles (int32 over all 4d), epilogue + residual, then
     // the next layer's LN1 + qkv prologue
@@ -765,4 +976,75 @@ extern "C" int mega_decode_step_kv(
     }
   }
   return 0;
+}
+
+#define STEP_ARGS                                                                          \
+  const float *h_in, float *h_out, const int8_t *wt, const float *ws, const float *bias,  \
+      const void *at, const void *bt, const float *at_s, const float *bt_s,                 \
+      const float *ln, const float *xs
+#define SCRATCH_ARGS                                                                      \
+  int8_t *qx, float *xa, float *xf, int32_t *part, float *plb, float *qkv, float *attn,   \
+      float *g
+
+static Step make_step(STEP_ARGS, SCRATCH_ARGS, int L, int B, int d, int H, int r, int wbits,
+                      int has_lora, int lora_dt, int act_bf16, int lora_round, int ksplit,
+                      float eps, float aq_max, float sm_scale) {
+  Step S = {h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa, xf, part, plb,
+            qkv, attn, g, L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16, lora_round,
+            ksplit, eps, aq_max, sm_scale};
+  return S;
+}
+
+// #1: int8 / int4 codes + (L, B, T) row scales, appended at the shared pos.
+extern "C" int mega_decode_step_kv(
+    STEP_ARGS, int8_t* kc, int8_t* vc, float* ksc, float* vsc, SCRATCH_ARGS, int L, int B,
+    int d, int H, int T, int r, int pos, int tbp, int wbits, int kv_bits, int has_lora,
+    int lora_dt, int act_bf16, int lora_round, int ksplit, float eps, float aq_max,
+    float sm_scale, cudaStream_t stream) {
+  if (B > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  Attn A = {};
+  A.kind = 0; A.T = T; A.pos = pos; A.tbp = tbp; A.kv_bits = kv_bits;
+  A.kc = kc; A.vc = vc; A.ksc = ksc; A.vsc = vsc;
+  for (int b = 0; b < B; ++b) A.lens.v[b] = pos;
+  return run_step(make_step(h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa,
+                            xf, part, plb, qkv, attn, g, L, B, d, H, r, wbits, has_lora,
+                            lora_dt, act_bf16, lora_round, ksplit, eps, aq_max, sm_scale),
+                  A, stream);
+}
+
+// #3: float head-interleaved (L, B, T, d) caches (cdt 0 float32, 1 bf16),
+// appended at the shared pos.
+extern "C" int mega_decode_step_f(
+    STEP_ARGS, void* kc, void* vc, SCRATCH_ARGS, int L, int B, int d, int H, int T, int r,
+    int pos, int tbp, int wbits, int cdt, int has_lora, int lora_dt, int act_bf16,
+    int lora_round, int ksplit, float eps, float aq_max, float sm_scale,
+    cudaStream_t stream) {
+  Attn A = {};
+  A.kind = 1; A.T = T; A.pos = pos; A.tbp = tbp; A.cdt = cdt; A.kc = kc; A.vc = vc;
+  return run_step(make_step(h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa,
+                            xf, part, plb, qkv, attn, g, L, B, d, H, r, wbits, has_lora,
+                            lora_dt, act_bf16, lora_round, ksplit, eps, aq_max, sm_scale),
+                  A, stream);
+}
+
+// #4: per-slot main lengths (lens_host: B ints in host memory, copied into
+// the launch's arguments) over read-only main caches (L, B, T, dc) + (L, B,
+// T), then the recent buffer (L, B, Tr, dc) + (L, B, Tr) rows [0, rpos),
+// which receives the new codes and scales at rpos.
+extern "C" int mega_decode_step_cb(
+    STEP_ARGS, int8_t* kc, int8_t* vc, float* ksc, float* vsc, int8_t* kr, int8_t* vr,
+    float* ksr, float* vsr, const int* lens_host, SCRATCH_ARGS, int L, int B, int d, int H,
+    int T, int Tr, int r, int rpos, int tbp, int wbits, int kv_bits, int has_lora,
+    int lora_dt, int act_bf16, int lora_round, int ksplit, float eps, float aq_max,
+    float sm_scale, cudaStream_t stream) {
+  if (B > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  Attn A = {};
+  A.kind = 2; A.T = T; A.pos = 0; A.tbp = tbp; A.kv_bits = kv_bits;
+  A.kc = kc; A.vc = vc; A.ksc = ksc; A.vsc = vsc;
+  A.kr = kr; A.vr = vr; A.ksr = ksr; A.vsr = vsr; A.Tr = Tr; A.rpos = rpos;
+  for (int b = 0; b < B; ++b) A.lens.v[b] = lens_host[b];
+  return run_step(make_step(h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa,
+                            xf, part, plb, qkv, attn, g, L, B, d, H, r, wbits, has_lora,
+                            lora_dt, act_bf16, lora_round, ksplit, eps, aq_max, sm_scale),
+                  A, stream);
 }

@@ -1,8 +1,9 @@
-"""Sampling filters (counterpart of `llm_qat_tpu/models/generate.py::_filter_logits`).
+"""Sampling filters (counterpart of `llm_qat_tpu/models/generate.py`'s
+`_filter_logits` and `_filter_logits_vec`).
 
-The KV-cache `generate` and `forward_with_cache` of the JAX module come
-with the generation/serving slice; the engine's sampling uses only the
-filters below.
+The KV-cache `generate` and `forward_with_cache` of the JAX module run on
+SP parameters rather than the served tree and are not ported yet; the
+engines' sampling uses only the filters below.
 """
 
 from __future__ import annotations
@@ -34,3 +35,25 @@ def _filter_logits(logits, temperature, top_k, top_p):
         logits = torch.where(logits < thresh, torch.full_like(logits, NEG_INF),
                              logits)
     return logits
+
+
+def _filter_logits_vec(logits, temperature, top_k, top_p):
+    """Per-row temperature / top-k / top-p filtering (the JAX
+    `_filter_logits_vec`): each row of `logits` (B, V) has its own
+    temperature (B,), top_k (B,) int (0 disables) and top_p (B,) float (1.0
+    disables), as continuous batching mixes requests in one step. Top-p acts
+    on the top-k-filtered row, as the reference chains the filters."""
+    V = logits.shape[-1]
+    logits = logits / torch.clamp(temperature[:, None], min=1e-6)
+    srt = torch.sort(logits, dim=-1).values  # ascending
+    idx = torch.clamp(V - top_k, 0, V - 1).to(torch.int64)
+    kth = torch.gather(srt, -1, idx[:, None])
+    neg = torch.full_like(logits, NEG_INF)
+    logits = torch.where((top_k[:, None] > 0) & (logits < kth), neg, logits)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_desc, dim=-1), dim=-1)
+    remove = cum > top_p[:, None]
+    remove = torch.cat([torch.zeros_like(remove[:, :1]), remove[:, :-1]], dim=-1)
+    thresh = torch.where(remove, torch.full_like(sorted_desc, float("inf")),
+                         sorted_desc).amin(dim=-1, keepdim=True)
+    return torch.where((top_p[:, None] < 1.0) & (logits < thresh), neg, logits)

@@ -1,10 +1,12 @@
-"""Inference path: weights pre-quantized once, dense-cache prefill, decode.
+"""Inference path: weights pre-quantized once, prefill, decode.
 
 Counterpart of `llm_qat_tpu/models/inference.py` for the serving slice:
 `quantize_for_inference` (dense, `int8_xla` and `int4_xla` weight formats,
-int4/int8 LM head, factored LoRA with int8 codes), the unfused
-dense-cache forward `infer_forward_unrolled` with the flash prefill branch,
-`_lm_head`, and `InferenceEngine` with `kv_layout` "dense" and "mega".
+int4/int8 LM head, factored LoRA with int8 codes), the unfused forward
+`infer_forward_unrolled` over dense or packed caches (flash prefill
+branch; single-token steps on packed caches through the
+`decode_attention_hbm` kernel), `_lm_head`, and `InferenceEngine` with
+`kv_layout` "dense", "packed" and "mega" (KV 16, 8 or 4 bits).
 
 Integer dots (`_int4_dot`, `_int8_dot`, the int4/int8 head) are exact: the
 codes go through float32 matmuls in K-chunks small enough that every
@@ -23,10 +25,19 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import flash_attention, flash_attention_plain
+from ..ops.decode_attention import (
+    decode_attention_hbm,
+    decode_attention_hbm_plain,
+    kv_pack_factor,
+    pack_kv,
+    unpack_kv,
+)
 from ..ops.mega_decode import (
     exact_int_matmul,
+    mega_decode_step,
     mega_decode_step_kv8,
     mega_decode_step_kv8_plain,
+    mega_decode_step_plain,
     pack_mega_weights,
 )
 from ..quant.calibration import dynamic_scale_flat
@@ -112,9 +123,13 @@ def _pack_int8(w):
 
 def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
                            dtype=torch.bfloat16, weight_format: str = "dense",
+                           lm_head_int8: bool = False,
                            lm_head_bits: int = None) -> Dict[str, Any]:
     """Materialize a single-precision inference tree (same keys and layouts
-    as the JAX package's)."""
+    as the JAX package's). `lm_head_int8` is the older spelling of
+    `lm_head_bits=8`."""
+    if lm_head_bits is None and lm_head_int8:
+        lm_head_bits = 8
     q = cfg.quant
     p_idx = q.prec_index(bits)
     dev = params["wte"].device
@@ -279,12 +294,19 @@ def _ln(x, g, b, eps):
 def init_layer_caches(cfg: SPModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, kv_bits: int = 16,
                       kv_layout: str = "dense", device=None):
-    """Per-layer dense KV caches as a flat tuple (k0, v0, k1, v1, ...), each
-    (B, H, T, head_dim) of `dtype`."""
+    """Per-layer KV caches as a flat tuple (k0, v0, k1, v1, ...) of `dtype`:
+    (B, H, T, head_dim), or with `kv_layout="packed"` (B, H, T/P, P·head_dim)
+    with P = `kv_pack_factor(head_dim)` timesteps per 128-lane row and T
+    rounded up to a multiple of max(8·P, 128)."""
     if kv_layout == "packed":
-        raise NotImplementedError(
-            "kv_layout='packed' needs the decode_attention_hbm kernel, not yet "
-            "ported (ROADMAP queue B, kernel #7)")
+        m = cfg.model
+        P = kv_pack_factor(m.head_dim)
+        unit = max(8 * P, 128)
+        T = -(-max_len // unit) * unit
+        shape = (batch, m.n_head, T // P, P * m.head_dim)
+        dev = resolve_device(device)
+        return tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                     for _ in range(2 * m.n_layer))
     if kv_bits == 8:
         raise NotImplementedError(
             "the unfused int8 KV cache (ops/kv_cache.py) is not yet ported "
@@ -294,6 +316,16 @@ def init_layer_caches(cfg: SPModelConfig, batch: int, max_len: int,
     shape = (batch, m.n_head, max_len, m.head_dim)
     return tuple(torch.zeros(shape, dtype=dtype, device=dev)
                  for _ in range(2 * m.n_layer))
+
+
+def _write_rows(kc, vc, kh, vh, start, P):
+    """Write K/V rows (B, H, S, D) into the caches at timestep `start`, as
+    packed rows when P > 1 (start and S multiples of P)."""
+    S = kh.shape[2]
+    if P > 1:
+        kh, vh = pack_kv(kh), pack_kv(vh)
+    kc[:, :, start // P:(start + S) // P] = kh.to(kc.dtype)
+    vc[:, :, start // P:(start + S) // P] = vh.to(vc.dtype)
 
 
 def _flash_prefill_attn(qh, kh, vh, use_kernels=True):
@@ -311,12 +343,16 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
                            fused_linears: bool = False,
                            initial_prefill: bool = False,
                            use_kernels: bool = True):
-    """Forward over dense per-layer caches, layers unrolled.
+    """Forward over dense or packed per-layer caches, layers unrolled.
 
     Writes the new K/V rows into `caches` in place at [length, length+S).
     Returns (logits, caches, length + S). `initial_prefill` with S >= 128
-    and head_dim 64/128 takes the flash kernel for attention
-    (`use_kernels=False`: its plain version, the reference on the card).
+    and head_dim 64/128 takes the flash kernel for attention. On packed
+    caches (`init_layer_caches(kv_layout="packed")`) a single token goes
+    through `decode_attention_hbm`; a longer segment must start and end on
+    a multiple of P, is written as packed rows, and attends by flash or
+    densely on the unpacked view. `use_kernels=False` runs the kernels'
+    plain versions (the reference on the card).
     """
     if fused_attention or fused_linears:
         raise NotImplementedError(
@@ -327,7 +363,13 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
     bits, kind = iparams["_bits"], iparams["_kind"]
     B, S = input_ids.shape
     start = int(length)
-    T_max = caches[0].shape[2]
+    D = m.head_dim
+    P = kv_pack_factor(D)
+    packed = P > 1 and caches[0].shape[-1] == P * D
+    T_max = P * caches[0].shape[2] if packed else caches[0].shape[2]
+    if packed and S > 1 and (start % P or S % P):
+        raise ValueError(f"a packed-cache segment must start and end on a "
+                         f"multiple of {P}; got [{start}, {start + S})")
     wte = iparams["wte"]
     pos = torch.arange(start, start + S, device=wte.device)
     h = wte[input_ids] + iparams["wpe"][pos][None].to(wte.dtype)
@@ -341,12 +383,17 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
         qh, kh, vh = (t.reshape(B, S, m.n_head, m.head_dim).permute(0, 2, 1, 3)
                       for t in torch.split(qkv, m.n_embd, dim=-1))
         kc, vc = caches[2 * li], caches[2 * li + 1]
-        kc[:, :, start:start + S] = kh.to(kc.dtype)
-        vc[:, :, start:start + S] = vh.to(vc.dtype)
-        if initial_prefill and S >= 128 and m.head_dim in (64, 128):
+        if packed and S == 1:
+            step = decode_attention_hbm if use_kernels else decode_attention_hbm_plain
+            attn = step(qh, kh, vh, kc, vc, start)[0]
+        elif initial_prefill and S >= 128 and D in (64, 128):
+            _write_rows(kc, vc, kh, vh, start, P if packed else 1)
             attn = _flash_prefill_attn(qh.to(f32), kh.to(f32), vh.to(f32),
                                        use_kernels)
         else:
+            _write_rows(kc, vc, kh, vh, start, P if packed else 1)
+            if packed:
+                kc, vc = unpack_kv(kc, D), unpack_kv(vc, D)
             scale = 1.0 / math.sqrt(m.head_dim)
             scores = torch.einsum("bhsd,bhtd->bhst", qh.to(f32), kc.to(f32)) * scale
             q_pos = start + torch.arange(S, device=h.device)[:, None]
@@ -402,6 +449,19 @@ def _lm_head(iparams, h, planes=None):
     return acc.to(torch.float32) * (xs[..., :1] * iparams["head_s"])
 
 
+def quantize_kv_rows(rows, kv_bits: int):
+    """KV rows (..., d) → the mega layout: per-row absmax scales (...,) and
+    int8 codes (kv_bits 8) or ±7 lane-halves nibbles (..., d/2) (kv_bits 4)."""
+    qmax = 127.0 if kv_bits == 8 else 7.0
+    rf = rows.to(torch.float32)
+    s = torch.clamp(rf.abs().amax(dim=-1), min=1e-8) / qmax
+    codes = torch.clamp(torch.round(rf / s[..., None]), -qmax, qmax)
+    if kv_bits == 4:
+        d2 = codes.shape[-1] // 2
+        return _pack_planes(codes[..., :d2], codes[..., d2:]), s
+    return codes.to(torch.int8), s
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -412,8 +472,15 @@ class InferenceEngine:
     """Serving wrapper over the pre-quantized decode path.
 
     kv_layout "dense": dense-cache prefill and per-token unfused decode.
-    kv_layout "mega": dense-cache prefill, one conversion to the mega KV8 /
-    KV4 layout, then one whole-model `mega_decode_step_kv8` per token.
+    kv_layout "packed": packed caches; a P-aligned prefill, single-token
+    steps for the prompt's unaligned tail, then per-token decode, every
+    single-token step through `decode_attention_hbm`. "auto" picks "packed"
+    on a CUDA device and "dense" on the CPU (the JAX package's
+    accelerator / other split).
+    kv_layout "mega": dense-cache prefill, one conversion to the mega layout
+    (kv_bits 16: float head-interleaved rows through `mega_decode_step`;
+    8/4: quantized rows through `mega_decode_step_kv8`), then one
+    whole-model step per token.
     Sampling: greedy, or temperature / top-k / top-p with EOS freeze.
     Runs on `device` ("cuda" by default; "cpu" runs every plain version).
     `use_kernels=False` runs the kernels' plain PyTorch versions on the card
@@ -423,7 +490,7 @@ class InferenceEngine:
     def __init__(self, params, cfg: SPModelConfig, bits: int,
                  max_batch: int = 8, max_len: int = 1024,
                  dtype=torch.bfloat16, weight_format: str = "dense",
-                 lm_head_bits: int = None,
+                 lm_head_int8: bool = False, lm_head_bits: int = None,
                  kv_layout: str = "auto", kv_bits: int = 16,
                  mega_tbp: int = 64, mega_tiles_per_step: int = 4,
                  mega_lora_int8: bool = True, device=None,
@@ -436,26 +503,21 @@ class InferenceEngine:
         self.max_len = min(max_len, cfg.model.n_positions)
         self.dtype = dtype
         if kv_layout == "auto":
-            kv_layout = "dense"  # "packed" once its decode kernel is ported
-        if kv_layout not in ("dense", "mega"):
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r} needs the packed decode-attention "
-                "kernel, not yet ported (ROADMAP queue B, kernel #7)")
+            kv_layout = "packed" if self.device.type == "cuda" else "dense"
+        if kv_layout not in ("dense", "packed", "mega"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_bits not in (16, 8, 4):
             raise ValueError(f"kv_bits must be 16, 8 or 4; got {kv_bits}")
         if kv_bits in (8, 4) and kv_layout != "mega":
             raise ValueError(f"kv_bits={kv_bits} requires kv_layout='mega'")
-        if kv_layout == "mega" and kv_bits == 16:
-            raise NotImplementedError(
-                "kv_layout='mega' with kv_bits=16 runs the bf16-cache megakernel "
-                "(_mega_kernel), not yet ported (ROADMAP queue B, kernel #3)")
         self.kv_layout = kv_layout
         self.kv_bits = kv_bits
         self.mega_tbp = mega_tbp
         self.mega_tpg = mega_tiles_per_step
         iparams = quantize_for_inference(
             _tree_to(params, self.device), cfg, bits, dtype,
-            weight_format=weight_format, lm_head_bits=lm_head_bits)
+            weight_format=weight_format, lm_head_int8=lm_head_int8,
+            lm_head_bits=lm_head_bits)
         self.static = iparams.pop("_static")
         self.iparams = iparams
         self._planes = head_planes(iparams)
@@ -471,7 +533,7 @@ class InferenceEngine:
 
     @torch.no_grad()
     def prefill(self, input_ids, caches):
-        """Initial prefill into empty dense caches; returns (logits, caches)."""
+        """Initial prefill into empty caches; returns (logits, caches)."""
         logits, caches, _ = infer_forward_unrolled(
             self.iparams, input_ids, self.cfg, caches, 0, static=self.static,
             initial_prefill=True, use_kernels=self.use_kernels)
@@ -479,26 +541,20 @@ class InferenceEngine:
 
     def _to_mega(self, caches):
         """Dense per-layer (B, H, T, hd) caches → stacked (L, B, T, d) rows
-        (row t holds every head's K or V), quantized per row to int8 codes
-        or lane-halves int4 nibbles, with (L, B, T) scales."""
+        (row t holds every head's K or V): with kv_bits 16 the two float
+        stacks; else quantized per row to int8 codes or lane-halves int4
+        nibbles, with (L, B, T) scales."""
         def conv(c):
             B_, H_, T_, D_ = c.shape
             return c.permute(0, 2, 1, 3).reshape(B_, T_, H_ * D_)
 
-        qmax = 127.0 if self.kv_bits == 8 else 7.0
-
-        def quant(rm):
-            rf = rm.to(torch.float32)
-            s = torch.clamp(rf.abs().amax(dim=-1), min=1e-8) / qmax
-            codes = torch.clamp(torch.round(rf / s[..., None]), -qmax, qmax)
-            if self.kv_bits == 4:
-                d2 = codes.shape[-1] // 2
-                return _pack_planes(codes[..., :d2], codes[..., d2:]), s
-            return codes.to(torch.int8), s
-
-        kc, ks = quant(torch.stack([conv(c) for c in caches[0::2]]))
-        vc, vs = quant(torch.stack([conv(c) for c in caches[1::2]]))
-        return kc.contiguous(), vc.contiguous(), ks.contiguous(), vs.contiguous()
+        ks = torch.stack([conv(c) for c in caches[0::2]])
+        vs = torch.stack([conv(c) for c in caches[1::2]])
+        if self.kv_bits == 16:
+            return ks.contiguous(), vs.contiguous()
+        kc, ksc = quantize_kv_rows(ks, self.kv_bits)
+        vc, vsc = quantize_kv_rows(vs, self.kv_bits)
+        return kc.contiguous(), vc.contiguous(), ksc.contiguous(), vsc.contiguous()
 
     def _sample(self, logits, temperature, top_k, top_p, do_sample, generator):
         if not do_sample and top_k is None and top_p is None:
@@ -508,6 +564,14 @@ class InferenceEngine:
             probs = torch.softmax(filt, dim=-1)
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
         return torch.argmax(filt, dim=-1)
+
+    def _forward(self, ids, caches, start):
+        """infer_forward_unrolled of `ids` at `start`; returns (last
+        position's logits, caches)."""
+        logits, caches, _ = infer_forward_unrolled(
+            self.iparams, ids, self.cfg, caches, start, static=self.static,
+            use_kernels=self.use_kernels)
+        return logits[:, -1], caches
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 64, *,
@@ -532,13 +596,21 @@ class InferenceEngine:
             T_all = -(-min(self.max_len, T0 + max_new_tokens) // 32) * 32
         else:
             T_all = min(self.max_len, T0 + max_new_tokens)
-        caches = init_layer_caches(cfg, B, T_all, self.dtype, device=self.device)
-        logits, caches = self.prefill(ids, caches)
-        last = logits[:, -1]
+        layout = "packed" if self.kv_layout == "packed" else "dense"
+        caches = init_layer_caches(cfg, B, T_all, self.dtype, kv_layout=layout,
+                                   device=self.device)
+        # packed caches take a P-aligned prefill; the prompt's unaligned
+        # tail goes one token at a time (S = 1: decode_attention_hbm)
+        T0e = T0 - T0 % kv_pack_factor(cfg.model.head_dim) if layout == "packed" else T0
+        last = None
+        if T0e > 0:
+            logits, caches = self.prefill(ids[:, :T0e], caches)
+            last = logits[:, -1]
+        for t in range(T0e, T0):
+            last, caches = self._forward(ids[:, t:t + 1], caches, t)
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         if self.mega is not None:
-            kc, vc, ks, vs = self._to_mega(caches)
-            del caches
+            caches = self._to_mega(caches)
         toks = []
         for i in range(max_new_tokens):
             tok = self._sample(last, temperature, top_k, top_p, do_sample,
@@ -547,29 +619,28 @@ class InferenceEngine:
                 tok = torch.where(done, torch.full_like(tok, eos_token_id), tok)
                 done = done | (tok == eos_token_id)
             toks.append(tok)
-            pos = T0 + i
             if self.mega is None:
-                logits, caches, _ = infer_forward_unrolled(
-                    self.iparams, tok[:, None], cfg, caches, pos,
-                    static=self.static)
-                last = logits[:, -1]
-                continue
-            last, kc, vc, ks, vs = self.mega_step(tok, pos, kc, vc, ks, vs)
+                last, caches = self._forward(tok[:, None], caches, T0 + i)
+            else:
+                last, *caches = self.mega_step(tok, T0 + i, *caches)
         return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
 
-    def mega_step(self, tok, pos, kc, vc, ks, vs):
+    def mega_step(self, tok, pos, *caches):
         """One mega decode token: embed `tok` at `pos`, run every layer
-        (caches updated in place), ln_f and the LM head. Returns
-        (logits (B, V), kc, vc, ks, vs)."""
+        (caches updated in place: (kc, vc) with kv_bits 16, else (kc, vc,
+        ks, vs)), ln_f and the LM head. Returns (logits (B, V), *caches)."""
         m = self.cfg.model
         wte, lnf = self.iparams["wte"], self.iparams["ln_f"]
         h = (wte[tok] + self.iparams["wpe"][pos][None].to(wte.dtype)).to(torch.float32)
-        step = mega_decode_step_kv8 if self.use_kernels else mega_decode_step_kv8_plain
-        h_out, kc, vc, ks, vs = step(
-            h, self.mega, kc, vc, ks, vs, pos, n_head=m.n_head,
-            head_dim=m.head_dim, has_lora=self._has_lora,
-            eps=m.layer_norm_epsilon, act_dtype=self.dtype, aq_max=self._aq_max,
-            tbp=self.mega_tbp, kv_bits=self.kv_bits, tiles_per_step=self.mega_tpg)
+        kw = dict(n_head=m.n_head, head_dim=m.head_dim, has_lora=self._has_lora,
+                  eps=m.layer_norm_epsilon, act_dtype=self.dtype, aq_max=self._aq_max,
+                  tbp=self.mega_tbp, tiles_per_step=self.mega_tpg)
+        if self.kv_bits == 16:
+            step = mega_decode_step if self.use_kernels else mega_decode_step_plain
+        else:
+            step = mega_decode_step_kv8 if self.use_kernels else mega_decode_step_kv8_plain
+            kw["kv_bits"] = self.kv_bits
+        h_out, *caches = step(h, self.mega, *caches, pos, **kw)
         hf = _ln(h_out[:, None, :].to(self.dtype), lnf["g"], lnf["b"],
                  m.layer_norm_epsilon)
-        return _lm_head(self.iparams, hf, self._planes)[:, 0], kc, vc, ks, vs
+        return (_lm_head(self.iparams, hf, self._planes)[:, 0], *caches)

@@ -39,7 +39,11 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_F, _P],
         "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P]},
     "mega_decode": {
-        "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P]},
+        "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P],
+        "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
+        "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P]},
+    "decode_attention": {
+        "decode_attention_hbm": [_P] * 7 + [_I] * 7 + [_F, _P]},
     "fused_linear": {
         "fused_linear_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
         "fused_linear_bwd_dx": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -1,10 +1,20 @@
-"""Whole-model decode step with an int8 / int4 KV cache.
+"""Whole-model decode step: int8 / int4 KV, float KV, continuous batching.
 
-Counterpart of `llm_qat_tpu/ops/mega_decode.py` (the non-per-slot
-`mega_decode_step_kv8`). `mega_decode_step_kv8` replaces the Pallas
-`_mega_kernel_kv8` with the CUDA step in `csrc/mega_decode.cu`; its plain
-PyTorch version, `mega_decode_step_kv8_plain`, sits beside it and computes
-the same function op for op.
+Counterpart of `llm_qat_tpu/ops/mega_decode.py`. Three wrappers launch the
+CUDA step in `csrc/mega_decode.cu`, each with a plain PyTorch version
+beside it that computes the same function op for op:
+- `mega_decode_step_kv8` (the Pallas `_mega_kernel_kv8`, per_slot=False):
+  int8 / int4 KV codes with row scales, one shared position;
+- `mega_decode_step` (the Pallas `_mega_kernel`): float32 or bf16
+  head-interleaved caches, q·sm_scale and each block's probabilities
+  rounded to the cache dtype before their dots;
+- `mega_decode_step_cb` (`_mega_kernel_kv8`, per_slot=True): continuous
+  batching, per-slot lengths over read-only main caches, then one
+  chunk-local recent block at the uniform `rpos`, which receives the new
+  codes; `cb_merge_recent` (plain PyTorch, as in JAX, where it is XLA
+  code) merges the recent rows into the main caches once per chunk.
+The three differ only in their attention; the weights, LoRA and row
+numerics below are shared.
 
 One step runs one token per sequence through all L layers. Per layer: LN1,
 static per-tensor activation quantization to ±aq_max, s8×s8→s32 dots over
@@ -32,14 +42,17 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
+from .decode_attention import _CACHE_DTYPE_CODE, block_rows
 
 NEG_INF = -1e30
 N_TILES = 12  # 3 qkv + 1 attn-proj + 4 fc + 4 mlp-proj partials
 _KSPLIT = 16  # K-slices of the CUDA GEMV (its grid's y extent)
 _LB_SPLIT = 4  # of which compute LoRA-B partials (csrc/mega_decode.cu LB_SPLIT)
+MAX_SLOTS = 256  # batch rows of a step (csrc/mega_decode.cu MAX_SLOTS)
 
 
 class MegaWeights(NamedTuple):
@@ -255,38 +268,79 @@ def _kv_bytes(codes, kv_bits):
 
 def _check_step(h, mw, k_cache, v_cache, k_scale, v_scale, pos, n_head,
                 head_dim, tbp, kv_bits, tiles_per_step):
-    """Validate shapes and `pos` on the host; returns (tbp, wbits, dc, T)."""
+    """Validate shapes and `pos` on the host; returns (tbp, wbits, dc, T).
+    kv_bits 8/4: code caches (L, B, T, dc) with (L, B, T) scales; kv_bits
+    16: float32 or bf16 caches (L, B, T, d) and no scales (None)."""
     B, d = h.shape
     L = mw.wt.shape[0]
     if n_head * head_dim != d:
         raise ValueError(f"n_head*head_dim={n_head * head_dim} != d={d}")
     if d % 128:
-        raise ValueError(f"mega_decode_step_kv8 needs d % 128 == 0; got {d}")
-    if kv_bits not in (8, 4):
-        raise ValueError(f"kv_bits must be 8 or 4; got {kv_bits}")
+        raise ValueError(f"the mega decode step needs d % 128 == 0; got {d}")
+    if kv_bits not in (16, 8, 4):
+        raise ValueError(f"kv_bits must be 16, 8 or 4; got {kv_bits}")
     if N_TILES % int(tiles_per_step):
         raise ValueError(f"tiles_per_step={tiles_per_step} must divide {N_TILES}")
-    dc = d if kv_bits == 8 else d // 2
+    dc = d // 2 if kv_bits == 4 else d
     Tc = k_cache.shape[2]
-    for name, t, shape in (("k_cache", k_cache, (L, B, Tc, dc)),
-                           ("v_cache", v_cache, (L, B, Tc, dc)),
-                           ("k_scale", k_scale, (L, B, Tc)),
-                           ("v_scale", v_scale, (L, B, Tc))):
+    shapes = [("k_cache", k_cache, (L, B, Tc, dc)), ("v_cache", v_cache, (L, B, Tc, dc))]
+    if kv_bits == 16:
+        if k_cache.dtype not in (torch.float32, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+            raise ValueError(f"float caches must share a float32 or bf16 dtype; got "
+                             f"{k_cache.dtype}/{v_cache.dtype}")
+    else:
+        shapes += [("k_scale", k_scale, (L, B, Tc)), ("v_scale", v_scale, (L, B, Tc))]
+    for name, t, shape in shapes:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}; want {shape}")
     pos = int(pos)
     if not 0 <= pos < Tc:
         # the append writes row `pos`: out of range is memory corruption
         raise ValueError(f"pos={pos} outside the cache [0, {Tc})")
-    tbp = min(tbp, Tc)
-    while Tc % tbp and tbp > 8:
-        tbp -= 8
-    if Tc % tbp or tbp % 8:
-        raise ValueError(f"cache length {Tc} has no tbp multiple of 8 dividing it")
+    tbp = block_rows(Tc, tbp)
     dk = mw.wt.shape[2]
     if dk not in (d, d // 2):
         raise ValueError(f"weight tiles of {dk} rows fit neither int8 nor int4")
     return tbp, (4 if dk == d // 2 else 8), dc, Tc
+
+
+def _check_cb(h, mw, k_main, v_main, ks_main, vs_main, k_rec, v_rec, ks_rec,
+              vs_rec, lengths, rpos, n_head, head_dim, tbp, kv_bits,
+              tiles_per_step):
+    """Validate `mega_decode_step_cb`'s operands on the host; returns
+    (tbp, wbits, Tc, Tr, lengths as an int32 numpy array, rpos)."""
+    B, d = h.shape
+    L = mw.wt.shape[0]
+    Tc, Tr = k_main.shape[2], k_rec.shape[2]
+    dc = d if kv_bits == 8 else d // 2
+    for name, t, shape in (("k_rec", k_rec, (L, B, Tr, dc)),
+                           ("v_rec", v_rec, (L, B, Tr, dc)),
+                           ("ks_rec", ks_rec, (L, B, Tr)),
+                           ("vs_rec", vs_rec, (L, B, Tr))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; want {shape}")
+    _, wbits, _, _ = _check_step(h, mw, k_main, v_main, ks_main, vs_main, 0,
+                                 n_head, head_dim, tbp, kv_bits, tiles_per_step)
+    tbp = min(tbp, Tc, Tr)
+    while (Tc % tbp or Tr % tbp) and tbp > 8:
+        tbp -= 8
+    if Tc % tbp or Tr % tbp or tbp % 8:
+        raise ValueError(f"no tbp multiple of 8 divides both {Tc} and {Tr}")
+    if Tr != tbp:
+        raise ValueError(f"the recent buffer must be one stream block (Tr == tbp); "
+                         f"got Tr={Tr}, tbp={tbp}")
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.detach().cpu()
+    lens = np.asarray(lengths, np.int64).reshape(-1)
+    if lens.shape != (B,):
+        raise ValueError(f"lengths must hold one length per slot ({B}); got {lens.shape}")
+    if (lens < 0).any() or (lens > Tc).any():
+        raise ValueError(f"lengths {lens.tolist()} outside [0, {Tc}]")
+    rpos = int(rpos)
+    if not 0 <= rpos < Tr:
+        # the append writes recent row rpos: out of range is memory corruption
+        raise ValueError(f"rpos={rpos} outside the recent buffer [0, {Tr})")
+    return tbp, wbits, Tc, Tr, lens.astype(np.int32), rpos
 
 
 def _lora_operand_dtype(mw: MegaWeights, act_bf16: bool):
@@ -298,67 +352,100 @@ def _lora_operand_dtype(mw: MegaWeights, act_bf16: bool):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
-def _attention_plain(q_row, kn_f, vn_f, kc, vc, ks, vs, pos, H, D, tbp,
-                     kv_bits, act_bf16):
-    """One layer's attention + append (in place) for all (b, h).
-
-    q_row (B, d) pre-scaled; kn_f/vn_f (B, d) new K/V; kc/vc (B, T, dc)
-    codes; ks/vs (B, T). Returns attn2d (B, d)."""
-    B, d = q_row.shape
+def _new_kv_codes(kn_f, vn_f, kv_bits):
+    """Per-row quantization of the new K/V rows (absmax over all d lanes):
+    (kcode, vcode, ks_new (B, 1), vs_new (B, 1))."""
     kvq = 127.0 if kv_bits == 8 else 7.0
     ks_new = torch.clamp(kn_f.abs().amax(dim=1, keepdim=True), min=1e-8) / kvq
     vs_new = torch.clamp(vn_f.abs().amax(dim=1, keepdim=True), min=1e-8) / kvq
-    kcode = _q8(kn_f, ks_new, kvq)
-    vcode = _q8(vn_f, vs_new, kvq)
-    kn = (kcode * ks_new).reshape(B, H, D)
-    vn = (vcode * vs_new).reshape(B, H, D)
+    return _q8(kn_f, ks_new, kvq), _q8(vn_f, vs_new, kvq), ks_new, vs_new
 
-    q = q_row.reshape(B, H, D)
-    qs = torch.clamp(q.abs().amax(dim=2, keepdim=True), min=1e-8) / 127.0
-    qcode = _q8(q, qs, 127.0)                                # (B, H, D)
 
-    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
-    lsum = torch.zeros((B, H), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
-    nblk = -(-pos // tbp)
-    if nblk:
-        n = nblk * tbp
-        kcodes = _kv_codes(kc[:, :n], kv_bits).reshape(B, nblk, tbp, H, D)
-        vcodes = _kv_codes(vc[:, :n], kv_bits).reshape(B, nblk, tbp, H, D)
-        s32 = torch.einsum("bhi,bjthi->bhjt", qcode, kcodes)  # exact integers
-        s = s32 * qs[..., None] * ks[:, :n].reshape(B, 1, nblk, tbp)
-        valid = (torch.arange(n, device=q.device) < pos).reshape(1, 1, nblk, tbp)
-        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-        bmax = s.amax(dim=3)                                  # (B, H, nblk)
-        # running max after each block: m_j = max(m_{j-1}, bmax_j)
-        m_run = torch.cummax(torch.clamp(bmax, min=NEG_INF), dim=2).values
-        p = torch.exp(s - m_run[..., None])
-        psum = p.sum(dim=3)
-        pscaled = torch.where(valid, p * vs[:, :n].reshape(B, 1, nblk, tbp),
-                              torch.zeros_like(p))
-        ps = torch.clamp(pscaled.amax(dim=3, keepdim=True), min=1e-30) / 127.0
-        pq = _q8(pscaled, ps, 127.0)
-        pv = torch.einsum("bhjt,bjthi->bhji", pq, vcodes) * ps  # exact ints * ps
-        for j in range(nblk):
-            m_new = m_run[:, :, j]
-            corr = torch.exp(m - m_new)
-            lsum = lsum * corr + psum[:, :, j]
-            acc = acc * corr[..., None] + pv[:, :, j]
-            m = m_new
+def _kv8_blocks(state, qcode, qs, kc, vc, ks, vs, nblk, limit, tbp, kv_bits,
+                H, D):
+    """Online-softmax update over `nblk` tbp-row blocks of int8/int4 caches
+    kc/vc (B, T, dc) with scales ks/vs (B, T), rows < limit[b] valid (limit
+    (B,) int64). Probabilities are quantized per (b, h, block), after the
+    per-row V scale is folded in. state = (m, lsum, acc); returns it."""
+    m, lsum, acc = state
+    if not nblk:
+        return state
+    B = qcode.shape[0]
+    n = nblk * tbp
+    kcodes = _kv_codes(kc[:, :n], kv_bits).reshape(B, nblk, tbp, H, D)
+    vcodes = _kv_codes(vc[:, :n], kv_bits).reshape(B, nblk, tbp, H, D)
+    s32 = torch.einsum("bhi,bjthi->bhjt", qcode, kcodes)  # exact integers
+    s = s32 * qs[..., None] * ks[:, :n].reshape(B, 1, nblk, tbp)
+    t = torch.arange(n, device=qcode.device)
+    valid = (t[None] < limit[:, None]).reshape(B, 1, nblk, tbp)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    bmax = s.amax(dim=3)                                  # (B, H, nblk)
+    # running max after each block: m_j = max(m, bmax_1, ..., bmax_j)
+    m_run = torch.maximum(m[..., None],
+                          torch.cummax(torch.clamp(bmax, min=NEG_INF), dim=2).values)
+    p = torch.exp(s - m_run[..., None])
+    psum = p.sum(dim=3)
+    pscaled = torch.where(valid, p * vs[:, :n].reshape(B, 1, nblk, tbp),
+                          torch.zeros_like(p))
+    ps = torch.clamp(pscaled.amax(dim=3, keepdim=True), min=1e-30) / 127.0
+    pq = _q8(pscaled, ps, 127.0)
+    pv = torch.einsum("bhjt,bjthi->bhji", pq, vcodes) * ps  # exact ints * ps
+    for j in range(nblk):
+        m_new = m_run[:, :, j]
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + psum[:, :, j]
+        acc = acc * corr[..., None] + pv[:, :, j]
+        m = m_new
+    return m, lsum, acc
 
+
+def _merge_new(state, q, kn, vn, act_bf16):
+    """Merge the new token (q pre-scaled, kn/vn (B, H, D) float32) into the
+    online softmax; returns attn2d (B, d)."""
+    m, lsum, acc = state
+    B, H, D = q.shape
     s_new = (q * kn).sum(dim=2)                                 # (B, H)
     m_f = torch.maximum(m, s_new)
     corr = torch.exp(m - m_f)
     p_new = torch.exp(s_new - m_f)
     l_f = lsum * corr + p_new
     out = acc * corr[..., None] + p_new[..., None] * vn
-    attn2d = _rt((out / torch.clamp(l_f, min=1e-30)[..., None]).reshape(B, d),
-                 act_bf16)
+    return _rt((out / torch.clamp(l_f, min=1e-30)[..., None]).reshape(B, H * D),
+               act_bf16)
 
+
+def _init_state(B, H, D, dev):
+    f32 = torch.float32
+    return (torch.full((B, H), NEG_INF, dtype=f32, device=dev),
+            torch.zeros((B, H), dtype=f32, device=dev),
+            torch.zeros((B, H, D), dtype=f32, device=dev))
+
+
+def _q_codes(q):
+    """q (B, H, D) quantized per (b, h) row: (codes, scale (B, H, 1))."""
+    qs = torch.clamp(q.abs().amax(dim=2, keepdim=True), min=1e-8) / 127.0
+    return _q8(q, qs, 127.0), qs
+
+
+def _attention_plain(q_row, kn_f, vn_f, kc, vc, ks, vs, pos, H, D, tbp,
+                     kv_bits, act_bf16):
+    """#1's attention for one layer, all (b, h), appended in place at `pos`.
+
+    q_row (B, d) pre-scaled; kn_f/vn_f (B, d) new K/V; kc/vc (B, T, dc)
+    codes; ks/vs (B, T). Returns attn2d (B, d)."""
+    B = q_row.shape[0]
+    kcode, vcode, ks_new, vs_new = _new_kv_codes(kn_f, vn_f, kv_bits)
+    q = q_row.reshape(B, H, D)
+    qcode, qs = _q_codes(q)
+    limit = torch.full((B,), pos, dtype=torch.int64, device=q.device)
+    state = _kv8_blocks(_init_state(B, H, D, q.device), qcode, qs, kc, vc, ks, vs,
+                        -(-pos // tbp), limit, tbp, kv_bits, H, D)
+    attn2d = _merge_new(state, q, (kcode * ks_new).reshape(B, H, D),
+                        (vcode * vs_new).reshape(B, H, D), act_bf16)
     kc[:, pos] = _kv_bytes(kcode, kv_bits)
     vc[:, pos] = _kv_bytes(vcode, kv_bits)
     ks[:, pos] = ks_new[:, 0]
@@ -366,22 +453,80 @@ def _attention_plain(q_row, kn_f, vn_f, kc, vc, ks, vs, pos, H, D, tbp,
     return attn2d
 
 
-def mega_decode_step_kv8_plain(h, mw: MegaWeights, k_cache, v_cache, k_scale,
-                               v_scale, pos, *, n_head: int, head_dim: int,
-                               has_lora: bool, eps: float = 1e-5,
-                               tbp: int = 32, act_dtype=torch.bfloat16,
-                               aq_max: float = 127.0, kv_bits: int = 8,
-                               tiles_per_step: int = 1):
-    """Plain PyTorch version of `mega_decode_step_kv8` (same arguments,
-    caches updated in place, same return)."""
-    tbp, wbits, _dc, _T = _check_step(h, mw, k_cache, v_cache, k_scale, v_scale,
-                                      pos, n_head, head_dim, tbp, kv_bits,
-                                      tiles_per_step)
-    pos = int(pos)
+def _attention_f_plain(q_row, kn_f, vn_f, kc, vc, pos, H, D, tbp, act_bf16):
+    """#3's attention for one layer over float caches kc/vc (B, T, d) of the
+    cache dtype, appended in place at `pos`. q·sm_scale is rounded to the
+    cache dtype for the score dots, each block's probabilities before the
+    P·V dot, and the new K/V before their score (against the unrounded q)
+    and merge (JAX `_mega_kernel`)."""
+    B = q_row.shape[0]
+    f32, cdt = torch.float32, kc.dtype
+    q = q_row.reshape(B, H, D)
+    qm = q.to(cdt).to(f32)
+    kn, vn = kn_f.to(cdt), vn_f.to(cdt)
+    m, lsum, acc = _init_state(B, H, D, q.device)
+    nblk = -(-pos // tbp)
+    if nblk:
+        n = nblk * tbp
+        kb = kc[:, :n].to(f32).reshape(B, nblk, tbp, H, D)
+        vb = vc[:, :n].to(f32).reshape(B, nblk, tbp, H, D)
+        s = torch.einsum("bhi,bjthi->bhjt", qm, kb)
+        valid = (torch.arange(n, device=q.device) < pos).reshape(1, 1, nblk, tbp)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_run = torch.cummax(torch.clamp(s.amax(dim=3), min=NEG_INF), dim=2).values
+        p = torch.exp(s - m_run[..., None])
+        psum = p.sum(dim=3)
+        pv = torch.einsum("bhjt,bjthi->bhji", p.to(cdt).to(f32), vb)
+        for j in range(nblk):
+            corr = torch.exp(m - m_run[:, :, j])
+            lsum = lsum * corr + psum[:, :, j]
+            acc = acc * corr[..., None] + pv[:, :, j]
+            m = m_run[:, :, j]
+    attn2d = _merge_new((m, lsum, acc), q, kn.to(f32).reshape(B, H, D),
+                        vn.to(f32).reshape(B, H, D), act_bf16)
+    kc[:, pos] = kn
+    vc[:, pos] = vn
+    return attn2d
+
+
+def _attention_cb_plain(q_row, kn_f, vn_f, main, rec, lengths, rpos, H, D, tbp,
+                        kv_bits, act_bf16):
+    """#4's attention for one layer: main caches (kc, vc, ks, vs) rows
+    [0, lengths[b]) in tbp-row blocks up to the batch's longest row (a block
+    that a row masks entirely adds exactly 0, or, while the row has no
+    valid score yet, a finite sum that the final correction exp(m - m_f)
+    zeroes), then the recent block (kr, vr, ksr, vsr) rows [0, rpos), then
+    the new token; the new codes and scales are appended to the recent
+    buffer at rpos."""
+    B = q_row.shape[0]
+    kcode, vcode, ks_new, vs_new = _new_kv_codes(kn_f, vn_f, kv_bits)
+    q = q_row.reshape(B, H, D)
+    qcode, qs = _q_codes(q)
+    dev = q.device
+    state = _kv8_blocks(_init_state(B, H, D, dev), qcode, qs, *main,
+                        -(-int(lengths.max()) // tbp), lengths, tbp, kv_bits, H, D)
+    state = _kv8_blocks(state, qcode, qs, *rec, 1,
+                        torch.full((B,), rpos, dtype=torch.int64, device=dev), tbp,
+                        kv_bits, H, D)
+    attn2d = _merge_new(state, q, (kcode * ks_new).reshape(B, H, D),
+                        (vcode * vs_new).reshape(B, H, D), act_bf16)
+    kr, vr, ksr, vsr = rec
+    kr[:, rpos] = _kv_bytes(kcode, kv_bits)
+    vr[:, rpos] = _kv_bytes(vcode, kv_bits)
+    ksr[:, rpos] = ks_new[:, 0]
+    vsr[:, rpos] = vs_new[:, 0]
+    return attn2d
+
+
+def _step_plain(h, mw: MegaWeights, attention, *, n_head, has_lora, eps,
+                act_dtype, aq_max, sm_scale):
+    """The layer loop shared by the plain versions. `attention(l, q_row,
+    kn_f, vn_f)` runs layer l's attention (caches updated in place) and
+    returns attn2d (B, d)."""
     B, d = h.shape
     L = mw.wt.shape[0]
+    wbits = 4 if mw.wt.shape[2] == d // 2 else 8
     act_bf16 = act_dtype == torch.bfloat16
-    sm_scale = 1.0 / math.sqrt(head_dim)
     ldt = _lora_operand_dtype(mw, act_bf16)
     f32 = torch.float32
     o = h.to(f32).clone()
@@ -416,10 +561,7 @@ def mega_decode_step_kv8_plain(h, mw: MegaWeights, k_cache, v_cache, k_scale,
         qx = _q8(hn, xs[0], aq_max)
         xa = lora_a(hn, 0) if has_lora else None
         qkv = linear(qx, (0, 1, 2), xs[0], xa)
-        attn2d = _attention_plain(qkv[:, :d] * sm_scale, qkv[:, d:2 * d],
-                                  qkv[:, 2 * d:], k_cache[l], v_cache[l],
-                                  k_scale[l], v_scale[l], pos, n_head,
-                                  head_dim, tbp, kv_bits, act_bf16)
+        attn2d = attention(l, qkv[:, :d] * sm_scale, qkv[:, d:2 * d], qkv[:, 2 * d:])
         xa = lora_a(attn2d, 3) if has_lora else None
         proj = linear(_q8(attn2d, xs[1], aq_max), (3,), xs[1], xa)
         o = _rt(o + _rt(proj, act_bf16), act_bf16)
@@ -437,11 +579,104 @@ def mega_decode_step_kv8_plain(h, mw: MegaWeights, k_cache, v_cache, k_scale,
                 xam = xam + lora_a(g[:, i * d:(i + 1) * d], 8 + i)
             mlp = mlp + lora_b(xam, 11)
         o = _rt(o + _rt(mlp, act_bf16), act_bf16)
+    return o
+
+
+def mega_decode_step_kv8_plain(h, mw: MegaWeights, k_cache, v_cache, k_scale,
+                               v_scale, pos, *, n_head: int, head_dim: int,
+                               has_lora: bool, eps: float = 1e-5,
+                               tbp: int = 32, act_dtype=torch.bfloat16,
+                               aq_max: float = 127.0, kv_bits: int = 8,
+                               tiles_per_step: int = 1):
+    """Plain PyTorch version of `mega_decode_step_kv8` (same arguments,
+    caches updated in place, same return)."""
+    tbp, _wbits, _dc, _T = _check_step(h, mw, k_cache, v_cache, k_scale, v_scale,
+                                       pos, n_head, head_dim, tbp, kv_bits,
+                                       tiles_per_step)
+    pos = int(pos)
+    act_bf16 = act_dtype == torch.bfloat16
+
+    def attention(l, q_row, kn_f, vn_f):
+        return _attention_plain(q_row, kn_f, vn_f, k_cache[l], v_cache[l],
+                                k_scale[l], v_scale[l], pos, n_head, head_dim,
+                                tbp, kv_bits, act_bf16)
+
+    o = _step_plain(h, mw, attention, n_head=n_head, has_lora=has_lora, eps=eps,
+                    act_dtype=act_dtype, aq_max=aq_max,
+                    sm_scale=1.0 / math.sqrt(head_dim))
     return o, k_cache, v_cache, k_scale, v_scale
 
 
+def mega_decode_step_plain(h, mw: MegaWeights, k_cache, v_cache, pos, *,
+                           n_head: int, head_dim: int, has_lora: bool,
+                           eps: float = 1e-5, tbp: int = 32,
+                           act_dtype=torch.bfloat16, aq_max: float = 127.0,
+                           tiles_per_step: int = 1):
+    """Plain PyTorch version of `mega_decode_step` (same arguments, caches
+    updated in place, same return)."""
+    tbp, _wbits, _dc, _T = _check_step(h, mw, k_cache, v_cache, None, None, pos,
+                                       n_head, head_dim, tbp, 16, tiles_per_step)
+    pos = int(pos)
+    act_bf16 = act_dtype == torch.bfloat16
+
+    def attention(l, q_row, kn_f, vn_f):
+        return _attention_f_plain(q_row, kn_f, vn_f, k_cache[l], v_cache[l], pos,
+                                  n_head, head_dim, tbp, act_bf16)
+
+    o = _step_plain(h, mw, attention, n_head=n_head, has_lora=has_lora, eps=eps,
+                    act_dtype=act_dtype, aq_max=aq_max,
+                    sm_scale=1.0 / math.sqrt(head_dim))
+    return o, k_cache, v_cache
+
+
+def mega_decode_step_cb_plain(h, mw: MegaWeights, k_main, v_main, ks_main,
+                              vs_main, k_rec, v_rec, ks_rec, vs_rec, lengths,
+                              rpos, *, n_head: int, head_dim: int,
+                              has_lora: bool, eps: float = 1e-5, tbp: int = 64,
+                              act_dtype=torch.bfloat16, aq_max: float = 127.0,
+                              kv_bits: int = 8, tiles_per_step: int = 1):
+    """Plain PyTorch version of `mega_decode_step_cb` (same arguments, the
+    recent buffer updated in place, same return)."""
+    tbp, _wbits, _Tc, _Tr, lens, rpos = _check_cb(
+        h, mw, k_main, v_main, ks_main, vs_main, k_rec, v_rec, ks_rec, vs_rec,
+        lengths, rpos, n_head, head_dim, tbp, kv_bits, tiles_per_step)
+    act_bf16 = act_dtype == torch.bfloat16
+    lens_t = torch.as_tensor(lens, dtype=torch.int64, device=h.device)
+
+    def attention(l, q_row, kn_f, vn_f):
+        return _attention_cb_plain(
+            q_row, kn_f, vn_f, (k_main[l], v_main[l], ks_main[l], vs_main[l]),
+            (k_rec[l], v_rec[l], ks_rec[l], vs_rec[l]), lens_t, rpos, n_head,
+            head_dim, tbp, kv_bits, act_bf16)
+
+    o = _step_plain(h, mw, attention, n_head=n_head, has_lora=has_lora, eps=eps,
+                    act_dtype=act_dtype, aq_max=aq_max,
+                    sm_scale=1.0 / math.sqrt(head_dim))
+    return o, k_rec, v_rec, ks_rec, vs_rec
+
+
+def cb_merge_recent(kc, vc, ksc, vsc, k_rec, v_rec, ks_rec, vs_rec, lengths,
+                    k: int):
+    """Merge a chunk's `k` recent rows into the main caches, per slot, in
+    place: slot b's rows go to [row, row + k) with row = clip(lengths[b], 0,
+    T - k). Inactive slots merge finite garbage at their stale length,
+    which is never attended (per-slot lengths mask it) and which prefill
+    overwrites on reuse. Scales are (L, B, T) / (L, B, Tr)."""
+    T = kc.shape[2]
+    k = min(int(k), T)
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.detach().cpu()
+    for b, n in enumerate(np.asarray(lengths, np.int64).reshape(-1)):
+        row = min(max(int(n), 0), T - k)
+        kc[:, b, row:row + k] = k_rec[:, b, :k]
+        vc[:, b, row:row + k] = v_rec[:, b, :k]
+        ksc[:, b, row:row + k] = ks_rec[:, b, :k]
+        vsc[:, b, row:row + k] = vs_rec[:, b, :k]
+    return kc, vc, ksc, vsc
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel's wrapper
+# The CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 _LORA_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -467,6 +702,46 @@ def _scratch(dev, B: int, d: int, r: int):
                 torch.empty((B, 4 * d), dtype=f32, device=dev))
         _SCRATCH[key] = bufs
     return bufs
+
+
+def _launch_parts(what, h, mw, caches, head_dim, has_lora, act_dtype):
+    """Checks shared by the three step kernels. `caches` maps a name to
+    (tensor, dtype). Returns (h_out, weight pointers, scratch pointers,
+    r, LoRA ints (has_lora, lora dtype, act_bf16, lora_round))."""
+    B, d = h.shape
+    r = mw.at.shape[3]
+    if B > MAX_SLOTS:
+        raise ValueError(f"{what}: at most {MAX_SLOTS} batch rows; got {B}")
+    if head_dim > 128 or head_dim % 4:
+        raise ValueError(f"head_dim must be a multiple of 4 up to 128; got {head_dim}")
+    if r > 256:
+        raise ValueError(f"LoRA rank {r} above 256")
+    if mw.at.dtype not in _LORA_DTYPE_CODE or mw.bt.dtype != mw.at.dtype:
+        raise ValueError(f"LoRA banks must share a dtype of f32/bf16/int8; got "
+                         f"{mw.at.dtype}/{mw.bt.dtype}")
+    want = {
+        "h": (h, torch.float32), "wt": (mw.wt, torch.int8),
+        "ws": (mw.ws, torch.float32), "bias": (mw.bias, torch.float32),
+        "at": (mw.at, mw.at.dtype), "bt": (mw.bt, mw.at.dtype),
+        "at_s": (mw.at_s, torch.float32), "bt_s": (mw.bt_s, torch.float32),
+        "ln": (mw.ln, torch.float32), "xs": (mw.xs, torch.float32), **caches,
+    }
+    for name, (t, dt) in want.items():
+        if t.device != h.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on "
+                             f"{h.device}; got {t.dtype} on {t.device}")
+    act_bf16 = act_dtype == torch.bfloat16
+    lora_round = _lora_operand_dtype(mw, act_bf16) == torch.bfloat16
+    h_out = torch.empty_like(h)
+    weights = [h, h_out, mw.wt, mw.ws, mw.bias, mw.at, mw.bt, mw.at_s, mw.bt_s,
+               mw.ln, mw.xs]
+    lora = [int(bool(has_lora)), _LORA_DTYPE_CODE[mw.at.dtype], int(act_bf16),
+            int(lora_round)]
+    return h_out, weights, list(_scratch(h.device, B, d, r)), r, lora
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
 
 
 def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
@@ -497,46 +772,108 @@ def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
                                      pos, n_head, head_dim, tbp, kv_bits,
                                      tiles_per_step)
     B, d = h.shape
-    L = mw.wt.shape[0]
-    r = mw.at.shape[3]
-    if head_dim > 128 or head_dim % 4:
-        raise ValueError(f"head_dim must be a multiple of 4 up to 128; got {head_dim}")
-    if r > 256:
-        raise ValueError(f"LoRA rank {r} above 256")
-    if mw.at.dtype not in _LORA_DTYPE_CODE or mw.bt.dtype != mw.at.dtype:
-        raise ValueError(f"LoRA banks must share a dtype of f32/bf16/int8; got "
-                         f"{mw.at.dtype}/{mw.bt.dtype}")
-    want = {
-        "h": (h, torch.float32), "k_cache": (k_cache, torch.int8),
-        "v_cache": (v_cache, torch.int8), "k_scale": (k_scale, torch.float32),
-        "v_scale": (v_scale, torch.float32), "wt": (mw.wt, torch.int8),
-        "ws": (mw.ws, torch.float32), "bias": (mw.bias, torch.float32),
-        "at": (mw.at, mw.at.dtype), "bt": (mw.bt, mw.at.dtype),
-        "at_s": (mw.at_s, torch.float32), "bt_s": (mw.bt_s, torch.float32),
-        "ln": (mw.ln, torch.float32), "xs": (mw.xs, torch.float32),
-    }
-    for name, (t, dt) in want.items():
-        if t.device != h.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"mega_decode_step_kv8: {name} must be a contiguous "
-                             f"{dt} tensor on {h.device}; got {t.dtype} on "
-                             f"{t.device}")
-    act_bf16 = act_dtype == torch.bfloat16
-    lora_round = _lora_operand_dtype(mw, act_bf16) == torch.bfloat16
-    h_out = torch.empty_like(h)
-    qx, xa, xf, part, plb, qkv, attn, g = _scratch(h.device, B, d, r)
+    caches = {"k_cache": (k_cache, torch.int8), "v_cache": (v_cache, torch.int8),
+              "k_scale": (k_scale, torch.float32), "v_scale": (v_scale, torch.float32)}
+    h_out, weights, scratch, r, lora = _launch_parts(
+        "mega_decode_step_kv8", h, mw, caches, head_dim, has_lora, act_dtype)
     lib = _build.load("mega_decode")
-    ptrs = [h, h_out, mw.wt, mw.ws, mw.bias, mw.at, mw.bt, mw.at_s, mw.bt_s,
-            mw.ln, mw.xs, k_cache, v_cache, k_scale, v_scale, qx, xa, xf, part,
-            plb, qkv, attn, g]
-    ints = [L, B, d, n_head, Tc, r, int(pos), tbp, wbits, kv_bits,
-            int(bool(has_lora)), _LORA_DTYPE_CODE[mw.at.dtype], int(act_bf16),
-            int(lora_round), _KSPLIT]
     rc = lib.mega_decode_step_kv(
-        *[t.data_ptr() for t in ptrs], *ints, float(eps), float(aq_max),
+        *_ptrs(weights), *_ptrs((k_cache, v_cache, k_scale, v_scale)),
+        *_ptrs(scratch), mw.wt.shape[0], B, d, n_head, Tc, r, int(pos), tbp, wbits,
+        kv_bits, *lora, _KSPLIT, float(eps), float(aq_max),
         1.0 / math.sqrt(head_dim), _build.stream(h))
     _build.check(lib, rc, "mega_decode_step_kv8")
     mega_decode_step_kv8.launches += 1
     return h_out, k_cache, v_cache, k_scale, v_scale
 
 
+def mega_decode_step(h, mw: MegaWeights, k_cache, v_cache, pos, *,
+                     n_head: int, head_dim: int, has_lora: bool,
+                     eps: float = 1e-5, tbp: int = 32,
+                     act_dtype=torch.bfloat16, aq_max: float = 127.0,
+                     tiles_per_step: int = 1):
+    """One decode token through all layers over float head-interleaved
+    caches (L, B, T, d) of float32 or bf16 (row t holds every head's K or
+    V), updated in place at `pos`. Returns (h_out, k_cache, v_cache).
+
+    CPU tensors take `mega_decode_step_plain`; CUDA tensors launch the step
+    in `csrc/mega_decode.cu` (attention kernel `k_attn_f`) or raise. Counts
+    its launches in `mega_decode_step.launches`.
+    """
+    if h.device.type == "cpu":
+        return mega_decode_step_plain(
+            h, mw, k_cache, v_cache, pos, n_head=n_head, head_dim=head_dim,
+            has_lora=has_lora, eps=eps, tbp=tbp, act_dtype=act_dtype,
+            aq_max=aq_max, tiles_per_step=tiles_per_step)
+    tbp, wbits, _dc, Tc = _check_step(h, mw, k_cache, v_cache, None, None, pos,
+                                      n_head, head_dim, tbp, 16, tiles_per_step)
+    B, d = h.shape
+    cdt = k_cache.dtype
+    caches = {"k_cache": (k_cache, cdt), "v_cache": (v_cache, cdt)}
+    h_out, weights, scratch, r, lora = _launch_parts(
+        "mega_decode_step", h, mw, caches, head_dim, has_lora, act_dtype)
+    lib = _build.load("mega_decode")
+    rc = lib.mega_decode_step_f(
+        *_ptrs(weights), *_ptrs((k_cache, v_cache)), *_ptrs(scratch),
+        mw.wt.shape[0], B, d, n_head, Tc, r, int(pos), tbp, wbits,
+        _CACHE_DTYPE_CODE[cdt], *lora, _KSPLIT, float(eps), float(aq_max),
+        1.0 / math.sqrt(head_dim), _build.stream(h))
+    _build.check(lib, rc, "mega_decode_step")
+    mega_decode_step.launches += 1
+    return h_out, k_cache, v_cache
+
+
+def mega_decode_step_cb(h, mw: MegaWeights, k_main, v_main, ks_main, vs_main,
+                        k_rec, v_rec, ks_rec, vs_rec, lengths, rpos, *,
+                        n_head: int, head_dim: int, has_lora: bool,
+                        eps: float = 1e-5, tbp: int = 64,
+                        act_dtype=torch.bfloat16, aq_max: float = 127.0,
+                        kv_bits: int = 8, tiles_per_step: int = 1):
+    """Continuous-batching step: per-slot prefixes, two-level KV.
+
+    k_main/v_main (L, B, Tc, dc) + ks_main/vs_main (L, B, Tc): each slot's
+    prefix up to `lengths[b]` (read only). k_rec/v_rec (L, B, Tr, dc) +
+    ks_rec/vs_rec (L, B, Tr): the chunk-local recent buffer (Tr == tbp),
+    whose rows [0, rpos) are attended after the main prefix and which
+    receives the new codes and scales at the batch-uniform `rpos`, in place.
+    `lengths` lives on the host (a sequence, numpy array or CPU tensor) and
+    is checked there, as is rpos < Tr. Merge the recent rows into the main
+    caches once per chunk with `cb_merge_recent`. Returns
+    (h_out, k_rec, v_rec, ks_rec, vs_rec).
+
+    CPU tensors take `mega_decode_step_cb_plain`; CUDA tensors launch the
+    step in `csrc/mega_decode.cu` or raise. Counts its launches in
+    `mega_decode_step_cb.launches`.
+    """
+    if h.device.type == "cpu":
+        return mega_decode_step_cb_plain(
+            h, mw, k_main, v_main, ks_main, vs_main, k_rec, v_rec, ks_rec,
+            vs_rec, lengths, rpos, n_head=n_head, head_dim=head_dim,
+            has_lora=has_lora, eps=eps, tbp=tbp, act_dtype=act_dtype,
+            aq_max=aq_max, kv_bits=kv_bits, tiles_per_step=tiles_per_step)
+    tbp, wbits, Tc, Tr, lens, rpos = _check_cb(
+        h, mw, k_main, v_main, ks_main, vs_main, k_rec, v_rec, ks_rec, vs_rec,
+        lengths, rpos, n_head, head_dim, tbp, kv_bits, tiles_per_step)
+    B, d = h.shape
+    i8, f32 = torch.int8, torch.float32
+    caches = {"k_main": (k_main, i8), "v_main": (v_main, i8),
+              "ks_main": (ks_main, f32), "vs_main": (vs_main, f32),
+              "k_rec": (k_rec, i8), "v_rec": (v_rec, i8),
+              "ks_rec": (ks_rec, f32), "vs_rec": (vs_rec, f32)}
+    h_out, weights, scratch, r, lora = _launch_parts(
+        "mega_decode_step_cb", h, mw, caches, head_dim, has_lora, act_dtype)
+    lib = _build.load("mega_decode")
+    rc = lib.mega_decode_step_cb(
+        *_ptrs(weights), *_ptrs((k_main, v_main, ks_main, vs_main)),
+        *_ptrs((k_rec, v_rec, ks_rec, vs_rec)), lens.ctypes.data, *_ptrs(scratch),
+        mw.wt.shape[0], B, d, n_head, Tc, Tr, r, rpos, tbp, wbits, kv_bits, *lora,
+        _KSPLIT, float(eps), float(aq_max), 1.0 / math.sqrt(head_dim),
+        _build.stream(h))
+    _build.check(lib, rc, "mega_decode_step_cb")
+    mega_decode_step_cb.launches += 1
+    return h_out, k_rec, v_rec, ks_rec, vs_rec
+
+
 mega_decode_step_kv8.launches = 0
+mega_decode_step.launches = 0
+mega_decode_step_cb.launches = 0

@@ -375,3 +375,180 @@ def test_fused_sp_linear_runs_the_kernels(cuda_device):
         assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
                 fl.fused_linear_bwd_dw.launches) == tuple(b + n for b in before)
     assert bool(torch.isfinite(p["blocks"]["c_fc"]["w"].grad).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 32])
+def test_decode_attention_kernels_match_plain(cuda_device, dtype, D):
+    """#7 (shared position 0, 17, T - 1) and #8 (positions -1, 0, 17, T - 1)
+    against their plain versions on packed caches. Both round q·sm_scale and
+    each block's probabilities to the cache dtype at the same block maxima,
+    so they differ by the order of float32 sums: float32 outputs within
+    1e-5 (values O(1)); bf16-cache outputs within 2 bf16 ulps of their row's
+    max plus 1e-5, and, rounded to bf16, at most 2 % of them differing (a
+    kernel that skipped a rounding would move a third of them). The caches
+    must be bit-equal after the append (the inactive slot's untouched)."""
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    P, B, H, Tp = 128 // D, 4, 3, 64
+    T = P * Tp
+    q, kn, vn = (torch.randn((B, H, 1, D), generator=g, device=cuda_device)
+                 for _ in range(3))
+    kc, vc = (torch.randn((B, H, Tp, 128), generator=g, device=cuda_device).to(dtype)
+              for _ in range(2))
+    cases = [(da.decode_attention_hbm, da.decode_attention_hbm_plain, p)
+             for p in (0, 17, T - 1)]
+    cases.append((da.decode_attention_hbm_multi, da.decode_attention_hbm_multi_plain,
+                  [-1, 0, 17, T - 1]))
+    for kern, plain, pos in cases:
+        before = kern.launches
+        ok, ck, cv = kern(q, kn, vn, kc.clone(), vc.clone(), pos, tbp=16)
+        assert kern.launches == before + 1
+        op, pk, pv = plain(q, kn, vn, kc.clone(), vc.clone(), pos, tbp=16)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, pk) and torch.equal(cv, pv), pos
+        act = torch.tensor(pos, device=cuda_device).expand(B) >= 0
+        ok, op = ok[act], op[act]
+        if dtype == torch.float32:
+            torch.testing.assert_close(ok, op, atol=1e-5, rtol=0)
+        else:
+            assert bf16_row_ulps(ok, op, 1e-5).max() <= 2, pos
+            share = (ok.to(dtype) != op.to(dtype)).float().mean().item()
+            assert share <= 2e-2, (pos, share)
+
+
+def test_decode_attention_wrappers_check_positions(cuda_device):
+    """A position at or past the cache end (or below -1 per slot) raises
+    before launch: on the card the append would write out of bounds."""
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    q = torch.zeros((2, 1, 1, 64), device=cuda_device)
+    kc = torch.zeros((2, 1, 16, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="outside the cache"):
+        da.decode_attention_hbm(q, q, q, kc, kc.clone(), 32)
+    with pytest.raises(ValueError, match="outside the cache"):
+        da.decode_attention_hbm_multi(q, q, q, kc, kc.clone(), [3, 32])
+    with pytest.raises(ValueError, match="outside the cache"):
+        da.decode_attention_hbm_multi(q, q, q, kc, kc.clone(), [-2, 0])
+
+
+@pytest.mark.parametrize("cache,act", [(torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16),
+                                       (torch.bfloat16, torch.float32)])
+def test_mega_float_cache_kernel_matches_plain(cuda_device, cache, act):
+    """#3 against its plain version, held as #1 is: per batch row max |kernel
+    - plain| / max |plain h_out| within float rounding (1e-5 in float32
+    activations, 1e-2 with bf16 `_rt` roundings) for nine rows in ten and
+    within 5e-2 for all; the appended K/V rows within 5e-2 of their max (a
+    moved activation code upstream shifts them); other rows untouched."""
+    cfg, p, g = _small_setup(cuda_device)
+    d, L, H, B, T = 256, 2, 4, 3, 128
+    tree = quantize_for_inference(p, cfg, 8, weight_format="int8_xla")
+    tree.pop("_static")
+    mw = md.pack_mega_weights(tree, cfg)
+    c0 = [torch.randn((L, B, T, d), generator=g, device=cuda_device).to(cache)
+          for _ in range(2)]
+    tight = 1e-5 if act == torch.float32 else 1e-2
+    rows = []
+    for pos in (0, 1, 63, 64, 100):
+        h = 0.5 * torch.randn((B, d), generator=g, device=cuda_device)
+        kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act, tbp=32)
+        before = md.mega_decode_step.launches
+        out_k = md.mega_decode_step(h, mw, *[c.clone() for c in c0], pos, **kw)
+        assert md.mega_decode_step.launches == before + 1
+        out_p = md.mega_decode_step_plain(h, mw, *[c.clone() for c in c0], pos, **kw)
+        rows += ((out_k[0] - out_p[0]).abs().amax(dim=1) / out_p[0].abs().max()).tolist()
+        rest = [r for r in range(T) if r != pos]
+        for a, b, c in zip(out_k[1:], out_p[1:], c0):
+            assert torch.equal(a[:, :, rest], c[:, :, rest])
+            new_a, new_b = a[:, :, pos].float(), b[:, :, pos].float()
+            assert (new_a - new_b).abs().max() <= 5e-2 * new_b.abs().max()
+    print("row errors", sorted(rows))
+    assert max(rows) <= 5e-2
+    assert sum(e <= tight for e in rows) >= 0.9 * len(rows)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("rpos", [0, 7])
+def test_mega_cb_kernel_matches_plain(cuda_device, kv_bits, rpos):
+    """#4 against its plain version, slot lengths [40, 0, 100] over a
+    128-row main cache and a 32-row recent buffer (tbp 32), held as #1:
+    rows within float rounding for nine in ten, all within 5e-2; layer 0's
+    appended recent codes differ by at most one in at most 1 % (in layer 1 a
+    code moved upstream can shift a whole row's scale); the scales within
+    5e-2; main caches and the other recent rows untouched."""
+    cfg, p, g = _small_setup(cuda_device)
+    d, L, H, B, T, TR = 256, 2, 4, 3, 128, 32
+    wbits = 4 if kv_bits == 4 else 8
+    tree = quantize_for_inference(p, cfg, wbits, weight_format=f"int{wbits}_xla")
+    tree.pop("_static")
+    mw = md.pack_mega_weights(tree, cfg)
+    aq = float(tree["blocks"]["c_attn"]["qmax"][0]) if wbits == 4 else 127.0
+    dc = d if kv_bits == 8 else d // 2
+    codes = lambda n: torch.randint(-127, 128, (L, B, n, dc), generator=g,
+                                    device=cuda_device, dtype=torch.int8)
+    scales = lambda n: 0.01 + 0.04 * torch.rand((L, B, n), generator=g, device=cuda_device)
+    main = [codes(T), codes(T), scales(T), scales(T)]
+    rec0 = [codes(TR), codes(TR), scales(TR), scales(TR)]
+    lengths = [40, 0, 100]
+    tight = 1e-2
+    rows = []
+    for act in (torch.float32, torch.bfloat16):
+        h = 0.5 * torch.randn((B, d), generator=g, device=cuda_device)
+        kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act, aq_max=aq,
+                  tbp=32, kv_bits=kv_bits)
+        before = md.mega_decode_step_cb.launches
+        out_k = md.mega_decode_step_cb(h, mw, *main, *[c.clone() for c in rec0],
+                                       lengths, rpos, **kw)
+        assert md.mega_decode_step_cb.launches == before + 1
+        out_p = md.mega_decode_step_cb_plain(h, mw, *main, *[c.clone() for c in rec0],
+                                             lengths, rpos, **kw)
+        rows += ((out_k[0] - out_p[0]).abs().amax(dim=1) / out_p[0].abs().max()).tolist()
+        rest = [r for r in range(TR) if r != rpos]
+        for a, c in zip(out_k[1:], rec0):
+            assert torch.equal(a[:, :, rest], c[:, :, rest])
+        for a, b in zip(out_k[1:3], out_p[1:3]):  # layer 0: no moved code upstream
+            dcode = (md._kv_codes(a[0, :, rpos], kv_bits)
+                     - md._kv_codes(b[0, :, rpos], kv_bits))
+            assert dcode.abs().max() <= 1 and (dcode != 0).float().mean() <= 0.01
+        for a, b in zip(out_k[3:], out_p[3:]):
+            torch.testing.assert_close(a[:, :, rpos], b[:, :, rpos], rtol=5e-2, atol=0)
+    print("row errors", sorted(rows))
+    assert max(rows) <= 5e-2
+    assert sum(e <= tight for e in rows) >= 0.9 * len(rows)
+
+
+@pytest.mark.parametrize("layout,kv_bits", [("dense", 8), ("packed", 8), ("mega", 8),
+                                            ("mega", 4)])
+def test_server_runs_each_layout(cuda_device, layout, kv_bits):
+    """A short continuous-batching run per layout (three greedy requests on
+    two slots, a 130-token prompt among them, 8 new tokens, chunks of 4):
+    every request finishes with 8 tokens in range; the packed layout runs #8
+    once per layer and decode step, the mega layout #4 once per decode step,
+    and the 130-token prompt the flash prefill #2 once per layer."""
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg, p, g = _small_setup(cuda_device)
+    bits = 4 if kv_bits == 4 else 8
+    eng = ContinuousBatchingEngine(
+        p, cfg, bits=bits, n_slots=2, max_len=192, weight_format=f"int{bits}_xla",
+        kv_layout=layout, kv_bits=kv_bits, mega_tbp=64)
+    prompts = [torch.randint(0, 512, (n,), generator=g, device=cuda_device).tolist()
+               for n in (5, 130, 9)]
+    counters = (flash_attention, da.decode_attention_hbm_multi, md.mega_decode_step_cb)
+    before = [c.launches for c in counters]
+    ids = [eng.submit(pr, max_new_tokens=8) for pr in prompts]
+    eng.run_until_done(chunk=4)
+    torch.cuda.synchronize()
+    made = [c.launches - b for c, b in zip(counters, before)]
+    assert all(len(eng.finished[i].generated) == 8 for i in ids)
+    assert all(0 <= t < 512 for i in ids for t in eng.finished[i].generated)
+    assert made[0] == cfg.model.n_layer  # the 130-token prompt's flash prefill
+    if layout == "packed":
+        assert made[1] > 0 and made[1] % cfg.model.n_layer == 0 and made[2] == 0
+    elif layout == "mega":
+        assert made[2] > 0 and made[1] == 0
+    else:
+        assert made[1] == made[2] == 0

@@ -2,8 +2,11 @@
 (`attn_interpret=True`, so the JAX megakernel runs in interpret mode).
 
 The served configuration of the bench at tiny size: W4A4 int4_xla tree,
-int8 LoRA banks, int4 LM head; kv_layout "mega" with kv_bits 4 and 8, and
-"dense". A 128-token prompt takes the flash prefill branch on both sides.
+int8 LoRA banks, int4 LM head; kv_layout "mega" with kv_bits 4, 8 and 16
+(the float-cache step #3), "dense", and "packed" (a 21-token prompt: a
+20-token aligned prefill, then the odd tail and the decode through the
+packed kernel #7). A 128-token prompt takes the flash prefill branch on
+both sides.
 The trees are float32, as in the JAX package's own engine-equality tests:
 with bf16 activations an ulp-level float32 difference (attention
 probabilities rounded to bf16 after a softmax summed in another order)
@@ -23,6 +26,7 @@ from llm_qat_tpu.train import calibration_manager as jcm
 from llm_qat_tpu_torch import bridge
 from llm_qat_tpu_torch.models import config as tc
 from llm_qat_tpu_torch.models.inference import InferenceEngine as TEngine
+from llm_qat_tpu_torch.models.inference import infer_forward_unrolled, init_layer_caches
 
 V = 256
 
@@ -50,7 +54,8 @@ def calibrated():
 
 
 @pytest.mark.parametrize("kv_layout,kv_bits,prompt", [
-    ("mega", 4, 128), ("mega", 8, 20), ("dense", 16, 20)])
+    ("mega", 4, 128), ("mega", 8, 20), ("dense", 16, 20), ("packed", 16, 21),
+    ("mega", 16, 20)])
 def test_greedy_generate_matches_jax_engine(calibrated, kv_layout, kv_bits, prompt):
     """Greedy tokens must be equal. The integer dots are exact in both
     packages and the float32 sums differ by ulps, which flip no argmax on
@@ -68,14 +73,21 @@ def test_greedy_generate_matches_jax_engine(calibrated, kv_layout, kv_bits, prom
 
 
 def test_engine_refuses_unported_layouts_and_overlong_requests(calibrated):
+    """What still raises: fused attention (kernel #9, not yet ported), KV8 /
+    KV4 outside the mega layout, an unknown layout, and requests past
+    max_len. "auto" picks the dense layout on the CPU."""
     _, tcfg, _, tp = calibrated
     kw = dict(bits=4, weight_format="int4_xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel #3"):
-        TEngine(tp, tcfg, kv_layout="mega", kv_bits=16, **kw)
-    with pytest.raises(NotImplementedError, match="kernel #7"):
-        TEngine(tp, tcfg, kv_layout="packed", **kw)
+    eng = TEngine(tp, tcfg, **kw)
+    assert eng.kv_layout == "dense"
+    caches = init_layer_caches(tcfg, 1, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="#9"):
+        infer_forward_unrolled(eng.iparams, torch.zeros((1, 1), dtype=torch.int64),
+                               tcfg, caches, 0, static=eng.static, fused_attention=True)
     with pytest.raises(ValueError, match="requires kv_layout='mega'"):
         TEngine(tp, tcfg, kv_bits=4, **kw)
+    with pytest.raises(ValueError, match="unknown kv_layout"):
+        TEngine(tp, tcfg, kv_layout="paged", **kw)
     eng = TEngine(tp, tcfg, kv_layout="mega", kv_bits=4, max_len=64, **kw)
     with pytest.raises(ValueError, match="exceeds engine max_len"):
         eng.generate(np.zeros((1, 60), np.int64), max_new_tokens=8)

@@ -26,8 +26,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module (the training slice's and the fused linear's
-    among them) and chip_smoke.py import without JAX or llm_qat_tpu."""
+    """Every port module (the training slice's, the fused linear's, the
+    packed decode attention's and the server's among them) and
+    chip_smoke.py import without JAX or llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import llm_qat_tpu_torch as p\n"
@@ -38,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "want = {'llm_qat_tpu_torch.train.' + n for n in\n"
         "        ('sp_trainer', 'distillation', 'optim', 'calibration_manager')}\n"
         "want |= {'llm_qat_tpu_torch.ops.' + n for n in\n"
-        "         ('attention', 'matmul', 'fused_linear')}\n"
+        "         ('attention', 'matmul', 'fused_linear', 'decode_attention')}\n"
+        "want |= {'llm_qat_tpu_torch.serving', 'llm_qat_tpu_torch.serving.engine'}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

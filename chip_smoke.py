@@ -7,8 +7,8 @@ Run from the repository root on a machine with an H100 (no arguments):
 
 It builds the port's CUDA kernels from `llm_qat_tpu_torch/csrc/`, holds each
 kernel against its plain PyTorch version at GPT-2 124M widths, and drives
-two paths with random weights from a seed, each with the launch counters
-set to 0 just before it and read just after:
+the port's paths with random weights from a seed, each with the launch
+counters set to 0 just before it and read just after:
 
 - serving (calibrate → quantize_for_inference → prefill → mega decode →
   int4 LM head → greedy sampling) through `InferenceEngine.generate`, which
@@ -23,6 +23,15 @@ set to 0 just before it and read just after:
   layout (the single-token packed kernel #7) and with the mega layout at
   kv_bits 16 (the float-cache step kernel #3); every served path's tokens
   held against its plain path by teacher-forced replay and a jitter floor;
+- the int8 decode options (path A): `InferenceEngine` with
+  `weight_format="int8"` (packed layout, 128-token prompt, 32 greedy
+  tokens), which must run the packed-weight GEMM #10 for each of the 48
+  linears of every forward call; (path B) a greedy loop of 64 steps over
+  `infer_forward_unrolled(fused_attention=True, fused_linears=True)` on the
+  8-bit int8_xla tree with dense bf16 caches, each step running the fused
+  LN+QKV kernel #12, the dense-cache attention #9 and the fused
+  post-attention kernel #13 once per layer; both held against their plain
+  paths as above, path B's step timed beside the unfused int8_xla step;
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
@@ -40,10 +49,12 @@ iteration of each path, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - one line per comparison, its error beside its tolerance;
-- `timings`, `serving_timings`, `decode_kernel_timings`, `train_profile`,
+- `timings`, `serving_timings`, `fused_decode_timings`,
+  `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
   `fused_train_profile`, `train_timings`, `flash_timings` and
-  `fused_kernel_timings` JSON lines and a `kernels` JSON line (eleven
-  kernels);
+  `fused_kernel_timings` JSON lines and a `kernels` JSON line (all sixteen
+  kernels; #11, which no model path runs, with the launches of its direct
+  hold);
 - last, `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -145,6 +156,23 @@ DA_DIFF_SHARE = 2e-2
 # max (a bf16 rounding moved by an ulp of float32), none by more than
 # KV16_LAYER_REL (one bf16 ulp at the row's max).
 KV16_LAYER_REL = 2.0 ** -7
+# Kernels #10/#11 (the packed-weight GEMM) against their plain versions at
+# the four GPT-2 linear shapes, M = 8 and 1024: the codes are exact in bf16
+# and bf16 products exact in float32, so the two differ by the order of the
+# float32 sums: every output within QMM_REL of max |plain|.
+QMM_REL = 1e-5
+# Kernel #9 (dense-cache decode attention) against its plain version: float32
+# scores and probabilities in both, sums in another order: outputs within
+# DA9_ABS (values O(1)); the caches bit-equal (row pos written in the cache
+# dtype by both, every other row untouched).
+DA9_ABS = 1e-5
+# Kernels #12/#13 (the fused int8 decode layer), each layer alone, held as the
+# decode steps are: per batch row, max |kernel - plain| / max |plain| within
+# float32 rounding (FD_ROW_TIGHT) for at least MEGA_TIGHT_SHARE of the rows
+# (the int8 dots are exact; LN and LoRA sum in another order); a row where a
+# value sat on a rounding boundary of the activation quantizer and a code
+# moved within MEGA_LAYER_MAX.
+FD_ROW_TIGHT = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -1185,6 +1213,388 @@ def spread_summary(spread, failures):
                             f"{MEGA_ROW_TIGHT[an]:g}")
 
 
+QMM_LAYER = 0                  # the layer whose weights hold #10/#11 and time them
+INT8_T0, INT8_NEW = 128, 32    # path A: prompt and new tokens
+FUSED_T0, FUSED_NEW = 128, 64  # path B: prompt and decode steps
+
+
+def quant_matmul_vs_plain(tree, gen, dev, failures):
+    """Kernels #10 and #11 against their plain versions at the four GPT-2
+    linear shapes, M = 8 (a decode step) and 1024 (path A's prefill, B·S):
+    #10 on the codes of the "int8" tree's first layer, #11 on the same
+    weights packed as int4. Returns ({name: largest abs error}, launches of
+    each in this hold)."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    errs = {"quant_matmul_int8": 0.0, "quant_matmul_int4": 0.0}
+    before = {n: getattr(qm, n).launches for n in errs}
+    for lin in LINEARS:
+        p = tree["blocks"][lin]
+        codes, ws = p["w_int8"][QMM_LAYER], p["w_s"][QMM_LAYER]
+        w4, s4 = qm.pack_int4(codes.float() * ws)
+        K, N = codes.shape
+        for M in (8, 1024):
+            x = torch.randn((M, K), generator=gen, device=dev)
+            parts = []
+            for name, w, s in (("quant_matmul_int8", codes, ws), ("quant_matmul_int4", w4, s4)):
+                got = getattr(qm, name)(x, w, s)
+                want = getattr(qm, name + "_plain")(x, w, s)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                errs[name] = max(errs[name], err)
+                parts.append(f"{name} {rel:.2e}")
+                if not rel <= QMM_REL:
+                    failures.append(f"{name} {lin} M={M}: {rel:.3e} of max")
+            print(f"quant_matmul kernels vs plain {lin} (M={M}, K={K}, N={N}), error / max "
+                  f"|plain| (tol {QMM_REL:g}): " + "; ".join(parts), flush=True)
+    return errs, {n: getattr(qm, n).launches - before[n] for n in errs}
+
+
+def dense_attention_vs_plain(gen, dev, B, H, D, failures):
+    """Kernel #9 against its plain version on dense caches of T = 192 (path
+    B's) and 512, bf16 and float32, at shared positions 0, 100, T - 1 and
+    one per slot; q, k_new, v_new float32 (the fused layer's qkv). Returns
+    the largest absolute error."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    err = 0.0
+    for T in (192, 512):
+        slots = [0, 5, 64, 100, 150, T - 40, T - 2, T - 1]
+        for dt in (torch.bfloat16, torch.float32):
+            q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
+            kc, vc = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
+                      for _ in range(2))
+            for pos in (0, 100, T - 1, slots):
+                ok, ck, cv = da.decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
+                op, pk, pv = da.decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
+                torch.cuda.synchronize()
+                e = (ok - op).abs().max().item()
+                err = max(err, e)
+                p = torch.tensor(pos, device=dev).expand(B)
+                rest = (torch.arange(T, device=dev)[None] != p[:, None])[:, None].expand(B, H, T)
+                same = torch.equal(ck, pk) and torch.equal(cv, pv)
+                kept = torch.equal(ck[rest], kc[rest]) and torch.equal(cv[rest], vc[rest])
+                tag = f"T={T} {str(dt)[6:]} pos {'per slot' if isinstance(pos, list) else pos}"
+                print(f"decode_attention ({B},{H},1,{D}) dense {tag}: max abs err {e:.3e} (tol "
+                      f"{DA9_ABS:g}); caches bit-equal {same}; other rows untouched {kept}",
+                      flush=True)
+                if not (e <= DA9_ABS and same and kept):
+                    failures.append(f"decode_attention {tag}: err {e:.3e}, caches equal "
+                                    f"{same}, other rows kept {kept}")
+    return err
+
+
+def fused_decode_vs_plain(tree, cfg, gen, dev, B, failures):
+    """Kernels #12 and #13 against their plain versions, each layer alone on
+    that layer's weights of the 8-bit int8_xla tree (rank-64 bf16 LoRA
+    banks, static activation scales), h and attn drawn per layer. Returns
+    the largest absolute error of each."""
+    import torch
+
+    from llm_qat_tpu_torch.models.sp_model import _layer
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    m = cfg.model
+    rows = {"fused_ln_qkv": [], "fused_post_attention": []}
+    errs = {k: 0.0 for k in rows}
+    for li in range(m.n_layer):
+        bp = _layer(tree["blocks"], li)
+        ca = bp["c_attn"]
+        h = torch.randn((B, m.n_embd), generator=gen, device=dev)
+        attn = 0.5 * torch.randn((B, m.n_embd), generator=gen, device=dev)
+        xs = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
+        for name, args in (
+                ("fused_ln_qkv", (h, bp["ln1"]["g"], bp["ln1"]["b"], ca["w_i8"], ca["w_s"],
+                                  ca["b"], ca["x_s"], ca["lora_A"], ca["lora_B"])),
+                ("fused_post_attention", (attn, h, bp["ln2"]["g"], bp["ln2"]["b"],
+                                          bp["attn_proj"], bp["c_fc"], bp["mlp_proj"], xs))):
+            got = getattr(fd, name)(*args, eps=m.layer_norm_epsilon)
+            want = getattr(fd, name + "_plain")(*args, eps=m.layer_norm_epsilon)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], (got - want).abs().max().item())
+            rows[name] += ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+    for name, rs in rows.items():
+        share = sum(e <= FD_ROW_TIGHT for e in rs) / len(rs)
+        print(f"{name} vs plain, each of {m.n_layer} layers alone (B={B}, rank "
+              f"{cfg.quant.max_rank} bf16 LoRA): {len(rs)} rows, within {FD_ROW_TIGHT:g}: "
+              f"{share:.3f} (tol >= {MEGA_TIGHT_SHARE}); row err max {max(rs):.3e} (tol "
+              f"{MEGA_LAYER_MAX:g}), median {sorted(rs)[len(rs) // 2]:.2e}", flush=True)
+        if not (share >= MEGA_TIGHT_SHARE and max(rs) <= MEGA_LAYER_MAX):
+            failures.append(f"{name}: {share:.3f} of rows within {FD_ROW_TIGHT:g}, row err "
+                            f"max {max(rs):.3e}")
+    return errs
+
+
+def int8_engine_path(params, cfg, dev, B, gen):
+    """Path A: `InferenceEngine(bits=8, weight_format="int8",
+    lm_head_bits=8)` with the card's "auto" layout (packed), B = 8, a
+    128-token prompt (one aligned prefill through flash #2), 32 greedy new
+    tokens, after a short warm-up; the counters of #2, #7 and #10 set to 0
+    just before and read just after: #10 once per linear, layer and forward
+    call (48 per call; the prefill and 32 decode calls), #7 once per layer
+    and decode call. The tokens held against the plain path by teacher-forced
+    replay and the jitter floor. Returns (launches, timings)."""
+    import torch
+
+    from llm_qat_tpu_torch.models import inference
+    from llm_qat_tpu_torch.models.inference import InferenceEngine, init_layer_caches
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    from llm_qat_tpu_torch.ops.attention import flash_attention
+
+    T0, NEW, L = INT8_T0, INT8_NEW, cfg.model.n_layer
+    kw = dict(bits=8, max_batch=B, max_len=T0 + NEW, weight_format="int8", lm_head_bits=8)
+    eng = InferenceEngine(params, cfg, **kw)
+    check(eng.kv_layout == "packed", "path A: 'auto' is the packed layout on the card")
+    prompt = torch.randint(0, cfg.model.vocab_size, (B, T0), generator=gen, device=dev)
+    eng.generate(prompt[:, :16], max_new_tokens=2)
+    counters = (qm.quant_matmul_int8, da.decode_attention_hbm, flash_attention)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.generate(prompt, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"quant_matmul_int8": 4 * L * (1 + NEW), "decode_attention_hbm": L * NEW,
+            "flash_attention": L}
+    print(f"path A (InferenceEngine int8, packed) main path: {B} x {NEW} tokens in "
+          f"{wall:.2f} s; launches {launches}", flush=True)
+    check(launches == want, f"path A: launches {launches} == {want} (#10: 48 per forward)")
+    check(tuple(res.shape) == (B, T0 + NEW) and torch.equal(res[:, :T0], prompt),
+          "path A: generate shape and prompt kept")
+    toks = res[:, T0:]
+    check(bool(((toks >= 0) & (toks < cfg.model.vocab_size)).all()), "path A: token ids")
+
+    def replay(e):
+        caches = init_layer_caches(cfg, B, T0 + NEW, e.dtype, kv_layout="packed", device=dev)
+        logits, caches = e.prefill(prompt, caches)
+        steps = [logits[:, -1]]
+        for i in range(NEW - 1):
+            last, caches = e._forward(toks[:, i:i + 1], caches, T0 + i)
+            steps.append(last)
+        return torch.stack(steps, dim=1)
+
+    ref = InferenceEngine(params, cfg, use_kernels=False, **kw)
+    lk, lp = replay(eng), replay(ref)
+    patches = [(inference, "quant_matmul_int8_plain", "out"),
+               (inference, "decode_attention_hbm_plain", "out"),
+               (inference, "flash_attention_plain", "out")]
+    lj = jittered_floor(patches, lambda: replay(ref), dev)
+    hold_tokens("path A int8", toks, lk, lp, lj)
+    return launches, {"generate_s": wall, "tokens": B * NEW}
+
+
+def fused_decode_path(params, cfg, dev, B, gen):
+    """Path B: a greedy decode loop over `infer_forward_unrolled(
+    fused_attention=True, fused_linears=True)` on the 8-bit int8_xla tree
+    with the int8 head, dense bf16 caches, B = 8: a 128-token prefill through
+    flash #2, then 64 steps, each of which must run #12, #9 and #13 once per
+    layer and #10 never; the counters set to 0 just before and read just
+    after. The tokens held against the plain path by teacher-forced replay
+    and the jitter floor. Then the fused step's time beside the unfused
+    int8_xla step on the same tree and caches, and each step's launches.
+    Returns (launches, timings)."""
+    import numpy as np
+    import torch
+
+    from llm_qat_tpu_torch.models import inference
+    from llm_qat_tpu_torch.models.inference import (
+        infer_forward_unrolled,
+        init_layer_caches,
+        quantize_for_inference,
+    )
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    from llm_qat_tpu_torch.ops.attention import flash_attention
+
+    T0, NEW, L = FUSED_T0, FUSED_NEW, cfg.model.n_layer
+    tree = quantize_for_inference(params, cfg, 8, weight_format="int8_xla", lm_head_bits=8)
+    st = tree.pop("_static")
+    prompt = torch.randint(0, cfg.model.vocab_size, (B, T0), generator=gen, device=dev)
+
+    def prefill(use_kernels, fused):
+        caches = init_layer_caches(cfg, B, T0 + NEW, torch.bfloat16, device=dev)
+        kw = dict(static=st, use_kernels=use_kernels, fused_attention=fused,
+                  fused_linears=fused)
+        logits, caches, _ = infer_forward_unrolled(tree, prompt, cfg, caches, 0,
+                                                   initial_prefill=True, **kw)
+        return logits[:, -1], caches, kw
+
+    def decode(use_kernels=True, toks=None):
+        """Prefill, then NEW fused steps, greedy (toks None) or on toks.
+        Returns (tokens (B, NEW), the logits each token was taken from)."""
+        last, caches, kw = prefill(use_kernels, True)
+        out, steps = [], []
+        for i in range(NEW):
+            steps.append(last)
+            tok = last.argmax(-1) if toks is None else toks[:, i]
+            out.append(tok)
+            logits, caches, _ = infer_forward_unrolled(tree, tok[:, None], cfg, caches,
+                                                       T0 + i, **kw)
+            last = logits[:, -1]
+        return torch.stack(out, dim=1), torch.stack(steps, dim=1)
+
+    decode(toks=prompt[:, :NEW])  # warm-up
+    counters = (fd.fused_ln_qkv, da.decode_attention, fd.fused_post_attention,
+                qm.quant_matmul_int8, flash_attention)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, _ = decode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"fused_ln_qkv": L * NEW, "decode_attention": L * NEW,
+            "fused_post_attention": L * NEW, "quant_matmul_int8": 0, "flash_attention": L}
+    print(f"path B (fused int8 decode layer, dense bf16 caches) main path: prefill + {NEW} "
+          f"steps in {wall:.2f} s; launches {launches}", flush=True)
+    check(launches == want, f"path B: launches {launches} == {want} (#12, #9, #13: "
+          f"{L} each per step)")
+    check(bool(((toks >= 0) & (toks < cfg.model.vocab_size)).all()), "path B: token ids")
+    lk = decode(toks=toks)[1]
+    lp = decode(use_kernels=False, toks=toks)[1]
+    patches = [(fd, "_ln_f32", "out"), (fd, "_lora", "out"),
+               (inference, "decode_attention_plain", "out"),
+               (inference, "flash_attention_plain", "out")]
+    lj = jittered_floor(patches, lambda: decode(use_kernels=False, toks=toks)[1], dev)
+    hold_tokens("path B fused", toks, lk, lp, lj)
+
+    def steps_ms(fused):
+        """Host ms per decode step over NEW steps on toks (kernels on)."""
+        _, caches, kw = prefill(True, fused)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(NEW):
+            _, caches, _ = infer_forward_unrolled(tree, toks[:, i:i + 1], cfg, caches, T0 + i,
+                                                  **kw)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / NEW
+
+    def step_profile(fused):
+        """Kernel launches and recorded device ms of one step at pos T0."""
+        _, caches, kw = prefill(True, fused)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            infer_forward_unrolled(tree, toks[:, :1], cfg, caches, T0, **kw)
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count]
+        return (sum(ev.count for ev in evs), sum(ev.self_device_time_total for ev in evs) / 1e3)
+
+    runs = {"fused": [], "unfused": []}
+    for name in ("fused", "unfused", "unfused", "fused"):
+        runs[name].append(steps_ms(name == "fused"))
+    tm = {"main_path_wall_s": wall}
+    for name, ms in runs.items():
+        n, busy = step_profile(name == "fused")
+        tm[name] = {"ms_per_step_each": ms, "ms_per_step": float(np.median(ms)),
+                    "device_launches_per_step": n, "device_busy_ms_per_step": busy}
+    print("fused_decode_timings " + json.dumps(tm), flush=True)
+    return launches, tm
+
+
+def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
+    """#9-#13 at their main paths' shapes: device time (profiler), the plain
+    versions' time (CUDA events), bytes, operations and bounds, and the
+    library yardsticks. #10/#11: the four linears of one layer summed, at
+    M = 8 (a decode step, the main path's usual shape) and M = 1024 (path A's
+    prefill); library: the bf16 product alone (torch.mm of the bf16 input
+    and the codes as bf16, float32 result). #9: B = 8, T = 192 (path B's
+    cache), pos 160 (mid-decode), bf16 cache; library: SDPA of the bf16 q against the
+    dense cache with a length mask. #12/#13: layer 0 of the int8_xla tree;
+    no single PyTorch call computes either."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.models.sp_model import _layer
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    m = cfg.model
+    d, H, D, r = m.n_embd, m.n_head, m.head_dim, cfg.quant.max_rank
+    f32, bf = torch.float32, torch.bfloat16
+
+    def row(ms, plain, lib, nbytes, t_o):
+        """t_o: the operations' least time in seconds."""
+        t_b = nbytes / HBM_BYTES_PER_S
+        return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
+                "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    out = {}
+    for name, bits in (("quant_matmul_int8", 8), ("quant_matmul_int4", 4)):
+        kern, plain = getattr(qm, name), getattr(qm, name + "_plain")
+        for M in (8, 1024):
+            acc = dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0, ops=0.0)
+            for lin in LINEARS:
+                p = trees["int8"]["blocks"][lin]
+                codes, ws = p["w_int8"][QMM_LAYER], p["w_s"][QMM_LAYER]
+                w, s = (codes, ws) if bits == 8 else qm.pack_int4(codes.float() * ws)
+                K, N = codes.shape
+                x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+                wb = (codes if bits == 8 else qm.unpack_int4(w)).to(bf)
+                acc["ms"] += device_ms(lambda: kern(x, w, s), n_iter, ["qmm"])
+                acc["plain"] += cuda_ms(lambda: plain(x, w, s), 10)
+                acc["lib"] += device_ms(lambda: torch.mm(x, wb, out_dtype=f32), n_iter)
+                acc["nbytes"] += 2 * M * K + K * N * bits // 8 + 4 * N + 4 * M * N
+                acc["ops"] += 2 * M * K * N / PEAK_BF16_FLOPS
+            out[f"{name}_M{M}"] = row(acc["ms"], acc["plain"], acc["lib"], acc["nbytes"],
+                                      acc["ops"])
+
+    T, pos = FUSED_T0 + FUSED_NEW, FUSED_T0 + FUSED_NEW // 2   # 192, 160
+    q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
+    kc, vc = (torch.randn((B, H, T, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    mask = (torch.arange(T, device=dev) <= pos)[None, None, None, :]
+    qb = q.to(bf)
+    live = pos + 1
+    out["decode_attention"] = row(
+        device_ms(lambda: da.decode_attention(q, kn, vn, kc, vc, pos), 200, ["k_decode_dense"]),
+        cuda_ms(lambda: da.decode_attention_plain(q, kn, vn, kc, vc, pos), 20),
+        device_ms(lambda: F.scaled_dot_product_attention(qb, kc, vc, attn_mask=mask), 200),
+        3 * B * H * D * 4 + 2 * B * H * live * D * 2 + B * H * D * 4 + 2 * B * H * D * 2,
+        4 * B * H * D * live / PEAK_BF16_FLOPS)
+
+    bp = _layer(trees[8]["blocks"], 0)
+    ca = bp["c_attn"]
+    h = torch.randn((B, d), generator=gen, device=dev)
+    attn = 0.5 * torch.randn((B, d), generator=gen, device=dev)
+    xs = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
+    eps = m.layer_norm_epsilon
+
+    def lin_bytes(lin):
+        K, N = lin["w_i8"].shape
+        return (K * N + 4 * lin["w_s"].numel() + 4 * N
+                + lin["lora_A"].numel() * lin["lora_A"].element_size()
+                + lin["lora_B"].numel() * lin["lora_B"].element_size())
+
+    def lin_ops(lin):
+        K, N = lin["w_i8"].shape
+        return 2 * B * K * N / PEAK_INT8_OPS + 2 * B * r * (K + N) / PEAK_BF16_FLOPS
+
+    for name, args, nbytes, ops in (
+            ("fused_ln_qkv", (h, bp["ln1"]["g"], bp["ln1"]["b"], ca["w_i8"], ca["w_s"], ca["b"],
+                              ca["x_s"], ca["lora_A"], ca["lora_B"]),
+             4 * B * d + 8 * d + lin_bytes(ca) + 4 + 4 * B * 3 * d, lin_ops(ca)),
+            ("fused_post_attention", (attn, h, bp["ln2"]["g"], bp["ln2"]["b"], bp["attn_proj"],
+                                      bp["c_fc"], bp["mlp_proj"], xs),
+             8 * B * d + 8 * d + sum(lin_bytes(bp[n]) for n in LINEARS[1:]) + 12 + 4 * B * d,
+             sum(lin_ops(bp[n]) for n in LINEARS[1:]))):
+        kern, plain = getattr(fd, name), getattr(fd, name + "_plain")
+        out[name] = row(device_ms(lambda: kern(*args, eps=eps), n_iter),
+                        cuda_ms(lambda: plain(*args, eps=eps), 20), None, nbytes, ops)
+    print("int8_kernel_timings " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1363,6 +1773,12 @@ def main() -> int:
             failures.append(f"flash T={T}: max abs err {err:.3e}")
     errs.update(flash_train_vs_plain(gen, dev, B, H, d // H, failures))
     errs.update(decode_attention_vs_plain(gen, dev, B, H, d // H, failures))
+    trees["int8"] = quantize_for_inference(params, cfg, 8, weight_format="int8")
+    trees["int8"].pop("_static")
+    qerrs, int4_launches = quant_matmul_vs_plain(trees["int8"], gen, dev, failures)
+    errs.update(qerrs)
+    errs["decode_attention"] = dense_attention_vs_plain(gen, dev, B, H, d // H, failures)
+    errs.update(fused_decode_vs_plain(trees[8], cfg, gen, dev, B, failures))
     spread_new = {}
     errs["mega_decode_step"] = float_step_vs_plain(md, trees[4], cfg, gen, dev, B, failures,
                                                    spread_new)
@@ -1427,7 +1843,12 @@ def main() -> int:
     serve = {name: serve_path(params, cfg, dev, name, cb_prompts) for name in CB_CONFIGS}
     layout_launches = engine_layouts_path(params, cfg, dev, B, gen)
 
-    # 4b. training: kernels #14-#16 against their plain versions at the
+    # 4b. the int8 weight format (path A) and the fused int8 decode layer
+    #     (path B)
+    a_launches, _ = int8_engine_path(params, cfg, dev, B, gen)
+    b_launches, _ = fused_decode_path(params, cfg, dev, B, gen)
+
+    # 4c. training: kernels #14-#16 against their plain versions at the
     #     GPT-2 linear shapes, then the flat and the fused main paths from
     #     the same calibrated parameters, each with one step against the
     #     same step on its kernels' plain versions
@@ -1578,6 +1999,7 @@ def main() -> int:
                      "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= mega_ops / PEAK_INT8_OPS
                                   else "operations")}
     print("decode_kernel_timings " + json.dumps(dtm), flush=True)
+    itm = int8_kernel_timings(trees, cfg, gen, dev, B)
     accum = tcfg.gradient_accumulation_steps
     it_flat, tstate = iteration_timings(tstate, train_step, tbatches, accum, tgen)
     iteration_profile(tstate, train_step, tbatches[0], tgen, it_flat["iter_ms"], "")
@@ -1671,6 +2093,29 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t_["ms"], "plain_ms": t_["plain_ms"],
             "bound_ms": t_["bound_ms"], "bound_by": t_["bound_by"],
             "library_ms": t_["library_ms"]})
+    # kernels #9-#13: #10/#11 per layer (four linears) at a decode step's
+    # M = 8; #9 at path B's cache, #12/#13 one layer
+    new_launches = {"decode_attention": b_launches["decode_attention"],
+                    "quant_matmul_int8": a_launches["quant_matmul_int8"],
+                    "quant_matmul_int4": int4_launches["quant_matmul_int4"],
+                    "fused_ln_qkv": b_launches["fused_ln_qkv"],
+                    "fused_post_attention": b_launches["fused_post_attention"]}
+    for name, src, replaces, key in (
+            ("decode_attention", "decode_attention.cu", "decode_attention.py:76",
+             "decode_attention"),
+            ("quant_matmul_int8", "quant_matmul.cu", "quant_matmul.py:91", "quant_matmul_int8_M8"),
+            ("quant_matmul_int4", "quant_matmul.cu", "quant_matmul.py:98", "quant_matmul_int4_M8"),
+            ("fused_ln_qkv", "fused_decode.cu", "fused_decode.py:80", "fused_ln_qkv"),
+            ("fused_post_attention", "fused_decode.cu", "fused_decode.py:90",
+             "fused_post_attention")):
+        t_ = itm[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"llm_qat_tpu_torch/csrc/{src}",
+            "replaces": f"llm_qat_tpu/ops/{replaces}", "launches": new_launches[name],
+            "max_abs_err": errs[name], "ms": t_["ms"], "plain_ms": t_["plain_ms"],
+            "bound_ms": t_["bound_ms"], "bound_by": t_["bound_by"],
+            "library_ms": t_["library_ms"]})
+    check(len(kernels) == 16, "the kernels line has a row for each of the 16 kernels")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,23 @@
 // read. Scores, sums and the softmax are float32; bf16 x bf16 products are
 // exact in float32, so the kernel and its plain version differ by the order
 // of float32 sums only.
+//
+// A second kernel, `k_decode_dense` (entry `decode_attention_dense`),
+// replaces the Pallas `_decode_attn_kernel` behind `decode_attention`
+// (kernel #9): the same one-token attention on dense (B, H, T, D) caches,
+// with a position per slot (a shared one is broadcast). The TPU kernel
+// writes the new row at pos in the cache dtype, then takes float32 scores
+// of q*sm_scale (not rounded) against every row, masks rows past pos, and
+// runs one exact softmax whose probabilities stay float32. Here one
+// 128-thread block per (b, h) writes the new row first (so the rows it
+// reads back are rounded to the cache dtype, as in the TPU kernel), then
+// one warp per row computes the scores of rows 0 .. pos into shared memory
+// (a masked row adds exactly 0 to the TPU kernel's sums once row pos has a
+// score, so the block stops at its own pos), takes the block maximum and
+// the float32 probabilities, and thread c sums P.V for lane c % D over
+// every (128 / D)-th row; the partial sums are added in a fixed order. It
+// reads the live prefix of K and V once (2 (pos + 1) D cache elements per
+// (b, h)): bound by device-memory bytes, like #7/#8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,6 +208,86 @@ k_decode_hbm(const float* __restrict__ q, const float* __restrict__ kn,
     kc[w + i] = from_f<T>(kn[(size_t)bh * D + i]);
     vc[w + i] = from_f<T>(vn[(size_t)bh * D + i]);
   }
+}
+
+// q, kn, vn: (B*H, D) float32; kc, vc: (B*H, Tn, D) of T; out (B*H, D).
+// 0 <= pos < Tn for every slot; D is 32, 64 or 128.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+k_decode_dense(const float* __restrict__ q, const float* __restrict__ kn,
+               const float* __restrict__ vn, T* kc, T* vc, float* __restrict__ out,
+               SlotPos pos, int H, int D, int Tn, float sm_scale) {
+  extern __shared__ float sm[];
+  float* sc = sm;             // Tn scores, then probabilities (rows 0 .. pos)
+  float* red = sc + Tn;       // 33
+  float* part = red + 33;     // THREADS partial P.V sums
+  __shared__ float qs[THREADS];
+
+  const int bh = blockIdx.x, b = bh / H, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int p = pos.v[b];
+  T* kb = kc + (size_t)bh * Tn * D;
+  T* vb = vc + (size_t)bh * Tn * D;
+  for (int i = tid; i < D; i += THREADS) {
+    kb[(size_t)p * D + i] = from_f<T>(kn[(size_t)bh * D + i]);
+    vb[(size_t)p * D + i] = from_f<T>(vn[(size_t)bh * D + i]);
+    qs[i] = q[(size_t)bh * D + i] * sm_scale;
+  }
+  __syncthreads();  // the new row is read back below
+
+  for (int t = warp; t <= p; t += THREADS / 32) {
+    const T* row = kb + (size_t)t * D;
+    float s = 0.f;
+    for (int e = lane; e < D; e += 32) s += qs[e] * to_f(row[e]);
+    s = warp_sum(s);
+    if (lane == 0) sc[t] = s;
+  }
+  __syncthreads();
+  float lmax = NEG_INF;
+  for (int t = tid; t <= p; t += THREADS) lmax = fmaxf(lmax, sc[t]);
+  const float m = block_max(lmax, red);
+  float ls = 0.f;
+  for (int t = tid; t <= p; t += THREADS) {
+    const float e = expf(sc[t] - m);
+    sc[t] = e;
+    ls += e;
+  }
+  const float l = block_sum(ls, red);  // syncs: the probabilities are visible
+
+  const int groups = THREADS / D, d = tid % D;
+  float acc = 0.f;
+  for (int t = tid / D; t <= p; t += groups) acc += sc[t] * to_f(vb[(size_t)t * D + d]);
+  part[tid] = acc;
+  __syncthreads();
+  if (tid < D) {
+    float o = part[tid];
+    for (int gi = 1; gi < groups; ++gi) o += part[gi * D + tid];
+    out[(size_t)bh * D + tid] = o / fmaxf(l, 1e-30f);
+  }
+}
+
+// #9: pos_host as for decode_attention_hbm, each 0 <= pos < T.
+extern "C" int decode_attention_dense(const float* q, const float* kn, const float* vn,
+                                      void* kc, void* vc, float* out, const int* pos_host,
+                                      int B, int H, int D, int T, int cdt, float sm_scale,
+                                      cudaStream_t stream) {
+  if (B > MAX_SLOTS || D % 32 || THREADS % D) return (int)cudaErrorInvalidValue;
+  SlotPos sp;
+  for (int b = 0; b < B; ++b) {
+    if (pos_host[b] < 0 || pos_host[b] >= T) return (int)cudaErrorInvalidValue;
+    sp.v[b] = pos_host[b];
+  }
+  const size_t smem = sizeof(float) * (T + 33 + THREADS);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (cdt == 0)
+    k_decode_dense<float><<<B * H, THREADS, smem, stream>>>(
+        q, kn, vn, static_cast<float*>(kc), static_cast<float*>(vc), out, sp, H, D, T,
+        sm_scale);
+  else
+    k_decode_dense<__nv_bfloat16><<<B * H, THREADS, smem, stream>>>(
+        q, kn, vn, static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc), out, sp,
+        H, D, T, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 // pos_host: B positions in host memory, copied into the launch's arguments

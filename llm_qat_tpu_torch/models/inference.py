@@ -1,12 +1,15 @@
 """Inference path: weights pre-quantized once, prefill, decode.
 
-Counterpart of `llm_qat_tpu/models/inference.py` for the serving slice:
-`quantize_for_inference` (dense, `int8_xla` and `int4_xla` weight formats,
-int4/int8 LM head, factored LoRA with int8 codes), the unfused forward
+Counterpart of `llm_qat_tpu/models/inference.py` for the serving slices:
+`quantize_for_inference` (dense, `int8`, `int8_xla` and `int4_xla` weight
+formats, int4/int8 LM head, factored LoRA with int8 codes), the forward
 `infer_forward_unrolled` over dense or packed caches (flash prefill
 branch; single-token steps on packed caches through the
-`decode_attention_hbm` kernel), `_lm_head`, and `InferenceEngine` with
-`kv_layout` "dense", "packed" and "mega" (KV 16, 8 or 4 bits).
+`decode_attention_hbm` kernel; the `int8` format's linears through
+`quant_matmul`; the decode options `fused_attention` and `fused_linears`
+through `decode_attention` and the fused int8 decode layer), `_lm_head`,
+and `InferenceEngine` with `kv_layout` "dense", "packed" and "mega" (KV 16,
+8 or 4 bits).
 
 Integer dots (`_int4_dot`, `_int8_dot`, the int4/int8 head) are exact: the
 codes go through float32 matmuls in K-chunks small enough that every
@@ -26,11 +29,20 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.attention import flash_attention, flash_attention_plain
 from ..ops.decode_attention import (
+    decode_attention,
     decode_attention_hbm,
     decode_attention_hbm_plain,
+    decode_attention_plain,
     kv_pack_factor,
     pack_kv,
     unpack_kv,
+)
+from ..ops.fused_decode import (
+    _lora,
+    fused_ln_qkv,
+    fused_ln_qkv_plain,
+    fused_post_attention,
+    fused_post_attention_plain,
 )
 from ..ops.mega_decode import (
     exact_int_matmul,
@@ -40,6 +52,7 @@ from ..ops.mega_decode import (
     mega_decode_step_plain,
     pack_mega_weights,
 )
+from ..ops.quant_matmul import pack_int8, quant_matmul, quant_matmul_int8_plain
 from ..quant.calibration import dynamic_scale_flat
 from ..quant.functional import (
     KIND_LOG,
@@ -114,13 +127,6 @@ def _int4_dot(x, w_i4, w_s, x_s, qmax=7.0):
     return acc.to(torch.float32) * (x_s * w_s)
 
 
-def _pack_int8(w):
-    """w (K, N) float → (int8 codes, per-column scale (N,)): absmax/127."""
-    w = w.to(torch.float32)
-    scale = torch.clamp(w.abs().amax(dim=0), min=1e-8) / 127.0
-    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
-
-
 def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
                            dtype=torch.bfloat16, weight_format: str = "dense",
                            lm_head_int8: bool = False,
@@ -138,11 +144,7 @@ def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
     kind_t = tables.kind[p_idx]
     scaling = float(q.scaling_table()[p_idx])
     minmax_sym = q.symmetric and q.kind_name(bits) == "minmax"
-    if weight_format == "int8":
-        raise NotImplementedError(
-            "weight_format='int8' runs the Pallas quant_matmul kernel, not yet "
-            "ported (ROADMAP queue B, kernels #10-#11); use 'int8_xla'")
-    if weight_format not in ("dense", "int8_xla", "int4_xla"):
+    if weight_format not in ("dense", "int8", "int8_xla", "int4_xla"):
         raise ValueError(f"unknown weight_format {weight_format!r}")
 
     def codes_of(wq, ws):
@@ -171,15 +173,18 @@ def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
             out["x_s"] = iq.amax(dim=-1)
             out["qmax"] = torch.full((wq.shape[0],), 2.0 ** (bits - 1) - 1.0,
                                      dtype=torch.float32, device=dev)
-        elif weight_format == "int8_xla":
+        elif weight_format in ("int8", "int8_xla"):
+            # "int8_xla" keeps the exact minmax codes where there are some;
+            # "int8" (the quant_matmul kernel's format) always re-grids
             ws = lin["wq_scale"][:, p_idx]
-            if minmax_sym and bits <= 8:
-                out["w_i8"], out["w_s"] = codes_of(wq, ws), ws
+            key = "w_i8" if weight_format == "int8_xla" else "w_int8"
+            if weight_format == "int8_xla" and minmax_sym and bits <= 8:
+                out[key], out["w_s"] = codes_of(wq, ws), ws
             else:
-                packed = [_pack_int8(wl) for wl in wq]
-                out["w_i8"] = torch.stack([c for c, _ in packed])
+                packed = [pack_int8(wl) for wl in wq]
+                out[key] = torch.stack([c for c, _ in packed])
                 out["w_s"] = torch.stack([s for _, s in packed])
-            if minmax_sym:
+            if weight_format == "int8_xla" and minmax_sym:
                 out["x_s"] = iq.amax(dim=-1)
         else:
             out["w_q"] = wq.to(dtype)
@@ -253,14 +258,15 @@ def _lora_branch(x, lin):
     the bank dtype; products accumulate in float32."""
     if "lora_A" not in lin:
         return 0.0
-    f32 = torch.float32
-    A, B = lin["lora_A"], lin["lora_B"]
-    xa = torch.matmul(x.to(A.dtype).to(f32), A.to(f32))
-    return torch.matmul(xa.to(B.dtype).to(f32), B.to(f32))
+    return _lora(x, lin["lora_A"], lin["lora_B"])
 
 
 def _infer_linear(x, lin, cfg: SPModelConfig, quantize_input: bool,
-                  static: Optional[StaticMeta], bits=None, kind=None):
+                  static: Optional[StaticMeta], bits=None, kind=None,
+                  use_kernels: bool = True):
+    """One inference linear. The `w_int8` format runs `quant_matmul` (kernel
+    #10 on the card, the float32 reference on the CPU, as in JAX);
+    `use_kernels=False` runs the kernel's plain version instead."""
     q = cfg.quant
     if "w_i4" in lin:
         out = _int4_dot(x, lin["w_i4"], lin["w_s"], lin["x_s"],
@@ -278,6 +284,14 @@ def _infer_linear(x, lin, cfg: SPModelConfig, quantize_input: bool,
                             q.symmetric, q.eps)
     else:
         xq = x
+    if "w_int8" in lin:
+        B_, S_, K_ = xq.shape
+        xb = xq.reshape(B_ * S_, K_).to(torch.bfloat16)
+        if use_kernels:
+            out = quant_matmul(xb, lin["w_int8"], lin["w_s"], bits=8)
+        else:
+            out = quant_matmul_int8_plain(xb, lin["w_int8"], lin["w_s"])
+        return out.reshape(B_, S_, -1) + lin["b"] + _lora_branch(x, lin)
     cdt = lin["w_q"].dtype
     out = torch.matmul(xq.to(cdt).to(torch.float32),
                        lin["w_q"].to(torch.float32)) + lin["b"]
@@ -351,14 +365,14 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
     caches (`init_layer_caches(kv_layout="packed")`) a single token goes
     through `decode_attention_hbm`; a longer segment must start and end on
     a multiple of P, is written as packed rows, and attends by flash or
-    densely on the unpacked view. `use_kernels=False` runs the kernels'
-    plain versions (the reference on the card).
+    densely on the unpacked view. The JAX package's decode options, each
+    taken only at S = 1: `fused_linears` runs a layer as `fused_ln_qkv`
+    and `fused_post_attention` on an `int8_xla` tree with static activation
+    scales (h then stays float32 between layers, as in JAX);
+    `fused_attention` runs `decode_attention` on dense caches (packed
+    caches keep `decode_attention_hbm`). `use_kernels=False` runs the
+    kernels' plain versions (the reference on the card).
     """
-    if fused_attention or fused_linears:
-        raise NotImplementedError(
-            "fused_attention / fused_linears need the decode_attention and "
-            "fused_decode kernels, not yet ported (ROADMAP queue B, kernels "
-            "#9, #12, #13)")
     m = cfg.model
     bits, kind = iparams["_bits"], iparams["_kind"]
     B, S = input_ids.shape
@@ -373,18 +387,32 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
     wte = iparams["wte"]
     pos = torch.arange(start, start + S, device=wte.device)
     h = wte[input_ids] + iparams["wpe"][pos][None].to(wte.dtype)
-    lin = lambda x, p: _infer_linear(x, p, cfg, quantize_input, static, bits, kind)
+    lin = lambda x, p: _infer_linear(x, p, cfg, quantize_input, static, bits, kind,
+                                     use_kernels)
     f32 = torch.float32
+    eps = m.layer_norm_epsilon
+    ln_qkv = fused_ln_qkv if use_kernels else fused_ln_qkv_plain
+    post = fused_post_attention if use_kernels else fused_post_attention_plain
 
     for li in range(m.n_layer):
         bp = _layer(iparams["blocks"], li)
-        hn = _ln(h, bp["ln1"]["g"], bp["ln1"]["b"], m.layer_norm_epsilon)
-        qkv = lin(hn, bp["c_attn"])
+        ca = bp["c_attn"]
+        use_fused = fused_linears and S == 1 and "w_i8" in ca and "x_s" in ca
+        if use_fused:
+            h2d = h[:, 0].to(f32)
+            qkv = ln_qkv(h2d, bp["ln1"]["g"], bp["ln1"]["b"], ca["w_i8"], ca["w_s"],
+                         ca["b"], ca["x_s"], ca.get("lora_A"), ca.get("lora_B"),
+                         eps=eps)[:, None]
+        else:
+            qkv = lin(_ln(h, bp["ln1"]["g"], bp["ln1"]["b"], eps), ca)
         qh, kh, vh = (t.reshape(B, S, m.n_head, m.head_dim).permute(0, 2, 1, 3)
                       for t in torch.split(qkv, m.n_embd, dim=-1))
         kc, vc = caches[2 * li], caches[2 * li + 1]
         if packed and S == 1:
             step = decode_attention_hbm if use_kernels else decode_attention_hbm_plain
+            attn = step(qh, kh, vh, kc, vc, start)[0]
+        elif fused_attention and S == 1 and not packed:
+            step = decode_attention if use_kernels else decode_attention_plain
             attn = step(qh, kh, vh, kc, vc, start)[0]
         elif initial_prefill and S >= 128 and D in (64, 128):
             _write_rows(kc, vc, kh, vh, start, P if packed else 1)
@@ -403,13 +431,19 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
             probs = torch.softmax(scores, dim=-1).to(vc.dtype)
             attn = torch.einsum("bhst,bhtd->bhsd", probs.to(f32),
                                 vc.to(f32)).to(vc.dtype)
+        if use_fused:
+            x_s = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
+            h = post(attn.permute(0, 2, 1, 3).reshape(B, -1).to(f32), h2d,
+                     bp["ln2"]["g"], bp["ln2"]["b"], bp["attn_proj"], bp["c_fc"],
+                     bp["mlp_proj"], x_s, eps=eps)[:, None]
+            continue
         attn = attn.permute(0, 2, 1, 3).reshape(B, S, -1).to(h.dtype)
         h = h + lin(attn, bp["attn_proj"]).to(h.dtype)
-        h2 = _ln(h, bp["ln2"]["g"], bp["ln2"]["b"], m.layer_norm_epsilon)
+        h2 = _ln(h, bp["ln2"]["g"], bp["ln2"]["b"], eps)
         fc = F.gelu(lin(h2, bp["c_fc"])).to(h.dtype)  # exact erf
         h = h + lin(fc, bp["mlp_proj"]).to(h.dtype)
 
-    h = _ln(h, iparams["ln_f"]["g"], iparams["ln_f"]["b"], m.layer_norm_epsilon)
+    h = _ln(h, iparams["ln_f"]["g"], iparams["ln_f"]["b"], eps)
     return _lm_head(iparams, h), caches, start + S
 
 

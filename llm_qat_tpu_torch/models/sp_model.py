@@ -48,8 +48,10 @@ class PrecTables(NamedTuple):
     scaling: torch.Tensor  # float32[P] — LoRA alpha/rank (0 when disabled)
 
 
-def prec_tables(qcfg: QuantConfig, device="cpu") -> PrecTables:
-    dev = torch.device(device)
+def prec_tables(qcfg: QuantConfig, device=None) -> PrecTables:
+    """The tables on `device` (the card by default, as the port's other
+    entry points; "cpu" when asked for)."""
+    dev = resolve_device(device)
     return PrecTables(
         bits=torch.as_tensor(qcfg.bits_table(), device=dev),
         kind=torch.as_tensor(qcfg.kind_table(), device=dev),

@@ -43,11 +43,17 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
         "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P]},
     "decode_attention": {
-        "decode_attention_hbm": [_P] * 7 + [_I] * 7 + [_F, _P]},
+        "decode_attention_hbm": [_P] * 7 + [_I] * 7 + [_F, _P],
+        "decode_attention_dense": [_P] * 7 + [_I] * 5 + [_F, _P]},
     "fused_linear": {
         "fused_linear_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
         "fused_linear_bwd_dx": [_P] * 8 + [_I] * 6 + [_F, _P],
         "fused_linear_bwd_dw": [_P] * 5 + [_I] * 5 + [_P]},
+    "quant_matmul": {
+        "quant_matmul": [_P] * 4 + [_I] * 4 + [_P]},
+    "fused_decode": {
+        "fused_ln_qkv": [_P] * 13 + [_I] * 6 + [_F, _P],
+        "fused_post_attention": [_P] * 26 + [_I] * 6 + [_F, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

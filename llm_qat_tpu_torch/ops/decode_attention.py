@@ -1,14 +1,21 @@
-"""Single-token decode attention over packed KV caches, with in-place append.
+"""Single-token decode attention over KV caches, with in-place append.
 
 Counterpart of `llm_qat_tpu/ops/decode_attention.py`: the packed layout
 helpers (`kv_pack_factor`, `pack_kv`, `unpack_kv`), the dense reference
-`decode_attention_reference`, and the two kernels of the packed layout:
-`decode_attention_hbm` (shared position, the Pallas `_hbm_kernel`) and
-`decode_attention_hbm_multi` (per-slot positions with -1 = inactive, the
-Pallas `_hbm_kernel_multi`). Both wrappers launch the one CUDA kernel in
-`csrc/decode_attention.cu`, which takes a position per slot; the shared
-position is broadcast to every slot. Their plain PyTorch versions sit
-beside them.
+`decode_attention_reference`, the dense-cache kernel `decode_attention`
+(the Pallas `_decode_attn_kernel`, kernel #9), and the two kernels of the
+packed layout: `decode_attention_hbm` (shared position, the Pallas
+`_hbm_kernel`, #7) and `decode_attention_hbm_multi` (per-slot positions with
+-1 = inactive, the Pallas `_hbm_kernel_multi`, #8). The packed wrappers
+launch one CUDA kernel in `csrc/decode_attention.cu`, which takes a
+position per slot; the shared position is broadcast to every slot. #9 is a
+second kernel in the same source. Each has its plain PyTorch version
+beside it.
+
+Dense layout (#9): caches (B, H, T, D). The new K/V row is written at pos
+in the cache dtype, then q·sm_scale (float32, not rounded) attends over
+rows 0 … pos with one exact softmax; the probabilities stay float32 and
+the output takes q's dtype.
 
 Packed layout: a cache is (B, H, T/P, P·D) with P = `kv_pack_factor(D)`;
 packed row u holds timesteps P·u … P·u + P − 1 in lane groups of D. The
@@ -124,6 +131,104 @@ def _check_shapes(q, k_new, v_new, k_cache, v_cache):
     if v_cache.dtype != k_cache.dtype:
         raise ValueError("k_cache and v_cache must share a dtype")
     return B, H, D, P, Tp
+
+
+def _dense_positions(pos, B: int, T: int) -> np.ndarray:
+    """#9's (B,) host positions: one shared position (an int or a 0-d
+    tensor) or one per slot, each 0 <= pos < T."""
+    shared = not isinstance(pos, (list, tuple, np.ndarray)) and (
+        not isinstance(pos, torch.Tensor) or pos.dim() == 0)
+    p = _positions(pos, B, T, shared)
+    if (p < 0).any():
+        raise ValueError(f"positions {p[p < 0].tolist()} outside the cache [0, {T})")
+    return p
+
+
+def _check_dense(q, k_new, v_new, k_cache, v_cache):
+    B, H, S, D = q.shape
+    if S != 1:
+        raise ValueError(f"decode attention takes one token; got S={S}")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (B, H, 1, D):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; want {(B, H, 1, D)}")
+    T = k_cache.shape[2]
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if tuple(t.shape) != (B, H, T, D):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; want {(B, H, T, D)}")
+    if v_cache.dtype != k_cache.dtype:
+        raise ValueError("k_cache and v_cache must share a dtype")
+    return B, H, T, D
+
+
+def _dense_plain(q, k_new, v_new, k_cache, v_cache, pos):
+    """Plain version of #9 over (B,) host positions."""
+    B, H, T, D = _check_dense(q, k_new, v_new, k_cache, v_cache)
+    f32, dev = torch.float32, q.device
+    p = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    rows = torch.arange(B, device=dev)
+    k_cache[rows, :, p] = k_new[:, :, 0].to(k_cache.dtype)
+    v_cache[rows, :, p] = v_new[:, :, 0].to(v_cache.dtype)
+    qs = q.to(f32) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhsd,bhtd->bhst", qs, k_cache.to(f32))
+    valid = torch.arange(T, device=dev)[None] <= p[:, None]
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    lsum = pr.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhst,bhtd->bhsd", pr, v_cache.to(f32)) / torch.clamp(lsum, min=1e-30)
+    return o.to(q.dtype), k_cache, v_cache
+
+
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos):
+    """Plain PyTorch version of `decode_attention` (same arguments; caches
+    updated in place; same return)."""
+    return _dense_plain(q, k_new, v_new, k_cache, v_cache,
+                        _dense_positions(pos, q.shape[0], k_cache.shape[2]))
+
+
+def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
+    """One-token attention on dense caches (kernel #9).
+
+    q/k_new/v_new: (B, H, 1, D); k_cache/v_cache: (B, H, T, D) float32 or
+    bf16, updated in place at `pos`: one shared position (a host int) or one
+    per slot ((B,) on the host), each 0 <= pos < T. Returns (out (B, H, 1, D)
+    in q's dtype, k_cache, v_cache).
+
+    CPU tensors take `decode_attention_plain`; CUDA tensors launch the
+    kernel in `csrc/decode_attention.cu` or raise. Counts its launches in
+    `decode_attention.launches`.
+    """
+    B = q.shape[0]
+    host = _dense_positions(pos, B, k_cache.shape[2])
+    if q.device.type == "cpu":
+        return _dense_plain(q, k_new, v_new, k_cache, v_cache, host)
+    B, H, T, D = _check_dense(q, k_new, v_new, k_cache, v_cache)
+    what = "decode_attention"
+    if D not in (32, 64, 128):
+        raise ValueError(f"{what}: head_dim must be 32, 64 or 128; got {D}")
+    if T + 33 + 128 > 12 * 1024:
+        raise ValueError(f"{what}: at most {12 * 1024 - 161} cache rows; got {T}")
+    if B > MAX_SLOTS:
+        raise ValueError(f"{what}: at most {MAX_SLOTS} slots; got {B}")
+    cdt = k_cache.dtype
+    if cdt not in _CACHE_DTYPE_CODE:
+        raise ValueError(f"{what}: caches must be float32 or bfloat16; got {cdt}")
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache),
+                    ("v_cache", v_cache)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} must be on {q.device}; got {t.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_contiguous():  # appended in place: no copy may stand in
+            raise ValueError(f"{what}: {name} must be contiguous")
+    qf, kf, vf = (t.to(torch.float32).contiguous() for t in (q, k_new, v_new))
+    out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_dense(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), host.ctypes.data, B, H, D, T,
+        _CACHE_DTYPE_CODE[cdt], 1.0 / math.sqrt(D), _build.stream(q))
+    _build.check(lib, rc, what)
+    decode_attention.launches += 1
+    return out.to(q.dtype), k_cache, v_cache
 
 
 def _hbm_plain(q, k_new, v_new, k_cache, v_cache, pos, tbp):
@@ -273,5 +378,6 @@ def decode_attention_hbm_multi(q, k_new, v_new, k_cache, v_cache, pos, *,
     return out
 
 
+decode_attention.launches = 0
 decode_attention_hbm.launches = 0
 decode_attention_hbm_multi.launches = 0

@@ -143,7 +143,7 @@ def _decode_step(iparams, tokens, caches, pos, slot_pos, cfg: SPModelConfig,
     f32 = torch.float32
     wte = iparams["wte"]
     h = wte[tokens][:, None] + iparams["wpe"][pos][:, None].to(wte.dtype)
-    lin = lambda x, p: _infer_linear(x, p, cfg, True, static, bits, kind)
+    lin = lambda x, p: _infer_linear(x, p, cfg, True, static, bits, kind, use_kernels)
     rows = torch.arange(B, device=tokens.device)
     scale = 1.0 / math.sqrt(D)
     hbm = decode_attention_hbm_multi if use_kernels else decode_attention_hbm_multi_plain

@@ -552,3 +552,202 @@ def test_server_runs_each_layout(cuda_device, layout, kv_bits):
         assert made[2] > 0 and made[1] == 0
     else:
         assert made[1] == made[2] == 0
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N,per_channel", [(8, 768, 2304, True), (1024, 3072, 768, True),
+                                               (33, 96, 100, True), (1, 64, 8, False)])
+def test_quant_matmul_kernels_match_plain(cuda_device, bits, M, K, N, per_channel):
+    """#10 / #11 against their plain versions, ragged M and N and a
+    per-tensor scale included: the codes are exact in bf16 and bf16 x bf16
+    products exact in float32 in both, so they differ by the order of the
+    float32 sums: within 1e-5 of max |plain|."""
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N + bits)
+    x = torch.randn((M, K), generator=g, device=cuda_device)
+    w = torch.randn((K, N), generator=g, device=cuda_device)
+    pack, kern, plain = ((qm.pack_int8, qm.quant_matmul_int8, qm.quant_matmul_int8_plain)
+                         if bits == 8 else
+                         (qm.pack_int4, qm.quant_matmul_int4, qm.quant_matmul_int4_plain))
+    codes, s = pack(w, per_channel)
+    before = kern.launches
+    got = kern(x, codes, s)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = plain(x, codes, s)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print("quant_matmul error / max |plain|", err)
+    assert err <= 1e-5
+    assert torch.equal(qm.quant_matmul(x, codes, s, bits=bits), kern(x, codes, s))
+
+
+def test_quant_matmul_wrappers_check_their_inputs(cuda_device):
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    x = torch.randn((4, 64), device=cuda_device)
+    codes, s = qm.pack_int8(torch.randn((64, 32), device=cuda_device))
+    with pytest.raises(ValueError, match="does not match K"):
+        qm.quant_matmul_int8(x[:, :32], codes, s)
+    with pytest.raises(ValueError, match="K must be even"):
+        qm.quant_matmul_int8(x[:, :63], codes[:63], s)
+    with pytest.raises(ValueError, match="int8"):
+        qm.quant_matmul_int8(x, codes.float(), s)
+    with pytest.raises(ValueError, match="scale"):
+        qm.quant_matmul_int8(x, codes, s[:5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 32])
+def test_dense_decode_attention_kernel_matches_plain(cuda_device, dtype, D):
+    """#9 against its plain version at shared positions 0, 17, T - 1 and
+    per-slot ones: outputs within 1e-5 (float32 scores and probabilities in
+    both; sums in another order; values O(1)); the caches bit-equal, with
+    only row pos of each slot written."""
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    B, H, T = 4, 3, 200
+    q, kn, vn = (torch.randn((B, H, 1, D), generator=g, device=cuda_device)
+                 for _ in range(3))
+    kc, vc = (torch.randn((B, H, T, D), generator=g, device=cuda_device).to(dtype)
+              for _ in range(2))
+    for pos in (0, 17, T - 1, [5, 0, T - 1, 100]):
+        before = da.decode_attention.launches
+        ok, ck, cv = da.decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
+        assert da.decode_attention.launches == before + 1
+        op, pk, pv = da.decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, pk) and torch.equal(cv, pv), pos
+        p = torch.tensor(pos, device=cuda_device).expand(B)
+        rest = torch.arange(T, device=cuda_device)[None] != p[:, None]   # (B, T)
+        assert torch.equal(ck[rest[:, None].expand(B, H, T)],
+                           kc[rest[:, None].expand(B, H, T)]), pos
+        torch.testing.assert_close(ok, op, atol=1e-5, rtol=0)
+
+
+def _fused_layer(dev, g, d, dff, lora):
+    """Random int8_xla linears (codes, per-column scales, biases, rank-16
+    LoRA banks of dtype `lora` or none) of one layer, LN parameters and the
+    static input scales, on dev."""
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+
+    def lin(K, N):
+        out = {"w_i8": torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                                     dtype=torch.int8),
+               "w_s": 2e-4 + 8e-4 * torch.rand((N,), generator=g, device=dev),
+               "b": 0.1 * rnd(N)}
+        if lora is not None:
+            out["lora_A"] = (0.3 * rnd(K, 16)).to(lora)
+            out["lora_B"] = (0.05 * rnd(16, N)).to(lora)
+        return out
+    ln = [(0.5 + torch.rand((d,), generator=g, device=dev), 0.1 * rnd(d)) for _ in range(2)]
+    return ((lin(d, 3 * d), lin(d, d), lin(d, dff), lin(dff, d)), ln,
+            torch.tensor([3.0, 3.0, 4.0, 2.0], device=dev) / 127.0)
+
+
+@pytest.mark.parametrize("lora", [torch.bfloat16, torch.float32, None])
+def test_fused_decode_kernels_match_plain(cuda_device, lora):
+    """#12 and #13 against their plain versions, held as the decode steps
+    are: per batch row, max |kernel - plain| / max |plain| within float32
+    rounding (1e-5) for nine rows in ten (the int8 dots are exact; LN and
+    LoRA sum in another order, and where a value sits on a rounding
+    boundary of q8 an activation code moves), every row within 2e-2."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, d, dff = 5, 256, 1024
+    rows = {"qkv": [], "post": []}
+    for _ in range(4):
+        (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(cuda_device, g, d,
+                                                                       dff, lora)
+        h = torch.randn((B, d), generator=g, device=cuda_device)
+        attn = torch.randn((B, d), generator=g, device=cuda_device)
+        args = (h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], qkv.get("lora_A"),
+                qkv.get("lora_B"))
+        before = (fd.fused_ln_qkv.launches, fd.fused_post_attention.launches)
+        ok = fd.fused_ln_qkv(*args)
+        pk = fd.fused_post_attention(attn, h, g2, b2, proj, fc, mlp, xs[1:])
+        torch.cuda.synchronize()
+        assert (fd.fused_ln_qkv.launches, fd.fused_post_attention.launches) == (
+            before[0] + 1, before[1] + 1)
+        op = fd.fused_ln_qkv_plain(*args)
+        pp = fd.fused_post_attention_plain(attn, h, g2, b2, proj, fc, mlp, xs[1:])
+        for name, got, want in (("qkv", ok, op), ("post", pk, pp)):
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            rows[name] += ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+    print("row errors", {k: sorted(v) for k, v in rows.items()})
+    for name, rs in rows.items():
+        assert max(rs) <= 2e-2, name
+        assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
+
+
+def test_fused_decode_wrappers_check_their_inputs(cuda_device):
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(cuda_device, g, 64, 256,
+                                                                   torch.bfloat16)
+    h = torch.randn((17, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="batch rows"):
+        fd.fused_ln_qkv(h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], None, None)
+    with pytest.raises(ValueError, match="int8"):
+        fd.fused_ln_qkv(h[:2], g1, b1, qkv["w_i8"].float(), qkv["w_s"], qkv["b"], xs[0],
+                        None, None)
+    with pytest.raises(ValueError, match="share"):
+        fd.fused_post_attention(h[:2], h[:2], g2, b2, proj, dict(fc, lora_A=fc["lora_A"].float(),
+                                lora_B=fc["lora_B"].float()), mlp, xs[1:])
+
+
+def test_int8_and_fused_decode_paths_run_their_kernels(cuda_device):
+    """On the card, `weight_format="int8"` runs #10 for each of the 4
+    linears per layer and forward (prefill and decode; "auto" is the packed
+    layout there, so decode runs #7), and the fused decode step on an
+    int8_xla tree with dense bf16 caches runs #12, #9 and #13 once per layer
+    and no #10; its logits against the plain versions' within 0.12 of their
+    standard deviation (mean absolute difference), argmax agreeing at 80 %
+    or more (an activation code moved by a float32 difference shifts them,
+    as in test_engine_runs_both_kernels)."""
+    from llm_qat_tpu_torch.models.inference import infer_forward_unrolled
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    cfg, p, g = _small_setup(cuda_device)
+    L = cfg.model.n_layer
+    eng = InferenceEngine(p, cfg, bits=8, max_batch=2, max_len=64, weight_format="int8",
+                          lm_head_bits=8)
+    assert eng.kv_layout == "packed"
+    prompt = torch.randint(0, 512, (2, 16), generator=g, device=cuda_device)
+    q0, a0 = qm.quant_matmul_int8.launches, da.decode_attention_hbm.launches
+    out = eng.generate(prompt, max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 20) and torch.equal(out[:, :16], prompt)
+    assert qm.quant_matmul_int8.launches - q0 == 4 * L * 5   # prefill + 4 decode calls
+    assert da.decode_attention_hbm.launches - a0 == L * 4
+
+    tree = quantize_for_inference(p, cfg, 8, weight_format="int8_xla", lm_head_bits=8)
+    st = tree.pop("_static")
+    logits = []
+    for use_kernels in (True, False):
+        caches = init_layer_caches(cfg, 2, 32, torch.bfloat16, device=cuda_device)
+        _, caches, _ = infer_forward_unrolled(tree, prompt, cfg, caches, 0, static=st,
+                                              use_kernels=use_kernels)
+        before = (fd.fused_ln_qkv.launches, da.decode_attention.launches,
+                  fd.fused_post_attention.launches, qm.quant_matmul_int8.launches)
+        lg, _, _ = infer_forward_unrolled(tree, out[:, 16:17], cfg, caches, 16, static=st,
+                                          fused_attention=True, fused_linears=True,
+                                          use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        made = tuple(a - b for a, b in zip(
+            (fd.fused_ln_qkv.launches, da.decode_attention.launches,
+             fd.fused_post_attention.launches, qm.quant_matmul_int8.launches), before))
+        assert made == ((L, L, L, 0) if use_kernels else (0, 0, 0, 0))
+        logits.append(lg)
+    lk, lp = logits
+    err = (lk - lp).abs()
+    print("fused step logits: mean err / std", (err.mean() / lp.std()).item())
+    assert bool(torch.isfinite(lk).all())
+    assert err.mean() <= 0.12 * lp.std()
+    assert (lk.argmax(-1) == lp.argmax(-1)).float().mean() >= 0.8

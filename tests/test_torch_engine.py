@@ -26,7 +26,7 @@ from llm_qat_tpu.train import calibration_manager as jcm
 from llm_qat_tpu_torch import bridge
 from llm_qat_tpu_torch.models import config as tc
 from llm_qat_tpu_torch.models.inference import InferenceEngine as TEngine
-from llm_qat_tpu_torch.models.inference import infer_forward_unrolled, init_layer_caches
+from llm_qat_tpu_torch.models.inference import init_layer_caches
 
 V = 256
 
@@ -73,17 +73,16 @@ def test_greedy_generate_matches_jax_engine(calibrated, kv_layout, kv_bits, prom
 
 
 def test_engine_refuses_unported_layouts_and_overlong_requests(calibrated):
-    """What still raises: fused attention (kernel #9, not yet ported), KV8 /
-    KV4 outside the mega layout, an unknown layout, and requests past
-    max_len. "auto" picks the dense layout on the CPU."""
+    """What still raises: the unfused int8 KV cache on the dense layout
+    (`ops/kv_cache.py`, not yet ported), KV8 / KV4 outside the mega layout,
+    an unknown layout, and requests past max_len. "auto" picks the dense
+    layout on the CPU."""
     _, tcfg, _, tp = calibrated
     kw = dict(bits=4, weight_format="int4_xla", device="cpu")
     eng = TEngine(tp, tcfg, **kw)
     assert eng.kv_layout == "dense"
-    caches = init_layer_caches(tcfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="#9"):
-        infer_forward_unrolled(eng.iparams, torch.zeros((1, 1), dtype=torch.int64),
-                               tcfg, caches, 0, static=eng.static, fused_attention=True)
+    with pytest.raises(NotImplementedError, match="kv_cache"):
+        init_layer_caches(tcfg, 1, 16, kv_bits=8, device="cpu")
     with pytest.raises(ValueError, match="requires kv_layout='mega'"):
         TEngine(tp, tcfg, kv_bits=4, **kw)
     with pytest.raises(ValueError, match="unknown kv_layout"):

@@ -250,7 +250,7 @@ def _linear(jcfg, seed=0, rank=R):
 def _grads_both(jcfg, tcfg, p, x, prec, cot, **kw):
     """(out, grads of x/w/b/lora_A/lora_B) of each package's sp_linear with
     the output cotangent `cot`."""
-    jt, tt = jsp.prec_tables(jcfg.quant), tsp.prec_tables(tcfg.quant)
+    jt, tt = jsp.prec_tables(jcfg.quant), tsp.prec_tables(tcfg.quant, "cpu")
 
     def jf(pp, xx):
         return jsp.sp_linear(xx, pp, jnp.int32(prec), jt, jcfg, **kw)[0]
@@ -371,7 +371,7 @@ def test_quantizer_banks_get_no_gradient():
     tp = bridge.params_from_numpy(p, "cpu")
     for k in tp:
         tp[k].requires_grad_(True)
-    out, _ = tsp.sp_linear(torch.tensor(x), tp, 0, tsp.prec_tables(tcfg.quant), tcfg)
+    out, _ = tsp.sp_linear(torch.tensor(x), tp, 0, tsp.prec_tables(tcfg.quant, "cpu"), tcfg)
     out.sum().backward()
     for k in ("wq_scale", "wq_zp", "iq_scale", "iq_zp"):
         assert tp[k].grad is None or not tp[k].grad.any(), k

@@ -27,8 +27,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module (the training slice's, the fused linear's, the
-    packed decode attention's and the server's among them) and
-    chip_smoke.py import without JAX or llm_qat_tpu."""
+    decode attention's, the server's, the packed-weight product's and the
+    fused decode layer's among them) and chip_smoke.py import without JAX
+    or llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import llm_qat_tpu_torch as p\n"
@@ -39,7 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "want = {'llm_qat_tpu_torch.train.' + n for n in\n"
         "        ('sp_trainer', 'distillation', 'optim', 'calibration_manager')}\n"
         "want |= {'llm_qat_tpu_torch.ops.' + n for n in\n"
-        "         ('attention', 'matmul', 'fused_linear', 'decode_attention')}\n"
+        "         ('attention', 'matmul', 'fused_linear', 'decode_attention',\n"
+        "          'quant_matmul', 'fused_decode')}\n"
         "want |= {'llm_qat_tpu_torch.serving', 'llm_qat_tpu_torch.serving.engine'}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
@@ -56,9 +58,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
     """device="cuda" (the default) raises when no card is present; the CPU is
-    used only when asked for."""
+    used only when asked for; `prec_tables` follows the same policy."""
     from llm_qat_tpu_torch.models.inference import init_layer_caches
-    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params, prec_tables
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tc.tiny_test_config()
@@ -68,7 +70,10 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         init_sp_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_layer_caches(cfg, 1, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prec_tables(cfg.quant)
     assert resolve_device("cpu").type == "cpu"
+    assert prec_tables(cfg.quant, "cpu").bits.device.type == "cpu"
 
 
 def test_bridge_round_trip_is_exact():

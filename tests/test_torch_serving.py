@@ -28,6 +28,7 @@ V = 256
 # (kv_layout, kv_bits, weight bits / format, LM head bits)
 LAYOUTS = {
     "dense": ("dense", 8, 8, "int8_xla", 8),
+    "dense_int8": ("dense", 8, 8, "int8", 8),   # quant_matmul's weight format
     "packed": ("packed", 8, 8, "int8_xla", 8),
     "mega_kv8": ("mega", 8, 8, "int8_xla", None),
     "mega_kv4": ("mega", 4, 4, "int4_xla", 4),
@@ -70,12 +71,14 @@ def _prompts(seed=0):
     return [rng.integers(1, V, (n,)).astype(np.int32) for n in (5, 130, 9)]
 
 
-@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("layout", ["dense", "packed", "dense_int8"])
 def test_greedy_tokens_match_jax_engine(calibrated, layout):
     """Three greedy requests on two slots (one waits for a recycled slot),
     prompt lengths 5, 130 and 9 (the 130-token prompt's bucket of 192
     reaches the flash prefill; 5 and 9 are odd, leaving a pad token in the
-    last packed row), 6 new tokens each: equal token for token. Integer dots
+    last packed row), 6 new tokens each: equal token for token, also with
+    the "int8" weight format (`quant_matmul`'s float32 reference on the CPU
+    in both packages). Integer dots
     are exact in both packages and the float32 sums differ by ulps, which
     flip no argmax on these seeded inputs."""
     check_greedy_against_jax(calibrated, layout)

@@ -4,11 +4,13 @@ Each source in `llm_qat_tpu_torch/csrc/` is compiled on its own into a
 shared library with a plain C interface, for `sm_90a`, at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -lineinfo -o build/kernels/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -lineinfo -Xptxas -v \
+         -o build/kernels/lib<name>-<hash>.so <name>.cu
 
 The library lands in `build/kernels/` at the checkout's root (listed in
 `.gitignore`); its file name carries a hash of the source and the flags, so
-an edited source is rebuilt. Nothing is built when a module is imported.
+an edited source is rebuilt. What nvcc printed (ptxas's registers, shared
+memory and spills per kernel) is kept beside it (`ptxas_report`). Nothing is built when a module is imported.
 `build_all()` starts one `nvcc` per source at once and waits for all.
 `load()` sets the argument types of each library's entry points once.
 """
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo"]
+              "-lineinfo", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source name -> {C entry point: argument types}; each returns a CUDA error
 # code (0 on success)
@@ -46,8 +48,11 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "decode_attention_hbm": [_P] * 7 + [_I] * 7 + [_F, _P],
         "decode_attention_dense": [_P] * 7 + [_I] * 5 + [_F, _P]},
     "fused_linear": {
-        "fused_linear_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
-        "fused_linear_bwd_dx": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "fused_linear_fq_weight": [_P] * 7 + [_I] * 5 + [_F, _P],
+        "fused_linear_fwd_wgmma": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "fused_linear_bwd_dx_wgmma": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "fused_linear_fwd_f32": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "fused_linear_bwd_dx_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
         "fused_linear_bwd_dw": [_P] * 5 + [_I] * 5 + [_P]},
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 4 + [_P]},
@@ -97,6 +102,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):"
                            f"\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
 
 
@@ -111,6 +117,15 @@ def build_all() -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's lines (registers, shared memory, spills per kernel) from
+    the build of kernel source `name`, built if missing."""
+    _finish(name, _start(name))
+    log = _lib_path(name).with_suffix(".log").read_text()
+    return "\n".join(line for line in log.splitlines()
+                     if "registers" in line or "spill" in line or "Compiling" in line)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,17 +9,24 @@ Per quantized linear with per-bit LoRA:
               dW   = STE_w(xqᵀ @ g_bf)      (±10 clamp iff log kind, < 32 bits)
               dbq  = s·(xaᵀ @ g_bf), dbias = Σ g
 
-FQ is the weight fake-quant computed tile by tile from the float32 weight
-and its per-column scale bank (`fq_tile_plain`, the JAX `_fq_tile`), so the
-fake-quantized weight never goes to device memory. Three Pallas kernels are
-replaced by hand-written CUDA kernels in `csrc/fused_linear.cu`, each with
-its plain PyTorch version beside it:
+FQ is the weight fake-quant from the float32 weight and its per-column
+scale bank (`fq_tile_plain`, the JAX `_fq_tile`). The TPU kernels apply it
+tile by tile in VMEM, so there the quantized weight never goes to device
+memory. On the card, with bf16 operands, a prologue kernel (`fq_weight`)
+fake-quantizes each weight once per call into a bf16 workspace in the
+layout its GEMM reads (WqT (N, K) for #14, Wq (K, N) for #15): the
+quantized weight goes to device memory once, in bf16, and the GEMM is a
+TMA-fed wgmma kernel. Three Pallas kernels are replaced by hand-written
+CUDA kernels in `csrc/fused_linear.cu`, each with its plain PyTorch version
+beside it:
 - `fused_linear_fwd` (kernel #14) replaces `_fwd_kernel`; plain version
   `fused_linear_fwd_plain`;
 - `fused_linear_bwd_dx` (#15) replaces `_bwd_dx_kernel`; plain version
   `fused_linear_bwd_dx_plain`;
 - `fused_linear_bwd_dw` (#16) replaces `_bwd_dw_kernel`; plain version
-  `fused_linear_bwd_dw_plain`.
+  `fused_linear_bwd_dw_plain`;
+- `fq_weight`, the prologue of #14/#15 with bf16 operands; plain version
+  `fq_weight_plain`.
 `_FusedCore` joins them in an `autograd.Function` and `sp_linear_fused` is
 the linear itself. The input and LoRA fake-quant stay `fake_quant_flat`
 calls, whose STEs give the reference backward; the quantizer banks take no
@@ -31,6 +38,8 @@ precision slot and switching precision needs no host sync.
 
 A wrapper takes its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in `<fn>.launches`.
+With bf16 operands the kernels take K, N and r in multiples of 8 (TMA's
+16-byte strides); the wrappers raise ValueError on other shapes.
 """
 
 from __future__ import annotations
@@ -102,6 +111,13 @@ def fq_tile_plain(w, scale, zp, bits, kind, symmetric: bool, eps: float):
     return torch.where(bits >= 32.0, w, out)
 
 
+def fq_weight_plain(w, ws, wz, scalars, symmetric: bool, eps: float, transpose: bool):
+    """Plain version of the bf16 weight prologue of #14/#15:
+    bf16(FQ(w)) as (K, N), or as (N, K) when `transpose`."""
+    wq = fq_tile_plain(w, ws, wz, scalars[0], scalars[1], symmetric, eps).to(torch.bfloat16)
+    return wq.T.contiguous() if transpose else wq
+
+
 def _f32_dot(a, b):
     """a @ b of operand-dtype tensors, summed in float32 (a bf16 product is
     exact in float32, as in the MXU dot with a float32 result)."""
@@ -162,11 +178,58 @@ def _operand_dtype(what, t):
     return t.dtype
 
 
+def _tma_shapes(what, **dims):
+    """The bf16 kernels read K-major operands through TMA, whose global
+    strides are multiples of 16 bytes: each dimension a multiple of 8."""
+    bad = {k: v for k, v in dims.items() if v % 8}
+    if bad:
+        raise ValueError(f"{what}: with bfloat16 operands the kernel needs K, N and r "
+                         f"in multiples of 8; got {bad}")
+
+
+def fq_weight(w, ws, wz, scalars, symmetric, eps, transpose, bq=None):
+    """The bf16 weight prologue of #14/#15: bf16(FQ(w)), each weight
+    fake-quantized once, as (K, N) or, when `transpose`, (N, K); with
+    `transpose` and bq (r, N) bf16 also bqᵀ (N, r) from the same launch,
+    returned as (wq, bqT). CPU tensors take the plain version; CUDA tensors
+    launch `fl_fq_weight` or raise."""
+    if w.device.type == "cpu":
+        wq = fq_weight_plain(w, ws, wz, scalars, symmetric, eps, transpose)
+        return wq if bq is None else (wq, bq.T.contiguous())
+    K, N = w.shape
+    r = 0 if bq is None else bq.shape[0]
+    f32, bf = torch.float32, torch.bfloat16
+    named = [("w", w, f32, (K, N)), ("ws", ws, f32, (N,)), ("wz", wz, f32, (N,)),
+             ("scalars", scalars, f32, (4,))]
+    if bq is not None:
+        if not transpose:
+            raise ValueError("fq_weight: bq is transposed only with transpose=True")
+        named.append(("bq", bq, bf, (r, N)))
+    _check("fq_weight", named, w.device)
+    wq = torch.empty((N, K) if transpose else (K, N), dtype=bf, device=w.device)
+    bqt = torch.empty((N, r), dtype=bf, device=w.device)
+    lib = _build.load("fused_linear")
+    rc = lib.fused_linear_fq_weight(
+        w.data_ptr(), ws.data_ptr(), wz.data_ptr(), scalars.data_ptr(),
+        bq.data_ptr() if r else None, wq.data_ptr(), bqt.data_ptr() if r else None,
+        K, N, r, int(transpose), int(symmetric), eps, _build.stream(w))
+    _build.check(lib, rc, "fq_weight")
+    fq_weight.launches += 1
+    return wq if bq is None else (wq, bqt)
+
+
+fq_weight.launches = 0
+
+
 def fused_linear_fwd(xq, xa, w, ws, wz, bq, bias, scalars, symmetric, eps):
     """QAT linear forward (kernel #14); shapes as `fused_linear_fwd_plain`.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    block per 128 x 128 output tile; the f32 weight tile is fake-quantized
-    while it is staged in shared memory) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. bf16 operands: one C call launches the prologue `fl_fq_weight`
+    (counted in `fq_weight.launches`), which writes WqT and bqᵀ to a bf16
+    workspace, then the TMA-fed wgmma GEMM, which runs the LoRA steps,
+    scales them by s, and the K steps on top (one block per 128 x 128
+    output tile). float operands: the plain tiled kernel, the f32 weight
+    tile fake-quantized while it is staged."""
     if xq.device.type == "cpu":
         return fused_linear_fwd_plain(xq, xa, w, ws, wz, bq, bias, scalars,
                                       symmetric, eps)
@@ -180,12 +243,20 @@ def fused_linear_fwd(xq, xa, w, ws, wz, bq, bias, scalars, symmetric, eps):
         ("bias", bias, f32, (N,)), ("scalars", scalars, f32, (4,))), xq.device)
     out = torch.empty((M, N), dtype=f32, device=xq.device)
     lib = _build.load("fused_linear")
-    rc = lib.fused_linear_fwd(
-        xq.data_ptr(), xa.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(),
-        bq.data_ptr(), bias.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-        M, K, N, r, int(cdt == torch.bfloat16), int(symmetric), eps,
-        _build.stream(xq))
+    if cdt == torch.bfloat16:
+        _tma_shapes("fused_linear_fwd", K=K, N=N, r=r)
+        work = torch.empty(N * (K + r), dtype=cdt, device=xq.device)
+        rc = lib.fused_linear_fwd_wgmma(
+            xq.data_ptr(), xa.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(),
+            bq.data_ptr(), bias.data_ptr(), scalars.data_ptr(), work.data_ptr(),
+            out.data_ptr(), M, K, N, r, int(symmetric), eps, _build.stream(xq))
+    else:
+        rc = lib.fused_linear_fwd_f32(
+            xq.data_ptr(), xa.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(),
+            bq.data_ptr(), bias.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+            M, K, N, r, int(symmetric), eps, _build.stream(xq))
     _build.check(lib, rc, "fused_linear_fwd")
+    fq_weight.launches += int(cdt == torch.bfloat16)  # the prologue
     fused_linear_fwd.launches += 1
     return out
 
@@ -195,9 +266,12 @@ fused_linear_fwd.launches = 0
 
 def fused_linear_bwd_dx(g_bf, w, ws, wz, bq, scalars, symmetric, eps):
     """dxq and dxa (kernel #15); shapes as `fused_linear_bwd_dx_plain`. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (one
-    block per 128 x 128 tile of dxq, and per 128-column tile of dxa, each
-    reducing over N) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise. bf16 operands: one C call launches the prologue `fl_fq_weight`
+    (counted in `fq_weight.launches`), which writes Wq (K, N) to a bf16
+    workspace, then the wgmma GEMM, one block per 128 x 128 tile of dxq and
+    per 128-column tile of dxa, each reducing over N. float operands: the
+    plain tiled kernel."""
     if g_bf.device.type == "cpu":
         return fused_linear_bwd_dx_plain(g_bf, w, ws, wz, bq, scalars, symmetric, eps)
     cdt = _operand_dtype("fused_linear_bwd_dx", g_bf)
@@ -211,11 +285,20 @@ def fused_linear_bwd_dx(g_bf, w, ws, wz, bq, scalars, symmetric, eps):
     dxq = torch.empty((M, K), dtype=f32, device=g_bf.device)
     dxa = torch.empty((M, r), dtype=f32, device=g_bf.device)
     lib = _build.load("fused_linear")
-    rc = lib.fused_linear_bwd_dx(
-        g_bf.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(), bq.data_ptr(),
-        scalars.data_ptr(), dxq.data_ptr(), dxa.data_ptr(), M, K, N, r,
-        int(cdt == torch.bfloat16), int(symmetric), eps, _build.stream(g_bf))
+    if cdt == torch.bfloat16:
+        _tma_shapes("fused_linear_bwd_dx", K=K, N=N, r=r)
+        work = torch.empty(K * N, dtype=cdt, device=g_bf.device)
+        rc = lib.fused_linear_bwd_dx_wgmma(
+            g_bf.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(), bq.data_ptr(),
+            scalars.data_ptr(), work.data_ptr(), dxq.data_ptr(), dxa.data_ptr(), M, K, N, r,
+            int(symmetric), eps, _build.stream(g_bf))
+    else:
+        rc = lib.fused_linear_bwd_dx_f32(
+            g_bf.data_ptr(), w.data_ptr(), ws.data_ptr(), wz.data_ptr(), bq.data_ptr(),
+            scalars.data_ptr(), dxq.data_ptr(), dxa.data_ptr(), M, K, N, r,
+            int(symmetric), eps, _build.stream(g_bf))
     _build.check(lib, rc, "fused_linear_bwd_dx")
+    fq_weight.launches += int(cdt == torch.bfloat16)  # the prologue
     fused_linear_bwd_dx.launches += 1
     return dxq, (dxa if r > 0 else None)
 

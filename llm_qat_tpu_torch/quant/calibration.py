@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
 from .functional import KIND_LOG
 
 
@@ -49,7 +50,9 @@ def batch_min_max(x, axes: Sequence[int], kind: int, eps: float = 1e-5):
 
 
 def init_stats(shape=(), device=None) -> QuantStats:
-    """Empty stats; the first `update_stats` overwrites min/max entirely."""
+    """Empty stats; the first `update_stats` overwrites min/max entirely.
+    On the card unless `device` says otherwise (`resolve_device`)."""
+    device = resolve_device(device)
     return QuantStats(
         running_min=torch.full(shape, float("inf"), device=device),
         running_max=torch.full(shape, float("-inf"), device=device),

@@ -290,12 +290,15 @@ def test_fused_linear_kernels_match_plain(cuda_device, dtype, slot, M, K, N, r):
     dx_args = (a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True, 1e-5)
     before = (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
               fl.fused_linear_bwd_dw.launches)
+    fq_before = fl.fq_weight.launches
     out = fl.fused_linear_fwd(*fwd_args)
     dxq, dxa = fl.fused_linear_bwd_dx(*dx_args)
     dw = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
     torch.cuda.synchronize()
     assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
             fl.fused_linear_bwd_dw.launches) == tuple(b + 1 for b in before)
+    # bf16: one weight prologue per #14 and per #15 call
+    assert fl.fq_weight.launches - fq_before == (2 if dtype == torch.bfloat16 else 0)
     pout = fl.fused_linear_fwd_plain(*fwd_args)
     pdxq, pdxa = fl.fused_linear_bwd_dx_plain(*dx_args)
     pdw = fl.fused_linear_bwd_dw_plain(a["xq"], a["g"], a["scalars"])
@@ -311,6 +314,82 @@ def test_fused_linear_kernels_match_plain(cuda_device, dtype, slot, M, K, N, r):
         err = (got - want).abs().max().item() / top.item()
         print(name, "error / max |plain|", err)
         assert err <= FUSED_TOL, (name, err)
+
+
+@pytest.mark.parametrize("slot", [0, 1, 2])
+@pytest.mark.parametrize("K,N,r", [(768, 2304, 64), (96, 136, 8)])
+def test_fq_weight_kernel_matches_plain(cuda_device, slot, K, N, r):
+    """The weight prologue of #14/#15 bit-equal to `fq_weight_plain` (the
+    same float32 operations, none contracted, one bf16 rounding) in both
+    layouts at each slot; with transpose it also writes bq^T exactly."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, 8, K, N, r, slot, torch.bfloat16, seed=K + slot)
+    args = (a["w"], a["ws"], a["wz"], a["scalars"], True, 1e-5)
+    before = fl.fq_weight.launches
+    wq = fl.fq_weight(*args, False)
+    wqt, bqt = fl.fq_weight(*args, True, a["bq"])
+    torch.cuda.synchronize()
+    assert fl.fq_weight.launches == before + 2
+    assert torch.equal(wq, fl.fq_weight_plain(*args, False))
+    assert torch.equal(wqt, fl.fq_weight_plain(*args, True))
+    assert torch.equal(bqt, a["bq"].T.contiguous())
+    if slot < 2:
+        assert not torch.equal(wq.float(), a["w"])  # the quantizer did something
+
+
+@pytest.mark.parametrize("r", [0, 8])
+def test_fused_gemm_one_tile(cuda_device, r):
+    """One output tile of each bf16 GEMM against its plain version: #14 at
+    (M, K, N) = (64, 64, 128) (one 64-row half of a 128 x 128 tile, one
+    64-wide K step) and #15's dxq at (64, 128) over N = 64, with and without
+    LoRA."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, 64, 64, 128, r, 0, torch.bfloat16, seed=3)
+    out = fl.fused_linear_fwd(a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
+                              a["scalars"], True, 1e-5)
+    want = fl.fused_linear_fwd_plain(a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"],
+                                     a["bias"], a["scalars"], True, 1e-5)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= FUSED_TOL * want.abs().max().item()
+    b = _fused_inputs(cuda_device, 64, 128, 64, r, 0, torch.bfloat16, seed=4)
+    dx_args = (b["g"], b["w"], b["ws"], b["wz"], b["bq"], b["scalars"], True, 1e-5)
+    got = fl.fused_linear_bwd_dx(*dx_args)
+    want = fl.fused_linear_bwd_dx_plain(*dx_args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert (x - y).abs().max().item() <= FUSED_TOL * y.abs().max().item()
+
+
+@pytest.mark.parametrize("K,N,r", [(100, 128, 8), (128, 132, 8), (128, 128, 4)])
+def test_fused_linear_bf16_kernels_refuse_unaligned_shapes(cuda_device, K, N, r):
+    """With bf16 operands #14 and #15 read through TMA, whose strides are
+    multiples of 16 bytes: K, N or r not a multiple of 8 raises ValueError
+    before any launch. float operands take such shapes."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, 64, K, N, r, 0, torch.bfloat16)
+    before = (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+              fl.fq_weight.launches)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fl.fused_linear_fwd(a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
+                            a["scalars"], True, 1e-5)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fl.fused_linear_bwd_dx(a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True,
+                               1e-5)
+    assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
+            fl.fq_weight.launches) == before
+    f = {k: (v.float() if v.dtype == torch.bfloat16 else v) for k, v in a.items()}
+    out = fl.fused_linear_fwd(f["xq"], f["xa"], f["w"], f["ws"], f["wz"], f["bq"], f["bias"],
+                              f["scalars"], True, 1e-5)
+    want = fl.fused_linear_fwd_plain(f["xq"], f["xa"], f["w"], f["ws"], f["wz"], f["bq"],
+                                     f["bias"], f["scalars"], True, 1e-5)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= FUSED_TOL * want.abs().max().item()
 
 
 def test_fused_dw_kernel_clamps(cuda_device):

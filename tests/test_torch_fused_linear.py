@@ -1,6 +1,7 @@
 """PyTorch port, fused QAT linear (`linear_impl="fused"`): the in-tile
-weight fake-quant and the plain versions of kernels #14-#16 against the
-JAX Pallas kernels (interpret mode), `sp_linear` of both packages at
+weight fake-quant, the bf16 weight prologue of #14/#15 and the plain
+versions of kernels #14-#16 against the JAX Pallas kernels (interpret
+mode), `sp_linear` of both packages at
 "fused" and "cond", the fallbacks by shape, and a whole train step of both
 packages on the fused path, on the CPU.
 
@@ -85,6 +86,64 @@ def test_fq_tile_plain_matches_jax(kind, symmetric, bits):
         np.testing.assert_array_equal(codes[0], codes[1])
     if bits < 32:
         assert not np.array_equal(got, w)  # the quantizer did something
+
+
+# The bf16 weight prologue of #14/#15 rounds each fake-quantized weight to
+# bf16 once. At the log slot XLA's FMA in exp2's argument moves the float32
+# value by an ulp (test above); where that crosses a bf16 rounding boundary
+# the two packages' bf16 weights are one bf16 ulp apart: at most this share.
+FQ_BF16_ULP_SHARE = 1e-3
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("slot", [0, 1, 2])
+def test_fq_weight_plain_matches_jax(slot, transpose):
+    """`fq_weight_plain` against the JAX `_fq_tile(...).astype(bf16)`, in
+    both layouts (K, N) and (N, K). minmax and 32 bits: bit for bit. The
+    8-bit log slot, weights off log ties: the same codes, and a weight
+    differs only where the float32 values of the two packages differ (XLA's
+    FMA contraction), then by one bf16 ulp, for at most FQ_BF16_ULP_SHARE
+    of the weights."""
+    a = _kernel_inputs(slot, "bfloat16")
+    bits, kind = a["scalars"][0], a["scalars"][1]
+    args = (_j(a["w"]), _j(a["ws"]).reshape(1, N), _j(a["wz"]).reshape(1, N), bits, kind,
+            True, 1e-5)
+    want32 = np.asarray(jfl._fq_tile(*args))
+    want = np.asarray(jfl._fq_tile(*args).astype(jnp.bfloat16).astype(jnp.float32))
+    got = tfl.fq_weight_plain(_t(a["w"]), _t(a["ws"]), _t(a["wz"]), _t(a["scalars"]), True,
+                              1e-5, transpose)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == ((N, K) if transpose else (K, N))
+    got = got.float().numpy()
+    if transpose:
+        got = got.T
+    if kind == KIND_MINMAX or bits == 32:
+        np.testing.assert_array_equal(got, want)
+        return
+    codes = [np.round(_log_pos(np.abs(o), a["ws"], a["wz"], 8, True)) for o in (got, want)]
+    np.testing.assert_array_equal(codes[0], codes[1])
+    got32 = tfl.fq_tile_plain(_t(a["w"]), _t(a["ws"]), _t(a["wz"]), _t(bits), _t(kind), True,
+                              1e-5).numpy()
+    moved = got != want
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want[moved]))) - 7)
+    print(f"bf16 weights one ulp apart: {int(moved.sum())} of {moved.size}")
+    assert np.all(got32[moved] != want32[moved])
+    np.testing.assert_array_equal(np.abs(got[moved] - want[moved]), ulp)
+    assert moved.mean() <= FQ_BF16_ULP_SHARE
+
+
+def test_fq_weight_takes_the_plain_version_on_the_cpu():
+    """The prologue's wrapper on CPU tensors: its plain version, and with
+    bq and transpose also bqᵀ; no launch is counted."""
+    a = _kernel_inputs(1, "bfloat16")
+    t = {k: _t(v) for k, v in a.items()}
+    before = tfl.fq_weight.launches
+    wq = tfl.fq_weight(t["w"], t["ws"], t["wz"], t["scalars"], True, 1e-5, False)
+    wqt, bqt = tfl.fq_weight(t["w"], t["ws"], t["wz"], t["scalars"], True, 1e-5, True, t["bq"])
+    assert tfl.fq_weight.launches == before
+    plain = tfl.fq_weight_plain(t["w"], t["ws"], t["wz"], t["scalars"], True, 1e-5, False)
+    assert torch.equal(wq, plain) and torch.equal(wqt, plain.T)
+    assert torch.equal(bqt, t["bq"].T) and bqt.is_contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -58,9 +58,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
     """device="cuda" (the default) raises when no card is present; the CPU is
-    used only when asked for; `prec_tables` follows the same policy."""
+    used only when asked for; `prec_tables` and `init_stats` follow the same
+    policy."""
     from llm_qat_tpu_torch.models.inference import init_layer_caches
     from llm_qat_tpu_torch.models.sp_model import init_sp_params, prec_tables
+    from llm_qat_tpu_torch.quant.calibration import init_stats
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tc.tiny_test_config()
@@ -74,6 +76,9 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         prec_tables(cfg.quant)
     assert resolve_device("cpu").type == "cpu"
     assert prec_tables(cfg.quant, "cpu").bits.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_stats((1, 8))
+    assert init_stats((1, 8), "cpu").running_min.device.type == "cpu"
 
 
 def test_bridge_round_trip_is_exact():

@@ -171,7 +171,7 @@ def test_quant_stats_fold_matches_jax(kind, channel_dim, symmetric):
     XLA and PyTorch, so 1e-6 relative."""
     rng = np.random.default_rng(kind * 7 + 2 * ((channel_dim or 0) + 1) + 3 * symmetric)
     xs = [rng.normal(0.2, 1.0, (5, 8)).astype(np.float32) for _ in range(3)]
-    js, ts = jcal.init_stats(), tcal.init_stats()
+    js, ts = jcal.init_stats(), tcal.init_stats(device="cpu")
     for x in xs:
         js = jcal.update_stats(js, jnp.asarray(x), channel_dim, kind)
         ts = tcal.update_stats(ts, torch.tensor(x), channel_dim, kind)

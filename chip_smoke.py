@@ -52,7 +52,7 @@ of one wrapper call), profiles one iteration of each path, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - ptxas's registers, shared memory and spills of each kernel of
-  `csrc/fused_linear.cu`;
+  `csrc/fused_linear.cu` and `csrc/quant_matmul.cu`;
 - one line per comparison, its error beside its tolerance;
 - `timings`, `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
@@ -71,6 +71,11 @@ non-zero too. It imports neither JAX nor the JAX package.
 runs only the holds and timings of #14-#16 and the weight prologue (about
 a minute; for A/B runs of two trees on one card, each tree with this
 script) and prints no result line.
+
+    python3 chip_smoke.py --quant-matmul
+
+does the same for #10/#11: their holds at the four GPT-2 linear shapes and
+`qmm_timings` (hot and cold-cache device time per layer).
 """
 
 from __future__ import annotations
@@ -790,6 +795,67 @@ def fused_linear_phase(dev) -> int:
     return 1 if failures else 0
 
 
+def serve_setup(dev):
+    """GPT-2 124M with the bench's quant config, random weights from seed
+    0, LoRA B banks drawn small and non-zero so the LoRA branch does work,
+    weight and input quantizers calibrated. Returns (cfg, params, gen)."""
+    import torch
+
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.train.calibration_manager import (
+        calibrate_input_quantizers,
+        calibrate_weight_quantizers,
+    )
+
+    cfg = SPModelConfig(
+        model=GPT2Config(),
+        quant=QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"},
+                          per_channel=False),
+        compute_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    for lin in LINEARS:
+        lb = params["blocks"][lin]["lora_B"]
+        params["blocks"][lin]["lora_B"] = 0.02 * torch.randn(
+            lb.shape, generator=gen, device=dev)
+    t = time.time()
+    params = calibrate_weight_quantizers(params, cfg)
+    cal = [torch.randint(0, cfg.model.vocab_size, (2, 64), generator=gen, device=dev)
+           for _ in range(3)]
+    params = calibrate_input_quantizers(params, cfg, cal)
+    torch.cuda.synchronize()
+    print(f"calibration: {time.time() - t:.1f} s", flush=True)
+    return cfg, params, gen
+
+
+def quant_matmul_phase(dev) -> int:
+    """`--quant-matmul`: kernels #10/#11 alone, held against their plain
+    versions at the four GPT-2 linear shapes (M = 8 and 1024) and timed as
+    in the full run's `int8_kernel_timings` (for A/B runs of two trees on
+    one card). Prints no result line; returns 1 if a hold failed."""
+    import torch
+
+    from llm_qat_tpu_torch.models.inference import quantize_for_inference
+
+    cfg, params, gen = serve_setup(dev)
+    tree = quantize_for_inference(params, cfg, 8, weight_format="int8")
+    tree.pop("_static")
+    failures = []
+    quant_matmul_vs_plain(tree, gen, dev, failures)
+    qt = qmm_timings(tree, gen, dev)
+    print("quant_matmul_timings " + json.dumps(qt), flush=True)
+    for key, r in qt.items():
+        cold = f", cold {r['cold_ms']:.4f} (torch.mm {r['library_cold_ms']:.4f})" \
+            if "cold_ms" in r else ""
+        print(f"{key} per layer: {r['ms']:.4f} ms{cold}; torch.mm {r['library_ms']:.4f}; "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    for f in failures:
+        print(f"chip_smoke --quant-matmul: FAIL {f}", flush=True)
+    return 1 if failures else 0
+
+
 def decode_attention_vs_plain(gen, dev, B, H, D, failures):
     """Kernels #7 and #8 against their plain versions on packed bf16 caches
     of T = 512 (the server's max_len), element by element: within
@@ -1484,7 +1550,8 @@ def int8_engine_path(params, cfg, dev, B, gen):
     want = {"quant_matmul_int8": 4 * L * (1 + NEW), "decode_attention_hbm": L * NEW,
             "flash_attention": L}
     print(f"path A (InferenceEngine int8, packed) main path: {B} x {NEW} tokens in "
-          f"{wall:.2f} s; launches {launches}", flush=True)
+          f"{wall:.2f} s ({1e3 * wall / NEW:.2f} ms per token step, prefill included); "
+          f"launches {launches}", flush=True)
     check(launches == want, f"path A: launches {launches} == {want} (#10: 48 per forward)")
     check(tuple(res.shape) == (B, T0 + NEW) and torch.equal(res[:, :T0], prompt),
           "path A: generate shape and prompt kept")
@@ -1621,13 +1688,80 @@ def fused_decode_path(params, cfg, dev, B, gen):
     return launches, tm
 
 
+def timing_row(ms, plain, lib, nbytes, t_o):
+    """A kernel's timings with its bound; t_o: the operations' least time
+    in seconds."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def qmm_timings(tree, gen, dev, n_iter=50):
+    """#10/#11 on the "int8" tree, the four linears of one layer summed, at
+    M = 8 (a decode step, the main path's usual shape) and M = 1024 (path
+    A's prefill). `ms`: the profiler's device time of every CUDA kernel a
+    wrapper call launches (names with "qmm"; `per_linear_ms` in LINEARS'
+    order), on layer QMM_LAYER's weights, which stay in the 50 MB L2
+    between calls; at M = 8 `cold_ms`: the same per layer over calls that
+    cycle through all layers' weights in path A's order (12 x 7.1 MB of
+    codes, more than the L2 holds), and `library_cold_ms` torch.mm's
+    likewise. Plain: CUDA events. Library: the bf16 product alone (torch.mm
+    of the bf16 input and the codes as bf16, float32 result)."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    f32, bf = torch.float32, torch.bfloat16
+    blocks = tree["blocks"]
+    L = blocks[LINEARS[0]]["w_int8"].shape[0]
+    out = {}
+    for name, bits in (("quant_matmul_int8", 8), ("quant_matmul_int4", 4)):
+        kern, plain = getattr(qm, name), getattr(qm, name + "_plain")
+        # per layer and linear: (weight, scale, codes as bf16 for torch.mm)
+        ws = []
+        for layer in range(L):
+            per = []
+            for lin in LINEARS:
+                codes, sc = blocks[lin]["w_int8"][layer], blocks[lin]["w_s"][layer]
+                w, s = (codes, sc) if bits == 8 else qm.pack_int4(codes.float() * sc)
+                per.append((w, s, (codes if bits == 8 else qm.unpack_int4(w)).to(bf)))
+            ws.append(per)
+        for M in (8, 1024):
+            acc = dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0, ops=0.0)
+            xs, per_linear = [], []
+            for lin, (w, s, wb) in zip(LINEARS, ws[QMM_LAYER]):
+                K, N = wb.shape
+                x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+                xs.append(x)
+                per_linear.append(device_ms(lambda: kern(x, w, s), n_iter, ["qmm"]))
+                acc["ms"] += per_linear[-1]
+                acc["plain"] += cuda_ms(lambda: plain(x, w, s), 10)
+                acc["lib"] += device_ms(lambda: torch.mm(x, wb, out_dtype=f32), n_iter)
+                acc["nbytes"] += 2 * M * K + K * N * bits // 8 + 4 * N + 4 * M * N
+                acc["ops"] += 2 * M * K * N / PEAK_BF16_FLOPS
+            r = timing_row(acc["ms"], acc["plain"], acc["lib"], acc["nbytes"], acc["ops"])
+            r["per_linear_ms"] = per_linear
+            if M == 8:
+                def sweep():
+                    for per in ws:
+                        for x, (w, s, _) in zip(xs, per):
+                            kern(x, w, s)
+
+                def lib_sweep():
+                    for per in ws:
+                        for x, (_, _, wb) in zip(xs, per):
+                            torch.mm(x, wb, out_dtype=f32)
+
+                r["cold_ms"] = device_ms(sweep, 5, ["qmm"]) / L
+                r["library_cold_ms"] = device_ms(lib_sweep, 5) / L
+            out[f"{name}_M{M}"] = r
+    return out
+
+
 def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
     """#9-#13 at their main paths' shapes: device time (profiler), the plain
     versions' time (CUDA events), bytes, operations and bounds, and the
-    library yardsticks. #10/#11: the four linears of one layer summed, at
-    M = 8 (a decode step, the main path's usual shape) and M = 1024 (path A's
-    prefill); library: the bf16 product alone (torch.mm of the bf16 input
-    and the codes as bf16, float32 result). #9: B = 8, T = 192 (path B's
+    library yardsticks. #10/#11: `qmm_timings`. #9: B = 8, T = 192 (path B's
     cache), pos 160 (mid-decode), bf16 cache; library: SDPA of the bf16 q against the
     dense cache with a length mask. #12/#13: layer 0 of the int8_xla tree;
     no single PyTorch call computes either."""
@@ -1637,37 +1771,12 @@ def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
     from llm_qat_tpu_torch.models.sp_model import _layer
     from llm_qat_tpu_torch.ops import decode_attention as da
     from llm_qat_tpu_torch.ops import fused_decode as fd
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
 
     m = cfg.model
     d, H, D, r = m.n_embd, m.n_head, m.head_dim, cfg.quant.max_rank
-    f32, bf = torch.float32, torch.bfloat16
+    bf = torch.bfloat16
 
-    def row(ms, plain, lib, nbytes, t_o):
-        """t_o: the operations' least time in seconds."""
-        t_b = nbytes / HBM_BYTES_PER_S
-        return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
-                "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-    out = {}
-    for name, bits in (("quant_matmul_int8", 8), ("quant_matmul_int4", 4)):
-        kern, plain = getattr(qm, name), getattr(qm, name + "_plain")
-        for M in (8, 1024):
-            acc = dict(ms=0.0, plain=0.0, lib=0.0, nbytes=0, ops=0.0)
-            for lin in LINEARS:
-                p = trees["int8"]["blocks"][lin]
-                codes, ws = p["w_int8"][QMM_LAYER], p["w_s"][QMM_LAYER]
-                w, s = (codes, ws) if bits == 8 else qm.pack_int4(codes.float() * ws)
-                K, N = codes.shape
-                x = torch.randn((M, K), generator=gen, device=dev).to(bf)
-                wb = (codes if bits == 8 else qm.unpack_int4(w)).to(bf)
-                acc["ms"] += device_ms(lambda: kern(x, w, s), n_iter, ["qmm"])
-                acc["plain"] += cuda_ms(lambda: plain(x, w, s), 10)
-                acc["lib"] += device_ms(lambda: torch.mm(x, wb, out_dtype=f32), n_iter)
-                acc["nbytes"] += 2 * M * K + K * N * bits // 8 + 4 * N + 4 * M * N
-                acc["ops"] += 2 * M * K * N / PEAK_BF16_FLOPS
-            out[f"{name}_M{M}"] = row(acc["ms"], acc["plain"], acc["lib"], acc["nbytes"],
-                                      acc["ops"])
+    out = qmm_timings(trees["int8"], gen, dev, n_iter)
 
     T, pos = FUSED_T0 + FUSED_NEW, FUSED_T0 + FUSED_NEW // 2   # 192, 160
     q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
@@ -1675,7 +1784,7 @@ def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
     mask = (torch.arange(T, device=dev) <= pos)[None, None, None, :]
     qb = q.to(bf)
     live = pos + 1
-    out["decode_attention"] = row(
+    out["decode_attention"] = timing_row(
         device_ms(lambda: da.decode_attention(q, kn, vn, kc, vc, pos), 200, ["k_decode_dense"]),
         cuda_ms(lambda: da.decode_attention_plain(q, kn, vn, kc, vc, pos), 20),
         device_ms(lambda: F.scaled_dot_product_attention(qb, kc, vc, attn_mask=mask), 200),
@@ -1708,8 +1817,8 @@ def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
              8 * B * d + 8 * d + sum(lin_bytes(bp[n]) for n in LINEARS[1:]) + 12 + 4 * B * d,
              sum(lin_ops(bp[n]) for n in LINEARS[1:]))):
         kern, plain = getattr(fd, name), getattr(fd, name + "_plain")
-        out[name] = row(device_ms(lambda: kern(*args, eps=eps), n_iter),
-                        cuda_ms(lambda: plain(*args, eps=eps), 20), None, nbytes, ops)
+        out[name] = timing_row(device_ms(lambda: kern(*args, eps=eps), n_iter),
+                               cuda_ms(lambda: plain(*args, eps=eps), 20), None, nbytes, ops)
     print("int8_kernel_timings " + json.dumps(out), flush=True)
     return out
 
@@ -1722,6 +1831,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--fused-linear", action="store_true",
                     help="only hold and time kernels #14-#16 and the weight prologue")
+    ap.add_argument("--quant-matmul", action="store_true",
+                    help="only hold and time kernels #10/#11")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1730,7 +1841,6 @@ def main() -> int:
     import torch.nn.functional as F
 
     from llm_qat_tpu_torch.models import inference
-    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
     from llm_qat_tpu_torch.models.inference import (
         InferenceEngine,
         _lm_head,
@@ -1738,16 +1848,11 @@ def main() -> int:
         init_layer_caches,
         quantize_for_inference,
     )
-    from llm_qat_tpu_torch.models.sp_model import init_sp_params
     from llm_qat_tpu_torch.ops import _build
     from llm_qat_tpu_torch.ops import attention as att
     from llm_qat_tpu_torch.ops import fused_linear as fl
     from llm_qat_tpu_torch.ops import mega_decode as md
     from llm_qat_tpu_torch.ops.attention import flash_attention, flash_attention_plain
-    from llm_qat_tpu_torch.train.calibration_manager import (
-        calibrate_input_quantizers,
-        calibrate_weight_quantizers,
-    )
 
     # full-precision float32 matmuls (the exact integer dots rely on it)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1767,29 +1872,14 @@ def main() -> int:
           f"in parallel)", flush=True)
     if args.fused_linear:
         return fused_linear_phase(dev)
-    print("ptxas, csrc/fused_linear.cu:\n" + _build.ptxas_report("fused_linear"), flush=True)
+    if args.quant_matmul:
+        return quant_matmul_phase(dev)
+    for src in ("fused_linear", "quant_matmul"):
+        print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
 
-    # GPT-2 124M with the bench's quant config, random weights from seed 0;
-    # LoRA B banks drawn small and non-zero so the LoRA branch does work
-    cfg = SPModelConfig(
-        model=GPT2Config(),
-        quant=QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"},
-                          per_channel=False),
-        compute_dtype="bfloat16")
+    cfg, params, gen = serve_setup(dev)
     m = cfg.model
     V, d, L, H = m.vocab_size, m.n_embd, m.n_layer, m.n_head
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_sp_params(gen, cfg, device=dev)
-    for lin in ("c_attn", "attn_proj", "c_fc", "mlp_proj"):
-        lb = params["blocks"][lin]["lora_B"]
-        params["blocks"][lin]["lora_B"] = 0.02 * torch.randn(
-            lb.shape, generator=gen, device=dev)
-    t = time.time()
-    params = calibrate_weight_quantizers(params, cfg)
-    cal = [torch.randint(0, V, (2, 64), generator=gen, device=dev) for _ in range(3)]
-    params = calibrate_input_quantizers(params, cfg, cal)
-    torch.cuda.synchronize()
-    print(f"calibration: {time.time() - t:.1f} s", flush=True)
 
     # 3. kernels vs plain versions at GPT-2 widths. The decode step runs
     #    at full depth and, to keep a rounding-boundary difference from

@@ -55,7 +55,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fused_linear_bwd_dx_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
         "fused_linear_bwd_dw": [_P] * 5 + [_I] * 5 + [_P]},
     "quant_matmul": {
-        "quant_matmul": [_P] * 4 + [_I] * 4 + [_P]},
+        "quant_matmul": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_decode": {
         "fused_ln_qkv": [_P] * 13 + [_I] * 6 + [_F, _P],
         "fused_post_attention": [_P] * 26 + [_I] * 6 + [_F, _P]},

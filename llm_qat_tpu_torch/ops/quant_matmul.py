@@ -14,16 +14,23 @@ x @ (codes · scale).
   Pallas kernels' arithmetic: x rounded to bf16, times the codes as bf16
   (exact), float32 sums, times the column scale after the sum. CPU tensors
   take the plain versions `quant_matmul_int8_plain` / `_int4_plain`; CUDA
-  tensors launch the one templated GEMM in `csrc/quant_matmul.cu` or raise.
+  tensors launch `csrc/quant_matmul.cu` (split-K mma.sync kernels for
+  M <= 16 and above) or raise.
   Each counts its launches in `<fn>.launches`.
 - `quant_matmul(bits=8|4)`: the JAX dispatch, the kernel for CUDA tensors
   and the reference for CPU ones (JAX takes the reference off the TPU).
+- `launch_plan`: the kernel's regime, columns per block, K split and grid
+  for a shape (plain Python, tested on the CPU); the wrapper passes it to
+  the C call.
 
 bf16 x bf16 products are exact in float32, so a kernel and its plain
 version differ by the order of the float32 sums only.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -88,6 +95,72 @@ def quant_matmul_int4_plain(x, packed, scale):
     return _plain(x, unpack_int4(packed), scale)
 
 
+# csrc/quant_matmul.cu's constants: the widest M of the small-M regime;
+# rows of x and weight columns per block in each regime; K rows per step of
+# the cp.async rings; the largest K split (a thread block cluster's
+# portable size).
+SMALL_M_MAX = 16
+SMALL_TILE = (8, 64)
+LARGE_TILE = (128, 128)
+K_STEP = 64
+MAX_SPLIT = 8
+# The large-M kernel runs two blocks per SM, so its plan aims at twice the
+# SMs; each block of a split adds its 64 KB partial tile to a reduction
+# through distributed shared memory, which beyond 4 ways costs more than
+# the split gains at GPT-2's prefill shapes (PERF.md).
+LARGE_BLOCKS_PER_SM = 2
+LARGE_MAX_SPLIT = 4
+
+
+class LaunchPlan(NamedTuple):
+    """How csrc/quant_matmul.cu covers an (M, K, N) product.
+
+    regime: "small" or "large"; rows, cols: the block's tile of out;
+    split: blocks of a cluster that share one tile, block r of them taking
+    the K rows [r, r + 1) * steps * K_STEP (the last ends at K); grid: (x, y)
+    blocks; why: "" when the grid has at least `sms` blocks, else the
+    reason it has fewer."""
+    regime: str
+    rows: int
+    cols: int
+    split: int
+    steps: int
+    grid: Tuple[int, int]
+    why: str
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(M: int, K: int, N: int, sms: int = 132) -> LaunchPlan:
+    """The kernel's plan for x (M, K) times a (K, N) weight on a card of
+    `sms` SMs: the small-M regime's 8 x 64 tiles up to SMALL_M_MAX rows,
+    else the large-M regime's 128 x 128; K split into the fewest whole K
+    steps per block that give at least `sms` blocks (large M: twice that),
+    at most MAX_SPLIT ways (large M: LARGE_MAX_SPLIT)."""
+    small = M <= SMALL_M_MAX
+    regime = "small" if small else "large"
+    rows, cols = SMALL_TILE if small else LARGE_TILE
+    want, most = (sms, MAX_SPLIT) if small else (LARGE_BLOCKS_PER_SM * sms, LARGE_MAX_SPLIT)
+    nk, cb, mg = _cdiv(K, K_STEP), _cdiv(N, cols), _cdiv(M, rows)
+    split = max(1, min(most, nk, _cdiv(want, cb * mg)))
+    steps = _cdiv(nk, split)
+    split = _cdiv(nk, steps)  # no block of a cluster without a K step
+    grid = (cb * split, mg)
+    why = ""
+    if grid[0] * grid[1] < sms:
+        why = (f"{cb} column block(s) of {cols} x {mg} row block(s) of {rows} x {split} K "
+               f"split(s): K has {nk} step(s) of {K_STEP}, the split is at most {most} "
+               f"blocks, and it leaves no block without a step")
+    return LaunchPlan(regime, rows, cols, split, steps, grid, why)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x, w, scale, bits, what):
     """Check the operands and launch the GEMM; returns (M, N) float32."""
     if x.dim() != 2 or w.dim() != 2:
@@ -109,13 +182,14 @@ def _launch(x, w, scale, bits, what):
         if t.device != x.device:
             raise ValueError(f"{what}: {name} must be on {x.device}; got {t.device}")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 4:  # the kernel loads bf16 pairs
+    if xb.data_ptr() % 16:  # the kernel copies x in 16-byte chunks
         xb = xb.clone()
     s = scale.to(torch.float32).reshape(-1).expand(N).contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    plan = launch_plan(M, K, N, _sm_count(x.device.index))
     lib = _build.load("quant_matmul")
     rc = lib.quant_matmul(xb.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                          M, K, N, bits, _build.stream(x))
+                          M, K, N, bits, plan.rows, plan.split, _build.stream(x))
     _build.check(lib, rc, what)
     return out
 

@@ -677,6 +677,86 @@ def test_quant_matmul_wrappers_check_their_inputs(cuda_device):
         qm.quant_matmul_int8(x, codes, s[:5])
 
 
+def _qmm_operands(dev, bits, M, K, N, per_channel=True, seed=0):
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(seed + M + K + N + bits)
+    x = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev)
+    pack, kern, plain = ((qm.pack_int8, qm.quant_matmul_int8, qm.quant_matmul_int8_plain)
+                         if bits == 8 else
+                         (qm.pack_int4, qm.quant_matmul_int4, qm.quant_matmul_int4_plain))
+    codes, s = pack(w, per_channel)
+    return x, codes, s, kern, plain
+
+
+def _qmm_rel_err(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(8, 768, 2304), (8, 3072, 768), (1024, 768, 768)])
+def test_quant_matmul_kernels_are_deterministic(cuda_device, bits, M, K, N):
+    """#10 / #11 sum in a fixed order (split K over a cluster at small M,
+    no atomics): two calls on the same inputs give bit-equal outputs."""
+    x, codes, s, kern, _ = _qmm_operands(cuda_device, bits, M, K, N)
+    a = kern(x, codes, s)
+    b = kern(x, codes, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N,per_channel", [
+    (16, 768, 768, True),     # the small-M regime's widest M
+    (17, 768, 768, True),     # one above: the large-M regime
+    (8, 768, 100, True),      # N not a multiple of 16
+    (8, 768, 8, False),       # one narrow column block, per-tensor scale
+    (8, 1000, 256, True),     # K ragged against the step and the split
+    (8, 800, 512, True),      # 25 K steps over a split of 7
+    (5, 66, 100, True),       # K not a multiple of 8: x read byte by byte
+    (40, 1000, 100, True),    # the large-M regime, every edge ragged
+])
+def test_quant_matmul_kernel_edges_match_plain(cuda_device, bits, M, K, N, per_channel):
+    """#10 / #11 at the regime threshold, ragged M, N and K and a
+    per-tensor scale: within 1e-5 of max |plain| (the sums' order only)."""
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    x, codes, s, kern, plain = _qmm_operands(cuda_device, bits, M, K, N, per_channel)
+    plan = qm.launch_plan(M, K, N)
+    assert plan.regime == ("small" if M <= qm.SMALL_M_MAX else "large")
+    before = kern.launches
+    got = kern(x, codes, s)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    err = _qmm_rel_err(got, plain(x, codes, s))
+    print("quant_matmul error / max |plain|", plan, err)
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [8, 64])
+def test_quant_matmul_kernels_take_unaligned_views(cuda_device, bits, M):
+    """A bf16 x view 2 bytes past a 16-byte boundary (the wrapper clones it)
+    and a code view 3 bytes past one (the kernel reads it byte by byte):
+    the same outputs as on aligned copies, within 1e-5 of max |plain|."""
+    K, N = 768, 256
+    x, codes, s, kern, plain = _qmm_operands(cuda_device, bits, M, K, N, seed=7)
+    xbuf = torch.empty(M * K + 8, dtype=torch.bfloat16, device=cuda_device)
+    xv = xbuf[1:1 + M * K].view(M, K)
+    xv.copy_(x.to(torch.bfloat16))
+    cbuf = torch.empty(codes.numel() + 16, dtype=codes.dtype, device=cuda_device)
+    cv = cbuf[3:3 + codes.numel()].view(codes.shape)
+    cv.copy_(codes)
+    assert xv.data_ptr() % 16 and cv.data_ptr() % 16 and cv.is_contiguous()
+    got = kern(xv, cv, s)
+    want = kern(xv.contiguous().clone(), codes, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _qmm_rel_err(got, plain(xv, cv, s)) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128, 32])
 def test_dense_decode_attention_kernel_matches_plain(cuda_device, dtype, D):

@@ -179,3 +179,73 @@ def test_int8_linear_runs_quant_matmul(calibrated, monkeypatch):
     for name in seen:
         assert len(seen[name]) == 4 * L
         assert all(s[0] == 10 and dt == torch.bfloat16 for s, dt in seen[name])
+
+
+GPT2_LINEARS = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]  # (K, N)
+
+
+def _blocks(plan):
+    return plan.grid[0] * plan.grid[1]
+
+
+def _check_k_ranges(plan, K):
+    """Each block of a cluster takes a non-empty run of whole K steps, in
+    order, and together they cover [0, K) exactly."""
+    span = plan.steps * tq.K_STEP
+    ranges = [(r * span, min(K, (r + 1) * span)) for r in range(plan.split)]
+    assert len(ranges) == plan.split and 1 <= plan.split <= tq.MAX_SPLIT
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == plan.steps * tq.K_STEP
+    assert all(a0 < a1 and a0 % tq.K_STEP == 0 for a0, a1 in ranges)
+
+
+@pytest.mark.parametrize("K,N", GPT2_LINEARS)
+def test_launch_plan_fills_the_card_at_gpt2_decode_shapes(K, N):
+    """M = 8 (a decode step): the small-M regime, K split in whole steps
+    over a cluster; at least one block per SM of the H100, except where N
+    has too few column blocks for a cluster of 8 to make up, which the plan
+    says."""
+    plan = tq.launch_plan(8, K, N, sms=132)
+    assert plan.regime == "small" and (plan.rows, plan.cols) == tq.SMALL_TILE
+    _check_k_ranges(plan, K)
+    cb = -(-N // plan.cols)
+    assert plan.grid == (cb * plan.split, 1)
+    if cb * tq.MAX_SPLIT >= 132:
+        assert _blocks(plan) >= 132 and plan.why == ""
+    else:
+        # the fewest K steps per block that a cluster of MAX_SPLIT allows
+        assert plan.steps == -(-(-(-K // tq.K_STEP)) // tq.MAX_SPLIT)
+        assert f"at most {tq.MAX_SPLIT} blocks" in plan.why
+
+
+@pytest.mark.parametrize("K,N", GPT2_LINEARS)
+@pytest.mark.parametrize("M", [1, tq.SMALL_M_MAX, tq.SMALL_M_MAX + 1, 1024])
+def test_launch_plan_regime_by_m(M, K, N):
+    """Up to SMALL_M_MAX rows the small-M regime (8 x 64 tiles), above it,
+    and at path A's prefill M = 1024, 128 x 128 tiles; K split only where
+    the tiles alone leave SMs idle (large M: fewer than two per SM), at
+    most MAX_SPLIT ways (large M: LARGE_MAX_SPLIT)."""
+    plan = tq.launch_plan(M, K, N, sms=132)
+    _check_k_ranges(plan, K)
+    small = M <= tq.SMALL_M_MAX
+    assert plan.regime == ("small" if small else "large")
+    assert (plan.rows, plan.cols) == (tq.SMALL_TILE if small else tq.LARGE_TILE)
+    tiles = -(-N // plan.cols) * -(-M // plan.rows)
+    assert plan.grid == (-(-N // plan.cols) * plan.split, -(-M // plan.rows))
+    want, most = (132, tq.MAX_SPLIT) if small else (2 * 132, tq.LARGE_MAX_SPLIT)
+    assert plan.split <= most
+    assert (plan.split == 1) == (tiles >= want or K <= tq.K_STEP)
+    assert (_blocks(plan) >= 132) == (plan.why == "")
+@pytest.mark.parametrize("M,K,N", [(8, 1000, 256), (8, 800, 256), (3, 66, 100), (1, 64, 8),
+                                   (16, 2, 8), (8, 32 * 9, 4096)])
+def test_launch_plan_ragged_shapes(M, K, N):
+    """K not a multiple of the step or of the split, narrow N: the ranges
+    still cover K in whole steps, and a plan short of the card's SMs says
+    why."""
+    plan = tq.launch_plan(M, K, N, sms=132)
+    assert plan.regime == "small"
+    _check_k_ranges(plan, K)
+    assert (_blocks(plan) >= 132) == (plan.why == "")
+    if _blocks(plan) < 132:
+        assert "K split" in plan.why

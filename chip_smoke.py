@@ -621,8 +621,8 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     port's kernels' recorded counts are printed beside the counts their
     wrappers made (one flash_fwd per #5; flash_bwd_rowdot, _dkdv and _dq per
     #6; fl_fq_weight and fl_fwd_wgmma per #14, fl_fq_weight and
-    fl_bwd_dx_wgmma per #15 (bf16 operands); fl_bwd_dw and fl_dw_reduce per
-    #16, all of whose main-path shapes split M), and the idle share,
+    fl_bwd_dx_wgmma per #15, fl_bwd_dw_wgmma per #16 (bf16 operands; #16's
+    split of M is summed inside the launch, over a cluster)), and the idle share,
     1 - recorded busy time / the mean wall time of unprofiled iterations,
     is an upper bound."""
     import torch
@@ -639,7 +639,7 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     n5, n6, n14, n15, n16, nfq = (fn.launches for fn in counters)
     made = {"flash_fwd": n5, "flash_bwd_rowdot": n6, "flash_bwd_dkdv": n6,
             "flash_bwd_dq": n6, "fl_fq_weight": nfq, "fl_fwd_wgmma": n14,
-            "fl_bwd_dx_wgmma": n15, "fl_bwd_dw": n16, "fl_dw_reduce": n16}
+            "fl_bwd_dx_wgmma": n15, "fl_bwd_dw_wgmma": n16}
     made = {k: v for k, v in made.items() if v}
     by_kernel = {}
     for ev in prof.key_averages():
@@ -777,18 +777,71 @@ def print_fused_timings(ft):
             flush=True)
 
 
+def dw_split_sweep(cfg, params, dev, M, failures):
+    """Kernel #16 at the four GPT-2 linear shapes (M rows, the 8-bit log
+    slot's operands) launched with every split of M the kernel takes (1 to
+    8 blocks of a cluster), bypassing `dw_splits`: device ms per call by
+    graph replay (`graph_ms`) and dW's error / max |plain|, beside the
+    split the plan picks. Every split the plan may pick (chunks of at most
+    DW_MAX_CHUNK_STEPS steps) is held within FUSED_REL; fewer chunks are
+    reported only. Returns {"KxN": {...}}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for lin in LINEARS:
+        _, _, (xq, g, scalars), _ = fused_operands(cfg, params, cfg.quant.prec_index(8), lin,
+                                                   M, gen, dev)
+        K, N = xq.shape[1], g.shape[1]
+        dw = torch.empty((K, N), dtype=torch.float32, device=dev)
+        want = fl.fused_linear_bwd_dw_plain(xq, g, scalars)
+        top = want.abs().max().item()
+
+        def launch(split):
+            fl.launch_dw_wgmma(xq, g, scalars, dw, split)
+
+        ms, rel = {}, {}
+        for split in range(1, 9):
+            launch(split)
+            torch.cuda.synchronize()
+            rel[split] = (dw - want).abs().max().item() / top
+            if split * fl.DW_MAX_CHUNK_STEPS * fl.DW_STEP >= M and not rel[split] <= FUSED_REL:
+                failures.append(f"dw split sweep {K}x{N} split {split}: {rel[split]:.3e} of max")
+            ms[split] = graph_ms(lambda: launch(split), 10)
+        plan, best = fl.dw_splits(M, K, N, sms), min(ms, key=ms.get)
+        out[f"{K}x{N}"] = {"ms": ms, "rel_err": rel, "plan": plan, "plan_ms": ms[plan],
+                           "best": best, "best_ms": ms[best]}
+        print(f"dw split sweep (M={M}, K={K}, N={N}; split: device ms by graph replay, "
+              f"error / max |plain|): "
+              + ", ".join(f"{s_}: {ms[s_]:.4f} {rel[s_]:.2e}" for s_ in ms)
+              + f"; plan {plan} ({ms[plan]:.4f}), best {best} ({ms[best]:.4f})", flush=True)
+    tot = lambda key: sum(v[key] for v in out.values())
+    print(f"dw split sweep per layer: plan {tot('plan_ms'):.4f} ms, best {tot('best_ms'):.4f} "
+          f"ms; dw_split_sweep " + json.dumps(out), flush=True)
+    return out
+
+
 def fused_linear_phase(dev) -> int:
     """`--fused-linear`: kernels #14-#16 and the weight prologue alone,
     held against their plain versions and timed at the training path's
-    shapes as in the full run (for A/B runs of two trees on one card).
+    shapes as in the full run, then #16 at every split of M (for A/B runs
+    of two trees on one card; the sweep runs where the tree has it).
     Prints no result line; returns 1 if a hold failed."""
     import torch
 
+    from llm_qat_tpu_torch.ops import _build
+
+    print("ptxas, csrc/fused_linear.cu:\n" + _build.ptxas_report("fused_linear"), flush=True)
     tcfg_model, tcfg, tparams, _, _ = train_setup(dev)
     Mt = tcfg.batch_size * tcfg.max_seq_length
     failures = []
     fused_linear_vs_plain(tcfg_model, tparams, dev, Mt, failures)
     print_fused_timings(fused_timings(tcfg_model, tparams, dev, Mt))
+    if "fused_linear_bwd_dw_wgmma" in _build.KERNELS["fused_linear"]:
+        dw_split_sweep(tcfg_model, tparams, dev, Mt, failures)
     torch.cuda.synchronize()
     for f in failures:
         print(f"chip_smoke --fused-linear: FAIL {f}", flush=True)

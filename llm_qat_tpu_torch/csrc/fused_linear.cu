@@ -38,11 +38,11 @@
 //   (N, r) from the same launch, and Wq (K, N) for #15. Unlike on the TPU,
 //   the quantized weight goes to device memory, once, in bf16 (at most
 //   4.7 MB at GPT-2's shapes, so it stays in the 50 MB L2 for the GEMM).
-// - One GEMM, C[M, n] = A[M, R] . B[n, R]^T with both operands K-major
-//   (`gemm_tile`), serves both kernels: one block of 288 threads per
-//   128 x 128 output tile, two blocks to an SM. The first thread of warp 8
-//   is the producer and keeps a ring of 3 shared-memory stages (32 KB
-//   each) filled by TMA (cp.async.bulk.tensor, 128-byte swizzle, one
+// - One GEMM template (`gemm_tile`) serves #14-#16. For #14/#15 it is
+//   C[M, n] = A[M, R] . B[n, R]^T with both operands K-major: one block of
+//   288 threads per 128 x 128 output tile, two blocks to an SM. The first
+//   thread of warp 8 is the producer and keeps a ring of 3 shared-memory
+//   stages (32 KB each) filled by TMA (cp.async.bulk.tensor, 128-byte swizzle, one
 //   mbarrier per stage for "full" and one for "empty"); warpgroups 0 and 1
 //   each own 64 rows and run wgmma.mma_async m64n128k16 (bf16 in, float32
 //   accumulators in registers; a bf16 product is exact in float32, as the
@@ -61,19 +61,42 @@
 //   against WqT) accumulate on top, and the epilogue adds the bias.
 // - #15: blocks x < ceil(K/128) are dxq tiles (g against Wq), the rest dxa
 //   tiles (g against bq, scaled by s after the sum).
+// - #16: dw = xq^T . g reduces over M, which is the row index of both xq
+//   (M, K) and g (M, N): both operands are MN-major, and the same ring and
+//   warpgroups read them as they lie (`gemm_tile<BN, true, S>`, wgmma's
+//   imm-trans-a/b = 1), with no transposing copy. With the 128-byte swizzle
+//   a TMA box is at most 64 bf16 wide, so an MN-major tile is boxes of 64
+//   columns x GK rows of M; warpgroup w's A slice is box w, and B spans all
+//   of its boxes. A k16 slice is 16 rows of M, 2048 bytes further.
+// - #16's tile is 128 x 256 (m64n256k16 per warpgroup, 128 float32
+//   accumulators a thread) with a 4-stage ring of 48 KB, one block per SM.
+//   A 128 x 128 tile reads 80 KB of shared memory per 64-deep step (B once
+//   per warpgroup, plus the TMA's writes) for 4.2 MFLOP; 128 x 256 reads
+//   128 KB for 8.4 MFLOP, within the SM's 128 bytes a cycle at the tensor
+//   cores' rate: the wider tile reads a fifth less per flop, which is why it
+//   was chosen over 128 x 128 tiles two to an SM (PERF.md §6).
+// - #16's 18-72 (K, N) tiles per GPT-2 linear do not fill 132 SMs, so M is
+//   cut into `split` chunks of whole GK steps, one per block of a thread
+//   block cluster (at most 8; the plan is `ops/fused_linear.py::
+//   dw_splits`, which also keeps each chunk's chain of float32 sums short
+//   enough for the kernel to agree with its plain version, and the chunk
+//   bounds come from `dw_chunks` there, passed by value). Each block
+//   stores its float32 partial tile into its own shared memory (the ring,
+//   now idle); after a cluster barrier block z sums the z-th slice of rows
+//   over the cluster's blocks through distributed shared memory, in the
+//   order of rank, clamps (the weight STE) and stores. No atomics, no
+//   workspace in device memory, one launch; repeat calls give bit-equal
+//   dw. Consecutive blocks share the tile index of the smaller of K and N,
+//   so the blocks in flight at once read the same slices of xq and g.
 // - Epilogue: float32 stores straight from the accumulators, masked at the
-//   ragged M and n edges.
+//   ragged edges (#16 with a split: from the summed shared-memory tiles).
 //
 // float operands (compute_dtype float32, off the main path) keep the plain
 // tiled design: one block of 256 threads per 128 x 128 output tile, the
 // reduction in steps of 32 through shared memory, the float32 w tile
 // fake-quantized while it is staged, float32 FMA on the CUDA cores (each
-// thread an 8 x 8 patch). #16 (`fl_bwd_dw`, both types) does the same with
-// mma.sync m16n8k16 for bf16: one block per (K tile, N tile) and chunk of
-// M, both operands transposed while staged; when the (K, N) tiles alone
-// would not fill the card, M is cut into chunks whose partial sums go to a
-// float32 workspace that a second kernel sums in a fixed order and clamps
-// (no atomics, deterministic).
+// thread an 8 x 8 patch). #16 (`fl_bwd_dw`) does the same over all of M,
+// both operands transposed while staged.
 //
 // Bounds, at the GPT-2 124M training shapes (M = 8192, r = 64, bf16):
 // #14 reads xq, w, xa, bq once and writes out (2MK + 4KN + 2Mr + 2rN + 4MN
@@ -81,10 +104,13 @@
 // 124 MB (37 us at 3.35 TB/s) against 41.9 GFLOP (42 us at 989 TFLOP/s):
 // close to balanced, bound by operations at three of the four GPT-2 shapes
 // and by bytes at (768, 768). #15 moves 2MN + 4KN + 2rN + 4MK + 4Mr bytes
-// for the same flops; #16 moves 2MK + 2MN + 4KN bytes for 2MKN flops. The
-// prologue adds 4KN read and 2KN written (14 MB at (768, 3072), 4 us), and
-// the GEMM re-reads A once per 128-column tile of the output (from L2).
+// for the same flops; #16 moves 2MK + 2MN + 4KN bytes for 2MKN flops
+// (at (768, 3072): 73 MB, 22 us, against 38.7 GFLOP, 39 us: bound by
+// operations at every GPT-2 shape). The prologue adds 4KN read and 2KN
+// written (14 MB at (768, 3072), 4 us), and the GEMM re-reads A once per
+// 128-column tile of the output (from L2).
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,8 +119,11 @@
 
 #include <initializer_list>
 
+namespace cg = cooperative_groups;
+
 #define TILE 128    // output tile rows and columns
 #define BK 32       // reduction step
+#define LDS 33      // row pitch of the float tiles in shared memory
 #define NT 256      // threads per block
 #define KIND_LOG 1.0f
 
@@ -103,18 +132,6 @@ extern "C" const char* kernels_error_string(int code) {
 }
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// Row pitch of the shared tiles, in elements: 40 bf16 (20 words: the 8 rows
-// a fragment load touches fall in distinct banks) or 33 float.
-template <typename T>
-struct Pitch;
-template <>
-struct Pitch<bf16> { static constexpr int value = BK + 8; };
-template <>
-struct Pitch<float> { static constexpr int value = BK + 1; };
 
 // ---------------------------------------------------------------------------
 // The weight fake-quant (the JAX `_fq_tile`, one element)
@@ -160,8 +177,9 @@ struct FQ {
   }
 };
 
-// Elementwise transforms applied while staging: the identity, and the
-// weight fake-quant with the scales of the source column.
+// Elementwise transforms of a value and its column: the identity, the
+// weight fake-quant with the scales of the source column (while staging),
+// the bias (#14's epilogue) and the weight STE (#16's).
 struct Identity {
   __device__ __forceinline__ float operator()(float v, int) const { return v; }
 };
@@ -175,23 +193,27 @@ struct WeightFQ {
   }
 };
 
-// ---------------------------------------------------------------------------
-// Staging into shared memory (k-contiguous tiles of TILE rows x BK)
-// ---------------------------------------------------------------------------
+struct AddBias {
+  const float* bias;
+  __device__ __forceinline__ float operator()(float v, int col) const { return v + bias[col]; }
+};
 
-__device__ __forceinline__ float2 ld_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// dW passes the weight STE: clamped to +-10 iff kind = log and bits < 32.
+__device__ __forceinline__ bool ste_clamps(const float* scal) {
+  return scal[1] == KIND_LOG && scal[0] < 32.f;
 }
-__device__ __forceinline__ float2 ld_pair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st_pair(float* p, float a, float b) {
-  p[0] = a;
-  p[1] = b;
-}
-__device__ __forceinline__ void st_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+
+struct SteClamp {
+  bool on;
+  __device__ __forceinline__ float operator()(float v, int) const {
+    return on ? fminf(fmaxf(v, -10.f), 10.f) : v;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// float operands: staging into shared memory (k-contiguous tiles of TILE
+// rows x BK)
+// ---------------------------------------------------------------------------
 
 // Each thread stages STAGE_PAIRS pairs of a tile. All of its global loads
 // are issued before the first shared-memory store, so that they are in
@@ -201,17 +223,16 @@ __device__ __forceinline__ void st_pair(bf16* p, float a, float b) {
 // dst[r][k] = op(src[r0 + r][k0 + k]) for r < TILE, k < BK: the source is
 // already k-contiguous (row stride ld). Zero outside rows x cols. op takes
 // the value and its source column.
-template <typename T, typename S, typename Op>
-__device__ __forceinline__ void stage_direct(T* dst, const S* __restrict__ src, int ld,
+template <typename Op>
+__device__ __forceinline__ void stage_direct(float* dst, const float* __restrict__ src, int ld,
                                              int rows, int r0, int cols, int k0, Op op) {
-  constexpr int LDS = Pitch<T>::value;
   float2 v[STAGE_PAIRS];
 #pragma unroll
   for (int i = 0; i < STAGE_PAIRS; ++i) {
     const int p = threadIdx.x + i * NT;
     const int gr = r0 + p / (BK / 2), gk = k0 + 2 * (p % (BK / 2));
     // cols is even: a pair is in or out as a whole
-    v[i] = (gr < rows && gk < cols) ? ld_pair(src + (size_t)gr * ld + gk)
+    v[i] = (gr < rows && gk < cols) ? *reinterpret_cast<const float2*>(src + (size_t)gr * ld + gk)
                                     : make_float2(0.f, 0.f);
   }
 #pragma unroll
@@ -219,84 +240,36 @@ __device__ __forceinline__ void stage_direct(T* dst, const S* __restrict__ src, 
     const int p = threadIdx.x + i * NT;
     const int r = p / (BK / 2), k = 2 * (p % (BK / 2));
     const bool in = r0 + r < rows && k0 + k < cols;
-    st_pair(dst + r * LDS + k, in ? op(v[i].x, k0 + k) : 0.f,
-            in ? op(v[i].y, k0 + k + 1) : 0.f);
+    dst[r * LDS + k] = in ? op(v[i].x, k0 + k) : 0.f;
+    dst[r * LDS + k + 1] = in ? op(v[i].y, k0 + k + 1) : 0.f;
   }
 }
 
 // dst[c][k] = op(src[k0 + k][c0 + c]) for c < TILE, k < BK: the source's
 // rows are the reduction (row stride ld), so the tile is transposed. Each
 // thread keeps one column c and takes pairs of reduction rows.
-template <typename T, typename S, typename Op>
-__device__ __forceinline__ void stage_trans(T* dst, const S* __restrict__ src, int ld,
+template <typename Op>
+__device__ __forceinline__ void stage_trans(float* dst, const float* __restrict__ src, int ld,
                                             int rows, int k0, int cols, int c0, Op op) {
-  constexpr int LDS = Pitch<T>::value;
   const int c = threadIdx.x % TILE, gc = c0 + c;
   float v[2 * STAGE_PAIRS];
 #pragma unroll
   for (int i = 0; i < 2 * STAGE_PAIRS; ++i) {
     const int gk = k0 + 2 * ((threadIdx.x + (i / 2) * NT) / TILE) + (i & 1);
-    v[i] = (gc < cols && gk < rows) ? to_f(src[(size_t)gk * ld + gc]) : 0.f;
+    v[i] = (gc < cols && gk < rows) ? src[(size_t)gk * ld + gc] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < STAGE_PAIRS; ++i) {
     const int k = 2 * ((threadIdx.x + i * NT) / TILE), gk = k0 + k;
-    st_pair(dst + c * LDS + k, (gc < cols && gk < rows) ? op(v[2 * i], gc) : 0.f,
-            (gc < cols && gk + 1 < rows) ? op(v[2 * i + 1], gc) : 0.f);
+    dst[c * LDS + k] = (gc < cols && gk < rows) ? op(v[2 * i], gc) : 0.f;
+    dst[c * LDS + k + 1] = (gc < cols && gk + 1 < rows) ? op(v[2 * i + 1], gc) : 0.f;
   }
 }
 
-// ---------------------------------------------------------------------------
-// The tile product: acc += A . B^T over one BK step, A and B k-contiguous
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16: warp (wm, wn) of 2 x 4 owns rows wm*64 + [0, 64) and columns
-// wn*32 + [0, 32): 4 x 4 m16n8 tiles, acc[(mi*4 + ni)*4 + c] in mma.sync's
-// C layout.
-__device__ __forceinline__ void tile_product(const bf16* As, const bf16* Bs, float* acc) {
-  constexpr int LDS = Pitch<bf16>::value;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const bf16* p = As + (wm * 64 + mi * 16 + g) * LDS + ks + 2 * t;
-      a[mi][0] = ld32(p);
-      a[mi][1] = ld32(p + 8 * LDS);
-      a[mi][2] = ld32(p + 8);
-      a[mi][3] = ld32(p + 8 * LDS + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const bf16* p = Bs + (wn * 32 + ni * 8 + g) * LDS + ks + 2 * t;
-      b[ni][0] = ld32(p);
-      b[ni][1] = ld32(p + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc + (mi * 4 + ni) * 4, a[mi], b[ni]);
-  }
-}
-
-// float: thread (ty, tx) of 16 x 16 owns rows ty + 16 i and columns
-// tx + 16 j, acc[i*8 + j], as float32 FMA.
+// acc += A . B^T over one BK step, A and B k-contiguous: thread (ty, tx) of
+// 16 x 16 owns rows ty + 16 i and columns tx + 16 j, acc[i*8 + j], as
+// float32 FMA.
 __device__ __forceinline__ void tile_product(const float* As, const float* Bs, float* acc) {
-  constexpr int LDS = Pitch<float>::value;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll 4
   for (int k = 0; k < BK; ++k) {
@@ -313,19 +286,13 @@ __device__ __forceinline__ void tile_product(const float* As, const float* Bs, f
 }
 
 // (row, col) in the tile of the thread's accumulator e.
-__device__ __forceinline__ void owner(const bf16*, int e, int& row, int& col) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mi = e >> 4, ni = (e >> 2) & 3, h = (e >> 1) & 1, c = e & 1;
-  row = (warp >> 2) * 64 + mi * 16 + (lane >> 2) + 8 * h;
-  col = (warp & 3) * 32 + ni * 8 + 2 * (lane & 3) + c;
-}
-__device__ __forceinline__ void owner(const float*, int e, int& row, int& col) {
+__device__ __forceinline__ void owner(int e, int& row, int& col) {
   row = (threadIdx.x >> 4) + 16 * (e >> 3);
   col = (threadIdx.x & 15) + 16 * (e & 7);
 }
 
 // ---------------------------------------------------------------------------
-// The plain tiled kernels: #14/#15 for float operands, #16 for both types
+// The plain tiled kernels for float operands: #14, #15, #16
 // ---------------------------------------------------------------------------
 
 // #14 for float operands: one block per 128 x 128 output tile.
@@ -334,7 +301,6 @@ fl_fwd(const float* __restrict__ xq, const float* __restrict__ xa, const float* 
        const float* __restrict__ ws, const float* __restrict__ wz, const float* __restrict__ bq,
        const float* __restrict__ bias, const float* __restrict__ scal, float* __restrict__ out,
        int M, int K, int N, int r, bool symmetric, float eps) {
-  constexpr int LDS = Pitch<float>::value;
   __shared__ __align__(16) float As[TILE * LDS];
   __shared__ __align__(16) float Bs[TILE * LDS];
   const int n0 = blockIdx.x * TILE, m0 = blockIdx.y * TILE;
@@ -365,7 +331,7 @@ fl_fwd(const float* __restrict__ xq, const float* __restrict__ xa, const float* 
 #pragma unroll
   for (int e = 0; e < 64; ++e) {
     int row, col;
-    owner(As, e, row, col);
+    owner(e, row, col);
     const int gm = m0 + row, gn = n0 + col;
     if (gm < M && gn < N) out[(size_t)gm * N + gn] = acc[e] + bias[gn];
   }
@@ -378,7 +344,6 @@ fl_bwd_dx(const float* __restrict__ g, const float* __restrict__ w, const float*
           const float* __restrict__ wz, const float* __restrict__ bq,
           const float* __restrict__ scal, float* __restrict__ dxq, float* __restrict__ dxa,
           int M, int K, int N, int r, int nk, bool symmetric, float eps) {
-  constexpr int LDS = Pitch<float>::value;
   __shared__ __align__(16) float As[TILE * LDS];
   __shared__ __align__(16) float Bs[TILE * LDS];
   const bool lora = (int)blockIdx.x >= nk;
@@ -402,7 +367,7 @@ fl_bwd_dx(const float* __restrict__ g, const float* __restrict__ w, const float*
 #pragma unroll
   for (int e = 0; e < 64; ++e) {
     int row, col;
-    owner(As, e, row, col);
+    owner(e, row, col);
     const int gm = m0 + row, gc = c0 + col;
     if (gm >= M) continue;
     if (!lora && gc < K) dxq[(size_t)gm * K + gc] = acc[e];
@@ -410,59 +375,37 @@ fl_bwd_dx(const float* __restrict__ g, const float* __restrict__ w, const float*
   }
 }
 
-__device__ __forceinline__ bool ste_clamps(const float* scal) {
-  return scal[1] == KIND_LOG && scal[0] < 32.f;
-}
-
-// Block (x, y, z): dw tile (rows y*TILE of K, columns x*TILE of N) over the
-// z-th of `splits` chunks of M; with one chunk it writes dw through the
-// STE, otherwise its partial sum to work[z].
-template <typename T>
+// #16 for float operands: block (x, y) is the dw tile of rows y*TILE of K
+// and columns x*TILE of N, summed over all of M, through the STE.
 __global__ void __launch_bounds__(NT, 2)
-fl_bwd_dw(const T* __restrict__ xq, const T* __restrict__ g, const float* __restrict__ scal,
-          float* __restrict__ out, int M, int K, int N, int splits) {
-  constexpr int LDS = Pitch<T>::value;
-  __shared__ __align__(16) T As[TILE * LDS];
-  __shared__ __align__(16) T Bs[TILE * LDS];
-  const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE, z = blockIdx.z;
-  const int steps = (M + BK - 1) / BK;
-  const int m_begin = (int)((long long)steps * z / splits) * BK;
-  const int m_end = min(M, (int)((long long)steps * (z + 1) / splits) * BK);
+fl_bwd_dw(const float* __restrict__ xq, const float* __restrict__ g,
+          const float* __restrict__ scal, float* __restrict__ dw, int M, int K, int N) {
+  __shared__ __align__(16) float As[TILE * LDS];
+  __shared__ __align__(16) float Bs[TILE * LDS];
+  const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
 
-  for (int m0 = m_begin; m0 < m_end; m0 += BK) {
+  for (int m0 = 0; m0 < M; m0 += BK) {
     __syncthreads();
     stage_trans(As, xq, K, M, m0, K, k0, Identity());
     stage_trans(Bs, g, N, M, m0, N, n0, Identity());
     __syncthreads();
     tile_product(As, Bs, acc);
   }
-  const bool clamp = splits == 1 && ste_clamps(scal);
-  float* dst = out + (size_t)z * K * N;
+  const SteClamp ste{ste_clamps(scal)};
 #pragma unroll
   for (int e = 0; e < 64; ++e) {
     int row, col;
-    owner(As, e, row, col);
+    owner(e, row, col);
     const int gk = k0 + row, gn = n0 + col;
-    if (gk < K && gn < N)
-      dst[(size_t)gk * N + gn] = clamp ? fminf(fmaxf(acc[e], -10.f), 10.f) : acc[e];
+    if (gk < K && gn < N) dw[(size_t)gk * N + gn] = ste(acc[e], gn);
   }
 }
 
-// dw = STE_w(sum over z of work[z]), summed in the order z = 0, 1, ...
-__global__ void fl_dw_reduce(const float* __restrict__ work, const float* __restrict__ scal,
-                             float* __restrict__ dw, size_t n, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = work[i];
-  for (int z = 1; z < splits; ++z) s += work[(size_t)z * n + i];
-  dw[i] = ste_clamps(scal) ? fminf(fmaxf(s, -10.f), 10.f) : s;
-}
-
 // ---------------------------------------------------------------------------
-// bf16 operands: the weight prologue and the wgmma GEMM of #14/#15
+// bf16 operands: the weight prologue of #14/#15 and the wgmma GEMM of #14-#16
 // ---------------------------------------------------------------------------
 
 // dst = bf16(FQ(w)), each weight fake-quantized once: Wq (K, N) in w's own
@@ -520,13 +463,32 @@ fl_fq_weight(const float* __restrict__ w, const float* __restrict__ ws,
 }
 
 #define GM 128            // output tile rows (two consumer warpgroups of 64)
-#define GN 128            // output tile columns
+#define GN 128            // #14/#15's output tile columns
+#define DW_BN 256         // #16's output tile columns
 #define GK 64             // reduction step: 64 bf16 = one 128-byte swizzle row
-#define STAGES 3          // shared-memory ring (two blocks per SM)
+#define STAGES 3          // #14/#15's shared-memory ring (two blocks per SM)
+#define DW_STAGES 4       // #16's ring (one block per SM)
 #define GEMM_THREADS 288  // two consumer warpgroups + one producer warp
-constexpr int TILE_BYTES = GM * GK * 2;  // an A or a B tile (GM == GN)
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-constexpr int GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+#define MAX_SPLIT 8       // #16: blocks of a cluster (the portable limit)
+#define RED_PITCH (DW_BN + 8)  // #16: floats per row of a partial tile in shared memory
+
+// #16's chunks of M: block z of a cluster sums rows [row[z], row[z + 1]),
+// every bound but the last (M) on a GK step
+struct DwChunks {
+  int row[MAX_SPLIT + 1];
+};
+constexpr int A_BYTES = GM * GK * 2;  // an A tile: GM rows or columns x GK
+constexpr int BOX_BYTES = 64 * GK * 2;  // 64 rows or columns of a tile: one MN-major box
+// a stage: an A tile and a B tile of bn rows or columns
+__host__ __device__ constexpr int stage_bytes(int bn) { return A_BYTES + bn * GK * 2; }
+// dynamic shared memory of a block with a ring of `stages`: 1024 bytes of
+// alignment, the stages, a full and an empty mbarrier per stage
+constexpr int gemm_smem(int stages, int bn) {
+  return 1024 + stages * stage_bytes(bn) + 2 * stages * 8;
+}
+static_assert(GM * RED_PITCH * 4 <= DW_STAGES * stage_bytes(DW_BN),
+              "#16's partial tile fits the ring");
+static_assert(gemm_smem(DW_STAGES, DW_BN) <= 232448, "#16's ring fits a block's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -564,55 +526,105 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-// A GK x 128-row box of a K-major bf16 matrix at (k, row) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
+// The box of a bf16 tensor map at (inner, outer) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int inner,
+                                         int outer, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(bar)
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a K-major tile written by TMA with the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), LBO unused (1),
-// layout type 1 (128B swizzle). The tile base is 1024-byte aligned; a
-// k16 slice starts 32 bytes further.
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+// wgmma shared-memory descriptor of the k16 slice kk of a tile written by
+// TMA with the 128-byte swizzle (layout type 1), its base 1024-byte
+// aligned; SBO = 1024 bytes, the next 8 rows of 128 bytes. K-major (MN =
+// false): a row is one M or N index, 64 K values wide, LBO unused (1), and
+// a k16 slice starts 32 bytes further. MN-major (MN = true): a row is one K
+// index, 64 M or N values wide; LBO = BOX_BYTES, the next 64 M or N values
+// (the tile's next box), and a k16 slice starts 16 rows (2048 bytes)
+// further.
+template <bool MN>
+__device__ __forceinline__ uint64_t sdesc(uint32_t tile, int kk) {
+  const uint32_t addr = tile + (MN ? 16 * 128 : 32) * kk;
+  const uint32_t lbo = MN ? BOX_BYTES : 16, sbo = 1024;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// Pins the accumulators, so that the compiler moves no access to them
+// Pins the NA accumulators, so that the compiler moves no access to them
 // across an asynchronous wgmma.
+template <int NA>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 128] += A[64 x 16] . B[128 x 16]^T from shared memory.
-__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+// d[64 x BN] += A[64 x 16] . B[16 x BN] from shared memory, BN = 128 or
+// 256 (BN/2 float32 accumulators a thread): both operands K-major (A . B^T
+// of two k-contiguous tiles), or with MN both MN-major (imm-trans-a =
+// imm-trans-b = 1: A^T . B of two tiles whose rows are k).
+template <int BN, bool MN>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1), "n"(MN ? 1 : 0));
+  } else {
+    static_assert(BN == 256, "wgmma tiles are 128 or 256 wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1), "n"(MN ? 1 : 0));
+  }
 }
 
 template <int N>
@@ -620,24 +632,31 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// One 128 x 128 tile of C = s * (A0 . B0^T) + A1 . B1^T (+ bias), rows m0
-// of A and columns c0 of C (rows c0 of B): n0 steps of GK over (A0, B0),
-// whose sum is scaled by s = scal[2] in registers, then n1 steps over
-// (A1, B1) on top. Stores float32 to out (row stride ld), masked to
-// rows x cols; cols is even. Called by all GEMM_THREADS threads of a block
-// launched with GEMM_SMEM bytes of dynamic shared memory: warpgroups 0 and
-// 1 are the consumers, warp 8 the producer.
-__device__ __forceinline__ void gemm_tile(const CUtensorMap* a0, const CUtensorMap* b0, int n0,
+// The main loop of one 128 x BN tile of C = s * (A0 . B0) + A1 . B1, rows
+// m0 and columns c0 of C: n0 steps of GK over (A0, B0) from reduction index
+// 0, whose sum is scaled by s = scal[2] in registers, then n1 steps over
+// (A1, B1) from reduction index k1 on top. K-major operands (MN = false,
+// #14/#15) are tensor maps of (rows, reduction) matrices read in GK x 128
+// (or BN) boxes, C = A . B^T; MN-major ones (MN = true, #16) maps of
+// (reduction, rows) matrices read in 64 x GK boxes, 128 / 64 per A tile
+// and BN / 64 per B tile, C = A^T . B. A ring of S stages. Called by all
+// GEMM_THREADS threads of a block launched with gemm_smem(S, BN) bytes of
+// dynamic shared memory: warpgroups 0 and 1 are the consumers, and each
+// returns true with its 64 rows of C in acc (BN / 2 floats, the layout of
+// `store_tile`); the producer warp returns false once it has started every
+// load (the consumers have waited for all of them when they return).
+template <int BN, bool MN, int S>
+__device__ __forceinline__ bool gemm_tile(const CUtensorMap* a0, const CUtensorMap* b0, int n0,
                                           const CUtensorMap* a1, const CUtensorMap* b1, int n1,
-                                          int m0, int c0, const float* __restrict__ scal,
-                                          const float* __restrict__ bias, float* __restrict__ out,
-                                          int ld, int rows, int cols) {
+                                          int k1, int m0, int c0, const float* __restrict__ scal,
+                                          float* acc) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t full = base + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
+  constexpr int SB = stage_bytes(BN), NA = BN / 2;
+  const uint32_t full = base + S * SB, empty = full + 8 * S;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, total = n0 + n1;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
@@ -648,72 +667,88 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* a0, const CUtensorM
   if (wg == 2) {  // producer: one thread keeps the ring full
     if (t == 0) {
       for (int i = 0; i < total; ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + 8 * s, (i / S - 1) & 1);
         const bool first = i < n0;
-        const int k = (first ? i : i - n0) * GK;
-        const uint32_t dst = base + s * STAGE_BYTES;
-        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-        tma_load(dst, first ? a0 : a1, k, m0, full + 8 * s);
-        tma_load(dst + TILE_BYTES, first ? b0 : b1, k, c0, full + 8 * s);
+        const CUtensorMap* a = first ? a0 : a1;
+        const CUtensorMap* b = first ? b0 : b1;
+        const int k = first ? i * GK : k1 + (i - n0) * GK;
+        const uint32_t dst = base + s * SB;
+        mbar_expect_tx(full + 8 * s, SB);
+        if (MN) {
+          tma_load(dst, a, m0, k, full + 8 * s);
+          tma_load(dst + BOX_BYTES, a, m0 + 64, k, full + 8 * s);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load(dst + A_BYTES + h * BOX_BYTES, b, c0 + 64 * h, k, full + 8 * s);
+        } else {
+          tma_load(dst, a, k, m0, full + 8 * s);
+          tma_load(dst + A_BYTES, b, k, c0, full + 8 * s);
+        }
       }
     }
-    return;
+    return false;
   }
 
-  // consumers: warpgroup 0 rows [0, 64), warpgroup 1 rows [64, 128)
-  const int row_off = wg * 64;
-  float acc[64];
+  // consumers: warpgroup w owns rows [64 w, 64 w + 64), which are the first
+  // BOX_BYTES of an A tile (K-major) or its box w (MN-major) alike
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int e = 0; e < NA; ++e) acc[e] = 0.f;
   int released = 0;  // steps whose stage has been handed back
   for (int i = 0; i < total; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(full + 8 * s, (i / STAGES) & 1);
-    const uint32_t a = base + s * STAGE_BYTES + row_off * (GK * 2);
-    const uint32_t b = base + s * STAGE_BYTES + TILE_BYTES;
-    fence_acc(acc);
+    const int s = i % S;
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    const uint32_t a = base + s * SB + wg * BOX_BYTES;
+    const uint32_t b = base + s * SB + A_BYTES;
+    fence_acc<NA>(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < GK / 16; ++kk) wgmma_128(acc, sdesc(a + 32 * kk), sdesc(b + 32 * kk));
+    for (int kk = 0; kk < GK / 16; ++kk) wgmma<BN, MN>(acc, sdesc<MN>(a, kk), sdesc<MN>(b, kk));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    fence_acc(acc);
+    fence_acc<NA>(acc);
     int done;  // steps [0, done) have finished reading shared memory
     if (i == n0 - 1) {  // the end of the scaled sum
       wgmma_wait<0>();
-      fence_acc(acc);
+      fence_acc<NA>(acc);
       const float sc = scal[2];
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[e] *= sc;
+      for (int e = 0; e < NA; ++e) acc[e] *= sc;
       done = i + 1;
     } else {
       wgmma_wait<1>();
       done = i;
     }
-    fence_acc(acc);
+    fence_acc<NA>(acc);
     for (; released < done; ++released)
-      if (t == 0) mbar_arrive(empty + 8 * (released % STAGES));
+      if (t == 0) mbar_arrive(empty + 8 * (released % S));
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_acc<NA>(acc);
+  return true;
+}
 
-  // accumulator e of thread t: row 16*warp + lane/4 + 8*((e>>1)&1),
-  // column 8*(e>>2) + 2*(lane&3) + (e&1)
-  const int warp = t / 32, lane = t % 32;
+// Accumulator e of consumer thread t of warpgroup w: row 64 w + 16 (t/32)
+// + (t%32)/4 + 8 ((e>>1)&1), column 8 (e>>2) + 2 (t%4) + (e&1).
+__device__ __forceinline__ int acc_row(int h) {
+  const int t = threadIdx.x % 128;
+  return 64 * (threadIdx.x / 128) + 16 * (t / 32) + (t % 32) / 4 + 8 * h;
+}
+__device__ __forceinline__ int acc_col(int j) { return 8 * j + 2 * (threadIdx.x % 4); }
+
+// Stores a consumer's BN / 2 accumulators, tile rows m0 and columns c0 of
+// out (row stride ld), as op(value, column), masked to rows x cols (cols
+// even).
+template <int BN, typename Op>
+__device__ __forceinline__ void store_tile(const float* acc, float* __restrict__ out, int ld,
+                                           int m0, int c0, int rows, int cols, Op op) {
 #pragma unroll
-  for (int j = 0; j < GN / 8; ++j) {
+  for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + row_off + warp * 16 + lane / 4 + 8 * h;
-      const int col = c0 + 8 * j + 2 * (lane & 3);
-      if (row < rows && col < cols) {
-        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-        if (bias) {
-          v0 += bias[col];
-          v1 += bias[col + 1];
-        }
-        *reinterpret_cast<float2*>(out + (size_t)row * ld + col) = make_float2(v0, v1);
-      }
+      const int row = m0 + acc_row(h), col = c0 + acc_col(j);
+      if (row < rows && col < cols)
+        *reinterpret_cast<float2*>(out + (size_t)row * ld + col) =
+            make_float2(op(acc[4 * j + 2 * h], col), op(acc[4 * j + 2 * h + 1], col + 1));
     }
   }
 }
@@ -725,8 +760,10 @@ fl_fwd_wgmma(const __grid_constant__ CUtensorMap xa, const __grid_constant__ CUt
              const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap wqt,
              int nr, int nk, const float* __restrict__ scal, const float* __restrict__ bias,
              float* __restrict__ out, int M, int N) {
-  gemm_tile(&xa, &bqt, nr, &xq, &wqt, nk, blockIdx.y * GM, blockIdx.x * GN, scal, bias, out, N,
-            M, N);
+  const int m0 = blockIdx.y * GM, c0 = blockIdx.x * GN;
+  float acc[64];
+  if (gemm_tile<GN, false, STAGES>(&xa, &bqt, nr, &xq, &wqt, nk, 0, m0, c0, scal, acc))
+    store_tile<GN>(acc, out, N, m0, c0, M, N, AddBias{bias});
 }
 
 // #15: blocks x < nkt are dxq tiles (g against Wq, n steps over N), the
@@ -737,10 +774,89 @@ fl_bwd_dx_wgmma(const __grid_constant__ CUtensorMap g, const __grid_constant__ C
                 const float* __restrict__ scal, float* __restrict__ dxq, float* __restrict__ dxa,
                 int M, int K, int r) {
   const int m0 = blockIdx.y * GM;
-  if ((int)blockIdx.x < nkt)
-    gemm_tile(&g, &wq, 0, &g, &wq, n, m0, blockIdx.x * GN, scal, nullptr, dxq, K, M, K);
-  else
-    gemm_tile(&g, &bq, n, &g, &bq, 0, m0, (blockIdx.x - nkt) * GN, scal, nullptr, dxa, r, M, r);
+  float acc[64];
+  if ((int)blockIdx.x < nkt) {
+    const int c0 = blockIdx.x * GN;
+    if (gemm_tile<GN, false, STAGES>(&g, &wq, 0, &g, &wq, n, 0, m0, c0, scal, acc))
+      store_tile<GN>(acc, dxq, K, m0, c0, M, K, Identity());
+  } else {
+    const int c0 = (blockIdx.x - nkt) * GN;
+    if (gemm_tile<GN, false, STAGES>(&g, &bq, n, &g, &bq, 0, 0, m0, c0, scal, acc))
+      store_tile<GN>(acc, dxa, r, m0, c0, M, r, Identity());
+  }
+}
+
+// #16: the dw tile of rows k0 of K and columns n0 of N over the z-th of
+// `split` chunks of M (`chunks`; z = blockIdx.x, the block's rank in a
+// cluster of split = gridDim.x blocks). The grid's y and z dimensions
+// walk the tiles of K and N, the smaller count on y (kfast: y over K).
+// Unsplit, the block stores dw through the STE; split, the cluster's
+// blocks sum their partial tiles through distributed shared memory.
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+fl_bwd_dw_wgmma(const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap g,
+                const float* __restrict__ scal, float* __restrict__ dw, int K, int N,
+                DwChunks chunks, int kfast) {
+  const int split = gridDim.x, z = blockIdx.x;
+  const int k0 = (kfast ? blockIdx.y : blockIdx.z) * GM;
+  const int n0 = (kfast ? blockIdx.z : blockIdx.y) * DW_BN;
+  int r0 = 0, r1 = 0;  // selected, not indexed: no copy of chunks in local memory
+#pragma unroll
+  for (int q = 0; q < MAX_SPLIT; ++q)
+    if (q == z) r0 = chunks.row[q], r1 = chunks.row[q + 1];
+  const int steps = (r1 - r0 + GK - 1) / GK;
+  float acc[DW_BN / 2];
+  const bool consumer = gemm_tile<DW_BN, true, DW_STAGES>(&xq, &g, 0, &xq, &g, steps, r0, k0,
+                                                          n0, scal, acc);
+  if (split == 1) {
+    if (consumer) store_tile<DW_BN>(acc, dw, N, k0, n0, K, N, SteClamp{ste_clamps(scal)});
+    return;
+  }
+
+  // The cluster's sum. The ring is idle once both warpgroups have waited
+  // for their last wgmma; each consumer stores its accumulators there (row
+  // pitch RED_PITCH: a half-warp's float2 stores fall in distinct banks).
+  // The producer warp stays to the end: it takes part in the barriers.
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ uint8_t smem_raw[];
+  float* part = reinterpret_cast<float*>(
+      smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw)));
+  __syncthreads();
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < DW_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + acc_row(h) * RED_PITCH + acc_col(j)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  cluster.sync();
+  // block z finishes rows [z * per, (z + 1) * per) of the tile, 4 columns a
+  // thread, summing the cluster's partials in the order of rank
+  const bool clamp = ste_clamps(scal);
+  const int per = (GM + split - 1) / split, e1 = min(GM, (z + 1) * per) * (DW_BN / 4);
+  for (int e = z * per * (DW_BN / 4) + (int)threadIdx.x; e < e1; e += GEMM_THREADS) {
+    const int r = e / (DW_BN / 4), c = 4 * (e % (DW_BN / 4));
+    float4* p = reinterpret_cast<float4*>(part + r * RED_PITCH + c);
+    float4 v[MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q)  // all loads first: they overlap
+      if (q < split) v[q] = *cluster.map_shared_rank(p, q);
+    float4 sum = v[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q)
+      if (q < split) {
+        sum.x += v[q].x;
+        sum.y += v[q].y;
+        sum.z += v[q].z;
+        sum.w += v[q].w;
+      }
+    const SteClamp ste{clamp};
+    // N is a multiple of 8: four columns are in or out together
+    if (k0 + r < K && n0 + c < N)
+      *reinterpret_cast<float4*>(dw + (size_t)(k0 + r) * N + n0 + c) =
+          make_float4(ste(sum.x, 0), ste(sum.y, 0), ste(sum.z, 0), ste(sum.w, 0));
+  }
+  cluster.sync();  // no block leaves while another reads its tile
 }
 
 // ---------------------------------------------------------------------------
@@ -767,15 +883,17 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a K-major bf16 matrix (rows, inner) with row stride ld
-// elements, read in GK x 128-row boxes with the 128-byte swizzle; boxes
-// past the edge are filled with zeros.
-static int kmajor_map(CUtensorMap* map, const void* ptr, int inner, int rows, int ld) {
+// The map of a bf16 matrix (rows, inner) with row stride ld elements, read
+// in boxes of 64 inner values (128 bytes, the 128-byte swizzle) x box_rows
+// rows: GM rows for the K-major operands of #14/#15, GK for the MN-major
+// ones of #16. Boxes past the edge are filled with zeros.
+static int bf16_map(CUtensorMap* map, const void* ptr, int inner, int rows, int ld,
+                    int box_rows) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {GK, GM};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
                           strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -790,19 +908,6 @@ static bool tma_ok(int K, int N, int r, std::initializer_list<const void*> ptrs)
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) & 15) return false;
   return true;
-}
-
-template <typename T>
-static int dw_launch(const void* xq, const void* g, const float* scal, float* dw, float* work,
-                     int M, int K, int N, int splits, cudaStream_t stream) {
-  fl_bwd_dw<T><<<dim3(tiles(N), tiles(K), splits), NT, 0, stream>>>(
-      static_cast<const T*>(xq), static_cast<const T*>(g), scal, splits > 1 ? work : dw, M, K,
-      N, splits);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t n = (size_t)K * N;
-  fl_dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(work, scal, dw, n, splits);
-  return (int)cudaGetLastError();
 }
 
 // #14 with float operands: out (M, N) float32 from float xq (M, K),
@@ -865,18 +970,19 @@ extern "C" int fused_linear_fwd_wgmma(const void* xq, const void* xa, const floa
   if (!tma_ok(K, N, r, {xq, wqt}) || (r > 0 && !tma_ok(0, 0, 0, {xa, bqt})))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mxq, mwqt, mxa, mbqt;
-  int rc = kmajor_map(&mxq, xq, K, M, K);
-  if (!rc) rc = kmajor_map(&mwqt, wqt, K, N, K);
-  if (!rc && r > 0) rc = kmajor_map(&mxa, xa, r, M, r);
-  if (!rc && r > 0) rc = kmajor_map(&mbqt, bqt, r, N, r);
+  int rc = bf16_map(&mxq, xq, K, M, K, GM);
+  if (!rc) rc = bf16_map(&mwqt, wqt, K, N, K, GM);
+  if (!rc && r > 0) rc = bf16_map(&mxa, xa, r, M, r, GM);
+  if (!rc && r > 0) rc = bf16_map(&mbqt, bqt, r, N, r, GM);
   if (rc) return rc;
   if (r == 0) mxa = mxq, mbqt = mwqt;  // never loaded
   static const cudaError_t e = cudaFuncSetAttribute(
-      fl_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+      fl_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(STAGES, GN));
   if (e != cudaSuccess) return (int)e;
   rc = fq_launch(w, ws, wz, scal, bq, wqt, bqt, K, N, r, 1, symmetric, eps, stream);
   if (rc) return rc;
-  fl_fwd_wgmma<<<dim3(cdiv(N, GN), cdiv(M, GM)), GEMM_THREADS, GEMM_SMEM, stream>>>(
+  fl_fwd_wgmma<<<dim3(cdiv(N, GN), cdiv(M, GM)), GEMM_THREADS, gemm_smem(STAGES, GN),
+                 stream>>>(
       mxa, mbqt, mxq, mwqt, r > 0 ? cdiv(r, GK) : 0, cdiv(K, GK), scal, bias, out, M, N);
   return (int)cudaGetLastError();
 }
@@ -892,29 +998,70 @@ extern "C" int fused_linear_bwd_dx_wgmma(const void* g, const float* w, const fl
   if (!tma_ok(K, N, r, {g, work}) || (r > 0 && !tma_ok(0, 0, 0, {bq})))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mg, mwq, mbq;
-  int rc = kmajor_map(&mg, g, N, M, N);
-  if (!rc) rc = kmajor_map(&mwq, work, N, K, N);
-  if (!rc && r > 0) rc = kmajor_map(&mbq, bq, N, r, N);
+  int rc = bf16_map(&mg, g, N, M, N, GM);
+  if (!rc) rc = bf16_map(&mwq, work, N, K, N, GM);
+  if (!rc && r > 0) rc = bf16_map(&mbq, bq, N, r, N, GM);
   if (rc) return rc;
   if (r == 0) mbq = mwq;  // never loaded
   static const cudaError_t e = cudaFuncSetAttribute(
-      fl_bwd_dx_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+      fl_bwd_dx_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(STAGES, GN));
   if (e != cudaSuccess) return (int)e;
   rc = fq_launch(w, ws, wz, scal, nullptr, work, nullptr, K, N, 0, 0, symmetric, eps, stream);
   if (rc) return rc;
   const int nkt = cdiv(K, GN), nrt = r > 0 ? cdiv(r, GN) : 0;
-  fl_bwd_dx_wgmma<<<dim3(nkt + nrt, cdiv(M, GM)), GEMM_THREADS, GEMM_SMEM, stream>>>(
+  fl_bwd_dx_wgmma<<<dim3(nkt + nrt, cdiv(M, GM)), GEMM_THREADS, gemm_smem(STAGES, GN),
+                    stream>>>(
       mg, mwq, mbq, cdiv(N, GK), nkt, scal, dxq, dxa, M, K, r);
   return (int)cudaGetLastError();
 }
 
-// dw (K, N) float32 from xq (M, K) and g (M, N) in the operand type, over
-// `splits` chunks of M; work is (splits, K, N) float32 scratch when
-// splits > 1.
-extern "C" int fused_linear_bwd_dw(const void* xq, const void* g, const float* scal, float* dw,
-                                   float* work, int M, int K, int N, int splits, int is_bf16,
-                                   cudaStream_t stream) {
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  if (is_bf16) return dw_launch<bf16>(xq, g, scal, dw, work, M, K, N, splits, stream);
-  return dw_launch<float>(xq, g, scal, dw, work, M, K, N, splits, stream);
+// #16 with float operands: dw (K, N) float32 from float xq (M, K) and
+// g (M, N), scal (4); one block per 128 x 128 tile of dw over all of M.
+extern "C" int fused_linear_bwd_dw_f32(const float* xq, const float* g, const float* scal,
+                                       float* dw, int M, int K, int N, cudaStream_t stream) {
+  fl_bwd_dw<<<dim3(tiles(N), tiles(K)), NT, 0, stream>>>(xq, g, scal, dw, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// #16 with bf16 operands: dw (K, N) float32 from xq (M, K) and g (M, N),
+// scal (4); M in `split` (1-8) chunks, one per block of a cluster: chunk z
+// is rows [rows[z], rows[z + 1]) (host memory, split + 1 bounds from 0 to
+// M, each but the last on a GK step, rising; the plan comes from
+// ops/fused_linear.py::dw_splits and dw_chunks). One call: the two
+// MN-major tensor maps, one launch.
+extern "C" int fused_linear_bwd_dw_wgmma(const void* xq, const void* g, const float* scal,
+                                         float* dw, int M, int K, int N, int split,
+                                         const int* rows, cudaStream_t stream) {
+  if (split < 1 || split > MAX_SPLIT || !tma_ok(K, N, 0, {xq, g}) || rows[0] != 0 ||
+      rows[split] != M)
+    return (int)cudaErrorInvalidValue;
+  DwChunks chunks = {};
+  for (int z = 0; z <= split; ++z) {
+    if (z < split && (rows[z] % GK != 0 || rows[z] >= rows[z + 1]))
+      return (int)cudaErrorInvalidValue;
+    chunks.row[z] = rows[z];
+  }
+  CUtensorMap mxq, mg;
+  int rc = bf16_map(&mxq, xq, K, M, K, GK);
+  if (!rc) rc = bf16_map(&mg, g, N, M, N, GK);
+  if (rc) return rc;
+  static const cudaError_t e = cudaFuncSetAttribute(
+      fl_bwd_dw_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_smem(DW_STAGES, DW_BN));
+  if (e != cudaSuccess) return (int)e;
+  int kt = cdiv(K, GM), nt = cdiv(N, DW_BN), kfast = kt <= nt;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, kfast ? kt : nt, kfast ? nt : kt);
+  cfg.blockDim = dim3(GEMM_THREADS);
+  cfg.dynamicSmemBytes = gemm_smem(DW_STAGES, DW_BN);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&mxq, &mg, &scal, &dw, &K, &N, &chunks, &kfast};
+  return (int)cudaLaunchKernelExC(&cfg, (const void*)fl_bwd_dw_wgmma, args);
 }

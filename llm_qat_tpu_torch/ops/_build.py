@@ -53,7 +53,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fused_linear_bwd_dx_wgmma": [_P] * 9 + [_I] * 5 + [_F, _P],
         "fused_linear_fwd_f32": [_P] * 9 + [_I] * 5 + [_F, _P],
         "fused_linear_bwd_dx_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
-        "fused_linear_bwd_dw": [_P] * 5 + [_I] * 5 + [_P]},
+        "fused_linear_bwd_dw_f32": [_P] * 4 + [_I] * 3 + [_P],
+        "fused_linear_bwd_dw_wgmma": [_P] * 4 + [_I] * 4 + [_P, _P]},
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_decode": {

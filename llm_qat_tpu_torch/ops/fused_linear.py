@@ -16,7 +16,9 @@ memory. On the card, with bf16 operands, a prologue kernel (`fq_weight`)
 fake-quantizes each weight once per call into a bf16 workspace in the
 layout its GEMM reads (WqT (N, K) for #14, Wq (K, N) for #15): the
 quantized weight goes to device memory once, in bf16, and the GEMM is a
-TMA-fed wgmma kernel. Three Pallas kernels are replaced by hand-written
+TMA-fed wgmma kernel. #16 (dW = xqᵀ·g, no weight) runs the same GEMM on
+xq and g as they lie, MN-major, with M split over the blocks of a thread
+block cluster. Three Pallas kernels are replaced by hand-written
 CUDA kernels in `csrc/fused_linear.cu`, each with its plain PyTorch version
 beside it:
 - `fused_linear_fwd` (kernel #14) replaces `_fwd_kernel`; plain version
@@ -43,6 +45,9 @@ With bf16 operands the kernels take K, N and r in multiples of 8 (TMA's
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -179,7 +184,7 @@ def _operand_dtype(what, t):
 
 
 def _tma_shapes(what, **dims):
-    """The bf16 kernels read K-major operands through TMA, whose global
+    """The bf16 kernels read their operands through TMA, whose global
     strides are multiples of 16 bytes: each dimension a multiple of 8."""
     bad = {k: v for k, v in dims.items() if v % 8}
     if bad:
@@ -305,29 +310,101 @@ def fused_linear_bwd_dx(g_bf, w, ws, wz, bq, scalars, symmetric, eps):
 
 fused_linear_bwd_dx.launches = 0
 
-DW_TILE, DW_STEP = 128, 32  # the dW kernel's (K, N) tile and its step over M
-DW_MAX_SPLITS = 8
+# Kernel #16 with bf16 operands: its (K, N) tile, its step over M (GK) and
+# its blocks per SM (a 4-stage ring of 48 KB stages fills shared memory).
+DW_TILE, DW_STEP, DW_BLOCKS_PER_SM = (128, 256), 64, 1
+# The plan's limits on the split of M. Each chunk is one block of a thread
+# block cluster, and the kernel takes up to DW_MAX_SPLITS (8, a cluster's
+# portable size). The wgmma's float32 accumulation errs in proportion to
+# the length of its chain: on an H100 an unsplit M = 8192 (128 steps) put
+# dW up to 1.1e-5 of max |plain| from its plain version, 64 steps up to
+# 5.3e-6, so a chunk takes at most DW_MAX_CHUNK_STEPS steps, with up to
+# DW_MAX_SPLITS chunks where that needs them. Past DW_MAX_SPLITS x
+# DW_MAX_CHUNK_STEPS steps (M > 32768) even 8 chunks are longer, and dW may
+# err by more (PERF.md §7). Otherwise the plan takes at most DW_FAST_SPLITS:
+# clusters of more blocks were slower than the best of 2-5 at every GPT-2
+# shape (PERF.md; the split sweep of `chip_smoke.py --fused-linear`).
+DW_MAX_SPLITS, DW_FAST_SPLITS = 8, 5
+DW_MAX_CHUNK_STEPS = 64
+# A block's fixed cost (its ring's first fill, the epilogue and the
+# cluster's sum), in steps: blocks of few steps lose to it.
+DW_BLOCK_COST = 10
 
 
 def dw_splits(M: int, K: int, N: int, n_sm: int) -> int:
-    """Chunks of M for the dW kernel. Its blocks (one per (K, N) tile and
-    chunk) run two to an SM, in waves of 2·n_sm; a block takes time in
-    proportion to its steps over M. The count minimizes waves x steps per
-    block, the fewest chunks among equals (each chunk adds a (K, N) float32
-    partial to write and sum)."""
-    tiles = -(-K // DW_TILE) * -(-N // DW_TILE)
+    """Chunks of M for kernel #16 with bf16 operands, each a whole number
+    of DW_STEP steps and one block of a cluster. Its blocks (one per (K, N)
+    tile and chunk) run in waves of DW_BLOCKS_PER_SM·n_sm; a block takes
+    time in proportion to its steps over M plus DW_BLOCK_COST. The count
+    minimizes waves x (steps per block + DW_BLOCK_COST), the fewest chunks
+    among equals, from the fewest that keep a chunk within
+    DW_MAX_CHUNK_STEPS (at most DW_MAX_SPLITS) to DW_FAST_SPLITS (or the
+    steps of M, if fewer)."""
+    tiles = -(-K // DW_TILE[0]) * -(-N // DW_TILE[1])
     steps = -(-M // DW_STEP)
-    cost = lambda s: -(-tiles * s // (2 * n_sm)) * -(-steps // s)
-    return min(range(1, min(DW_MAX_SPLITS, steps) + 1), key=lambda s: (cost(s), s))
+    wave = DW_BLOCKS_PER_SM * n_sm
+    cost = lambda s: -(-tiles * s // wave) * (-(-steps // s) + DW_BLOCK_COST)
+    lo = min(-(-steps // DW_MAX_CHUNK_STEPS), DW_MAX_SPLITS, steps)
+    hi = max(lo, min(DW_FAST_SPLITS, steps))
+    return min(range(lo, hi + 1), key=lambda s: (cost(s), s))
+
+
+def dw_chunks(M: int, splits: int):
+    """The (first, end) rows of M that each of #16's `splits` blocks of a
+    cluster sums; the wrapper passes these bounds to the kernel. Whole
+    DW_STEP steps, block z from step ⌊steps·z/splits⌋, the last ending
+    at M."""
+    steps = -(-M // DW_STEP)
+    bound = lambda z: min(M, steps * z // splits * DW_STEP)
+    return [(bound(z), bound(z + 1)) for z in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The plan and the chunk bounds are cached: at attn_proj's shape the kernel
+# runs for about as long as a call takes on the host.
+@functools.lru_cache(maxsize=None)
+def _dw_plan(M: int, K: int, N: int, index: int) -> int:
+    return dw_splits(M, K, N, _sm_count(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_rows(M: int, splits: int):
+    """`dw_chunks`' bounds as the C array the kernel's entry point reads:
+    the first row of each chunk, then M."""
+    rows = [b for b, _ in dw_chunks(M, splits)] + [M]
+    return (ctypes.c_int * len(rows))(*rows)
+
+
+def launch_dw_wgmma(xq, g_bf, scalars, dw, splits: int) -> None:
+    """One launch of #16's bf16 kernel into `dw` with M in `splits`
+    chunks (`dw_chunks`), whatever the plan; raises on a CUDA error. Not
+    counted: `fused_linear_bwd_dw` counts its own launches, and the split
+    sweep and tests that call this directly hold the kernel, not the
+    path."""
+    M, K = xq.shape
+    N = g_bf.shape[1]
+    lib = _build.load("fused_linear")
+    rc = lib.fused_linear_bwd_dw_wgmma(
+        xq.data_ptr(), g_bf.data_ptr(), scalars.data_ptr(), dw.data_ptr(), M, K, N, splits,
+        _dw_rows(M, splits), _build.stream(xq))
+    _build.check(lib, rc, "fused_linear_bwd_dw")
 
 
 def fused_linear_bwd_dw(xq, g_bf, scalars):
     """dW through the weight STE (kernel #16); shapes as
     `fused_linear_bwd_dw_plain`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise. One block per 128 x 128 tile of dW
-    and chunk of M; with more than one chunk (`dw_splits`) the chunks'
-    partial sums go to a float32 workspace and a second CUDA kernel sums
-    them in a fixed order and clamps (no atomics, deterministic)."""
+    tensors launch the kernel or raise. bf16 operands: one C call encodes
+    the MN-major tensor maps of xq and g and launches the TMA-fed wgmma
+    GEMM, one block per 128 x 256 tile of dW and chunk of M (`dw_splits`,
+    `dw_chunks`); the chunks of a tile are the blocks of a thread block
+    cluster, which sum their partial tiles in a fixed order through
+    distributed shared memory and clamp (no atomics, no workspace,
+    deterministic). K and N must be multiples of 8. float operands: the
+    plain tiled kernel over all of M."""
     if xq.device.type == "cpu":
         return fused_linear_bwd_dw_plain(xq, g_bf, scalars)
     cdt = _operand_dtype("fused_linear_bwd_dw", xq)
@@ -336,17 +413,16 @@ def fused_linear_bwd_dw(xq, g_bf, scalars):
     _check("fused_linear_bwd_dw", (
         ("xq", xq, cdt, (M, K)), ("g_bf", g_bf, cdt, (M, N)),
         ("scalars", scalars, torch.float32, (4,))), xq.device)
-    n_sm = torch.cuda.get_device_properties(xq.device).multi_processor_count
-    splits = dw_splits(M, K, N, n_sm)
     dw = torch.empty((K, N), dtype=torch.float32, device=xq.device)
-    work = (torch.empty((splits, K, N), dtype=torch.float32, device=xq.device)
-            if splits > 1 else dw)
-    lib = _build.load("fused_linear")
-    rc = lib.fused_linear_bwd_dw(
-        xq.data_ptr(), g_bf.data_ptr(), scalars.data_ptr(), dw.data_ptr(),
-        work.data_ptr(), M, K, N, splits, int(cdt == torch.bfloat16),
-        _build.stream(xq))
-    _build.check(lib, rc, "fused_linear_bwd_dw")
+    if cdt == torch.bfloat16:
+        _tma_shapes("fused_linear_bwd_dw", K=K, N=N)
+        launch_dw_wgmma(xq, g_bf, scalars, dw, _dw_plan(M, K, N, xq.device.index))
+    else:
+        lib = _build.load("fused_linear")
+        rc = lib.fused_linear_bwd_dw_f32(
+            xq.data_ptr(), g_bf.data_ptr(), scalars.data_ptr(), dw.data_ptr(), M, K, N,
+            _build.stream(xq))
+        _build.check(lib, rc, "fused_linear_bwd_dw")
     fused_linear_bwd_dw.launches += 1
     return dw
 

@@ -10,6 +10,8 @@ tests). On a machine with a card:
 need not have.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -367,29 +369,145 @@ def test_fused_gemm_one_tile(cuda_device, r):
 
 @pytest.mark.parametrize("K,N,r", [(100, 128, 8), (128, 132, 8), (128, 128, 4)])
 def test_fused_linear_bf16_kernels_refuse_unaligned_shapes(cuda_device, K, N, r):
-    """With bf16 operands #14 and #15 read through TMA, whose strides are
-    multiples of 16 bytes: K, N or r not a multiple of 8 raises ValueError
-    before any launch. float operands take such shapes."""
+    """With bf16 operands #14, #15 and #16 read through TMA, whose strides
+    are multiples of 16 bytes: K, N or r not a multiple of 8 raises
+    ValueError before any launch (#16 has no r: it runs at r = 4). float
+    operands take such shapes."""
     from llm_qat_tpu_torch.ops import fused_linear as fl
 
     a = _fused_inputs(cuda_device, 64, K, N, r, 0, torch.bfloat16)
     before = (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
-              fl.fq_weight.launches)
+              fl.fq_weight.launches, fl.fused_linear_bwd_dw.launches)
     with pytest.raises(ValueError, match="multiples of 8"):
         fl.fused_linear_fwd(a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
                             a["scalars"], True, 1e-5)
     with pytest.raises(ValueError, match="multiples of 8"):
         fl.fused_linear_bwd_dx(a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True,
                                1e-5)
+    dw_ok = K % 8 == 0 and N % 8 == 0
+    if not dw_ok:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
     assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
-            fl.fq_weight.launches) == before
+            fl.fq_weight.launches, fl.fused_linear_bwd_dw.launches) == before
+    if dw_ok:
+        dw = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
+        want = fl.fused_linear_bwd_dw_plain(a["xq"], a["g"], a["scalars"])
+        torch.cuda.synchronize()
+        assert (dw - want).abs().max().item() <= FUSED_TOL * want.abs().max().item()
     f = {k: (v.float() if v.dtype == torch.bfloat16 else v) for k, v in a.items()}
     out = fl.fused_linear_fwd(f["xq"], f["xa"], f["w"], f["ws"], f["wz"], f["bq"], f["bias"],
                               f["scalars"], True, 1e-5)
     want = fl.fused_linear_fwd_plain(f["xq"], f["xa"], f["w"], f["ws"], f["wz"], f["bq"],
                                      f["bias"], f["scalars"], True, 1e-5)
+    dw = fl.fused_linear_bwd_dw(f["xq"], f["g"], f["scalars"])
+    want_dw = fl.fused_linear_bwd_dw_plain(f["xq"], f["g"], f["scalars"])
     torch.cuda.synchronize()
     assert (out - want).abs().max().item() <= FUSED_TOL * want.abs().max().item()
+    assert (dw - want_dw).abs().max().item() <= FUSED_TOL * want_dw.abs().max().item()
+
+
+def _dw_err(a, g, dw):
+    """|dw - plain| over the largest unclamped |xq^T g| (dW's sums round at
+    their unclamped size)."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    want = fl.fused_linear_bwd_dw_plain(a["xq"], g, a["scalars"])
+    top = (a["xq"].float().T @ g.float()).abs().max().item()
+    return (dw - want).abs().max().item() / top
+
+
+@pytest.mark.parametrize("slot", [0, 1])
+@pytest.mark.parametrize("M,K,N", [(64, 128, 256), (64, 128, 128), (128, 64, 128),
+                                   (200, 128, 128), (256, 96, 136)])
+def test_fused_dw_kernel_tiles_match_plain(cuda_device, slot, M, K, N):
+    """#16's wgmma GEMM over MN-major operands against its plain version:
+    one 128 x 256 tile over one GK step of M (64, 128, 256); half of one
+    (N = 128: the tile's last two boxes of g lie past the edge); one
+    warpgroup's 64 rows (K = 64, over two steps: a split of 2); M = 200 not
+    a multiple of GK (its last step is filled with zeros by TMA); K = 96
+    and N = 136 (boxes partly and wholly past the edge)."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_inputs(cuda_device, M, K, N, 8, slot, torch.bfloat16, seed=M + K + N)
+    g = (4.0 * a["g"].float()).to(torch.bfloat16)  # the log slot clamps some of dW
+    before = fl.fused_linear_bwd_dw.launches
+    dw = fl.fused_linear_bwd_dw(a["xq"], g, a["scalars"])
+    torch.cuda.synchronize()
+    assert fl.fused_linear_bwd_dw.launches == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (K, N)
+    assert _dw_err(a, g, dw) <= FUSED_TOL
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+def test_fused_dw_every_split_matches_plain(cuda_device, split):
+    """#16 launched with each split of M over a cluster (1-8 blocks, the
+    plan bypassed; the chunks of `dw_chunks`) at (M, K, N) = (1000, 256,
+    384), M ragged (1000 is not a multiple of DW_STEP): every split agrees
+    with the plain version, and a repeat launch is bit-equal."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    M, K, N = 1000, 256, 384
+    a = _fused_inputs(cuda_device, M, K, N, 8, 1, torch.bfloat16, seed=split)
+    outs = []
+    for _ in range(2):
+        dw = torch.empty((K, N), dtype=torch.float32, device=cuda_device)
+        fl.launch_dw_wgmma(a["xq"], a["g"], a["scalars"], dw, split)
+        outs.append(dw)
+    torch.cuda.synchronize()
+    assert _dw_err(a, a["g"], outs[0]) <= FUSED_TOL
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("M,K,N,split", [(64, 256, 256, False), (1024, 768, 768, True)])
+def test_fused_dw_kernel_is_deterministic(cuda_device, M, K, N, split):
+    """Repeat calls of #16 give bit-equal dW, unsplit (one GK step of M)
+    and split over a cluster (the plan's 4 chunks at (1024, 768, 768)):
+    the partial tiles are summed in a fixed order, with no atomics."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (fl.dw_splits(M, K, N, sms) > 1) == split
+    a = _fused_inputs(cuda_device, M, K, N, 8, 1, torch.bfloat16, seed=7)
+    first = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
+    for _ in range(3):
+        assert torch.equal(fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"]), first)
+    assert _dw_err(a, a["g"], first) <= FUSED_TOL
+
+
+@pytest.mark.parametrize("rows", [[0, 100, 200], [0, 128, 128, 200], [0, 64, 192],
+                                  [64, 200], [0, 64, 128, 192] + [200] * 6])
+def test_fused_dw_kernel_refuses_bad_chunks(cuda_device, rows):
+    """#16's C entry point takes the chunk bounds from the host and refuses,
+    before any launch, bounds that are off a DW_STEP step, empty, not from
+    0 to M, or more than a cluster's 8 blocks."""
+    from llm_qat_tpu_torch.ops import _build
+
+    M, K, N = 200, 128, 128
+    a = _fused_inputs(cuda_device, M, K, N, 8, 1, torch.bfloat16)
+    dw = torch.empty((K, N), dtype=torch.float32, device=cuda_device)
+    lib = _build.load("fused_linear")
+    rc = lib.fused_linear_bwd_dw_wgmma(
+        a["xq"].data_ptr(), a["g"].data_ptr(), a["scalars"].data_ptr(), dw.data_ptr(), M, K, N,
+        len(rows) - 1, (ctypes.c_int * len(rows))(*rows), _build.stream(dw))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, rc, "fused_linear_bwd_dw")
+
+
+@pytest.mark.parametrize("M,K,N", [(16384, 768, 2304), (32768, 768, 768)])
+def test_fused_dw_long_m_keeps_chunks_short(cuda_device, M, K, N):
+    """Past GPT-2's M = 8192 the plan takes more chunks (up to 8) so that
+    each stays within DW_MAX_CHUNK_STEPS steps, and dW keeps within
+    FUSED_TOL of its plain version: 4 chunks at 16384 rows, 8 at 32768."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = fl.dw_splits(M, K, N, sms)
+    assert max(e - b for b, e in fl.dw_chunks(M, splits)) <= fl.DW_MAX_CHUNK_STEPS * fl.DW_STEP
+    a = _fused_inputs(cuda_device, M, K, N, 8, 1, torch.bfloat16, seed=M)
+    dw = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
+    torch.cuda.synchronize()
+    assert _dw_err(a, a["g"], dw) <= FUSED_TOL
 
 
 def test_fused_dw_kernel_clamps(cuda_device):

@@ -248,19 +248,46 @@ def test_dw_plain_clamps_like_pallas():
 
 @pytest.mark.parametrize("M,K,N,n_sm", [(8192, 768, 2304, 132), (8192, 768, 768, 132),
                                          (8192, 768, 3072, 132), (8192, 3072, 768, 132),
-                                         (256, 256, 384, 132), (100, 96, 136, 8)])
+                                         (256, 256, 384, 132), (100, 96, 136, 8),
+                                         (64, 256, 256, 132), (65536, 768, 768, 132),
+                                         (16384, 768, 768, 132), (32768, 768, 768, 132)])
 def test_dw_splits_fill_the_card(M, K, N, n_sm):
     """Kernel #16's chunks of M (host-side arithmetic): between 1 and
-    DW_MAX_SPLITS, never more than the 32-row steps of M, and no split
-    count has fewer waves x steps per block (blocks two to an SM)."""
+    DW_MAX_SPLITS, never more than the DW_STEP-row steps of M, each chunk
+    within DW_MAX_CHUNK_STEPS steps (the accuracy of the wgmma's float32
+    sums) where DW_MAX_SPLITS chunks allow it, no more than DW_FAST_SPLITS
+    where fewer keep that cap, and no split count in range has fewer
+    waves x (steps per block + DW_BLOCK_COST) (waves of DW_BLOCKS_PER_SM
+    blocks per SM)."""
     s = tfl.dw_splits(M, K, N, n_sm)
     steps = -(-M // tfl.DW_STEP)
-    tiles = -(-K // tfl.DW_TILE) * -(-N // tfl.DW_TILE)
-    cost = lambda c: -(-tiles * c // (2 * n_sm)) * -(-steps // c)
-    assert 1 <= s <= min(tfl.DW_MAX_SPLITS, steps)
-    assert cost(s) == min(cost(c) for c in range(1, min(tfl.DW_MAX_SPLITS, steps) + 1))
+    tiles = -(-K // tfl.DW_TILE[0]) * -(-N // tfl.DW_TILE[1])
+    wave = tfl.DW_BLOCKS_PER_SM * n_sm
+    cost = lambda c: -(-tiles * c // wave) * (-(-steps // c) + tfl.DW_BLOCK_COST)
+    lo = min(-(-steps // tfl.DW_MAX_CHUNK_STEPS), tfl.DW_MAX_SPLITS, steps)
+    hi = max(lo, min(tfl.DW_FAST_SPLITS, steps))
+    assert 1 <= lo <= s <= hi <= min(tfl.DW_MAX_SPLITS, steps)
+    assert cost(s) == min(cost(c) for c in range(lo, hi + 1))
+    if steps <= tfl.DW_MAX_SPLITS * tfl.DW_MAX_CHUNK_STEPS:
+        assert -(-steps // s) <= tfl.DW_MAX_CHUNK_STEPS
     if M == 8192:  # the GPT-2 training shapes on an H100: one (K, N) pass does not fill it
         assert s > 1 and cost(s) < cost(1)
+
+
+@pytest.mark.parametrize("M,splits", [(8192, 7), (8192, 8), (8192, 1), (1000, 3), (200, 4),
+                                      (100, 2), (64, 1), (65, 2)])
+def test_dw_chunks_are_whole_steps_covering_m(M, splits):
+    """The rows each block of #16's cluster sums: contiguous, from 0 to M,
+    each chunk non-empty and starting on a DW_STEP boundary, and every
+    chunk but the last a whole number of steps."""
+    chunks = tfl.dw_chunks(M, splits)
+    assert len(chunks) == splits
+    assert chunks[0][0] == 0 and chunks[-1][1] == M
+    for (b0, e0), (b1, _) in zip(chunks, chunks[1:]):
+        assert e0 == b1
+    for i, (b, e) in enumerate(chunks):
+        assert b < e and b % tfl.DW_STEP == 0
+        assert i == splits - 1 or (e - b) % tfl.DW_STEP == 0
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,8 @@ of one wrapper call), profiles one iteration of each path, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - ptxas's registers, shared memory and spills of each kernel of
-  `csrc/fused_linear.cu` and `csrc/quant_matmul.cu`;
+  `csrc/fused_linear.cu`, `csrc/quant_matmul.cu` and
+  `csrc/flash_attention.cu`;
 - one line per comparison, its error beside its tolerance;
 - `timings`, `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
@@ -76,6 +77,12 @@ script) and prints no result line.
 
 does the same for #10/#11: their holds at the four GPT-2 linear shapes and
 `qmm_timings` (hot and cold-cache device time per layer).
+
+    python3 chip_smoke.py --flash
+
+does the same for #5/#6: their holds at (8, 12, T, 64) (T = 1024 and 256
+in bf16 and float32, T = 200 in bf16) and `flash_timings` (events, graph
+replay, each kernel's device time, SDPA).
 """
 
 from __future__ import annotations
@@ -290,15 +297,18 @@ def bf16_row_ulps(got, want, atol):
 
 def flash_train_vs_plain(gen, dev, B, H, D, failures):
     """Kernels #5 and #6 against their plain versions at T = 1024 and 256,
-    bf16 and float32. Returns the largest absolute errors at the main path's
-    shape (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd": ..}."""
+    bf16 and float32, and at the ragged T = 200 in bf16 (the wgmma
+    backward's masked tail). Returns the largest absolute errors at the
+    main path's shape (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd":
+    ..}."""
     import torch
 
     from llm_qat_tpu_torch.ops import attention as att
 
     errs = {}
-    for T in (1024, 256):
-        for dt in (torch.bfloat16, torch.float32):
+    for T, dts in ((1024, (torch.bfloat16, torch.float32)),
+                   (256, (torch.bfloat16, torch.float32)), (200, (torch.bfloat16,))):
+        for dt in dts:
             q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
                            for _ in range(4))
             o, lse = att.flash_fwd_lse(q, k, v)
@@ -619,8 +629,9 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     """Device time by kernel over one profiled iteration. The profiler may
     drop records over an iteration's tens of thousands of launches: the
     port's kernels' recorded counts are printed beside the counts their
-    wrappers made (one flash_fwd per #5; flash_bwd_rowdot, _dkdv and _dq per
-    #6; fl_fq_weight and fl_fwd_wgmma per #14, fl_fq_weight and
+    wrappers made (one flash_fwd per #5; flash_bwd_prep, flash_bwd_dkdv_wgmma
+    and flash_bwd_dq_wgmma per #6 (bf16 operands at head_dim 64);
+    fl_fq_weight and fl_fwd_wgmma per #14, fl_fq_weight and
     fl_bwd_dx_wgmma per #15, fl_bwd_dw_wgmma per #16 (bf16 operands; #16's
     split of M is summed inside the launch, over a cluster)), and the idle share,
     1 - recorded busy time / the mean wall time of unprofiled iterations,
@@ -637,8 +648,8 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
         train_step(state, batch, gen)
         torch.cuda.synchronize()
     n5, n6, n14, n15, n16, nfq = (fn.launches for fn in counters)
-    made = {"flash_fwd": n5, "flash_bwd_rowdot": n6, "flash_bwd_dkdv": n6,
-            "flash_bwd_dq": n6, "fl_fq_weight": nfq, "fl_fwd_wgmma": n14,
+    made = {"flash_fwd": n5, "flash_bwd_prep": n6, "flash_bwd_dkdv_wgmma": n6,
+            "flash_bwd_dq_wgmma": n6, "fl_fq_weight": nfq, "fl_fwd_wgmma": n14,
             "fl_bwd_dx_wgmma": n15, "fl_bwd_dw_wgmma": n16}
     made = {k: v for k, v in made.items() if v}
     by_kernel = {}
@@ -667,7 +678,11 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
 
 def flash_timings(dev, B, H, T, D):
     """Kernels #5/#6, their plain versions, SDPA, and dense vs flash
-    attention at T = 256, 512, 1024."""
+    attention at T = 256, 512, 1024. SDPA's backward is timed by CUDA
+    events around `torch.autograd.grad` (`sdpa_bwd_ms`, autograd's host
+    work included) and by graph replay (`sdpa_bwd_device_ms`: SDPA's
+    forward and backward replayed, less its forward alone); #6's ratio to
+    it is taken from the two graph-replay device times."""
     import torch
     import torch.nn.functional as F
 
@@ -682,14 +697,30 @@ def flash_timings(dev, B, H, T, D):
     tm["flash_fwd_lse_plain_ms"] = cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 5)
     tm["flash_bwd_ms"] = cuda_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10)
     tm["flash_bwd_plain_ms"] = cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3)
+    tm["flash_bwd_device_ms"] = graph_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10)
+    if hasattr(att, "flash_bwd_plan"):  # #6's wgmma route (A/B runs: absent in older trees)
+        tm["flash_bwd_kernels_device_ms"] = {
+            name: device_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10, [name])
+            for name in ("flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")}
     tm["sdpa_fwd_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
     qr, kr, vr = (t_.clone().requires_grad_(True) for t_ in (q, k, v))
     out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     tm["sdpa_bwd_ms"] = cuda_ms(
         lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 20)
-    tm["sdpa_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), (qr, kr, vr), do), 20)
+
+    def sdpa_fwd_bwd():
+        # gradients taken at views made here, not at the leaves: autograd
+        # would sync a leaf's gradient with the default stream, which a
+        # CUDA graph's capture refuses
+        qn, kn, vn = (t_.view_as(t_) for t_ in (qr, kr, vr))
+        return torch.autograd.grad(
+            F.scaled_dot_product_attention(qn, kn, vn, is_causal=True), (qn, kn, vn), do)
+
+    tm["sdpa_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd, 20)
+    tm["sdpa_bwd_device_ms"] = graph_ms(sdpa_fwd_bwd, 10) - graph_ms(
+        lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), 10)
+    tm["flash_bwd_over_sdpa_bwd"] = tm["flash_bwd_device_ms"] / tm["sdpa_bwd_device_ms"]
     cross = {}
     for Tc in (256, 512, 1024):
         qc, kc, vc, dc = (torch.randn((B, H, Tc, D), generator=gen, device=dev)
@@ -845,6 +876,32 @@ def fused_linear_phase(dev) -> int:
     torch.cuda.synchronize()
     for f in failures:
         print(f"chip_smoke --fused-linear: FAIL {f}", flush=True)
+    return 1 if failures else 0
+
+
+def flash_phase(dev) -> int:
+    """`--flash`: kernels #5 and #6 alone, held against their plain
+    versions as in the full run (`flash_train_vs_plain`) and timed at the
+    training path's shape (`flash_timings`), with flash_attention.cu's
+    ptxas report (for A/B runs of two trees on one card). Prints no result
+    line; returns 1 if a hold failed."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import _build
+
+    print("ptxas, csrc/flash_attention.cu:\n" + _build.ptxas_report("flash_attention"),
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failures = []
+    flash_train_vs_plain(gen, dev, 8, 12, 64, failures)
+    tt = flash_timings(dev, 8, 12, 1024, 64)
+    print("flash_timings " + json.dumps(tt), flush=True)
+    print(f"flash_bwd {tt['flash_bwd_ms']:.4f} ms by events, SDPA backward "
+          f"{tt['sdpa_bwd_ms']:.4f} ms by events (host work included); device time by graph "
+          f"replay {tt['flash_bwd_device_ms']:.4f} ms against SDPA backward "
+          f"{tt['sdpa_bwd_device_ms']:.4f} ms: {tt['flash_bwd_over_sdpa_bwd']:.2f}x", flush=True)
+    for f in failures:
+        print(f"chip_smoke --flash: FAIL {f}", flush=True)
     return 1 if failures else 0
 
 
@@ -1886,6 +1943,8 @@ def main() -> int:
                     help="only hold and time kernels #14-#16 and the weight prologue")
     ap.add_argument("--quant-matmul", action="store_true",
                     help="only hold and time kernels #10/#11")
+    ap.add_argument("--flash", action="store_true",
+                    help="only hold and time kernels #5/#6")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1927,7 +1986,9 @@ def main() -> int:
         return fused_linear_phase(dev)
     if args.quant_matmul:
         return quant_matmul_phase(dev)
-    for src in ("fused_linear", "quant_matmul"):
+    if args.flash:
+        return flash_phase(dev)
+    for src in ("fused_linear", "quant_matmul", "flash_attention"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
 
     cfg, params, gen = serve_setup(dev)
@@ -2311,7 +2372,7 @@ def main() -> int:
     lse_bytes = B * H * Tt * 4
     for name, line, n_tensors, n_products, lib in (
             ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_ms"]),
-            ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_ms"])):
+            ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_device_ms"])):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
         kernels.append({

@@ -4,7 +4,8 @@
 // Replaces three Pallas kernels of llm_qat_tpu/ops/attention.py:
 // - `_flash_kernel` (serving prefill, float32) with `flash_attention_fwd_f32`;
 // - `_flash_fwd_kernel` (called by `_flash_fwd_call`) with `flash_fwd_lse`;
-// - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with `flash_bwd`,
+// - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with
+//   `flash_bwd_wgmma` (bf16 operands at head_dim 64) or `flash_bwd`, each
 //   three CUDA kernels that together compute what the one TPU kernel does.
 // Both forward entry points launch the one templated forward kernel; the
 // serving one passes float operands and no LSE pointer. The Python wrappers
@@ -20,8 +21,9 @@
 // type before P.V and before dV = P^T.dO, and dS = P*(dP - D) before
 // dQ = dS.K and dK = dS^T.Q; the running max/sum and all accumulators stay
 // float32, and the outputs are written in the operand type. The tiles are
-// 64 x 64 and the kernels mask the ragged tail themselves (keys and query
-// rows >= T), so T need not be a multiple of the tile.
+// 64 x 64 (the wgmma backward: 128-row blocks, 64-row steps) and the
+// kernels mask the ragged tail themselves (keys and query rows >= T), so T
+// need not be a multiple of the tile.
 //
 // Forward: one block per (b*h, 64-row q tile): K/V tiles up to the causal
 // limit stream through shared memory, each of 256 threads owns a 4x4 patch
@@ -31,17 +33,42 @@
 // Backward (FlashAttention-2 order, deterministic, no atomics). The JAX
 // kernel holds the whole T x T of one (b, h) in VMEM; at T = 1024 that is
 // 4 MB in float32, far over a block's 227 KB of shared memory, so here it
-// is blocked:
-//   1. flash_bwd_rowdot: D = rowsum(dO * O) in float32, one warp per row;
-//   2. flash_bwd_dkdv: one block per (b*h, 64-row k tile); it keeps K and V
-//      in shared memory, walks the q tiles from the causal start, recomputes
-//      S and P = exp(S*scale - LSE) from the saved LSE, dP = dO.V^T, and
-//      accumulates dV and dK in float32 registers;
-//   3. flash_bwd_dq: one block per (b*h, 64-row q tile); it keeps Q and dO,
-//      walks the k tiles up to the causal limit, recomputes P and dS, and
-//      accumulates dQ.
-// S and dP are computed twice (in 2 and 3), which keeps every output
-// written by exactly one block.
+// is blocked in two passes, each output element written by exactly one
+// block, which recompute S and dP:
+//   1. D = rowsum(dO * O) in float32;
+//   2. dK and dV per k tile: the tile's K and V stay, the q tiles from the
+//      causal start stream past; per q tile S and P = exp(S*scale - LSE)
+//      from the saved LSE, dP = dO.V^T, then dV += P^T.dO and dK += dS^T.Q;
+//   3. dQ per q tile: Q and dO stay, the k tiles up to the causal limit
+//      stream past; per k tile P and dS again, then dQ += dS.K.
+// With bf16 operands at head_dim 64 (every GPT-2 size; `flash_bwd_wgmma`,
+// the training path) the three are `flash_bwd_prep`, `flash_bwd_dkdv_wgmma`
+// and `flash_bwd_dq_wgmma`, on the tensor cores:
+// - A block of 288 threads owns a 128-row tile: two consumer warpgroups of
+//   64 rows each and one producer warp. The producer's first thread loads
+//   the own tiles once and keeps a 4-stage ring of 64-row tiles filled by
+//   TMA (3-D tensor maps over (B*H, T, 64), 128-byte swizzle: a box past T
+//   is zero-filled and never reads the next head's rows) and bulk copies
+//   of the row vectors, with a full and an empty mbarrier per stage.
+// - Per step a warpgroup runs two m64n64 wgmma products from shared memory
+//   (S^T = K.Q^T and dP^T = V.dO^T, or S = Q.K^T and dP = dO.V^T; every
+//   operand K-major over head_dim), computes P and dS in the accumulators'
+//   registers, rounds them to bf16 pairs in place, and feeds them as the A
+//   operand of wgmma's register form (the accumulator layout of columns
+//   16 kk .. 16 kk + 15 is the A operand's layout of the k16 slice kk), so
+//   P and dS never go to shared memory. The B operands of those products
+//   (dO and Q for dV and dK, K for dQ) are the same shared tiles read
+//   MN-major, since their reduction index is the tile's row.
+// - Tiles wholly above the diagonal are skipped; tiles on the diagonal or
+//   past T are masked element by element. The blocks whose walk is longest
+//   launch first (the dK/dV kernel's first k tile, the dQ kernel's last q
+//   tile), so that the short walks fill the last wave.
+// - `flash_bwd_prep` pads each head's LSE and D to t_pad rows (a multiple
+//   of 128) with zeros, so that the bulk copies of the vectors stay within
+//   the head; it reads O and dO in 16-byte loads, eight threads a row.
+// Other operands (float32, or bf16 at head_dim 128) run `flash_bwd_rowdot`,
+// `flash_bwd_dkdv` and `flash_bwd_dq` (64-row tiles, float32 FMA on the
+// CUDA cores, each thread a 4x4 patch of S and dP).
 //
 // Bounds. Serving forward (float32): q, k, v read once and o written once
 // (16 * T * D bytes per (b, h)) and 2*T*(T+1)*D flops per (b, h) for QK^T
@@ -54,15 +81,20 @@
 // tensor-core peak (989 TFLOP/s): bound by bytes. Backward: q, k, v, o, dO
 // read and dq, dk, dv written, 8 x 12.58 MB plus LSE, 101 MB, 30 us; five
 // causal products (S, dP, dV, dQ, dK), 32.2 GFLOP, 33 us: bound by
-// operations. These kernels run on the CUDA cores (float32 FMA,
-// 67 TFLOP/s), whose own ceiling for the same work is 0.19 ms (forward) and
-// 0.48 ms (backward); the recomputed S and dP add two more products to the
-// backward. Reaching the tensor-core bound takes wgmma with TMA-fed tiles,
-// which is later work.
+// operations. The two-pass order recomputes S and dP: seven products,
+// 45 GFLOP, 46 us at the bf16 peak, plus P and dS twice on the CUDA cores
+// (an expf and about a dozen other operations per causal element and
+// pass). The forward and the SIMT backward run float32 FMA on the CUDA
+// cores (67 TFLOP/s), whose own ceiling for the same work is 0.19 ms
+// (forward) and 0.48 ms (backward).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "sm90.cuh"
 
 #define BQ 64
 #define BK 64
@@ -485,6 +517,343 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 // ---------------------------------------------------------------------------
+// Backward, bf16 operands at head_dim 64: TMA-fed wgmma kernels
+// ---------------------------------------------------------------------------
+
+#define W_ROWS 64      // rows of a consumer warpgroup's tile and of a streamed tile
+#define W_TILE 128     // rows of a block's own tile: two consumer warpgroups
+#define W_STAGES 4     // the ring of streamed tiles
+#define W_THREADS 288  // two consumer warpgroups + one producer warp
+#define W_HD 64        // head_dim: one 128-byte swizzle row of bf16
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int W_BOX = W_ROWS * W_HD * 2;  // one 64-row bf16 tile (a TMA box): 8192 bytes
+constexpr int W_OWN = 4 * W_BOX;          // the block's own two 128-row tiles
+constexpr int W_STAGE = 2 * W_BOX;        // a stage: two 64-row tiles
+// the row vectors (lse and D): 2 x 64 floats per stage for dK/dV, 2 x 128
+// once for dQ
+constexpr int W_VEC = W_STAGES * 2 * W_ROWS * 4;
+// dynamic shared memory: 1024 bytes of alignment, the own tiles, the ring,
+// the vectors, a full and an empty mbarrier per stage and one for the own tiles
+constexpr int W_SMEM = 1024 + W_OWN + W_STAGES * W_STAGE + W_VEC + (2 * W_STAGES + 1) * 8;
+static_assert(W_VEC >= 2 * W_TILE * 4, "dQ's vectors fit");
+static_assert(W_BOX == SW128_BOX, "a streamed tile is one MN-major box");
+
+// x, y rounded to bf16 (to nearest) as one register of the wgmma register
+// form's A operand, x in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared-memory addresses of a block of either kernel, its barriers
+// initialised (called by all threads).
+struct BwdSmem {
+  uint32_t own;    // the own tiles: K, V (dK/dV) or Q, dO (dQ), 2 boxes each
+  uint32_t ring;   // W_STAGES stages of two 64-row tiles
+  uint32_t vec_s;  // the row vectors
+  const float* vec;
+  uint32_t full, empty, own_bar;
+};
+
+__device__ __forceinline__ BwdSmem bwd_smem() {
+  extern __shared__ uint8_t bwd_raw[];
+  const uint32_t raw = smem_u32(bwd_raw);
+  BwdSmem m;
+  m.own = (raw + 1023) & ~1023u;
+  m.ring = m.own + W_OWN;
+  m.vec_s = m.ring + W_STAGES * W_STAGE;
+  m.vec = reinterpret_cast<const float*>(bwd_raw + (m.vec_s - raw));
+  m.full = m.vec_s + W_VEC;
+  m.empty = m.full + 8 * W_STAGES;
+  m.own_bar = m.empty + 8 * W_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(m.full + 8 * s, 1);
+      mbar_init(m.empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(m.own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return m;
+}
+
+// S = A . B^T and dP = A2 . B2^T of one warpgroup: 64 x 64 each, every
+// operand a K-major 64-row tile over head_dim.
+__device__ __forceinline__ void scores(float* sa, float* pa, uint32_t a, uint32_t b, uint32_t a2,
+                                       uint32_t b2) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < W_HD / 16; ++kk)
+    wgmma<64, false>(sa, sdesc<false>(a, kk), sdesc<false>(b, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < W_HD / 16; ++kk)
+    wgmma<64, false>(pa, sdesc<false>(a2, kk), sdesc<false>(b2, kk), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(sa);
+  fence_acc<32>(pa);
+}
+
+// d += A . B: A (64 x 64) the bf16 pairs `a` in registers, B a 64-row tile
+// whose rows are the reduction index (MN-major). Issued, not waited for.
+__device__ __forceinline__ void rs_accumulate(float* d, const uint32_t* a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < W_ROWS / 16; ++kk) wgmma_rs64<true>(d, a + 4 * kk, sdesc<true>(b, kk));
+}
+
+// In both kernels accumulator e of consumer thread t of a warpgroup is row
+// 16 (t/32) + (t%32)/4 + 8 ((e>>1)&1) and column 8 (e>>2) + 2 (t%4) + (e&1)
+// of its 64 x 64 tile. P and dS are computed as the JAX kernel does, each
+// operation rounded on its own (no FMA contraction): exp(S*scale - lse)
+// with expf, and dS = P*(dP - D) from the float32 P.
+
+// dK and dV of the keys [k0, k0 + 128) of head bh: warpgroup w owns keys
+// k0 + 64 w .. + 63, walks the 64-row q tiles from q0 = k0 to the end, and
+// per tile computes S^T = K.Q^T and dP^T = V.dO^T, then P^T =
+// exp(S^T*scale - lse) and dS^T = P^T*(dP^T - D) in registers, then dV +=
+// bf16(P^T).dO and dK += bf16(dS^T).Q.
+__device__ __forceinline__ void dkdv_block(const CUtensorMap* mq, const CUtensorMap* mk,
+                                           const CUtensorMap* mv, const CUtensorMap* mdo,
+                                           const float* __restrict__ lse_p,
+                                           const float* __restrict__ d_p, bf16* __restrict__ dk,
+                                           bf16* __restrict__ dv, int bh, int k0, int seq,
+                                           int t_pad, float sm_scale) {
+  const BwdSmem m = bwd_smem();
+  const int n = (seq - k0 + W_ROWS - 1) / W_ROWS;  // q tiles from the causal start
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 2) {  // producer: one thread keeps the ring full
+    if (t == 0) {
+      mbar_expect_tx(m.own_bar, W_OWN);
+      for (int b = 0; b < 2; ++b) {
+        tma_load3(m.own + b * W_BOX, mk, 0, k0 + b * W_ROWS, bh, m.own_bar);
+        tma_load3(m.own + (2 + b) * W_BOX, mv, 0, k0 + b * W_ROWS, bh, m.own_bar);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % W_STAGES, q0 = k0 + i * W_ROWS;
+        if (i >= W_STAGES) mbar_wait(m.empty + 8 * s, (i / W_STAGES - 1) & 1);
+        const uint32_t st = m.ring + s * W_STAGE, full = m.full + 8 * s;
+        const size_t row = (size_t)bh * t_pad + q0;
+        mbar_expect_tx(full, W_STAGE + 2 * W_ROWS * 4);
+        tma_load3(st, mq, 0, q0, bh, full);
+        tma_load3(st + W_BOX, mdo, 0, q0, bh, full);
+        bulk_load(m.vec_s + s * 2 * W_ROWS * 4, lse_p + row, W_ROWS * 4, full);
+        bulk_load(m.vec_s + (s * 2 + 1) * W_ROWS * 4, d_p + row, W_ROWS * 4, full);
+      }
+    }
+    return;
+  }
+
+  const int kw = k0 + W_ROWS * wg, warp = t / 32, lane = t % 32, c = lane % 4;
+  const int krow = kw + 16 * warp + lane / 4;  // the thread's keys: krow, krow + 8
+  const uint32_t ka = m.own + wg * W_BOX, va = m.own + (2 + wg) * W_BOX;
+  float dka[32], dva[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
+  mbar_wait(m.own_bar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % W_STAGES, q0 = k0 + i * W_ROWS;
+    mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
+    if (q0 + W_ROWS > kw) {  // not every (k, q) of the tile has k > q
+      const uint32_t qs = m.ring + s * W_STAGE, dos = qs + W_BOX;
+      const float* lse_s = m.vec + s * 2 * W_ROWS;
+      const float* d_s = lse_s + W_ROWS;
+      float sa[32], pa[32];
+      scores(sa, pa, ka, qs, va, dos);
+      const bool masked = kw + W_ROWS - 1 > q0 || q0 + W_ROWS > seq;
+      uint32_t pf[16], sf[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(d_s + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h, k = krow + 8 * h, q = q0 + col;
+          float p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), l2.x));
+          float p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), l2.y));
+          if (masked) {
+            if (k > q || q >= seq) p0 = 0.f;
+            if (k > q + 1 || q + 1 >= seq) p1 = 0.f;
+          }
+          pf[2 * j + h] = bf16x2(p0, p1);
+          sf[2 * j + h] = bf16x2(p0 * (pa[e] - d2.x), p1 * (pa[e + 1] - d2.y));
+        }
+      }
+      fence_acc<32>(dva);
+      fence_acc<32>(dka);
+      wgmma_fence();
+      rs_accumulate(dva, pf, dos);
+      rs_accumulate(dka, sf, qs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<32>(dva);
+      fence_acc<32>(dka);
+      fence_frag<16>(pf);
+      fence_frag<16>(sf);
+    }
+    if (lane == 0) mbar_arrive(m.empty + 8 * s);
+  }
+
+  const size_t off = (size_t)bh * seq * W_HD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h, k = krow + 8 * h;
+      if (k < seq) {
+        const size_t o = off + (size_t)k * W_HD + 8 * j + 2 * c;
+        *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+            __floats2bfloat162_rn(dka[e] * sm_scale, dka[e + 1] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[e], dva[e + 1]);
+      }
+    }
+}
+
+// dQ of the queries [q0, q0 + 128) of head bh: warpgroup w owns queries
+// q0 + 64 w .. + 63, walks the 64-row k tiles from 0 to the causal limit,
+// and per tile computes S = Q.K^T and dP = dO.V^T, then P and dS in
+// registers, then dQ += bf16(dS).K.
+__device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMap* mk,
+                                         const CUtensorMap* mv, const CUtensorMap* mdo,
+                                         const float* __restrict__ lse_p,
+                                         const float* __restrict__ d_p, bf16* __restrict__ dq,
+                                         int bh, int q0, int seq, int t_pad, float sm_scale) {
+  const BwdSmem m = bwd_smem();
+  const int n = (min(seq, q0 + W_TILE) + W_ROWS - 1) / W_ROWS;  // k tiles to the causal limit
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 2) {
+    if (t == 0) {
+      const size_t row = (size_t)bh * t_pad + q0;
+      mbar_expect_tx(m.own_bar, W_OWN + 2 * W_TILE * 4);
+      for (int b = 0; b < 2; ++b) {
+        tma_load3(m.own + b * W_BOX, mq, 0, q0 + b * W_ROWS, bh, m.own_bar);
+        tma_load3(m.own + (2 + b) * W_BOX, mdo, 0, q0 + b * W_ROWS, bh, m.own_bar);
+      }
+      bulk_load(m.vec_s, lse_p + row, W_TILE * 4, m.own_bar);
+      bulk_load(m.vec_s + W_TILE * 4, d_p + row, W_TILE * 4, m.own_bar);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % W_STAGES;
+        if (i >= W_STAGES) mbar_wait(m.empty + 8 * s, (i / W_STAGES - 1) & 1);
+        const uint32_t st = m.ring + s * W_STAGE, full = m.full + 8 * s;
+        mbar_expect_tx(full, W_STAGE);
+        tma_load3(st, mk, 0, i * W_ROWS, bh, full);
+        tma_load3(st + W_BOX, mv, 0, i * W_ROWS, bh, full);
+      }
+    }
+    return;
+  }
+
+  const int qw = q0 + W_ROWS * wg, warp = t / 32, lane = t % 32, c = lane % 4;
+  const int r = W_ROWS * wg + 16 * warp + lane / 4;  // the thread's rows r, r + 8 of the tile
+  const uint32_t qa = m.own + wg * W_BOX, doa = m.own + (2 + wg) * W_BOX;
+  float dqa[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dqa[e] = 0.f;
+  mbar_wait(m.own_bar, 0);
+  const float lr[2] = {m.vec[r], m.vec[r + 8]};
+  const float dr[2] = {m.vec[W_TILE + r], m.vec[W_TILE + r + 8]};
+  for (int i = 0; i < n; ++i) {
+    const int s = i % W_STAGES, k0 = i * W_ROWS;
+    mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
+    if (k0 < qw + W_ROWS) {  // not every (q, k) of the tile has k > q
+      const uint32_t ks = m.ring + s * W_STAGE, vs = ks + W_BOX;
+      float sa[32], pa[32];
+      scores(sa, pa, qa, ks, doa, vs);
+      const bool masked = k0 + W_ROWS - 1 > qw || qw + W_ROWS > seq;
+      uint32_t sf[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h, q = q0 + r + 8 * h, k = k0 + 8 * j + 2 * c;
+          float p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), lr[h]));
+          float p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), lr[h]));
+          if (masked) {
+            if (k > q || q >= seq) p0 = 0.f;
+            if (k + 1 > q || q >= seq) p1 = 0.f;
+          }
+          sf[2 * j + h] = bf16x2(p0 * (pa[e] - dr[h]), p1 * (pa[e + 1] - dr[h]));
+        }
+      fence_acc<32>(dqa);
+      wgmma_fence();
+      rs_accumulate(dqa, sf, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<32>(dqa);
+      fence_frag<16>(sf);
+    }
+    if (lane == 0) mbar_arrive(m.empty + 8 * s);
+  }
+
+  const size_t off = (size_t)bh * seq * W_HD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h, q = q0 + r + 8 * h;
+      if (q < seq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + off + (size_t)q * W_HD + 8 * j + 2 * c) =
+            __floats2bfloat162_rn(dqa[e] * sm_scale, dqa[e + 1] * sm_scale);
+    }
+}
+
+// Blocks (bh, y): the k tile y, so the tile whose walk over the q tiles is
+// longest comes first.
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                     const float* __restrict__ lse_p, const float* __restrict__ d_p,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, int t_pad,
+                     float sm_scale) {
+  dkdv_block(&mq, &mk, &mv, &mdo, lse_p, d_p, dk, dv, blockIdx.x, blockIdx.y * W_TILE, seq,
+             t_pad, sm_scale);
+}
+
+// Blocks (bh, y): the q tile gridDim.y - 1 - y, so the last q tile, whose
+// walk over the k tiles is longest, comes first.
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                   const float* __restrict__ lse_p, const float* __restrict__ d_p,
+                   bf16* __restrict__ dq, int seq, int t_pad, float sm_scale) {
+  const int y = gridDim.y - 1 - blockIdx.y;
+  dq_block(&mq, &mk, &mv, &mdo, lse_p, d_p, dq, blockIdx.x, y * W_TILE, seq, t_pad, sm_scale);
+}
+
+// The row vectors of the wgmma kernels, each head's rows padded to t_pad
+// with zeros: lse_p[bh][t] = lse and d_p[bh][t] = D = rowsum(dO * O) in
+// float32. Eight threads a row, 16 bytes of O and of dO each.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ lse_p, float* __restrict__ d_p,
+               int seq, int t_pad) {
+  const int id = blockIdx.x * 256 + threadIdx.x, row = id / 8, part = id % 8;
+  const int bh = row / t_pad, tt = row % t_pad;  // rows = BH * t_pad, a multiple of 32
+  float s = 0.f;
+  if (tt < seq) {
+    const size_t at = ((size_t)bh * seq + tt) * W_HD + part * 8;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+      s += y.x * x.x;
+      s += y.y * x.y;
+    }
+  }
+  for (int w = 4; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (part == 0) {
+    lse_p[row] = tt < seq ? lse[(size_t)bh * seq + tt] : 0.f;
+    d_p[row] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host entry points (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
 
@@ -560,14 +929,13 @@ extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* 
 }
 
 // dq, dk, dv from q, k, v, o, dout, lse; dvec is (BH * T) float32 scratch.
+// float operands at head_dim 64 or 128, bf16 at 128 (bf16 at 64 is
+// flash_bwd_wgmma's).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* dvec, void* dq,
                          void* dk, void* dv, int BH, int seq, int D, int is_bf16,
                          float sm_scale, cudaStream_t stream) {
   if (is_bf16) {
-    if (D == 64)
-      return bwd_launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq,
-                                           sm_scale, stream);
     if (D == 128)
       return bwd_launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq,
                                             sm_scale, stream);
@@ -580,4 +948,43 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                                     stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// #6 with bf16 operands at head_dim 64: dq, dk, dv from q, k, v, o, dout
+// (BH, seq, 64) bf16, 16-byte aligned, and lse (BH * seq) float32; aux is
+// (2, BH, t_pad) float32 scratch, t_pad a multiple of 128 and at least
+// seq. One call: the four tensor maps, then the row vectors, the dK/dV
+// kernel and the dQ kernel, three launches.
+extern "C" int flash_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* aux, void* dq,
+                               void* dk, void* dv, int BH, int seq, int t_pad,
+                               float sm_scale, cudaStream_t stream) {
+  if (seq < 1 || t_pad < seq || t_pad % W_TILE) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, o, dout, (const void*)dq, (const void*)dk, (const void*)dv})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = bf16_map3(&mq, q, seq, BH, W_ROWS);
+  if (!rc) rc = bf16_map3(&mk, k, seq, BH, W_ROWS);
+  if (!rc) rc = bf16_map3(&mv, v, seq, BH, W_ROWS);
+  if (!rc) rc = bf16_map3(&mdo, dout, seq, BH, W_ROWS);
+  if (rc) return rc;
+  static const cudaError_t e_kv = set_smem(flash_bwd_dkdv_wgmma, W_SMEM);
+  static const cudaError_t e_q = set_smem(flash_bwd_dq_wgmma, W_SMEM);
+  if (e_kv != cudaSuccess) return (int)e_kv;
+  if (e_q != cudaSuccess) return (int)e_q;
+  float* lse_p = aux;
+  float* d_p = aux + (size_t)BH * t_pad;
+  flash_bwd_prep<<<BH * t_pad / 32, 256, 0, stream>>>(static_cast<const bf16*>(o),
+                                                      static_cast<const bf16*>(dout), lse, lse_p,
+                                                      d_p, seq, t_pad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(BH, (seq + W_TILE - 1) / W_TILE);
+  flash_bwd_dkdv_wgmma<<<grid, W_THREADS, W_SMEM, stream>>>(
+      mq, mk, mv, mdo, lse_p, d_p, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, t_pad,
+      sm_scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  flash_bwd_dq_wgmma<<<grid, W_THREADS, W_SMEM, stream>>>(
+      mq, mk, mv, mdo, lse_p, d_p, static_cast<bf16*>(dq), seq, t_pad, sm_scale);
+  return (int)cudaGetLastError();
 }

@@ -111,13 +111,12 @@
 // 128-column tile of the output (from L2).
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -489,148 +488,7 @@ constexpr int gemm_smem(int stages, int bn) {
 static_assert(GM * RED_PITCH * 4 <= DW_STAGES * stage_bytes(DW_BN),
               "#16's partial tile fits the ring");
 static_assert(gemm_smem(DW_STAGES, DW_BN) <= 232448, "#16's ring fits a block's shared memory");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed. A wait
-// of more than about 2^34 cycles (seconds; a stage normally arrives within
-// microseconds) can only be a lost arrival: the kernel then traps, and the
-// launch fails with an error instead of holding the card forever.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
-// The box of a bf16 tensor map at (inner, outer) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int inner,
-                                         int outer, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of the k16 slice kk of a tile written by
-// TMA with the 128-byte swizzle (layout type 1), its base 1024-byte
-// aligned; SBO = 1024 bytes, the next 8 rows of 128 bytes. K-major (MN =
-// false): a row is one M or N index, 64 K values wide, LBO unused (1), and
-// a k16 slice starts 32 bytes further. MN-major (MN = true): a row is one K
-// index, 64 M or N values wide; LBO = BOX_BYTES, the next 64 M or N values
-// (the tile's next box), and a k16 slice starts 16 rows (2048 bytes)
-// further.
-template <bool MN>
-__device__ __forceinline__ uint64_t sdesc(uint32_t tile, int kk) {
-  const uint32_t addr = tile + (MN ? 16 * 128 : 32) * kk;
-  const uint32_t lbo = MN ? BOX_BYTES : 16, sbo = 1024;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// Pins the NA accumulators, so that the compiler moves no access to them
-// across an asynchronous wgmma.
-template <int NA>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x BN] += A[64 x 16] . B[16 x BN] from shared memory, BN = 128 or
-// 256 (BN/2 float32 accumulators a thread): both operands K-major (A . B^T
-// of two k-contiguous tiles), or with MN both MN-major (imm-trans-a =
-// imm-trans-b = 1: A^T . B of two tiles whose rows are k).
-template <int BN, bool MN>
-__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1), "n"(MN ? 1 : 0));
-  } else {
-    static_assert(BN == 256, "wgmma tiles are 128 or 256 wide");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, %131, %131;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(1), "n"(MN ? 1 : 0));
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+static_assert(BOX_BYTES == SW128_BOX, "sdesc's default LBO is one MN-major box");
 
 // The main loop of one 128 x BN tile of C = s * (A0 . B0) + A1 . B1, rows
 // m0 and columns c0 of C: n0 steps of GK over (A0, B0) from reduction index
@@ -701,10 +559,10 @@ __device__ __forceinline__ bool gemm_tile(const CUtensorMap* a0, const CUtensorM
     const uint32_t a = base + s * SB + wg * BOX_BYTES;
     const uint32_t b = base + s * SB + A_BYTES;
     fence_acc<NA>(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < GK / 16; ++kk) wgmma<BN, MN>(acc, sdesc<MN>(a, kk), sdesc<MN>(b, kk));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
     fence_acc<NA>(acc);
     int done;  // steps [0, done) have finished reading shared memory
     if (i == n0 - 1) {  // the end of the scaled sum
@@ -865,42 +723,6 @@ fl_bwd_dw_wgmma(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
 
 static inline int tiles(int n) { return (n + TILE - 1) / TILE; }
 static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime; it is taken
-// with dlopen from the libcuda.so.1 the runtime has already loaded, so that
-// nothing links against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    if (h) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// The map of a bf16 matrix (rows, inner) with row stride ld elements, read
-// in boxes of 64 inner values (128 bytes, the 128-byte swizzle) x box_rows
-// rows: GM rows for the K-major operands of #14/#15, GK for the MN-major
-// ones of #16. Boxes past the edge are filled with zeros.
-static int bf16_map(CUtensorMap* map, const void* ptr, int inner, int rows, int ld,
-                    int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 // K, N, r multiples of 8 (16-byte TMA strides), 16-byte aligned operands.
 static bool tma_ok(int K, int N, int r, std::initializer_list<const void*> ptrs) {

@@ -8,8 +8,9 @@ shared library with a plain C interface, for `sm_90a`, at first use:
          -o build/kernels/lib<name>-<hash>.so <name>.cu
 
 The library lands in `build/kernels/` at the checkout's root (listed in
-`.gitignore`); its file name carries a hash of the source and the flags, so
-an edited source is rebuilt. What nvcc printed (ptxas's registers, shared
+`.gitignore`); its file name carries a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt. What nvcc printed (ptxas's registers, shared
 memory and spills per kernel) is kept beside it (`ptxas_report`). Nothing is built when a module is imported.
 `build_all()` starts one `nvcc` per source at once and waits for all.
 `load()` sets the argument types of each library's entry points once.
@@ -39,7 +40,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "flash_attention": {
         "flash_attention_fwd_f32": [_P] * 4 + [_I] * 3 + [_F, _P],
         "flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_F, _P],
-        "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P]},
+        "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+        "flash_bwd_wgmma": [_P] * 10 + [_I] * 3 + [_F, _P]},
     "mega_decode": {
         "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P],
         "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
@@ -78,6 +80,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # every shared header too: a source that includes an edited one is rebuilt
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha1(src + " ".join(ARCH + BASE_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -9,7 +9,9 @@ with its plain PyTorch version beside it:
   replaces `_flash_fwd_kernel`; plain version `flash_fwd_lse_plain`. It
   launches the same templated forward kernel as `flash_attention`;
 - `flash_bwd` (training backward) replaces `_flash_bwd_kernel`; plain
-  version `flash_bwd_plain`.
+  version `flash_bwd_plain`. With bf16 operands at head_dim 64 it launches
+  TMA-fed wgmma kernels, otherwise tiled float32 kernels (`flash_bwd_plan`
+  picks).
 `flash_attention_trainable` joins the last two in an `autograd.Function`,
 and `causal_attention` dispatches between it and the dense reference.
 
@@ -20,6 +22,7 @@ launches its kernel or raises. Each counts its launches in `<fn>.launches`.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -198,11 +201,34 @@ def flash_fwd_lse(q, k, v):
 flash_fwd_lse.launches = 0
 
 
+# Kernel #6's wgmma kernels: a block owns BWD_TILE rows (two warpgroups of
+# 64) and streams tiles of 64 rows.
+BWD_TILE = 128
+
+
+class FlashBwdPlan(NamedTuple):
+    """How `flash_bwd` runs kernel #6 on the card. route: "wgmma" (bf16
+    operands at head_dim 64: the TMA-fed tensor-core kernels) or "simt"
+    (float32 operands, which wgmma has no exact product for, and bf16 at
+    head_dim 128: the tiled float32 kernels). t_pad: rows of each head's
+    padded LSE and D rows (wgmma)."""
+    route: str
+    t_pad: int
+
+
+def flash_bwd_plan(dtype, T: int, D: int) -> FlashBwdPlan:
+    """The plan of kernel #6 for operands of `dtype`, T rows, head_dim D."""
+    route = "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
+    return FlashBwdPlan(route, -(-T // BWD_TILE) * BWD_TILE)
+
+
 def flash_bwd(q, k, v, o, lse, do):
     """Causal flash backward (kernel #6): (dq, dk, dv) in q's dtype from the
     forward's q, k, v, o, lse and the output cotangent do. CPU tensors take
-    `flash_bwd_plain`; CUDA tensors launch the kernel (three CUDA kernels:
-    D = rowsum(dO∘O), then dK/dV per k tile, then dQ per q tile) or raise."""
+    `flash_bwd_plain`; CUDA tensors launch the kernels `flash_bwd_plan`
+    names (three CUDA kernels: D = rowsum(dO∘O), then dK/dV per k tile,
+    then dQ per q tile; no atomics, so repeat calls are bit-equal) or
+    raise."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do)
     _check_operands("flash_bwd", (("q", q), ("k", k), ("v", v), ("o", o),
@@ -212,17 +238,28 @@ def flash_bwd(q, k, v, o, lse, do):
             or lse.shape != (B, H, T, 1) or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd: lse must be a contiguous float32 CUDA "
                          f"tensor of shape {(B, H, T, 1)}")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dvec = torch.empty((B * H * T,), dtype=torch.float32, device=q.device)
+    plan = flash_bwd_plan(q.dtype, T, D)
     lib = _build.load("flash_attention")
-    rc = lib.flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B * H, T, D, int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(D), _build.stream(q))
+    out = tuple(torch.empty_like(q) for _ in range(3))
+    if plan.route == "wgmma":
+        # TMA reads rows from 16-byte aligned addresses
+        q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (q, k, v, o, do))
+        aux = torch.empty((2, B * H, plan.t_pad), dtype=torch.float32, device=q.device)
+        rc = lib.flash_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), aux.data_ptr(), *(t.data_ptr() for t in out),
+            B * H, T, plan.t_pad, 1.0 / math.sqrt(D), _build.stream(q))
+    else:
+        dvec = torch.empty((B * H * T,), dtype=torch.float32, device=q.device)
+        rc = lib.flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), *(t.data_ptr() for t in out),
+            B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+            _build.stream(q))
     _build.check(lib, rc, "flash_bwd")
     flash_bwd.launches += 1
-    return dq, dk, dv
+    return out
 
 
 flash_bwd.launches = 0

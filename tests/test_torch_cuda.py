@@ -217,6 +217,47 @@ def test_flash_train_kernels_match_plain(cuda_device, dtype, T, D):
         assert share <= 2e-2, (name, share)
 
 
+def _bwd_inputs(dev, T, seed=0):
+    """bf16 (2, 3, T, 64) operands of kernel #6 and the forward's o and lse."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((2, 3, T, 64), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_fwd_lse(q, k, v)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("T", [1024, 200])
+def test_flash_bwd_bf16_is_deterministic(cuda_device, T):
+    """Repeat calls of the bf16 backward (the wgmma route) give bit-equal
+    dq, dk, dv, ragged T = 200 included: each output element is summed by
+    one block in a fixed order, with no atomics."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    args = _bwd_inputs(cuda_device, T, seed=T)
+    assert att.flash_bwd_plan(torch.bfloat16, T, 64).route == "wgmma"
+    first = flash_bwd(*args)
+    for _ in range(2):
+        for a, b in zip(flash_bwd(*args), first):
+            assert torch.equal(a, b)
+
+
+def test_flash_bwd_takes_unaligned_views(cuda_device):
+    """bf16 operands that start 2 bytes past a 16-byte boundary (contiguous
+    views into a larger buffer) give the same bits as aligned copies: the
+    wrapper copies what TMA cannot read."""
+    args = _bwd_inputs(cuda_device, 200, seed=5)
+    views = []
+    for t in args[:4] + args[5:]:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        views.append(view)
+    q, k, v, o, do = views
+    for a, b in zip(flash_bwd(q, k, v, o, args[4], do), flash_bwd(*args)):
+        assert torch.equal(a, b)
+
+
 def test_flash_train_wrappers_check_their_inputs(cuda_device):
     q = torch.randn((1, 2, 128, 64), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):

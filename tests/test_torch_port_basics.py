@@ -81,6 +81,21 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
     assert init_stats((1, 8), "cpu").running_min.device.type == "cpu"
 
 
+def test_kernel_builds_hash_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library's name carries a hash of its source and of every
+    shared header in csrc/: an edited header rebuilds the sources that
+    include it."""
+    from llm_qat_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._lib_path("k") != first
+
+
 def test_bridge_round_trip_is_exact():
     cfg = J.tiny_test_config((4, 8, 32))
     params = jax.tree.map(np.asarray, J.init_sp_params(jax.random.PRNGKey(0), cfg))

@@ -1,6 +1,7 @@
 """PyTorch port, training slice: the trainable flash path's plain versions
-against the JAX Pallas kernels #5 and #6 (interpret mode) on the CPU, and
-the `attention_impl` dispatch."""
+against the JAX Pallas kernels #5 and #6 (interpret mode) on the CPU, the
+plan of #6's kernels on the card (route, padding), and the
+`attention_impl` dispatch."""
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +91,24 @@ def test_flash_rule_and_constants_match_jax():
     for T, D, mask in [(128, 64, None), (1024, 128, None), (200, 64, None),
                        (256, 32, None), (256, 64, np.ones((1, 256)))]:
         assert ta.flash_supported(T, D, mask) == ja.flash_supported(T, D, mask)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_flash_bwd_plan_routes_by_dtype_and_head_dim(dtype, D, route):
+    """Kernel #6 takes the wgmma kernels for bf16 at head_dim 64 (every
+    GPT-2 size); float32 (no exact float32 product on the tensor cores)
+    and bf16 at head_dim 128 take the float32 SIMT kernels."""
+    assert ta.flash_bwd_plan(dtype, 1024, D).route == route
+
+
+@pytest.mark.parametrize("T", [1, 64, 128, 200, 1024])
+def test_flash_bwd_plan_pads_rows_to_whole_blocks(T):
+    """The row vectors are padded to whole 128-row blocks: the bulk copies
+    of a block's rows never reach the next head's."""
+    t_pad = ta.flash_bwd_plan(torch.bfloat16, T, 64).t_pad
+    assert t_pad % ta.BWD_TILE == 0 and T <= t_pad < T + ta.BWD_TILE
 
 
 def _tiny_cfg(impl, n_positions=128):

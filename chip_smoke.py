@@ -36,7 +36,8 @@ counters set to 0 just before it and read just after:
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
   flat linear, which must go through the flash forward+LSE and flash
-  backward kernels once per layer and micro-step, and on the fused QAT
+  backward kernels once per layer and micro-step (with bf16 operands at
+  head_dim 64 both on their wgmma kernels), and on the fused QAT
   linear (`linear_impl="fused"`), which must also go through the fused
   forward, dx and dW kernels once per linear, layer and micro-step (with
   bf16 operands the forward and dx each run the weight prologue first,
@@ -53,7 +54,8 @@ of one wrapper call), profiles one iteration of each path, and prints:
 - the card's name and power limit (nvidia-smi);
 - ptxas's registers, shared memory and spills of each kernel of
   `csrc/fused_linear.cu`, `csrc/quant_matmul.cu` and
-  `csrc/flash_attention.cu`;
+  `csrc/flash_attention.cu`, and a `ptxas_flash_wgmma` JSON line with the
+  registers, stack frame and spills of the wgmma kernels of #5/#6;
 - one line per comparison, its error beside its tolerance;
 - `timings`, `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
@@ -81,8 +83,9 @@ does the same for #10/#11: their holds at the four GPT-2 linear shapes and
     python3 chip_smoke.py --flash
 
 does the same for #5/#6: their holds at (8, 12, T, 64) (T = 1024 and 256
-in bf16 and float32, T = 200 in bf16) and `flash_timings` (events, graph
-replay, each kernel's device time, SDPA).
+in bf16 and float32, T = 200 in bf16), the ptxas lines and `flash_timings`
+(events, graph replay, each wgmma kernel's device time, SDPA's forward and
+backward).
 """
 
 from __future__ import annotations
@@ -266,11 +269,9 @@ def graph_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters: int, names=None) -> float:
-    """Mean device time of fn() in ms over `iters` calls: the self device
-    time of the CUDA kernels it launches (those whose name contains one of
-    `names`, or all of them), from torch.profiler. Unlike `cuda_ms`, gaps
-    in which the card waits for the host's next launch are not counted."""
+def _kernel_events(fn, iters: int, names=None):
+    """torch.profiler's CUDA kernel records over `iters` calls of fn() (one
+    warm call first): those whose name contains one of `names`, or all."""
     import torch
 
     fn()
@@ -279,10 +280,28 @@ def device_ms(fn, iters: int, names=None) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count
-                and (names is None or any(n in ev.key for n in names)))
-    return total / iters / 1e3
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count
+            and (names is None or any(n in ev.key for n in names))]
+
+
+def device_ms(fn, iters: int, names=None) -> float:
+    """Mean device time of fn() in ms over `iters` calls: the self device
+    time of the CUDA kernels it launches (those whose name contains one of
+    `names`, or all of them), from torch.profiler. Unlike `cuda_ms`, gaps
+    in which the card waits for the host's next launch are not counted."""
+    return sum(ev.self_device_time_total for ev in _kernel_events(fn, iters, names)) / iters / 1e3
+
+
+def launch_ms(fn, iters: int, name: str):
+    """Mean device time in ms of one launch of the CUDA kernel `name`, which
+    fn() launches once per call, over the launches the profiler recorded
+    (None if none). Late in a long run the profiler drops records (an
+    iteration profile has recorded 60 of 96 launches of a kernel), which
+    lowers `device_ms`, a sum over the calls made, but not this mean."""
+    evs = _kernel_events(fn, iters, [name])
+    count = sum(ev.count for ev in evs)
+    return sum(ev.self_device_time_total for ev in evs) / count / 1e3 if count else None
 
 
 def bf16_row_ulps(got, want, atol):
@@ -298,9 +317,9 @@ def bf16_row_ulps(got, want, atol):
 def flash_train_vs_plain(gen, dev, B, H, D, failures):
     """Kernels #5 and #6 against their plain versions at T = 1024 and 256,
     bf16 and float32, and at the ragged T = 200 in bf16 (the wgmma
-    backward's masked tail). Returns the largest absolute errors at the
+    kernels' masked tail). Returns the largest absolute errors at the
     main path's shape (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd":
-    ..}."""
+    ..}. With bf16 at head_dim 64 both run their wgmma kernels."""
     import torch
 
     from llm_qat_tpu_torch.ops import attention as att
@@ -629,8 +648,9 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     """Device time by kernel over one profiled iteration. The profiler may
     drop records over an iteration's tens of thousands of launches: the
     port's kernels' recorded counts are printed beside the counts their
-    wrappers made (one flash_fwd per #5; flash_bwd_prep, flash_bwd_dkdv_wgmma
-    and flash_bwd_dq_wgmma per #6 (bf16 operands at head_dim 64);
+    wrappers made (one flash_fwd_wgmma per #5; flash_bwd_prep,
+    flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma per #6 (bf16 operands at
+    head_dim 64);
     fl_fq_weight and fl_fwd_wgmma per #14, fl_fq_weight and
     fl_bwd_dx_wgmma per #15, fl_bwd_dw_wgmma per #16 (bf16 operands; #16's
     split of M is summed inside the launch, over a cluster)), and the idle share,
@@ -648,7 +668,7 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
         train_step(state, batch, gen)
         torch.cuda.synchronize()
     n5, n6, n14, n15, n16, nfq = (fn.launches for fn in counters)
-    made = {"flash_fwd": n5, "flash_bwd_prep": n6, "flash_bwd_dkdv_wgmma": n6,
+    made = {"flash_fwd_wgmma": n5, "flash_bwd_prep": n6, "flash_bwd_dkdv_wgmma": n6,
             "flash_bwd_dq_wgmma": n6, "fl_fq_weight": nfq, "fl_fwd_wgmma": n14,
             "fl_bwd_dx_wgmma": n15, "fl_bwd_dw_wgmma": n16}
     made = {k: v for k, v in made.items() if v}
@@ -678,11 +698,14 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
 
 def flash_timings(dev, B, H, T, D):
     """Kernels #5/#6, their plain versions, SDPA, and dense vs flash
-    attention at T = 256, 512, 1024. SDPA's backward is timed by CUDA
-    events around `torch.autograd.grad` (`sdpa_bwd_ms`, autograd's host
-    work included) and by graph replay (`sdpa_bwd_device_ms`: SDPA's
-    forward and backward replayed, less its forward alone); #6's ratio to
-    it is taken from the two graph-replay device times."""
+    attention at T = 256, 512, 1024. #5 and #6 by CUDA events, by graph
+    replay (`*_device_ms`) and each of their wgmma kernels' device time per
+    launch by the profiler (`launch_ms`). SDPA's forward by events and by
+    graph replay; its backward by CUDA events around `torch.autograd.grad`
+    (`sdpa_bwd_ms`, autograd's host work included) and by graph replay
+    (`sdpa_bwd_device_ms`: SDPA's forward and backward replayed, less its
+    forward alone). #5's and #6's ratios to SDPA are taken from the
+    graph-replay device times."""
     import torch
     import torch.nn.functional as F
 
@@ -694,16 +717,23 @@ def flash_timings(dev, B, H, T, D):
                    for _ in range(4))
     o, lse = att.flash_fwd_lse(q, k, v)
     tm["flash_fwd_lse_ms"] = cuda_ms(lambda: att.flash_fwd_lse(q, k, v), 20)
+    tm["flash_fwd_lse_device_ms"] = graph_ms(lambda: att.flash_fwd_lse(q, k, v), 20)
+    if hasattr(att, "flash_route"):  # #5's wgmma route (A/B runs: absent in older trees)
+        tm["flash_fwd_kernels_device_ms"] = {"flash_fwd_wgmma": launch_ms(
+            lambda: att.flash_fwd_lse(q, k, v), 10, "flash_fwd_wgmma")}
     tm["flash_fwd_lse_plain_ms"] = cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 5)
     tm["flash_bwd_ms"] = cuda_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10)
     tm["flash_bwd_plain_ms"] = cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3)
     tm["flash_bwd_device_ms"] = graph_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10)
     if hasattr(att, "flash_bwd_plan"):  # #6's wgmma route (A/B runs: absent in older trees)
         tm["flash_bwd_kernels_device_ms"] = {
-            name: device_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10, [name])
+            name: launch_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 10, name)
             for name in ("flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")}
     tm["sdpa_fwd_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    tm["sdpa_fwd_device_ms"] = graph_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    tm["flash_fwd_over_sdpa_fwd"] = tm["flash_fwd_lse_device_ms"] / tm["sdpa_fwd_device_ms"]
     qr, kr, vr = (t_.clone().requires_grad_(True) for t_ in (q, k, v))
     out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     tm["sdpa_bwd_ms"] = cuda_ms(
@@ -879,6 +909,24 @@ def fused_linear_phase(dev) -> int:
     return 1 if failures else 0
 
 
+FLASH_WGMMA_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
+
+
+def print_ptxas_wgmma_flash(_build):
+    """ptxas's registers, stack frame and spills of the wgmma kernels of
+    #5/#6, from the build's report, as one `ptxas_flash_wgmma` JSON line."""
+    out, name = {}, None
+    for line in _build.ptxas_report("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in FLASH_WGMMA_KERNELS if k in line), None)
+        elif name and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name] = dict(zip(("stack_bytes", "spill_store_bytes", "spill_load_bytes"), nums))
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    print("ptxas_flash_wgmma " + json.dumps(out), flush=True)
+
+
 def flash_phase(dev) -> int:
     """`--flash`: kernels #5 and #6 alone, held against their plain
     versions as in the full run (`flash_train_vs_plain`) and timed at the
@@ -891,11 +939,16 @@ def flash_phase(dev) -> int:
 
     print("ptxas, csrc/flash_attention.cu:\n" + _build.ptxas_report("flash_attention"),
           flush=True)
+    print_ptxas_wgmma_flash(_build)
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
     flash_train_vs_plain(gen, dev, 8, 12, 64, failures)
     tt = flash_timings(dev, 8, 12, 1024, 64)
     print("flash_timings " + json.dumps(tt), flush=True)
+    print(f"flash_fwd_lse {tt['flash_fwd_lse_ms']:.4f} ms by events, SDPA forward "
+          f"{tt['sdpa_fwd_ms']:.4f} ms; device time by graph replay "
+          f"{tt['flash_fwd_lse_device_ms']:.4f} ms against SDPA forward "
+          f"{tt['sdpa_fwd_device_ms']:.4f} ms: {tt['flash_fwd_over_sdpa_fwd']:.2f}x", flush=True)
     print(f"flash_bwd {tt['flash_bwd_ms']:.4f} ms by events, SDPA backward "
           f"{tt['sdpa_bwd_ms']:.4f} ms by events (host work included); device time by graph "
           f"replay {tt['flash_bwd_device_ms']:.4f} ms against SDPA backward "
@@ -1990,6 +2043,7 @@ def main() -> int:
         return flash_phase(dev)
     for src in ("fused_linear", "quant_matmul", "flash_attention"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
+    print_ptxas_wgmma_flash(_build)
 
     cfg, params, gen = serve_setup(dev)
     m = cfg.model
@@ -2370,9 +2424,10 @@ def main() -> int:
     pairs = B * H * Tt * (Tt + 1) // 2            # causal (q, k) pairs
     op_bytes = B * H * Tt * Dh * 2                # one bf16 operand
     lse_bytes = B * H * Tt * 4
-    for name, line, n_tensors, n_products, lib in (
-            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_ms"]),
-            ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_device_ms"])):
+    for name, line, n_tensors, n_products, lib, launched in (
+            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"], ["flash_fwd_wgmma"]),
+            ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_device_ms"],
+             ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"])):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
         kernels.append({
@@ -2384,7 +2439,7 @@ def main() -> int:
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
                          else "operations"),
-            "library_ms": lib})
+            "library_ms": lib, "cuda_kernels": launched})
     # kernels #14-#16 summed over the four linears of one layer at the
     # training path's shapes, at the 8-bit log slot (the dearest fake-quant);
     # ms by CUDA events around back-to-back wrapper calls (#14/#15: the

@@ -3,12 +3,14 @@
 //
 // Replaces three Pallas kernels of llm_qat_tpu/ops/attention.py:
 // - `_flash_kernel` (serving prefill, float32) with `flash_attention_fwd_f32`;
-// - `_flash_fwd_kernel` (called by `_flash_fwd_call`) with `flash_fwd_lse`;
+// - `_flash_fwd_kernel` (called by `_flash_fwd_call`) with
+//   `flash_fwd_lse_wgmma` (bf16 operands at head_dim 64) or `flash_fwd_lse`;
 // - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with
 //   `flash_bwd_wgmma` (bf16 operands at head_dim 64) or `flash_bwd`, each
 //   three CUDA kernels that together compute what the one TPU kernel does.
-// Both forward entry points launch the one templated forward kernel; the
-// serving one passes float operands and no LSE pointer. The Python wrappers
+// `flash_attention_fwd_f32` and `flash_fwd_lse` launch the one templated
+// SIMT forward kernel; the serving one passes float operands and no LSE
+// pointer. The Python wrappers
 // are llm_qat_tpu_torch/ops/attention.py::flash_attention, ::flash_fwd_lse
 // and ::flash_bwd; `flash_attention_plain`, `flash_fwd_lse_plain` and
 // `flash_bwd_plain` beside them compute the same functions in plain PyTorch.
@@ -25,10 +27,22 @@
 // kernels mask the ragged tail themselves (keys and query rows >= T), so T
 // need not be a multiple of the tile.
 //
-// Forward: one block per (b*h, 64-row q tile): K/V tiles up to the causal
-// limit stream through shared memory, each of 256 threads owns a 4x4 patch
-// of the score tile and 4 x D/16 output columns, with an online softmax per
-// row. P is rounded at the running max of its row, as in the JAX kernel.
+// Forward (SIMT, `flash_fwd`): one block per (b*h, 64-row q tile): K/V
+// tiles up to the causal limit stream through shared memory, each of 256
+// threads owns a 4x4 patch of the score tile and 4 x D/16 output columns,
+// with an online softmax per row. P is rounded at the running max of its
+// row, as in the JAX kernel. With bf16 operands at head_dim 64 (every GPT-2
+// size; the training path) the forward is `flash_fwd_wgmma`, on the tensor
+// cores, in the wgmma backward's block layout (below): one block per
+// (b*h, 128-row q tile), Q loaded once, the K/V tiles up to the causal
+// limit through the TMA ring; per 64-key step a warpgroup takes S = Q.K^T
+// by wgmma from shared memory, runs the online softmax on the accumulators'
+// registers (row max over the thread's 16 values and its quad; the float32
+// P into the thread's share of the row sum, which the quad adds up at the
+// end; O and l scaled by exp(m_old - m_new)), rounds P at the running max
+// to bf16 pairs in place and takes O += P.V in wgmma's register form, V
+// read MN-major. Each output row is written by one block, so repeat calls
+// are bit-equal.
 //
 // Backward (FlashAttention-2 order, deterministic, no atomics). The JAX
 // kernel holds the whole T x T of one (b, h) in VMEM; at T = 1024 that is
@@ -78,15 +92,19 @@
 // Forward: q, k, v and o once (4 x 12.58 MB) plus LSE (0.39 MB), 50.7 MB,
 // 15 us at 3.35 TB/s; Q.K^T and P.V over the causal half,
 // 2 * 2 * D * T(T+1)/2 per (b, h), 12.9 GFLOP, 13 us at the bf16
-// tensor-core peak (989 TFLOP/s): bound by bytes. Backward: q, k, v, o, dO
+// tensor-core peak (989 TFLOP/s): bound by bytes, and nearly as much by
+// operations. `flash_fwd_wgmma` reads each K/V tile once per 128 q rows
+// (8 x 0.5 of K and V over the causal half at T = 1024, mostly from L2)
+// and runs the element-wise chain (two expf per score and a dozen other
+// operations) on the CUDA cores beside the products. Backward: q, k, v, o, dO
 // read and dq, dk, dv written, 8 x 12.58 MB plus LSE, 101 MB, 30 us; five
 // causal products (S, dP, dV, dQ, dK), 32.2 GFLOP, 33 us: bound by
 // operations. The two-pass order recomputes S and dP: seven products,
 // 45 GFLOP, 46 us at the bf16 peak, plus P and dS twice on the CUDA cores
 // (an expf and about a dozen other operations per causal element and
-// pass). The forward and the SIMT backward run float32 FMA on the CUDA
-// cores (67 TFLOP/s), whose own ceiling for the same work is 0.19 ms
-// (forward) and 0.48 ms (backward).
+// pass). The SIMT forward and backward run float32 FMA on the CUDA cores
+// (67 TFLOP/s), whose own ceiling for the same work is 0.19 ms (forward)
+// and 0.48 ms (backward).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -517,7 +535,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 operands at head_dim 64: TMA-fed wgmma kernels
+// Forward and backward, bf16 operands at head_dim 64: TMA-fed wgmma kernels
 // ---------------------------------------------------------------------------
 
 #define W_ROWS 64      // rows of a consumer warpgroup's tile and of a streamed tile
@@ -547,24 +565,24 @@ __device__ __forceinline__ uint32_t bf16x2(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Shared-memory addresses of a block of either kernel, its barriers
-// initialised (called by all threads).
-struct BwdSmem {
-  uint32_t own;    // the own tiles: K, V (dK/dV) or Q, dO (dQ), 2 boxes each
+// Shared-memory addresses of a block of any of the three kernels, its
+// barriers initialised (called by all threads).
+struct WgSmem {
+  uint32_t own;    // the own tiles: Q (forward), K, V (dK/dV) or Q, dO (dQ), 2 boxes each
   uint32_t ring;   // W_STAGES stages of two 64-row tiles
   uint32_t vec_s;  // the row vectors
   const float* vec;
   uint32_t full, empty, own_bar;
 };
 
-__device__ __forceinline__ BwdSmem bwd_smem() {
-  extern __shared__ uint8_t bwd_raw[];
-  const uint32_t raw = smem_u32(bwd_raw);
-  BwdSmem m;
+__device__ __forceinline__ WgSmem wg_smem() {
+  extern __shared__ uint8_t wg_raw[];
+  const uint32_t raw = smem_u32(wg_raw);
+  WgSmem m;
   m.own = (raw + 1023) & ~1023u;
   m.ring = m.own + W_OWN;
   m.vec_s = m.ring + W_STAGES * W_STAGE;
-  m.vec = reinterpret_cast<const float*>(bwd_raw + (m.vec_s - raw));
+  m.vec = reinterpret_cast<const float*>(wg_raw + (m.vec_s - raw));
   m.full = m.vec_s + W_VEC;
   m.empty = m.full + 8 * W_STAGES;
   m.own_bar = m.empty + 8 * W_STAGES;
@@ -580,17 +598,29 @@ __device__ __forceinline__ BwdSmem bwd_smem() {
   return m;
 }
 
-// S = A . B^T and dP = A2 . B2^T of one warpgroup: 64 x 64 each, every
-// operand a K-major 64-row tile over head_dim.
-__device__ __forceinline__ void scores(float* sa, float* pa, uint32_t a, uint32_t b, uint32_t a2,
-                                       uint32_t b2) {
-  wgmma_fence();
+// Issues S = A . B^T of one warpgroup, 64 x 64, both operands K-major
+// 64-row tiles over head_dim (the first k16 slice overwrites S).
+__device__ __forceinline__ void issue_scores(float* sa, uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < W_HD / 16; ++kk)
     wgmma<64, false>(sa, sdesc<false>(a, kk), sdesc<false>(b, kk), kk);
-#pragma unroll
-  for (int kk = 0; kk < W_HD / 16; ++kk)
-    wgmma<64, false>(pa, sdesc<false>(a2, kk), sdesc<false>(b2, kk), kk);
+}
+
+// S = A . B^T (the forward), waited for.
+__device__ __forceinline__ void scores(float* sa, uint32_t a, uint32_t b) {
+  wgmma_fence();
+  issue_scores(sa, a, b);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(sa);
+}
+
+// S = A . B^T and dP = A2 . B2^T (the backward), waited for.
+__device__ __forceinline__ void scores(float* sa, float* pa, uint32_t a, uint32_t b, uint32_t a2,
+                                       uint32_t b2) {
+  wgmma_fence();
+  issue_scores(sa, a, b);
+  issue_scores(pa, a2, b2);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc<32>(sa);
@@ -604,11 +634,126 @@ __device__ __forceinline__ void rs_accumulate(float* d, const uint32_t* a, uint3
   for (int kk = 0; kk < W_ROWS / 16; ++kk) wgmma_rs64<true>(d, a + 4 * kk, sdesc<true>(b, kk));
 }
 
-// In both kernels accumulator e of consumer thread t of a warpgroup is row
-// 16 (t/32) + (t%32)/4 + 8 ((e>>1)&1) and column 8 (e>>2) + 2 (t%4) + (e&1)
-// of its 64 x 64 tile. P and dS are computed as the JAX kernel does, each
-// operation rounded on its own (no FMA contraction): exp(S*scale - lse)
-// with expf, and dS = P*(dP - D) from the float32 P.
+// In the three kernels accumulator e of consumer thread t of a warpgroup is
+// row 16 (t/32) + (t%32)/4 + 8 ((e>>1)&1) and column 8 (e>>2) + 2 (t%4) +
+// (e&1) of its 64 x 64 tile: the four threads of a quad (t/4) hold the 16
+// columns each of two rows. P and dS are computed as the JAX kernels do,
+// each operation rounded on its own (no FMA contraction), with expf: in the
+// forward exp(S*scale - m) at the running max m, in the backward
+// exp(S*scale - lse) and dS = P*(dP - D) from the float32 P.
+
+// o and lse of the queries [q0, q0 + 128) of head bh: warpgroup w owns
+// queries q0 + 64 w .. + 63 and walks the 64-row k tiles from 0 to its
+// causal limit; per tile S = Q.K^T, then the online softmax of each row in
+// registers (S*scale, masked to -1e30 above the diagonal; the running max
+// m; corr = exp(m_old - m); P = exp(S*scale - m); l = l*corr + the float32
+// P), then O = O*corr + bf16(P).V. Rows past seq compute on zero-filled Q
+// and are not written; keys past seq lie above every written row's
+// diagonal.
+__device__ __forceinline__ void fwd_block(const CUtensorMap* mq, const CUtensorMap* mk,
+                                          const CUtensorMap* mv, bf16* __restrict__ o,
+                                          float* __restrict__ lse, int bh, int q0, int seq,
+                                          float sm_scale) {
+  const WgSmem m = wg_smem();
+  const int n = (min(seq, q0 + W_TILE) + W_ROWS - 1) / W_ROWS;  // k tiles to the causal limit
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 2) {  // producer: one thread keeps the ring full
+    if (t == 0) {
+      mbar_expect_tx(m.own_bar, 2 * W_BOX);
+      for (int b = 0; b < 2; ++b) tma_load3(m.own + b * W_BOX, mq, 0, q0 + b * W_ROWS, bh, m.own_bar);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % W_STAGES;
+        if (i >= W_STAGES) mbar_wait(m.empty + 8 * s, (i / W_STAGES - 1) & 1);
+        const uint32_t st = m.ring + s * W_STAGE, full = m.full + 8 * s;
+        mbar_expect_tx(full, W_STAGE);
+        tma_load3(st, mk, 0, i * W_ROWS, bh, full);
+        tma_load3(st + W_BOX, mv, 0, i * W_ROWS, bh, full);
+      }
+    }
+    return;
+  }
+
+  const int qw = q0 + W_ROWS * wg, warp = t / 32, lane = t % 32, c = lane % 4;
+  const int qrow = qw + 16 * warp + lane / 4;  // the thread's queries qrow, qrow + 8
+  const uint32_t qa = m.own + wg * W_BOX;
+  float oa[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) oa[e] = 0.f;
+  // per row h: the running max, and the thread's share of the row sum
+  float mr[2] = {NEG_INF, NEG_INF}, lr[2] = {0.f, 0.f};
+  mbar_wait(m.own_bar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % W_STAGES, k0 = i * W_ROWS;
+    mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
+    if (k0 < qw + W_ROWS) {  // not every (q, k) of the tile has k > q
+      const uint32_t ks = m.ring + s * W_STAGE, vs = ks + W_BOX;
+      float sa[32];
+      scores(sa, qa, ks);
+      const bool diag = k0 + W_ROWS - 1 > qw;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int h = (e >> 1) & 1, q = qrow + 8 * h, k = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        float x = __fmul_rn(sa[e], sm_scale);
+        if (diag && k > q) x = NEG_INF;
+        sa[e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(mr[h], mx[h]);
+        corr[h] = expf(__fsub_rn(mr[h], m_new));
+        mr[h] = m_new;
+      }
+      uint32_t pf[16];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * j + 2 * h;
+          const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), expf(__fsub_rn(sa[e + 1], mr[h]))};
+          rs[h] = __fadd_rn(__fadd_rn(rs[h], p[0]), p[1]);  // the row sum takes the float32 P
+          pf[2 * j + h] = bf16x2(p[0], p[1]);               // P.V takes P in bf16
+        }
+      fence_acc<32>(oa);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oa[e] = __fmul_rn(oa[e], corr[(e >> 1) & 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) lr[h] = __fadd_rn(__fmul_rn(lr[h], corr[h]), rs[h]);
+      fence_acc<32>(oa);
+      wgmma_fence();
+      rs_accumulate(oa, pf, vs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<32>(oa);
+      fence_frag<16>(pf);
+    }
+    if (lane == 0) mbar_arrive(m.empty + 8 * s);
+  }
+
+  const size_t off = (size_t)bh * seq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = lr[h];  // the quad's four shares, added in a fixed order
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 1));
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 2));
+    const float den = fmaxf(l, 1e-30f);
+    const int q = qrow + 8 * h;
+    if (q < seq) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(o + (off + q) * W_HD + 8 * j + 2 * c) =
+            __floats2bfloat162_rn(oa[e] / den, oa[e + 1] / den);
+      }
+      if (c == 0) lse[off + q] = __fadd_rn(mr[h], logf(den));
+    }
+  }
+}
 
 // dK and dV of the keys [k0, k0 + 128) of head bh: warpgroup w owns keys
 // k0 + 64 w .. + 63, walks the 64-row q tiles from q0 = k0 to the end, and
@@ -621,7 +766,7 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* mq, const CUtensor
                                            const float* __restrict__ d_p, bf16* __restrict__ dk,
                                            bf16* __restrict__ dv, int bh, int k0, int seq,
                                            int t_pad, float sm_scale) {
-  const BwdSmem m = bwd_smem();
+  const WgSmem m = wg_smem();
   const int n = (seq - k0 + W_ROWS - 1) / W_ROWS;  // q tiles from the causal start
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (wg == 2) {  // producer: one thread keeps the ring full
@@ -721,7 +866,7 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
                                          const float* __restrict__ lse_p,
                                          const float* __restrict__ d_p, bf16* __restrict__ dq,
                                          int bh, int q0, int seq, int t_pad, float sm_scale) {
-  const BwdSmem m = bwd_smem();
+  const WgSmem m = wg_smem();
   const int n = (min(seq, q0 + W_TILE) + W_ROWS - 1) / W_ROWS;  // k tiles to the causal limit
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (wg == 2) {
@@ -798,6 +943,17 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
         *reinterpret_cast<__nv_bfloat162*>(dq + off + (size_t)q * W_HD + 8 * j + 2 * c) =
             __floats2bfloat162_rn(dqa[e] * sm_scale, dqa[e + 1] * sm_scale);
     }
+}
+
+// Blocks (bh, y): the q tile gridDim.y - 1 - y, so the last q tile, whose
+// walk over the k tiles is longest, comes first. Two blocks per SM (99 KB
+// of shared memory each, at most 112 registers a thread).
+__global__ void __launch_bounds__(W_THREADS, 2)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                float* __restrict__ lse, int seq, float sm_scale) {
+  fwd_block(&mq, &mk, &mv, o, lse, blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,
+            sm_scale);
 }
 
 // Blocks (bh, y): the k tile y, so the tile whose walk over the q tiles is
@@ -913,8 +1069,8 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k, const flo
   return (int)cudaErrorInvalidValue;
 }
 
-// Training forward: o and lse from q, k, v (BH, T, D) in float (is_bf16 = 0)
-// or bf16.
+// Training forward on the SIMT kernel: o and lse from q, k, v (BH, T, D) in
+// float (is_bf16 = 0) or bf16 (bf16 at head_dim 64 is flash_fwd_lse_wgmma's).
 extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                              float* lse, int BH, int seq, int D, int is_bf16,
                              float sm_scale, cudaStream_t stream) {
@@ -926,6 +1082,27 @@ extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* 
     if (D == 128) return fwd_launch<float, 128>(q, k, v, o, lse, BH, seq, sm_scale, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// #5 with bf16 operands at head_dim 64: o (BH, seq, 64) bf16 and lse
+// (BH * seq) float32 from q, k, v (BH, seq, 64) bf16, each 16-byte aligned.
+// One call: the three tensor maps, then one launch.
+extern "C" int flash_fwd_lse_wgmma(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int BH, int seq, float sm_scale,
+                                   cudaStream_t stream) {
+  if (seq < 1) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, (const void*)o})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int rc = bf16_map3(&mq, q, seq, BH, W_ROWS);
+  if (!rc) rc = bf16_map3(&mk, k, seq, BH, W_ROWS);
+  if (!rc) rc = bf16_map3(&mv, v, seq, BH, W_ROWS);
+  if (rc) return rc;
+  static const cudaError_t e = set_smem(flash_fwd_wgmma, W_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wgmma<<<dim3(BH, (seq + W_TILE - 1) / W_TILE), W_THREADS, W_SMEM, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, seq, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 // dq, dk, dv from q, k, v, o, dout, lse; dvec is (BH * T) float32 scratch.

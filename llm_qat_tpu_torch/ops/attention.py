@@ -6,12 +6,12 @@ with its plain PyTorch version beside it:
 - `flash_attention` (serving prefill, float32) replaces `_flash_kernel`;
   plain version `flash_attention_plain`;
 - `flash_fwd_lse` (training forward, also writes the log-sum-exp rows)
-  replaces `_flash_fwd_kernel`; plain version `flash_fwd_lse_plain`. It
-  launches the same templated forward kernel as `flash_attention`;
+  replaces `_flash_fwd_kernel`; plain version `flash_fwd_lse_plain`;
 - `flash_bwd` (training backward) replaces `_flash_bwd_kernel`; plain
-  version `flash_bwd_plain`. With bf16 operands at head_dim 64 it launches
-  TMA-fed wgmma kernels, otherwise tiled float32 kernels (`flash_bwd_plan`
-  picks).
+  version `flash_bwd_plain`.
+With bf16 operands at head_dim 64 both training wrappers launch TMA-fed
+wgmma kernels, otherwise tiled float32 kernels (`flash_route` picks, for
+both); the latter forward is the templated kernel `flash_attention` runs.
 `flash_attention_trainable` joins the last two in an `autograd.Function`,
 and `causal_attention` dispatches between it and the dense reference.
 
@@ -177,11 +177,22 @@ def _check_operands(what, named, like):
                          f"{like.shape[3]}")
 
 
+def flash_route(dtype, D: int) -> str:
+    """The kernels #5 and #6 run on the card for operands of `dtype` at
+    head_dim D: "wgmma" (bf16 at head_dim 64, every GPT-2 size: the TMA-fed
+    tensor-core kernels) or "simt" (float32 operands, which wgmma has no
+    exact product for, and bf16 at head_dim 128: the tiled float32
+    kernels). One rule for both, so that the forward and the backward
+    change route together."""
+    return "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
+
+
 def flash_fwd_lse(q, k, v):
     """Causal flash forward with log-sum-exp (kernel #5). q,k,v: (B, H, T, D)
     float32 or bf16, any T. Returns (o in q's dtype, lse (B, H, T, 1)
     float32). CPU tensors take `flash_fwd_lse_plain`; CUDA tensors launch
-    the kernel or raise."""
+    the kernel `flash_route` names (one launch; each output row written by
+    one block, so repeat calls are bit-equal) or raise."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v)
     _check_operands("flash_fwd_lse", (("q", q), ("k", k), ("v", v)), q)
@@ -189,10 +200,17 @@ def flash_fwd_lse(q, k, v):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
-    rc = lib.flash_fwd_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-        _build.stream(q))
+    if flash_route(q.dtype, D) == "wgmma":
+        # TMA reads rows from 16-byte aligned addresses
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+        rc = lib.flash_fwd_lse_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B * H, T, 1.0 / math.sqrt(D), _build.stream(q))
+    else:
+        rc = lib.flash_fwd_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+            _build.stream(q))
     _build.check(lib, rc, "flash_fwd_lse")
     flash_fwd_lse.launches += 1
     return o, lse
@@ -207,19 +225,15 @@ BWD_TILE = 128
 
 
 class FlashBwdPlan(NamedTuple):
-    """How `flash_bwd` runs kernel #6 on the card. route: "wgmma" (bf16
-    operands at head_dim 64: the TMA-fed tensor-core kernels) or "simt"
-    (float32 operands, which wgmma has no exact product for, and bf16 at
-    head_dim 128: the tiled float32 kernels). t_pad: rows of each head's
-    padded LSE and D rows (wgmma)."""
+    """How `flash_bwd` runs kernel #6 on the card. route: `flash_route`'s.
+    t_pad: rows of each head's padded LSE and D rows (wgmma)."""
     route: str
     t_pad: int
 
 
 def flash_bwd_plan(dtype, T: int, D: int) -> FlashBwdPlan:
     """The plan of kernel #6 for operands of `dtype`, T rows, head_dim D."""
-    route = "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
-    return FlashBwdPlan(route, -(-T // BWD_TILE) * BWD_TILE)
+    return FlashBwdPlan(flash_route(dtype, D), -(-T // BWD_TILE) * BWD_TILE)
 
 
 def flash_bwd(q, k, v, o, lse, do):

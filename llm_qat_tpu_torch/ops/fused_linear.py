@@ -320,10 +320,13 @@ DW_TILE, DW_STEP, DW_BLOCKS_PER_SM = (128, 256), 64, 1
 # dW up to 1.1e-5 of max |plain| from its plain version, 64 steps up to
 # 5.3e-6, so a chunk takes at most DW_MAX_CHUNK_STEPS steps, with up to
 # DW_MAX_SPLITS chunks where that needs them. Past DW_MAX_SPLITS x
-# DW_MAX_CHUNK_STEPS steps (M > 32768) even 8 chunks are longer, and dW may
-# err by more (PERF.md §7). Otherwise the plan takes at most DW_FAST_SPLITS:
-# clusters of more blocks were slower than the best of 2-5 at every GPT-2
-# shape (PERF.md; the split sweep of `chip_smoke.py --fused-linear`).
+# DW_MAX_CHUNK_STEPS steps (M > 32768) even 8 chunks are longer; at
+# M = 65536 (8 chunks of 128 steps) dW still kept within 1e-5 of max
+# |plain| on an H100 (PERF.md §6; `tests/test_torch_cuda.py::
+# test_fused_dw_long_m_keeps_chunks_short`). Otherwise the plan takes at
+# most DW_FAST_SPLITS: clusters of more blocks were slower than the best of
+# 2-5 at every GPT-2 shape (PERF.md; the split sweep of `chip_smoke.py
+# --fused-linear`).
 DW_MAX_SPLITS, DW_FAST_SPLITS = 8, 5
 DW_MAX_CHUNK_STEPS = 64
 # A block's fixed cost (its ring's first fill, the epilogue and the

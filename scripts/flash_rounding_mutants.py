@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation check of the bf16 test of the port's flash training kernels,
-and timed ablations of kernel #6's wgmma route.
+and timed ablations of the wgmma routes of kernels #5 and #6.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -13,18 +13,31 @@ the tables below say (an edit whose line is not found once stops the
 script). The copies are removed at the end.
 
 Mutants remove or move one rounding to the operand type: P before P.V in
-the forward; P before dV, or dS before dQ and dK, in the SIMT backward
-(float32 operands, and bf16 at head_dim 128); in the wgmma backward (bf16
-at head_dim 64, whose products take bf16 operands, so a rounding cannot be
-removed, only changed) P or dS rounded toward zero instead of to nearest,
-or dS taken from the rounded P instead of the float32 one. The bf16 cases
+the SIMT forward, P before dV, or dS before dQ and dK, in the SIMT
+backward (float32 operands, and bf16 at head_dim 128: caught by the bf16
+cases at head_dim 128); in the wgmma kernels (bf16 at head_dim 64, whose
+products take bf16 operands, so a rounding cannot be removed, only
+changed) P or dS rounded toward zero instead of to nearest, dS taken from
+the rounded P instead of the float32 one, or the forward's row sum taken
+from the rounded P instead of the float32 one. The bf16 cases
 of `tests/test_torch_cuda.py::test_flash_train_kernels_match_plain` at
 head_dim 64 and 128 (T = 128 and 1024) must fail on every mutant. The
 script prints the test's own lines (largest error in bf16 ulps, share of
 outputs that differ) for each mutant and exits 1 unless the test failed on
 every mutant.
 
-With --ablations each copy changes one part of the wgmma backward:
+With --ablations each copy changes one part of the wgmma forward:
+- "forward fast exp": expf becomes __expf; the bf16 holds at head_dim 64
+  (T = 1024 and 200) run in the copy and their lines are printed;
+- "forward no exp": P = 1 (one FFMA on S*scale - m, which keeps the row
+  sum positive and the epilogue's division off its slow path), corr = 1
+  (wrong results): the share of the exponentials;
+- "forward no P.V": O is not accumulated (wrong results): the share of
+  the register-form product and its wait;
+- "forward one block per SM": `__launch_bounds__` asks for one block of
+  288 threads per SM instead of two (right results): the cost of the
+  register cap that two blocks set, against their overlap;
+or of the wgmma backward:
 - "fast exp": expf becomes __expf (ex2.approx); the bf16 holds at head_dim
   64 (T = 1024 and 200) run in the copy and their lines are printed;
 - "no exp": P = S, with no scale, LSE or exp (wrong results): the share of
@@ -36,14 +49,15 @@ With --ablations each copy changes one part of the wgmma backward:
 - "second products not waited for": no wait after them within the step,
   the next step's wait covers them (a race on the ring: wrong results):
   the cost of the wait;
-- "light first": both kernels launch their blocks in the reverse order,
-  the shortest walks first (right results): the cost of the order.
+- "light first": the forward's and both backward kernels' blocks launch in
+  the reverse order, the shortest walks first (right results): the cost
+  of the order.
 It prints how many kernels ptxas serializes wgmma in (warning C7515) for
-each tree, then times `flash_bwd` at (B, H, T, D) = (8, 12, 1024, 64) bf16
-in the checkout and in each copy, in turns (the checkout, each ablation,
-then the same in reverse), by CUDA-graph replay (`chip_smoke.graph_ms`)
-and each wgmma kernel's device time by the profiler
-(`chip_smoke.device_ms`), one JSON line per run.
+each tree, then times `flash_fwd_lse` and `flash_bwd` at (B, H, T, D) =
+(8, 12, 1024, 64) bf16 in the checkout and in each copy, in turns (the
+checkout, each ablation, then the same in reverse), by CUDA-graph replay
+(`chip_smoke.graph_ms`) and each wgmma kernel's device time by the
+profiler (`chip_smoke.device_ms`), one JSON line per run.
 """
 
 from __future__ import annotations
@@ -86,6 +100,12 @@ MUTANTS = {
         "p0", "p1", lambda a, b: _both(TRUNC, a, b)),
     "wgmma backward dS from the rounded P": _ds_edits(
         ROUND.format("p0"), ROUND.format("p1"), lambda a, b: f"bf16x2({a}, {b})"),
+    "wgmma forward P, toward zero": [
+        ("pf[2 * j + h] = bf16x2(p[0], p[1]);",
+         f"pf[2 * j + h] = {_both(TRUNC, 'p[0]', 'p[1]')};")],
+    "wgmma forward row sum from the rounded P": [
+        ("rs[h] = __fadd_rn(__fadd_rn(rs[h], p[0]), p[1]);",
+         f"rs[h] = __fadd_rn(__fadd_rn(rs[h], {ROUND.format('p[0]')}), {ROUND.format('p[1]')});")],
 }
 SELECT = ("test_flash_train_kernels_match_plain and (64-128-dtype1 or 64-1024-dtype1 "
           "or 128-128-dtype1 or 128-1024-dtype1)")
@@ -95,7 +115,17 @@ EXPS = [("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), l2.x));", "sa[e]"),
         ("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), lr[h]));", "sa[e]"),
         ("p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), lr[h]));", "sa[e + 1]")]
 ISSUED = "      rs_accumulate({}, sf, {});\n      wgmma_commit();\n"
+FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], m_new));", "corr[h] = 1.f;"),
+            ("const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), "
+             "expf(__fsub_rn(sa[e + 1], mr[h]))};",
+             "const float p[2] = {__fsub_rn(sa[e], mr[h]) * 0.f + 1.f, "
+             "__fsub_rn(sa[e + 1], mr[h]) * 0.f + 1.f};")]
 ABLATIONS = {
+    "forward fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in FWD_EXPS],
+    "forward no exp": FWD_EXPS,
+    "forward no P.V": [("      rs_accumulate(oa, pf, vs);\n", "")],
+    "forward one block per SM": [("__launch_bounds__(W_THREADS, 2)\nflash_fwd_wgmma",
+                                  "__launch_bounds__(W_THREADS, 1)\nflash_fwd_wgmma")],
     "fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in EXPS],
     "no exp": [(old, old.split(" = ")[0] + f" = {s};") for old, s in EXPS],
     "no second products": [
@@ -110,7 +140,9 @@ ABLATIONS = {
     "light first": [
         ("blockIdx.x, blockIdx.y * W_TILE, seq,",
          "blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,"),
-        ("const int y = gridDim.y - 1 - blockIdx.y;", "const int y = blockIdx.y;")],
+        ("const int y = gridDim.y - 1 - blockIdx.y;", "const int y = blockIdx.y;"),
+        ("blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,\n            sm_scale);",
+         "blockIdx.x, blockIdx.y * W_TILE, seq,\n            sm_scale);")],
 }
 HOLD = "test_flash_train_kernels_match_plain and (64-1024-dtype1 or 64-200-dtype1)"
 TIME = """
@@ -123,9 +155,10 @@ dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(3)
 q, k, v, do = (torch.randn((8, 12, 1024, 64), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(4))
-o, lse = att.flash_fwd_lse(q, k, v)
+o, lse = att.flash_fwd_lse_plain(q, k, v)  # the backward's inputs, whatever the copy's forward
 run = lambda: att.flash_bwd(q, k, v, o, lse, do)
-out = {"device_ms": graph_ms(run, 20)}
+out = {"fwd_device_ms": graph_ms(lambda: att.flash_fwd_lse(q, k, v), 20),
+       "device_ms": graph_ms(run, 20)}
 out.update({n: device_ms(run, 10, [n]) for n in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")})
 print(json.dumps(out))
 """
@@ -174,8 +207,9 @@ def ablations() -> int:
     trees = {"checkout": ROOT}
     trees.update({name: copy_with(i, name, edits)
                   for i, (name, edits) in enumerate(ABLATIONS.items())})
-    for line in pytest_lines(trees["fast exp"], HOLD)[1]:
-        print(f"fast exp, holds: {line}", flush=True)
+    for name in ("forward fast exp", "fast exp"):
+        for line in pytest_lines(trees[name], HOLD)[1]:
+            print(f"{name}, holds: {line}", flush=True)
     for name, tree in trees.items():
         rep = subprocess.run(
             [sys.executable, "-c", "from llm_qat_tpu_torch.ops import _build; "

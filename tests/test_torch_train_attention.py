@@ -1,7 +1,7 @@
 """PyTorch port, training slice: the trainable flash path's plain versions
 against the JAX Pallas kernels #5 and #6 (interpret mode) on the CPU, the
-plan of #6's kernels on the card (route, padding), and the
-`attention_impl` dispatch."""
+route of #5's and #6's kernels on the card (one rule for both) and the
+plan of #6's (padding), and the `attention_impl` dispatch."""
 
 import jax
 import jax.numpy as jnp
@@ -101,6 +101,18 @@ def test_flash_bwd_plan_routes_by_dtype_and_head_dim(dtype, D, route):
     GPT-2 size); float32 (no exact float32 product on the tensor cores)
     and bf16 at head_dim 128 take the float32 SIMT kernels."""
     assert ta.flash_bwd_plan(dtype, 1024, D).route == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_fwd_and_bwd_take_the_same_route(dtype, D):
+    """Kernels #5 and #6 change route together: the forward's route
+    (`flash_route`, which `flash_fwd_lse` takes on the card) is the
+    backward's plan's for every operand dtype and head_dim, at every T."""
+    for T in (1, 200, 1024):
+        assert ta.flash_route(dtype, D) == ta.flash_bwd_plan(dtype, T, D).route
+    assert ta.flash_route(dtype, D) == (
+        "wgmma" if (dtype, D) == (torch.bfloat16, 64) else "simt")
 
 
 @pytest.mark.parametrize("T", [1, 64, 128, 200, 1024])

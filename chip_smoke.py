@@ -53,8 +53,9 @@ of one wrapper call), profiles one iteration of each path, and prints:
 
 - the card's name and power limit (nvidia-smi);
 - ptxas's registers, shared memory and spills of each kernel of
-  `csrc/fused_linear.cu`, `csrc/quant_matmul.cu` and
-  `csrc/flash_attention.cu`, and a `ptxas_flash_wgmma` JSON line with the
+  `csrc/fused_linear.cu`, `csrc/quant_matmul.cu`,
+  `csrc/flash_attention.cu` and `csrc/decode_attention.cu`, and a
+  `ptxas_flash_wgmma` JSON line with the
   registers, stack frame and spills of the wgmma kernels of #5/#6;
 - one line per comparison, its error beside its tolerance;
 - `timings`, `serving_timings`, `fused_decode_timings`,
@@ -86,6 +87,18 @@ does the same for #5/#6: their holds at (8, 12, T, 64) (T = 1024 and 256
 in bf16 and float32, T = 200 in bf16), the ptxas lines and `flash_timings`
 (events, graph replay, each wgmma kernel's device time, SDPA's forward and
 backward).
+
+    python3 chip_smoke.py --decode-attention
+
+does the same for the one-token decode attention #7/#8/#9: decode_attention.cu's
+ptxas report; the full run's holds (#7/#8 on packed bf16 caches of T = 512
+at shared and ragged per-slot positions, -1, 0, 1 and T - 1 among them; #9
+on dense caches of T = 192 and 512, bf16 and float32); `da_split_sweep`
+(#9 at path B's shape and #8 at the server's, launched at every split of
+the cluster from 1 to 8, each held, repeated calls bit-equal, timed by
+graph replay beside the plan's split); and `decode_attention_timings` (each
+kernel's profiler device time and graph-replay time beside SDPA's, at the
+main paths' shapes).
 """
 
 from __future__ import annotations
@@ -1021,7 +1034,9 @@ def quant_matmul_phase(dev) -> int:
 
 def decode_attention_vs_plain(gen, dev, B, H, D, failures):
     """Kernels #7 and #8 against their plain versions on packed bf16 caches
-    of T = 512 (the server's max_len), element by element: within
+    of T = 512 (the server's max_len), at shared positions and at two sets
+    of per-slot ones (pos -1, 0, 1 and T - 1 among mid ones, so that slots
+    split their prefixes differently), element by element: within
     DA_BF16_ULPS bf16 ulps at the max |plain| of the output's row plus
     FLASH_TRAIN_F32 of max |plain|; rounded to bf16, at most
     DA_DIFF_SHARE of the outputs may differ at all (both round q and each
@@ -1037,9 +1052,10 @@ def decode_attention_vs_plain(gen, dev, B, H, D, failures):
     q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev).to(bf) for _ in range(3))
     kc, vc = (torch.randn((B, H, Tp, P * D), generator=gen, device=dev).to(bf) for _ in range(2))
     slot_pos = [-1, 0, 17, 100, 255, 300, T - 3, T - 1]
+    ragged = [1, T - 1, -1, 64, 0, 65, 200, 1]
     errs = {}
     for name, positions in (("decode_attention_hbm", (1, 300, T - 1)),
-                            ("decode_attention_hbm_multi", (slot_pos,))):
+                            ("decode_attention_hbm_multi", (slot_pos, ragged))):
         kern, plain = getattr(da, name), getattr(da, name + "_plain")
         err = 0.0
         for pos in positions:
@@ -1477,7 +1493,7 @@ def packed_flops(H, D, positions):
     return sum(2 * 2 * H * D * (max(p, 0) + 1) for p in positions if p >= 0)
 
 
-def da_timings(dev, gen, B, H, D, n_iter=200):
+def da_timings(dev, gen, B, H, D, n_iter=200, graph=False):
     """#7 and #8 at the main paths' shapes (bf16 packed caches), their plain
     versions, and the library yardstick: one F.scaled_dot_product_attention
     of (B, H, 1, D) against the unpacked view with a per-slot length mask.
@@ -1486,7 +1502,9 @@ def da_timings(dev, gen, B, H, D, n_iter=200):
     device time and "library_ms" SDPA's (profiler); one call of either
     takes less device time than the host needs to issue it, so the
     CUDA-event time of back-to-back calls ("wrapper_ms", "library_wall_ms")
-    measures the host."""
+    measures the host. With `graph`, also both by CUDA-graph replay
+    ("graph_ms", "library_graph_ms": the wrapper's call and SDPA's, with
+    their own copies and allocations)."""
     import torch
     import torch.nn.functional as F
 
@@ -1520,7 +1538,142 @@ def da_timings(dev, gen, B, H, D, n_iter=200):
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
                          else "operations")}
+        if graph:
+            out[name]["graph_ms"] = graph_ms(lambda: kern(q, kn, vn, kc, vc, pos), 20)
+            out[name]["library_graph_ms"] = graph_ms(sdpa, 20)
     return out
+
+
+def dense_da_timing(dev, gen, B, H, D, graph=False):
+    """#9 at path B's shape: B slots, T = 192 (path B's cache), pos 160
+    (mid-decode), dense bf16 cache, float32 q/k_new/v_new (the fused
+    layer's qkv): device time (profiler, `k_decode_dense`), the plain
+    version's (CUDA events), bytes, operations and bound; library: SDPA of
+    the bf16 q against the dense cache with a length mask (profiler). With
+    `graph`, also both by CUDA-graph replay ("graph_ms",
+    "library_graph_ms")."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    bf = torch.bfloat16
+    T, pos = FUSED_T0 + FUSED_NEW, FUSED_T0 + FUSED_NEW // 2   # 192, 160
+    q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
+    kc, vc = (torch.randn((B, H, T, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    mask = (torch.arange(T, device=dev) <= pos)[None, None, None, :]
+    qb = q.to(bf)
+    live = pos + 1
+    kern = lambda: da.decode_attention(q, kn, vn, kc, vc, pos)
+    sdpa = lambda: F.scaled_dot_product_attention(qb, kc, vc, attn_mask=mask)
+    out = timing_row(
+        device_ms(kern, 200, ["k_decode_dense"]),
+        cuda_ms(lambda: da.decode_attention_plain(q, kn, vn, kc, vc, pos), 20),
+        device_ms(sdpa, 200),
+        3 * B * H * D * 4 + 2 * B * H * live * D * 2 + B * H * D * 4 + 2 * B * H * D * 2,
+        4 * B * H * D * live / PEAK_BF16_FLOPS)
+    if graph:
+        out["graph_ms"] = graph_ms(kern, 20)
+        out["library_graph_ms"] = graph_ms(sdpa, 20)
+    return out
+
+
+def da_split_sweep(dev, gen, B, H, D, failures):
+    """#9 at path B's shape (dense bf16, T = 192, pos 160) and #8 at the
+    server's (packed bf16, T = 512, slots at 150 ... 374) launched at every
+    split of the cluster from 1 to 8 (`launch_dense`, `launch_hbm`),
+    bypassing the plans: each split held against the plain version as the
+    full run holds the wrappers (#9 within DA9_ABS; #8 within DA_BF16_ULPS
+    and DA_DIFF_SHARE; the caches bit-equal to the plain version's), two
+    calls bit-equal, and timed by graph replay (`graph_ms`, device ms per
+    call) beside the split the plan picks. Returns {"name": {...}}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    bf = torch.bfloat16
+    P = 128 // D
+    Td, pd = FUSED_T0 + FUSED_NEW, [FUSED_T0 + FUSED_NEW // 2] * B
+    dq, dkn, dvn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
+    dkc, dvc = (torch.randn((B, H, Td, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    Tp, ph = 256, [150, 182, 214, 246, 278, 310, 342, 374]
+    hq, hkn, hvn = (torch.randn((B, H, 1, D), generator=gen, device=dev).to(bf)
+                    for _ in range(3))
+    hkc, hvc = (torch.randn((B, H, Tp, P * D), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+    cases = {
+        "decode_attention": (
+            lambda kc, vc, s: (da.launch_dense(dq, dkn, dvn, kc, vc, pd, s), kc, vc),
+            lambda kc, vc: da.decode_attention_plain(dq, dkn, dvn, kc, vc, pd),
+            dkc, dvc, da.dense_split(pd)),
+        "decode_attention_hbm_multi": (
+            lambda kc, vc, s: da.launch_hbm(hq, hkn, hvn, kc, vc, ph, 32, s),
+            lambda kc, vc: da.decode_attention_hbm_multi_plain(hq, hkn, hvn, kc, vc, ph),
+            hkc, hvc, da.hbm_split(ph, P, 32))}
+    out = {}
+    for name, (launch, plain, kc0, vc0, plan) in cases.items():
+        op, pk, pv = plain(kc0.clone(), vc0.clone())
+        ms, err = {}, {}
+        for split in range(1, da.MAX_SPLIT + 1):
+            ok, ck, cv = launch(kc0.clone(), vc0.clone(), split)
+            again = launch(kc0.clone(), vc0.clone(), split)[0]
+            torch.cuda.synchronize()
+            same = torch.equal(ck, pk) and torch.equal(cv, pv) and torch.equal(ok, again)
+            if name == "decode_attention":
+                err[split] = (ok - op).abs().max().item()
+                good = err[split] <= DA9_ABS
+            else:
+                err[split] = bf16_row_ulps(ok, op, FLASH_TRAIN_F32 * op.abs().max()).max().item()
+                share = (ok.to(bf) != op.to(bf)).float().mean().item()
+                good = err[split] <= DA_BF16_ULPS and share <= DA_DIFF_SHARE
+            if not (good and same):
+                failures.append(f"{name} split {split}: err {err[split]:.3e}, caches equal and "
+                                f"repeat bit-equal {same}")
+            kc, vc = kc0.clone(), vc0.clone()
+            ms[split] = graph_ms(lambda: launch(kc, vc, split), 20)
+        best = min(ms, key=ms.get)
+        out[name] = {"ms": ms, "err": err, "plan": plan, "plan_ms": ms[plan], "best": best,
+                     "best_ms": ms[best]}
+        unit = "max abs err" if name == "decode_attention" else "bf16 ulps of the row's max"
+        print(f"{name} split sweep (split: device ms by graph replay, {unit}): "
+              + ", ".join(f"{s_}: {ms[s_]:.4f} {err[s_]:.2e}" for s_ in ms)
+              + f"; plan {plan} ({ms[plan]:.4f}), best {best} ({ms[best]:.4f})", flush=True)
+    print("da_split_sweep " + json.dumps(out), flush=True)
+    return out
+
+
+def decode_attention_phase(dev) -> int:
+    """`--decode-attention`: kernels #7/#8/#9 alone, held against their
+    plain versions as in the full run, then (where the tree has the split
+    launchers) at every split of the cluster, and timed at the main paths'
+    shapes by the profiler and by graph replay beside SDPA, with
+    decode_attention.cu's ptxas report (for A/B runs of two trees on one
+    card). Prints no result line; returns 1 if a hold failed."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import decode_attention as da
+
+    print("ptxas, csrc/decode_attention.cu:\n" + _build.ptxas_report("decode_attention"),
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H, D = 8, 12, 64
+    failures = []
+    decode_attention_vs_plain(gen, dev, B, H, D, failures)
+    dense_attention_vs_plain(gen, dev, B, H, D, failures)
+    if hasattr(da, "launch_dense"):
+        da_split_sweep(dev, gen, B, H, D, failures)
+    tm = da_timings(dev, gen, B, H, D, graph=True)
+    tm["decode_attention"] = dense_da_timing(dev, gen, B, H, D, graph=True)
+    print("decode_attention_timings " + json.dumps(tm), flush=True)
+    for name, r in tm.items():
+        print(f"{name}: {r['ms']:.4f} ms device time (profiler), {r['graph_ms']:.4f} by graph "
+              f"replay; SDPA {r['library_ms']:.4f} / {r['library_graph_ms']:.4f}; bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    for f in failures:
+        print(f"chip_smoke --decode-attention: FAIL {f}", flush=True)
+    return 1 if failures else 0
 
 
 def step_bytes(mw, kv_rows, kv_row_bytes, B, d, appended_row_bytes):
@@ -1924,35 +2077,19 @@ def qmm_timings(tree, gen, dev, n_iter=50):
 def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
     """#9-#13 at their main paths' shapes: device time (profiler), the plain
     versions' time (CUDA events), bytes, operations and bounds, and the
-    library yardsticks. #10/#11: `qmm_timings`. #9: B = 8, T = 192 (path B's
-    cache), pos 160 (mid-decode), bf16 cache; library: SDPA of the bf16 q against the
-    dense cache with a length mask. #12/#13: layer 0 of the int8_xla tree;
-    no single PyTorch call computes either."""
+    library yardsticks. #10/#11: `qmm_timings`. #9: `dense_da_timing`.
+    #12/#13: layer 0 of the int8_xla tree; no single PyTorch call computes
+    either."""
     import torch
-    import torch.nn.functional as F
 
     from llm_qat_tpu_torch.models.sp_model import _layer
-    from llm_qat_tpu_torch.ops import decode_attention as da
     from llm_qat_tpu_torch.ops import fused_decode as fd
 
     m = cfg.model
     d, H, D, r = m.n_embd, m.n_head, m.head_dim, cfg.quant.max_rank
-    bf = torch.bfloat16
 
     out = qmm_timings(trees["int8"], gen, dev, n_iter)
-
-    T, pos = FUSED_T0 + FUSED_NEW, FUSED_T0 + FUSED_NEW // 2   # 192, 160
-    q, kn, vn = (torch.randn((B, H, 1, D), generator=gen, device=dev) for _ in range(3))
-    kc, vc = (torch.randn((B, H, T, D), generator=gen, device=dev).to(bf) for _ in range(2))
-    mask = (torch.arange(T, device=dev) <= pos)[None, None, None, :]
-    qb = q.to(bf)
-    live = pos + 1
-    out["decode_attention"] = timing_row(
-        device_ms(lambda: da.decode_attention(q, kn, vn, kc, vc, pos), 200, ["k_decode_dense"]),
-        cuda_ms(lambda: da.decode_attention_plain(q, kn, vn, kc, vc, pos), 20),
-        device_ms(lambda: F.scaled_dot_product_attention(qb, kc, vc, attn_mask=mask), 200),
-        3 * B * H * D * 4 + 2 * B * H * live * D * 2 + B * H * D * 4 + 2 * B * H * D * 2,
-        4 * B * H * D * live / PEAK_BF16_FLOPS)
+    out["decode_attention"] = dense_da_timing(dev, gen, B, H, D)
 
     bp = _layer(trees[8]["blocks"], 0)
     ca = bp["c_attn"]
@@ -1998,6 +2135,8 @@ def main() -> int:
                     help="only hold and time kernels #10/#11")
     ap.add_argument("--flash", action="store_true",
                     help="only hold and time kernels #5/#6")
+    ap.add_argument("--decode-attention", action="store_true",
+                    help="only hold, sweep and time kernels #7/#8/#9")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2041,7 +2180,9 @@ def main() -> int:
         return quant_matmul_phase(dev)
     if args.flash:
         return flash_phase(dev)
-    for src in ("fused_linear", "quant_matmul", "flash_attention"):
+    if args.decode_attention:
+        return decode_attention_phase(dev)
+    for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
     print_ptxas_wgmma_flash(_build)
 

@@ -48,8 +48,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
         "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P]},
     "decode_attention": {
-        "decode_attention_hbm": [_P] * 7 + [_I] * 7 + [_F, _P],
-        "decode_attention_dense": [_P] * 7 + [_I] * 5 + [_F, _P]},
+        "decode_attention_hbm": [_P] * 7 + [_I] * 8 + [_F, _P],
+        "decode_attention_dense": [_P] * 7 + [_I] * 6 + [_F, _P]},
     "fused_linear": {
         "fused_linear_fq_weight": [_P] * 7 + [_I] * 5 + [_F, _P],
         "fused_linear_fwd_wgmma": [_P] * 10 + [_I] * 5 + [_F, _P],

@@ -12,6 +12,14 @@ position per slot; the shared position is broadcast to every slot. #9 is a
 second kernel in the same source. Each has its plain PyTorch version
 beside it.
 
+Both kernels split each (b, h) over the blocks of a thread block cluster
+(`MAX_SPLIT` at most). The plans are host functions here: `dense_split`
+(#9: rows of the longest live prefix, about `DENSE_ROWS_PER_BLOCK` a
+block) and `hbm_split` (#7/#8: one block per JAX block of the longest
+prefix); `split_ranges` is the cut both kernels make of each slot's own
+prefix. `launch_dense` and `launch_hbm` launch a kernel at a given split
+(for the split sweep and the tests), without counting.
+
 Dense layout (#9): caches (B, H, T, D). The new K/V row is written at pos
 in the cache dtype, then q·sm_scale (float32, not rounded) attends over
 rows 0 … pos with one exact softmax; the probabilities stay float32 and
@@ -40,6 +48,11 @@ from . import _build
 
 NEG_INF = -1e30
 MAX_SLOTS = 256  # slots per call: the kernel takes the positions by value
+MAX_SPLIT = 8    # blocks of a thread block cluster (the portable limit)
+# #9's rows of the prefix per cluster block: one chunk of 16-byte loads in
+# flight per thread at bf16 and head_dim 64 (the kernel's UNROLL x 16 rows);
+# at path B's 161 rows the split sweep measured 3 blocks fastest (PERF.md)
+DENSE_ROWS_PER_BLOCK = 64
 
 
 def kv_pack_factor(head_dim: int) -> int:
@@ -92,6 +105,34 @@ def block_rows(T: int, tbp: int) -> int:
     if T % tbp or tbp % 8:
         raise ValueError(f"cache length {T} has no tbp multiple of 8 dividing it")
     return tbp
+
+
+def split_ranges(n: int, split: int):
+    """The kernels' cut of n items (#9: rows 0 .. pos; #7/#8: JAX blocks of
+    the prefix) over the `split` blocks of a cluster: block r takes
+    [r·per, min(n, (r+1)·per)), per = ceil(n / split), clipped to n."""
+    per = -(-n // split)
+    return [(min(n, r * per), min(n, (r + 1) * per)) for r in range(split)]
+
+
+def dense_split(pos) -> int:
+    """#9's blocks per cluster for (B,) host positions: about
+    DENSE_ROWS_PER_BLOCK rows of the longest prefix (pos + 1 rows) a block,
+    1 to MAX_SPLIT (1 for pos 0)."""
+    n = int(np.max(pos)) + 1
+    return max(1, min(MAX_SPLIT, -(-n // DENSE_ROWS_PER_BLOCK)))
+
+
+def hbm_blocks(pos, P: int, tbp: int) -> np.ndarray:
+    """JAX blocks of tbp packed rows (P timesteps each) in each slot's
+    prefix [0, pos): ceil(pos / (P·tbp)), 0 for pos <= 0."""
+    return -(-np.maximum(np.asarray(pos, np.int64), 0) // (P * tbp))
+
+
+def hbm_split(pos, P: int, tbp: int) -> int:
+    """#7/#8's blocks per cluster for (B,) host positions: one per JAX block
+    of the longest prefix, 1 to MAX_SPLIT."""
+    return max(1, min(MAX_SPLIT, int(hbm_blocks(pos, P, tbp).max())))
 
 
 def _positions(pos, B: int, T: int, shared: bool) -> np.ndarray:
@@ -201,14 +242,19 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     host = _dense_positions(pos, B, k_cache.shape[2])
     if q.device.type == "cpu":
         return _dense_plain(q, k_new, v_new, k_cache, v_cache, host)
-    B, H, T, D = _check_dense(q, k_new, v_new, k_cache, v_cache)
-    what = "decode_attention"
-    if D not in (32, 64, 128):
-        raise ValueError(f"{what}: head_dim must be 32, 64 or 128; got {D}")
-    if T + 33 + 128 > 12 * 1024:
-        raise ValueError(f"{what}: at most {12 * 1024 - 161} cache rows; got {T}")
-    if B > MAX_SLOTS:
-        raise ValueError(f"{what}: at most {MAX_SLOTS} slots; got {B}")
+    out = launch_dense(q, k_new, v_new, k_cache, v_cache, host, dense_split(host))
+    decode_attention.launches += 1
+    return out.to(q.dtype), k_cache, v_cache
+
+
+def _check_launch(what, q, k_new, v_new, k_cache, v_cache, split):
+    """The checks both kernels share: a CUDA device, split, cache dtype,
+    devices, caches contiguous and 16-byte aligned (appended in place; read
+    in 16-byte vectors)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel runs on a CUDA device; got {q.device}")
+    if not 1 <= split <= MAX_SPLIT:
+        raise ValueError(f"{what}: split must be 1 to {MAX_SPLIT}; got {split}")
     cdt = k_cache.dtype
     if cdt not in _CACHE_DTYPE_CODE:
         raise ValueError(f"{what}: caches must be float32 or bfloat16; got {cdt}")
@@ -219,16 +265,34 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():  # appended in place: no copy may stand in
             raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
+
+
+def launch_dense(q, k_new, v_new, k_cache, v_cache, pos, split: int):
+    """Launch #9's kernel with `split` blocks per cluster (1 to MAX_SPLIT),
+    bypassing `dense_split`; pos as for `decode_attention`. Returns the
+    (B, H, 1, D) float32 output; caches updated in place. Not counted in
+    `decode_attention.launches`."""
+    B, H, T, D = _check_dense(q, k_new, v_new, k_cache, v_cache)
+    host = _dense_positions(pos, B, T)
+    what = "decode_attention"
+    if D not in (32, 64, 128):
+        raise ValueError(f"{what}: head_dim must be 32, 64 or 128; got {D}")
+    if T + 33 + 128 > 12 * 1024:
+        raise ValueError(f"{what}: at most {12 * 1024 - 161} cache rows; got {T}")
+    if B > MAX_SLOTS:
+        raise ValueError(f"{what}: at most {MAX_SLOTS} slots; got {B}")
+    _check_launch(what, q, k_new, v_new, k_cache, v_cache, split)
     qf, kf, vf = (t.to(torch.float32).contiguous() for t in (q, k_new, v_new))
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_dense(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), out.data_ptr(), host.ctypes.data, B, H, D, T,
-        _CACHE_DTYPE_CODE[cdt], 1.0 / math.sqrt(D), _build.stream(q))
+        _CACHE_DTYPE_CODE[k_cache.dtype], split, 1.0 / math.sqrt(D), _build.stream(q))
     _build.check(lib, rc, what)
-    decode_attention.launches += 1
-    return out.to(q.dtype), k_cache, v_cache
+    return out
 
 
 def _hbm_plain(q, k_new, v_new, k_cache, v_cache, pos, tbp):
@@ -306,35 +370,38 @@ def decode_attention_hbm_multi_plain(q, k_new, v_new, k_cache, v_cache, pos,
 _CACHE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(q, k_new, v_new, k_cache, v_cache, pos, tbp, what):
-    """Check the operands and launch the CUDA kernel; returns (out, k, v)."""
+def launch_hbm(q, k_new, v_new, k_cache, v_cache, pos, tbp: int, split: int,
+               what: str = "decode_attention_hbm_multi"):
+    """Check the operands and launch #7/#8's kernel with `split` blocks per
+    cluster (1 to MAX_SPLIT), bypassing `hbm_split`; pos: (B,) positions on
+    the host, -1 inactive. Returns (out (B, H, 1, D) float32, k_cache,
+    v_cache), caches updated in place. Not counted."""
     B, H, D, P, Tp = _check_shapes(q, k_new, v_new, k_cache, v_cache)
     tbp = block_rows(Tp, tbp)
-    if P * D != 128 or D % 4:
+    host = _positions(pos, B, P * Tp, False)
+    if P * D != 128 or D % 8:
         raise ValueError(f"{what}: the kernel takes 128-lane packed rows of head "
-                         f"groups (head_dim 16, 32 or 64); got head_dim {D}")
+                         f"groups (head_dim 8, 16, 32, 64 or 128); got head_dim {D}")
     if B > MAX_SLOTS:
         raise ValueError(f"{what}: at most {MAX_SLOTS} slots; got {B}")
-    cdt = k_cache.dtype
-    if cdt not in _CACHE_DTYPE_CODE:
-        raise ValueError(f"{what}: caches must be float32 or bfloat16; got {cdt}")
-    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache),
-                    ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"{what}: {name} must be on {q.device}; got {t.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if not t.is_contiguous():  # appended in place: no copy may stand in
-            raise ValueError(f"{what}: {name} must be contiguous")
+    _check_launch(what, q, k_new, v_new, k_cache, v_cache, split)
     qf, kf, vf = (t.to(torch.float32).contiguous() for t in (q, k_new, v_new))
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
-    host = np.ascontiguousarray(pos, np.int32)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_hbm(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), out.data_ptr(), host.ctypes.data, B, H, D, Tp, P,
-        tbp, _CACHE_DTYPE_CODE[cdt], 1.0 / math.sqrt(D), _build.stream(q))
+        tbp, _CACHE_DTYPE_CODE[k_cache.dtype], split, 1.0 / math.sqrt(D),
+        _build.stream(q))
     _build.check(lib, rc, what)
     return out, k_cache, v_cache
+
+
+def _launch(q, k_new, v_new, k_cache, v_cache, pos, tbp, what):
+    """Launch #7/#8's kernel at `hbm_split`'s plan; returns (out, k, v)."""
+    P = kv_pack_factor(q.shape[-1])
+    split = hbm_split(pos, P, block_rows(k_cache.shape[2], tbp))
+    return launch_hbm(q, k_new, v_new, k_cache, v_cache, pos, tbp, split, what)
 
 
 def decode_attention_hbm(q, k_new, v_new, k_cache, v_cache, pos, *,

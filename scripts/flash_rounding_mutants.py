@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Mutation check of the bf16 test of the port's flash training kernels,
-and timed ablations of the wgmma routes of kernels #5 and #6.
+"""Mutation check of the bf16 tests of the port's flash training kernels
+and of its packed decode attention kernel, and timed ablations of the
+wgmma routes of kernels #5 and #6.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/flash_rounding_mutants.py
+    python3 scripts/flash_rounding_mutants.py --decode-attention
     python3 scripts/flash_rounding_mutants.py --ablations
 
 Each mutant or ablation is a copy of the checkout under `build/mutants/` in
-which lines of `llm_qat_tpu_torch/csrc/flash_attention.cu` are edited, as
-the tables below say (an edit whose line is not found once stops the
-script). The copies are removed at the end.
+which lines of `llm_qat_tpu_torch/csrc/flash_attention.cu` (or, for the
+decode attention mutant, `csrc/decode_attention.cu`) are edited, as the
+tables below say (an edit whose line is not found once stops the script).
+The copies are removed at the end.
 
 Mutants remove or move one rounding to the operand type: P before P.V in
 the SIMT forward, P before dV, or dS before dQ and dK, in the SIMT
@@ -25,6 +28,16 @@ head_dim 64 and 128 (T = 128 and 1024) must fail on every mutant. The
 script prints the test's own lines (largest error in bf16 ulps, share of
 outputs that differ) for each mutant and exits 1 unless the test failed on
 every mutant.
+
+The decode attention mutant splits as `k_decode_hbm` (#7/#8) does, but
+rounds each JAX block's probabilities to bf16 at the maximum of the JAX
+blocks that its block of the cluster owns, instead of at the TPU kernel's
+running maximum (the result is the same in exact arithmetic; only the
+rounding points move). The bf16 cases of
+`tests/test_torch_cuda.py::test_decode_attention_kernels_match_plain` must
+fail on it; the script prints their lines (largest error in bf16 ulps of
+the row's max, share of bf16-rounded outputs that differ). With
+--decode-attention only this mutant runs.
 
 With --ablations each copy changes one part of the wgmma forward:
 - "forward fast exp": expf becomes __expf; the bf16 holds at head_dim 64
@@ -70,6 +83,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = Path("llm_qat_tpu_torch/csrc/flash_attention.cu")
+DA_SOURCE = Path("llm_qat_tpu_torch/csrc/decode_attention.cu")
 TRUNC = "__uint_as_float(__float_as_uint({}) & 0xffff0000u)"  # toward zero
 ROUND = "__bfloat162float(__float2bfloat16_rn({}))"
 D_ROWS = [("d2.x", "d2.y"), ("dr[h]", "dr[h]")]  # D in the dK/dV kernel, in the dQ kernel
@@ -109,6 +123,13 @@ MUTANTS = {
 }
 SELECT = ("test_flash_train_kernels_match_plain and (64-128-dtype1 or 64-1024-dtype1 "
           "or 128-128-dtype1 or 128-1024-dtype1)")
+# (source, edits, the tests that must fail)
+DA_MUTANTS = {
+    "packed decode P at the cluster block's local maximum": (DA_SOURCE, [
+        ("    mr = fmaxf(mr, allb[j]);  // m_run[j]\n",
+         "    mr = allb[j0];\n    for (int k = j0 + 1; k < j1; ++k) mr = fmaxf(mr, allb[k]);\n")],
+        "test_decode_attention_kernels_match_plain and dtype1"),
+}
 
 EXPS = [("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), l2.x));", "sa[e]"),
         ("p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), l2.y));", "sa[e + 1]"),
@@ -165,17 +186,17 @@ print(json.dumps(out))
 WORK = ROOT / "build" / "mutants"
 
 
-def copy_with(i: int, name: str, edits) -> Path:
-    """A copy of the checkout with `edits` (old, new) applied to SOURCE."""
+def copy_with(i: int, name: str, edits, source: Path = SOURCE) -> Path:
+    """A copy of the checkout with `edits` (old, new) applied to `source`."""
     dst = WORK / str(i)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(".git", "build", "__pycache__"))
-    src = (dst / SOURCE).read_text()
+    src = (dst / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"{name!r}: {old!r} not found once")
         src = src.replace(old, new)
-    (dst / SOURCE).write_text(src)
+    (dst / source).write_text(src)
     return dst
 
 
@@ -188,13 +209,16 @@ def pytest_lines(tree: Path, select: str):
         cwd=tree, capture_output=True, text=True, timeout=900)
     lines = [ln.lstrip(".F") for ln in run.stdout.splitlines()]
     return run.returncode, [ln for ln in lines
-                            if re.match(r"(o|dq|dk|dv) max bf16 ulps|\d+ (passed|failed)", ln)]
+                            if re.match(r"(o|out|dq|dk|dv) max bf16 ulps|\d+ (passed|failed)", ln)]
 
 
-def mutants() -> int:
+def mutants(decode_only: bool) -> int:
     survivors = []
-    for i, (name, edits) in enumerate(MUTANTS.items()):
-        rc, lines = pytest_lines(copy_with(i, name, edits), SELECT)
+    table = [] if decode_only else [(name, SOURCE, edits, SELECT)
+                                    for name, edits in MUTANTS.items()]
+    table += [(name, *rest) for name, rest in DA_MUTANTS.items()]
+    for i, (name, source, edits, select) in enumerate(table):
+        rc, lines = pytest_lines(copy_with(i, name, edits, source), select)
         for line in lines:
             print(f"mutant {name}: {line}", flush=True)
         if rc != 1:  # 1: tests ran and failed
@@ -230,7 +254,9 @@ def ablations() -> int:
 
 def main() -> int:
     try:
-        return ablations() if "--ablations" in sys.argv[1:] else mutants()
+        if "--ablations" in sys.argv[1:]:
+            return ablations()
+        return mutants("--decode-attention" in sys.argv[1:])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

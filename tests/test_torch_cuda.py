@@ -683,17 +683,48 @@ def test_fused_sp_linear_runs_the_kernels(cuda_device):
     assert bool(torch.isfinite(p["blocks"]["c_fc"]["w"].grad).all())
 
 
+def _hold_packed(ok, op, dtype, what):
+    """#7/#8's hold on the active slots' outputs: float32 within 1e-5;
+    bf16-cache outputs within 2 bf16 ulps of their row's max plus 1e-5
+    and, rounded to bf16, at most 2 % of them differing."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(ok, op, atol=1e-5, rtol=0, msg=what)
+        return
+    ulps = bf16_row_ulps(ok, op, 1e-5).max().item()
+    share = (ok.to(dtype) != op.to(dtype)).float().mean().item()
+    print(f"out max bf16 ulps of the row's max {ulps} share differing {share} ({what})")
+    assert ulps <= 2, what
+    assert share <= 2e-2, (what, share)
+
+
+def _kept_outside_append(new, old, pos, D):
+    """Every cache byte outside the appended lane groups (row pos // P,
+    lanes (pos % P)·D .. + D of each slot with pos >= 0) as it was."""
+    keep = torch.ones(new.shape, dtype=torch.bool, device=new.device)
+    P = new.shape[-1] // D
+    for b, p in enumerate(pos):
+        if p >= 0:
+            keep[b, :, p // P, (p % P) * D:(p % P + 1) * D] = False
+    return torch.equal(new[keep], old[keep])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 32])
 def test_decode_attention_kernels_match_plain(cuda_device, dtype, D):
     """#7 (shared position 0, 17, T - 1) and #8 (positions -1, 0, 17, T - 1)
-    against their plain versions on packed caches. Both round q·sm_scale and
-    each block's probabilities to the cache dtype at the same block maxima,
-    so they differ by the order of float32 sums: float32 outputs within
-    1e-5 (values O(1)); bf16-cache outputs within 2 bf16 ulps of their row's
+    against their plain versions on packed caches, through the wrappers and
+    at every forced split of the cluster (1-8 blocks, `launch_hbm`), with
+    per-slot positions whose prefixes split differently, for JAX blocks of
+    16 packed rows and of 8 (4 and 8 JAX blocks at T - 1; below 8 blocks
+    a block of the cluster takes several). Both round q·sm_scale and each JAX block's
+    probabilities to the cache dtype at the same running maxima, so they
+    differ by the order of float32 sums: float32 outputs within 1e-5
+    (values O(1)); bf16-cache outputs within 2 bf16 ulps of their row's
     max plus 1e-5, and, rounded to bf16, at most 2 % of them differing (a
-    kernel that skipped a rounding would move a third of them). The caches
-    must be bit-equal after the append (the inactive slot's untouched)."""
+    kernel that rounded at another maximum, or skipped a rounding, would
+    move more). The caches must be bit-equal after the append, every byte
+    outside the appended lane groups untouched (the inactive slot's all);
+    a second call on the same inputs gives bit-equal outputs."""
     from llm_qat_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device=cuda_device).manual_seed(D)
@@ -715,13 +746,24 @@ def test_decode_attention_kernels_match_plain(cuda_device, dtype, D):
         torch.cuda.synchronize()
         assert torch.equal(ck, pk) and torch.equal(cv, pv), pos
         act = torch.tensor(pos, device=cuda_device).expand(B) >= 0
-        ok, op = ok[act], op[act]
-        if dtype == torch.float32:
-            torch.testing.assert_close(ok, op, atol=1e-5, rtol=0)
-        else:
-            assert bf16_row_ulps(ok, op, 1e-5).max() <= 2, pos
-            share = (ok.to(dtype) != op.to(dtype)).float().mean().item()
-            assert share <= 2e-2, (pos, share)
+        _hold_packed(ok[act], op[act], dtype, f"{kern.__name__} pos {pos}")
+    for tbp in (16, 8):
+        for pos in ([-1, 0, 17, T - 1], [1, T - 1, 40, 0], [T - 1, 33, -1, 64]):
+            op, pk, pv = da.decode_attention_hbm_multi_plain(
+                q, kn, vn, kc.clone(), vc.clone(), pos, tbp=tbp)
+            act = torch.tensor(pos, device=cuda_device) >= 0
+            before = da.decode_attention_hbm_multi.launches
+            for split in range(1, da.MAX_SPLIT + 1):
+                ok, ck, cv = da.launch_hbm(q, kn, vn, kc.clone(), vc.clone(), pos, tbp, split)
+                again = da.launch_hbm(q, kn, vn, kc.clone(), vc.clone(), pos, tbp, split)[0]
+                torch.cuda.synchronize()
+                what = f"tbp {tbp} pos {pos} split {split}"
+                assert torch.equal(ok, again), what
+                assert torch.equal(ck, pk) and torch.equal(cv, pv), what
+                assert _kept_outside_append(ck, kc, pos, D), what
+                assert _kept_outside_append(cv, vc, pos, D), what
+                _hold_packed(ok[act], op[act], dtype, what)
+            assert da.decode_attention_hbm_multi.launches == before
 
 
 def test_decode_attention_wrappers_check_positions(cuda_device):
@@ -988,9 +1030,12 @@ def test_quant_matmul_kernels_take_unaligned_views(cuda_device, bits, M):
 @pytest.mark.parametrize("D", [64, 128, 32])
 def test_dense_decode_attention_kernel_matches_plain(cuda_device, dtype, D):
     """#9 against its plain version at shared positions 0, 17, T - 1 and
-    per-slot ones: outputs within 1e-5 (float32 scores and probabilities in
-    both; sums in another order; values O(1)); the caches bit-equal, with
-    only row pos of each slot written."""
+    per-slot ones, through the wrapper and at every forced split of the
+    cluster (1-8 blocks, `launch_dense`), with per-slot positions whose
+    prefixes split differently: outputs within 1e-5 (float32 scores and
+    probabilities in both; sums in another order; values O(1)); the caches
+    bit-equal, with only row pos of each slot written; a second call on the
+    same inputs gives bit-equal outputs."""
     from llm_qat_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device=cuda_device).manual_seed(D)
@@ -999,18 +1044,33 @@ def test_dense_decode_attention_kernel_matches_plain(cuda_device, dtype, D):
                  for _ in range(3))
     kc, vc = (torch.randn((B, H, T, D), generator=g, device=cuda_device).to(dtype)
               for _ in range(2))
+
+    def held(ok, ck, cv, op, pk, pv, pos, what):
+        assert torch.equal(ck, pk) and torch.equal(cv, pv), what
+        p = torch.tensor(pos, device=cuda_device).expand(B)
+        rest = (torch.arange(T, device=cuda_device)[None] != p[:, None])[:, None].expand(B, H, T)
+        assert torch.equal(ck[rest], kc[rest]) and torch.equal(cv[rest], vc[rest]), what
+        torch.testing.assert_close(ok, op, atol=1e-5, rtol=0, msg=what)
+
     for pos in (0, 17, T - 1, [5, 0, T - 1, 100]):
         before = da.decode_attention.launches
         ok, ck, cv = da.decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
         assert da.decode_attention.launches == before + 1
         op, pk, pv = da.decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
         torch.cuda.synchronize()
-        assert torch.equal(ck, pk) and torch.equal(cv, pv), pos
-        p = torch.tensor(pos, device=cuda_device).expand(B)
-        rest = torch.arange(T, device=cuda_device)[None] != p[:, None]   # (B, T)
-        assert torch.equal(ck[rest[:, None].expand(B, H, T)],
-                           kc[rest[:, None].expand(B, H, T)]), pos
-        torch.testing.assert_close(ok, op, atol=1e-5, rtol=0)
+        held(ok, ck, cv, op, pk, pv, pos, f"pos {pos}")
+    for pos in ([5, 0, T - 1, 100], [1, 23, 24, T - 2], [160] * B):
+        op, pk, pv = da.decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
+        before = da.decode_attention.launches
+        for split in range(1, da.MAX_SPLIT + 1):
+            ck, cv = kc.clone(), vc.clone()
+            ok = da.launch_dense(q, kn, vn, ck, cv, pos, split)
+            again = da.launch_dense(q, kn, vn, kc.clone(), vc.clone(), pos, split)
+            torch.cuda.synchronize()
+            what = f"pos {pos} split {split}"
+            assert torch.equal(ok, again), what
+            held(ok, ck, cv, op, pk, pv, pos, what)
+        assert da.decode_attention.launches == before
 
 
 def _fused_layer(dev, g, d, dff, lora):

@@ -99,6 +99,19 @@ the cluster from 1 to 8, each held, repeated calls bit-equal, timed by
 graph replay beside the plan's split); and `decode_attention_timings` (each
 kernel's profiler device time and graph-replay time beside SDPA's, at the
 main paths' shapes).
+
+    python3 chip_smoke.py --mega-decode
+
+does the same for the decode steps #1/#4 (one launch a step of the
+persistent kernel `k_mega`): mega_decode.cu's ptxas report; #1's and #4's
+holds as in the full run; `mega_timings` at #1's pos 160 and bench shape
+and #4's server shape (events, profiler device time, graph replay, the
+launches per step by kernel, each phase's and barrier's time from the
+kernel's barrier clock, the step at 1, 2, 4 and 12 layers with its cost per
+layer, and a grid sweep: the plan's grid, half of it, one and two blocks
+per SM, each held and its repeat calls compared); then `mega_e2e`
+(`decode_tok_s` at the bench shapes and the mega W8 KV8 / W4 KV4 servers'
+end-to-end and steady tokens/s, without their token replays).
 """
 
 from __future__ import annotations
@@ -1215,6 +1228,106 @@ def cb_step_vs_plain(md, trees, cfg, gen, dev, B, failures, spread):
     return err
 
 
+def kv8_step_vs_plain(md, trees, cfg, gen, dev, B, failures):
+    """Kernel #1 against its plain version at GPT-2 width: W4 KV4 with int8
+    LoRA banks and W8 KV8 with bf16 banks, a 384-row cache, float32 and
+    bf16 activations, pos 64 and 300, full depth and each layer alone (the
+    limits atop this script; the rows' spread against MEGA_ROW_TIGHT).
+    Returns the full-depth h_out max abs error."""
+    import torch
+
+    m = cfg.model
+    L, d, H = m.n_layer, m.n_embd, m.n_head
+    err = 0.0
+
+    def compare_step(h, mw, caches0, pos, kw):
+        """Kernel vs plain on copies of caches0: (row errors, differing
+        codes, codes, largest code difference, scale relative error, h_out
+        max abs error)."""
+        ck = [c.clone() for c in caches0]
+        cp = [c.clone() for c in caches0]
+        out_k = md.mega_decode_step_kv8(h, mw, *ck, pos, **kw)
+        out_p = md.mega_decode_step_kv8_plain(h, mw, *cp, pos, **kw)
+        rows = ((out_k[0] - out_p[0]).abs().amax(dim=1)
+                / out_p[0].abs().max()).tolist()
+        kvb = kw["kv_bits"]
+        dcode = torch.cat([(md._kv_codes(a[:, :, pos], kvb) - md._kv_codes(b[:, :, pos], kvb))
+                           .flatten() for a, b in zip(out_k[1:3], out_p[1:3])])
+        srel = max(((a[:, :, pos] - b[:, :, pos]).abs() / b[:, :, pos]).max().item()
+                   for a, b in zip(out_k[3:], out_p[3:]))
+        rest = [t for t in range(caches0[0].shape[2]) if t != pos]
+        if not all(torch.equal(a[:, :, rest], c[:, :, rest])
+                   for a, c in zip(out_k[1:], caches0)):
+            failures.append("mega step touched cache rows other than pos")
+        return (rows, int((dcode != 0).sum()), dcode.numel(),
+                int(dcode.abs().max()), srel, (out_k[0] - out_p[0]).abs().max().item())
+
+    cases = [(4, 4, True), (8, 8, False)]  # (weight bits, kv bits, int8 LoRA)
+    spread = {}  # (depth, act) -> row errors
+    for wbits, kv_bits, lora_i8 in cases:
+        tree = trees[wbits]
+        mw = md.pack_mega_weights(tree, cfg, lora_int8=lora_i8)
+        check((mw.at.dtype == torch.int8) == lora_i8, "LoRA bank dtype")
+        aq = float(tree["blocks"]["c_attn"]["qmax"][0]) if wbits == 4 else 127.0
+        T = 384
+        dc = d if kv_bits == 8 else d // 2
+        lo = -127 if kv_bits == 8 else -128
+        caches0 = [torch.randint(lo, 128, (L, B, T, dc), generator=gen, device=dev,
+                                 dtype=torch.int8) for _ in range(2)]
+        caches0 += [0.01 + 0.04 * torch.rand((L, B, T), generator=gen, device=dev)
+                    for _ in range(2)]
+        for act in (torch.float32, torch.bfloat16):
+            an = str(act)[6:]
+            for pos in (64, 300):
+                h = 0.5 * torch.randn((B, d), generator=gen, device=dev)
+                kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act,
+                          aq_max=aq, tbp=64, kv_bits=kv_bits, tiles_per_step=4)
+                runs = {"step": [compare_step(h, mw, caches0, pos, kw)],
+                        "layer": [compare_step(
+                            h, md.MegaWeights(*(t[l:l + 1] for t in mw)),
+                            [c[l:l + 1] for c in caches0], pos, kw) for l in range(L)]}
+                for depth, res in runs.items():
+                    rows = [e for r in res for e in r[0]]
+                    ndiff, ncode = sum(r[1] for r in res), sum(r[2] for r in res)
+                    cmax, srel = max(r[3] for r in res), max(r[4] for r in res)
+                    spread.setdefault((depth, an), []).extend(rows)
+                    tols = (f"row tol {MEGA_STEP_MAX:g}; codes and scales not held at "
+                            f"full depth" if depth == "step" else
+                            f"row tol {MEGA_LAYER_MAX:g}; codes tol {MEGA_LAYER_CODE_SHARE:g}"
+                            f" of them, by 1; scale tol {MEGA_LAYER_SCALE_REL:g}")
+                    print(f"mega w{wbits} kv{kv_bits} lora_{'i8' if lora_i8 else 'bf16'} "
+                          f"{an} pos {pos} {depth}: row err max {max(rows):.3e}; "
+                          f"codes differing {ndiff}/{ncode} (largest {cmax}); "
+                          f"scale rel err {srel:.2e} ({tols})", flush=True)
+                    tag = f"mega w{wbits} kv{kv_bits} {an} pos {pos} {depth}"
+                    if depth == "step":
+                        err = max(err, res[0][5])
+                        if not max(rows) <= MEGA_STEP_MAX:
+                            failures.append(f"{tag}: row err {max(rows):.3e}")
+                        continue
+                    if not max(rows) <= MEGA_LAYER_MAX:
+                        failures.append(f"{tag}: row err {max(rows):.3e}")
+                    if not (cmax <= 1 and ndiff <= MEGA_LAYER_CODE_SHARE * ncode):
+                        failures.append(f"{tag}: {ndiff} codes differ, largest by {cmax}")
+                    if not srel <= MEGA_LAYER_SCALE_REL:
+                        failures.append(f"{tag}: scale rel err {srel:.2e}")
+    for (depth, an), rows in sorted(spread.items()):
+        rs = sorted(rows)
+        share = sum(e <= MEGA_ROW_TIGHT[an] for e in rs) / len(rs)
+        q = {f"p{int(100 * f)}": rs[min(len(rs) - 1, int(f * len(rs)))]
+             for f in (0.5, 0.9, 0.99)}
+        held = f"tol >= {MEGA_TIGHT_SHARE}" if depth == "layer" else "not held"
+        print(f"mega {depth} {an}: {len(rs)} rows, within {MEGA_ROW_TIGHT[an]:g}: "
+              f"{share:.3f} ({held}); quantiles "
+              + " ".join(f"{k} {v:.2e}" for k, v in q.items())
+              + f"; max {rs[-1]:.2e} (tol {MEGA_STEP_MAX if depth == 'step' else MEGA_LAYER_MAX:g})",
+              flush=True)
+        if depth == "layer" and share < MEGA_TIGHT_SHARE:
+            failures.append(f"mega layer {an}: {share:.3f} of rows within "
+                            f"{MEGA_ROW_TIGHT[an]:g}")
+    return err
+
+
 CB_PROMPTS = (16, 64, 128)   # scripts/cb_bench.py's workload
 CB_SLOTS, CB_MAXLEN, CB_CHUNK, CB_NEW, CB_REQUESTS = 8, 512, 64, 128, 24
 CB_REPLAY = 32               # tokens of the first wave held against the plain path
@@ -1321,7 +1434,7 @@ def hold_tokens(tag, toks, lk, lp, lj):
           f"{tag}: served logits agree with the plain path")
 
 
-def serve_path(params, cfg, dev, name, prompts):
+def serve_path(params, cfg, dev, name, prompts, replay=True):
     """The slice's main path in one configuration: scripts/cb_bench.py's
     workload through `ContinuousBatchingEngine` (8 slots, max_len 512, 24
     greedy requests of 128 new tokens, prompts cycling 16 / 64 / 128,
@@ -1329,8 +1442,8 @@ def serve_path(params, cfg, dev, name, prompts):
     counters of #2, #4 and #8 set to 0 just before and read just after;
     then the steady-state decode rate (cb_bench's: 8 long requests, one
     timed step_chunk(64) at a time, 3 repetitions, the median), and the
-    first wave's first CB_REPLAY tokens held against the plain path.
-    Returns (timings, launches)."""
+    first wave's first CB_REPLAY tokens held against the plain path (with
+    `replay`). Returns (timings, launches)."""
     import numpy as np
     import torch
 
@@ -1394,6 +1507,9 @@ def serve_path(params, cfg, dev, name, prompts):
     tm["steady_chunk_s"] = ts
     tm["steady_decode_tok_s"] = CB_SLOTS * CB_CHUNK / float(np.median(ts))
     tm["steady_us_per_step"] = 1e6 * float(np.median(ts)) / CB_CHUNK
+    if not replay:
+        print(f"serve {name} timings " + json.dumps(tm), flush=True)
+        return tm, launches
 
     wave = prompts[:CB_SLOTS]
     toks = torch.tensor([fin[i].generated[:CB_REPLAY] for i in ids[:CB_SLOTS]],
@@ -1673,6 +1789,256 @@ def decode_attention_phase(dev) -> int:
     torch.cuda.synchronize()
     for f in failures:
         print(f"chip_smoke --decode-attention: FAIL {f}", flush=True)
+    return 1 if failures else 0
+
+
+def bench_decode(params, cfg, dev, B, gen, kw_eng):
+    """End to end at the bench shapes: `InferenceEngine.generate` with B
+    rows, prompt 64, 512 new tokens, host clock around calls that end in a
+    synchronise. Returns generate_512_s, decode_tok_s =
+    B·511 / (t(512 new) − t(1 new)) and decode_ms_per_token_step."""
+    import torch
+
+    from llm_qat_tpu_torch.models.inference import InferenceEngine
+
+    eng_b = InferenceEngine(params, cfg, **dict(kw_eng, max_len=64 + 512))
+    pb = torch.randint(0, cfg.model.vocab_size, (B, 64), generator=gen, device=dev)
+    eng_b.generate(pb, max_new_tokens=4)
+    wall = {}
+    for n in (1, 512):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng_b.generate(pb, max_new_tokens=n)
+        torch.cuda.synchronize()
+        wall[n] = time.perf_counter() - t
+    return {"generate_512_s": wall[512], "decode_tok_s": B * 511 / (wall[512] - wall[1]),
+            "decode_ms_per_token_step": 1e3 * (wall[512] - wall[1]) / 511}
+
+
+MEGA_LAYER_SWEEP = (1, 2, 4, 12)  # depths of the per-layer cost fit
+
+
+def mega_cases(md, cfg, trees, eng, gen, dev, B):
+    """The decode steps at the main paths' shapes: #1 at pos 160 of a
+    192-row KV4 cache and at the bench shape (T = 576, pos 320), on the mega
+    W4 KV4 engine's weights; #4 at the W4 KV4 server's steady state (a
+    512-row KV4 main cache, slots at lengths 118 ... 342, rpos 32 of the
+    64-row recent buffer). Returns {tag: (wrapper name, h, weights, caches,
+    trailing positional arguments, keywords, bytes the step must move)}."""
+    import torch
+
+    from llm_qat_tpu_torch.models.inference import init_layer_caches
+
+    m = cfg.model
+    L, d, H = m.n_layer, m.n_embd, m.n_head
+    dc = d // 2
+    cases = {}
+    for tag, T, pos in (("kv8_pos160", 192, 160), ("kv8_bench", 576, 320)):
+        kc, vc, ks, vs = eng._to_mega(init_layer_caches(cfg, B, T, eng.dtype, device=dev))
+        kc.random_(-128, 128)
+        vc.random_(-128, 128)
+        h = 0.5 * torch.randn((B, d), generator=gen, device=dev)
+        kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=eng.dtype,
+                  aq_max=eng._aq_max, tbp=64, kv_bits=4, tiles_per_step=4)
+        cases[tag] = ("mega_decode_step_kv8", h, eng.mega, [kc, vc, ks, vs], [pos], kw,
+                      step_bytes(eng.mega, B * pos, 2 * (dc + 4), B, d, 2 * (dc + 4)))
+    mw4 = md.pack_mega_weights(trees[4], cfg)
+    lens4, rpos4 = [118, 150, 182, 214, 246, 278, 310, 342], 32
+    codes4 = lambda n: torch.randint(-128, 128, (L, B, n, dc), generator=gen, device=dev,
+                                     dtype=torch.int8)
+    sc4 = lambda n: 0.01 + 0.04 * torch.rand((L, B, n), generator=gen, device=dev)
+    cb4 = [codes4(512), codes4(512), sc4(512), sc4(512), codes4(64), codes4(64), sc4(64),
+           sc4(64)]
+    kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=torch.bfloat16,
+              aq_max=float(trees[4]["blocks"]["c_attn"]["qmax"][0]), tbp=64, kv_bits=4,
+              tiles_per_step=4)
+    cases["cb_server"] = ("mega_decode_step_cb", 0.5 * torch.randn((B, d), generator=gen,
+                                                                   device=dev),
+                          mw4, cb4, [lens4, rpos4], kw,
+                          step_bytes(mw4, sum(lens4) + B * rpos4, 2 * (dc + 4), B, d,
+                                     2 * (dc + 4)))
+    return cases
+
+
+def mega_call(md, case, n_layers=None, grid=None, plain=False):
+    """A no-argument call of a case's wrapper (or its plain version) on its
+    first `n_layers` layers, at a forced `grid` where one is given."""
+    name, h, mw, caches, rest, kw, _ = case
+    if n_layers is not None:
+        mw = md.MegaWeights(*(t[:n_layers] for t in mw))
+        caches = [c[:n_layers] for c in caches]
+    fn = getattr(md, name + ("_plain" if plain else ""))
+    extra = {} if grid is None else {"grid": grid}
+    return lambda: fn(h, mw, *caches, *rest, **kw, **extra)
+
+
+MEGA_PHASES = ("G_qkv", "E_qkv", "ATT", "G_proj", "R1", "G_fc", "E_fc", "G_mlp", "R2")
+
+
+def mega_phase_times(md, case):
+    """Where the persistent step's time goes: one step with the barrier
+    clock on (`md.phase_clock`: the card's global timer at every block's
+    arrival at and release from every grid barrier). Per phase kind, the
+    mean over layers of: its time (last release of the barrier before it to
+    the last arrival at the one after it), the spread of the arrivals
+    (first to last block) and the barrier's own latency (last arrival to
+    last release), in microseconds; the phase before layer 0 is "P0" (its
+    time counted from the first arrival)."""
+    import torch
+
+    fn = mega_call(md, case)
+    fn()
+    torch.cuda.synchronize()
+    n_bar = md.mega_barriers(case[2].wt.shape[0])
+    nb = md.step_grid(case[1].device)
+    buf = torch.zeros((2 * n_bar, nb), dtype=torch.int64, device=case[1].device)
+    md.phase_clock(buf)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        md.phase_clock(None)
+    t = buf.double().cpu()
+    arr, rel = t[0::2], t[1::2]
+    out = {}
+    for k in range(n_bar):
+        name = "P0" if k == 0 else MEGA_PHASES[(k - 1) % len(MEGA_PHASES)]
+        start = arr[k].min() if k == 0 else rel[k - 1].max()
+        vals = (float(arr[k].max() - start), float(arr[k].max() - arr[k].min()),
+                float(rel[k].max() - arr[k].max()))
+        acc = out.setdefault(name, [0.0, 0.0, 0.0, 0])
+        for i in range(3):
+            acc[i] += vals[i] / 1e3
+        acc[3] += 1
+    return {k: {"us": v[0] / v[3], "arrival_spread_us": v[1] / v[3],
+                "barrier_us": v[2] / v[3], "count": v[3]} for k, v in out.items()}
+
+
+def mega_timings(md, cases, failures):
+    """Per case: CUDA events over back-to-back steps (`ms`), profiler device
+    time (`device_ms`), graph replay (`graph_ms`, or why a capture failed),
+    the launches and device time per step of each CUDA kernel and copy the
+    profiler records; the step at MEGA_LAYER_SWEEP depths with a least-squares
+    line (cost per layer, fixed cost); where the wrapper takes a forced grid,
+    the grid sweep (the plan's grid, half of it, one and two blocks per SM),
+    each full-depth step held within MEGA_STEP_MAX of the plain version and
+    two calls bit-equal. Returns {tag: {...}}."""
+    import inspect
+
+    import torch
+
+    out = {}
+    for tag, case in cases.items():
+        fn = mega_call(md, case)
+        r = {"ms": cuda_ms(fn, 50), "device_ms": device_ms(fn, 10), "bytes": case[6],
+             "bound_ms": 1e3 * case[6] / HBM_BYTES_PER_S}
+        try:
+            r["graph_ms"] = graph_ms(fn, 20)
+        except Exception as e:  # a capture the runtime refuses is recorded, not fatal
+            r["graph_ms"] = None
+            r["graph_error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            torch.cuda.synchronize()
+        per = {}
+        for ev in _kernel_events(fn, 5):
+            per[ev.key.split("(")[0]] = {"launches_per_step": ev.count / 5,
+                                         "us_per_step": ev.self_device_time_total / 5}
+        r["by_kernel"] = per
+        r["launches_per_step"] = sum(v["launches_per_step"] for v in per.values())
+        if hasattr(md, "mega_barriers"):
+            r["barriers"] = md.mega_barriers(case[2].wt.shape[0])
+        if hasattr(md, "phase_clock"):
+            r["phases"] = mega_phase_times(md, case)
+            print(f"{tag} phases (us per layer: phase, arrival spread, barrier): "
+                  + ", ".join(f"{k} {v['us']:.2f}/{v['arrival_spread_us']:.2f}/"
+                              f"{v['barrier_us']:.2f}" for k, v in r["phases"].items()),
+                  flush=True)
+        if tag != "kv8_bench":
+            depth = {}
+            for nl in MEGA_LAYER_SWEEP:
+                f_l = mega_call(md, case, n_layers=nl)
+                depth[nl] = {"ms": cuda_ms(f_l, 50), "device_ms": device_ms(f_l, 10)}
+            xs = list(depth)
+            for key in ("ms", "device_ms"):
+                ys = [depth[x][key] for x in xs]
+                mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+                slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+                         / sum((x - mx) ** 2 for x in xs))
+                r[f"per_layer_{key}"] = slope
+                r[f"fixed_{key}"] = my - slope * mx
+            r["depth"] = depth
+        name = case[0]
+        if "grid" in inspect.signature(getattr(md, name)).parameters and tag != "kv8_bench":
+            dev = case[1].device
+            nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = md.step_grid(dev)
+            ref = mega_call(md, case, plain=True)()[0]
+            sweep = {}
+            for g in sorted({plan, max(1, plan // 2), nsm, 2 * nsm}):
+                f_g = mega_call(md, case, grid=g)
+                try:
+                    a, b = f_g()[0].clone(), f_g()[0].clone()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    sweep[g] = {"refused": str(e).splitlines()[0][:200]}
+                    continue
+                row = ((a - ref).abs().amax(dim=1) / ref.abs().max()).max().item()
+                same = torch.equal(a, b)
+                if not (row <= MEGA_STEP_MAX and same):
+                    failures.append(f"{tag} grid {g}: row err {row:.3e}, repeat equal {same}")
+                sweep[g] = {"ms": cuda_ms(f_g, 50), "device_ms": device_ms(f_g, 10),
+                            "row_err": row, "repeat_bit_equal": same}
+            r["grid_plan"] = plan
+            r["grid_sweep"] = sweep
+        out[tag] = r
+        print(f"{tag}: {r['ms']:.4f} ms by events, {r['device_ms']:.4f} device, graph "
+              f"{r['graph_ms']}; {r['launches_per_step']:g} launches per step "
+              + json.dumps(per), flush=True)
+    return out
+
+
+def mega_decode_phase(dev) -> int:
+    """`--mega-decode`: the decode steps #1 and #4 alone (for A/B runs of two
+    trees on one card): mega_decode.cu's ptxas report; #1's and #4's holds
+    against their plain versions as in the full run (limits unchanged);
+    `mega_timings` (events, profiler device time, graph replay, launches
+    per step by kernel, the layer sweep, the barrier count and the grid
+    sweep); then the end-to-end numbers the steps feed: `decode_tok_s` at
+    the bench shapes and the mega W8 KV8 / W4 KV4 servers' end-to-end and
+    steady tokens/s (without their token replays). Prints no result line;
+    returns 1 if a hold failed."""
+    import torch
+
+    from llm_qat_tpu_torch.models.inference import InferenceEngine, quantize_for_inference
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import mega_decode as md
+
+    print("ptxas, csrc/mega_decode.cu:\n" + _build.ptxas_report("mega_decode"), flush=True)
+    cfg, params, gen = serve_setup(dev)
+    B = 8
+    trees = {4: quantize_for_inference(params, cfg, 4, weight_format="int4_xla"),
+             8: quantize_for_inference(params, cfg, 8, weight_format="int8_xla")}
+    for tree in trees.values():
+        tree.pop("_static")
+    failures = []
+    kv8_step_vs_plain(md, trees, cfg, gen, dev, B, failures)
+    spread_new = {}
+    cb_step_vs_plain(md, trees, cfg, gen, dev, B, failures, spread_new)
+    spread_summary(spread_new, failures)
+    kw_eng = dict(bits=4, max_batch=B, max_len=192, weight_format="int4_xla",
+                  lm_head_bits=4, kv_layout="mega", kv_bits=4, mega_tbp=64)
+    eng = InferenceEngine(params, cfg, **kw_eng)
+    tm = mega_timings(md, mega_cases(md, cfg, trees, eng, gen, dev, B), failures)
+    print("mega_timings " + json.dumps(tm), flush=True)
+    e2e = {"bench": bench_decode(params, cfg, dev, B, gen, kw_eng)}
+    V = cfg.model.vocab_size
+    prompts = [torch.randint(1, V, (n,), generator=gen, device=dev).tolist()
+               for n, _ in zip(CB_PROMPTS * CB_REQUESTS, range(CB_REQUESTS))]
+    for name in ("mega_w8kv8", "mega_w4kv4"):
+        e2e[name] = serve_path(params, cfg, dev, name, prompts, replay=False)[0]
+    print("mega_e2e " + json.dumps(e2e), flush=True)
+    torch.cuda.synchronize()
+    for f in failures:
+        print(f"chip_smoke --mega-decode: FAIL {f}", flush=True)
     return 1 if failures else 0
 
 
@@ -2137,6 +2503,8 @@ def main() -> int:
                     help="only hold and time kernels #5/#6")
     ap.add_argument("--decode-attention", action="store_true",
                     help="only hold, sweep and time kernels #7/#8/#9")
+    ap.add_argument("--mega-decode", action="store_true",
+                    help="only hold, sweep and time the decode steps #1/#4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2182,7 +2550,9 @@ def main() -> int:
         return flash_phase(dev)
     if args.decode_attention:
         return decode_attention_phase(dev)
-    for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention"):
+    if args.mega_decode:
+        return mega_decode_phase(dev)
+    for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention", "mega_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
     print_ptxas_wgmma_flash(_build)
 
@@ -2203,92 +2573,7 @@ def main() -> int:
     for tree in trees.values():
         tree.pop("_static")
 
-    def compare_step(h, mw, caches0, pos, kw):
-        """Kernel vs plain on copies of caches0: (row errors, differing
-        codes, codes, largest code difference, scale relative error, h_out
-        max abs error)."""
-        ck = [c.clone() for c in caches0]
-        cp = [c.clone() for c in caches0]
-        out_k = md.mega_decode_step_kv8(h, mw, *ck, pos, **kw)
-        out_p = md.mega_decode_step_kv8_plain(h, mw, *cp, pos, **kw)
-        rows = ((out_k[0] - out_p[0]).abs().amax(dim=1)
-                / out_p[0].abs().max()).tolist()
-        kvb = kw["kv_bits"]
-        dcode = torch.cat([(md._kv_codes(a[:, :, pos], kvb) - md._kv_codes(b[:, :, pos], kvb))
-                           .flatten() for a, b in zip(out_k[1:3], out_p[1:3])])
-        srel = max(((a[:, :, pos] - b[:, :, pos]).abs() / b[:, :, pos]).max().item()
-                   for a, b in zip(out_k[3:], out_p[3:]))
-        rest = [t for t in range(caches0[0].shape[2]) if t != pos]
-        if not all(torch.equal(a[:, :, rest], c[:, :, rest])
-                   for a, c in zip(out_k[1:], caches0)):
-            failures.append("mega step touched cache rows other than pos")
-        return (rows, int((dcode != 0).sum()), dcode.numel(),
-                int(dcode.abs().max()), srel, (out_k[0] - out_p[0]).abs().max().item())
-
-    cases = [(4, 4, True), (8, 8, False)]  # (weight bits, kv bits, int8 LoRA)
-    spread = {}  # (depth, act) -> row errors
-    for wbits, kv_bits, lora_i8 in cases:
-        tree = trees[wbits]
-        mw = md.pack_mega_weights(tree, cfg, lora_int8=lora_i8)
-        check((mw.at.dtype == torch.int8) == lora_i8, "LoRA bank dtype")
-        aq = float(tree["blocks"]["c_attn"]["qmax"][0]) if wbits == 4 else 127.0
-        T = 384
-        dc = d if kv_bits == 8 else d // 2
-        lo = -127 if kv_bits == 8 else -128
-        caches0 = [torch.randint(lo, 128, (L, B, T, dc), generator=gen, device=dev,
-                                 dtype=torch.int8) for _ in range(2)]
-        caches0 += [0.01 + 0.04 * torch.rand((L, B, T), generator=gen, device=dev)
-                    for _ in range(2)]
-        for act in (torch.float32, torch.bfloat16):
-            an = str(act)[6:]
-            for pos in (64, 300):
-                h = 0.5 * torch.randn((B, d), generator=gen, device=dev)
-                kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act,
-                          aq_max=aq, tbp=64, kv_bits=kv_bits, tiles_per_step=4)
-                runs = {"step": [compare_step(h, mw, caches0, pos, kw)],
-                        "layer": [compare_step(
-                            h, md.MegaWeights(*(t[l:l + 1] for t in mw)),
-                            [c[l:l + 1] for c in caches0], pos, kw) for l in range(L)]}
-                for depth, res in runs.items():
-                    rows = [e for r in res for e in r[0]]
-                    ndiff, ncode = sum(r[1] for r in res), sum(r[2] for r in res)
-                    cmax, srel = max(r[3] for r in res), max(r[4] for r in res)
-                    spread.setdefault((depth, an), []).extend(rows)
-                    tols = (f"row tol {MEGA_STEP_MAX:g}; codes and scales not held at "
-                            f"full depth" if depth == "step" else
-                            f"row tol {MEGA_LAYER_MAX:g}; codes tol {MEGA_LAYER_CODE_SHARE:g}"
-                            f" of them, by 1; scale tol {MEGA_LAYER_SCALE_REL:g}")
-                    print(f"mega w{wbits} kv{kv_bits} lora_{'i8' if lora_i8 else 'bf16'} "
-                          f"{an} pos {pos} {depth}: row err max {max(rows):.3e}; "
-                          f"codes differing {ndiff}/{ncode} (largest {cmax}); "
-                          f"scale rel err {srel:.2e} ({tols})", flush=True)
-                    tag = f"mega w{wbits} kv{kv_bits} {an} pos {pos} {depth}"
-                    if depth == "step":
-                        errs["mega_decode_step_kv8"] = max(errs["mega_decode_step_kv8"],
-                                                           res[0][5])
-                        if not max(rows) <= MEGA_STEP_MAX:
-                            failures.append(f"{tag}: row err {max(rows):.3e}")
-                        continue
-                    if not max(rows) <= MEGA_LAYER_MAX:
-                        failures.append(f"{tag}: row err {max(rows):.3e}")
-                    if not (cmax <= 1 and ndiff <= MEGA_LAYER_CODE_SHARE * ncode):
-                        failures.append(f"{tag}: {ndiff} codes differ, largest by {cmax}")
-                    if not srel <= MEGA_LAYER_SCALE_REL:
-                        failures.append(f"{tag}: scale rel err {srel:.2e}")
-    for (depth, an), rows in sorted(spread.items()):
-        rs = sorted(rows)
-        share = sum(e <= MEGA_ROW_TIGHT[an] for e in rs) / len(rs)
-        q = {f"p{int(100 * f)}": rs[min(len(rs) - 1, int(f * len(rs)))]
-             for f in (0.5, 0.9, 0.99)}
-        held = f"tol >= {MEGA_TIGHT_SHARE}" if depth == "layer" else "not held"
-        print(f"mega {depth} {an}: {len(rs)} rows, within {MEGA_ROW_TIGHT[an]:g}: "
-              f"{share:.3f} ({held}); quantiles "
-              + " ".join(f"{k} {v:.2e}" for k, v in q.items())
-              + f"; max {rs[-1]:.2e} (tol {MEGA_STEP_MAX if depth == 'step' else MEGA_LAYER_MAX:g})",
-              flush=True)
-        if depth == "layer" and share < MEGA_TIGHT_SHARE:
-            failures.append(f"mega layer {an}: {share:.3f} of rows within "
-                            f"{MEGA_ROW_TIGHT[an]:g}")
+    errs["mega_decode_step_kv8"] = kv8_step_vs_plain(md, trees, cfg, gen, dev, B, failures)
     for T in (128, 512):
         q, k, v = (torch.randn((B, H, T, d // H), generator=gen, device=dev)
                    for _ in range(3))
@@ -2475,20 +2760,7 @@ def main() -> int:
              eng.iparams["ln_f"]["g"], eng.iparams["ln_f"]["b"], m.layer_norm_epsilon)
     timings["lm_head_ms"] = cuda_ms(lambda: _lm_head(eng.iparams, hf, eng._planes), 50)
 
-    # end to end at the bench shapes: B=8, prompt 64, 512 new tokens
-    eng_b = InferenceEngine(params, cfg, **dict(kw_eng, max_len=64 + 512))
-    pb = torch.randint(0, V, (B, 64), generator=gen, device=dev)
-    eng_b.generate(pb, max_new_tokens=4)
-    wall = {}
-    for n in (1, 512):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng_b.generate(pb, max_new_tokens=n)
-        torch.cuda.synchronize()
-        wall[n] = time.perf_counter() - t
-    timings["generate_512_s"] = wall[512]
-    timings["decode_tok_s"] = B * 511 / (wall[512] - wall[1])
-    timings["decode_ms_per_token_step"] = 1e3 * (wall[512] - wall[1]) / 511
+    timings.update(bench_decode(params, cfg, dev, B, gen, kw_eng))
     print("timings " + json.dumps(timings), flush=True)
     print("serving_timings " + json.dumps({n: tm for n, (tm, _) in serve.items()}), flush=True)
 

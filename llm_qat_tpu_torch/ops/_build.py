@@ -46,7 +46,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "mega_decode": {
         "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P],
         "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
-        "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P]},
+        "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P],
+        "mega_step_grid": [_P],
+        "mega_phase_clock": [_P]},
     "decode_attention": {
         "decode_attention_hbm": [_P] * 7 + [_I] * 8 + [_F, _P],
         "decode_attention_dense": [_P] * 7 + [_I] * 6 + [_F, _P]},

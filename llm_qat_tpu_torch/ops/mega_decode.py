@@ -1,8 +1,10 @@
 """Whole-model decode step: int8 / int4 KV, float KV, continuous batching.
 
 Counterpart of `llm_qat_tpu/ops/mega_decode.py`. Three wrappers launch the
-CUDA step in `csrc/mega_decode.cu`, each with a plain PyTorch version
-beside it that computes the same function op for op:
+CUDA step in `csrc/mega_decode.cu` (#1 and #4: one launch of the persistent
+cooperative kernel `k_mega`, its grid from `step_grid` and its work split
+from `mega_plan`; #3: a host launch sequence), each with a plain PyTorch
+version beside it that computes the same function op for op:
 - `mega_decode_step_kv8` (the Pallas `_mega_kernel_kv8`, per_slot=False):
   int8 / int4 KV codes with row scales, one shared position;
 - `mega_decode_step` (the Pallas `_mega_kernel`): float32 or bf16
@@ -39,8 +41,9 @@ package's (L, T, 128) batch-on-lanes layout is a TPU layout and is not kept.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,9 +53,22 @@ from .decode_attention import _CACHE_DTYPE_CODE, block_rows
 
 NEG_INF = -1e30
 N_TILES = 12  # 3 qkv + 1 attn-proj + 4 fc + 4 mlp-proj partials
-_KSPLIT = 16  # K-slices of the CUDA GEMV (its grid's y extent)
+_KSPLIT = 16  # K-slices of #3's CUDA GEMV (its grid's y extent)
 _LB_SPLIT = 4  # of which compute LoRA-B partials (csrc/mega_decode.cu LB_SPLIT)
 MAX_SLOTS = 256  # batch rows of a step (csrc/mega_decode.cu MAX_SLOTS)
+# The persistent step of #1/#4 (csrc/mega_decode.cu k_mega)
+CW = 128        # columns of a GEMV piece (CW)
+CH_ROWS = 64    # weight byte rows of a ring stage (CH_ROWS)
+NST = 8         # ring stages (NST)
+BP = 32         # batch rows of one GEMV pass (BP)
+LA_ROWS = 64    # input rows of a LoRA-A item
+MIN_QUADS = 8   # units of 4 byte rows x CW columns a block takes of a GEMV, at least
+E_COLS = 32     # columns of an epilogue item (E_COLS)
+MAX_D, MAX_R, MAX_TBP, MAX_LAYERS = 4096, 256, 256, 64  # k_mega's limits
+MAX_BLOCK_PIECES = 512  # pieces, and LoRA-A items, of one block (MAX_BP, MAX_BI)
+BARRIERS_PER_LAYER = 9
+# GEMV j of a layer: (first tile, out tiles, in tiles): qkv, proj, fc, mlp
+GEMVS = ((0, 3, 1), (3, 1, 1), (4, 4, 1), (8, 1, 4))
 
 
 class MegaWeights(NamedTuple):
@@ -676,6 +692,144 @@ def cb_merge_recent(kc, vc, ksc, vsc, k_rec, v_rec, ks_rec, vs_rec, lengths,
 
 
 # ---------------------------------------------------------------------------
+# The persistent step's plan
+# ---------------------------------------------------------------------------
+
+
+class MegaPlan(NamedTuple):
+    """Which block of the persistent step owns which work of every layer.
+
+    pieces[j]: GEMV j's weight pieces (block, column group of CW columns,
+    first byte row, end byte row, slot), by block; every byte of the GEMV's
+    tiles lies in exactly one, and a piece spans at most NST/2 ring stages
+    of CH_ROWS byte rows. Its int32 partial sums go to partial-sum slot `slot`;
+    a column group's slots are contiguous, in row order (group_slots[j][g]
+    to group_slots[j][g + 1]), and its epilogue adds them in that order.
+    lora[j]: GEMV j's LoRA-A items (block, t), item t the input rows
+    [t·LA_ROWS, (t+1)·LA_ROWS) times every LoRA output. epilogue[j] for
+    GEMV 0 (qkv) and 2 (fc): the E_COLS-column epilogue items (block, e), e
+    to block e mod n_blocks (the kernel's own rule). units: per block, its
+    weight units (4 byte rows x CW columns) a layer. table: the int32 table
+    the kernel reads (csrc/mega_decode.cu P_*)."""
+
+    n_blocks: int
+    pieces: tuple
+    group_slots: tuple
+    lora: tuple
+    epilogue: dict
+    units: tuple
+    table: np.ndarray
+
+    @property
+    def n_slots(self) -> int:
+        """Partial-sum slots the largest GEMV needs."""
+        return max(len(p) for p in self.pieces)
+
+
+def mega_plan(d: int, wbits: int, r: int, n_blocks: int,
+              max_rows: int = 4 * CH_ROWS) -> MegaPlan:
+    """Split every GEMV of a layer over `n_blocks` blocks of the persistent
+    step. GEMV j's weight is n_out·d/CW column groups times n_in·dk/4
+    quads of byte rows (dk = d/2 for int4, d for int8); its units, group
+    after group, are cut into as many equal contiguous ranges as there are
+    blocks (fewer where a range would hold under MIN_QUADS units: a small
+    GEMV then runs on fewer blocks with fewer partial sums), the largest
+    ranges to the blocks that hold the fewest units so far, so the bytes a
+    block streams a layer stay near the mean; a range splits into pieces of
+    at most `max_rows` byte rows within one column group (the kernel keeps
+    a piece's sums in registers over its ring stages of CH_ROWS rows: up to
+    BP batch rows; more take max_rows = CH_ROWS). LoRA-A items go first to
+    the blocks with the fewest rows of that GEMV: on a grid of more than
+    twice as many blocks as items, the pieces leave that many blocks free
+    for them, so that items and pieces run side by side."""
+    if d % CW or d > MAX_D:
+        raise ValueError(f"the persistent step needs d % {CW} == 0 and d <= {MAX_D}; got {d}")
+    if wbits not in (4, 8):
+        raise ValueError(f"wbits must be 4 or 8; got {wbits}")
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"LoRA rank {r} outside [1, {MAX_R}]")
+    nb = int(n_blocks)
+    if nb < 1:
+        raise ValueError(f"n_blocks must be at least 1; got {n_blocks}")
+    if max_rows % CH_ROWS or not CH_ROWS <= max_rows <= NST // 2 * CH_ROWS:
+        raise ValueError(f"max_rows must be a multiple of {CH_ROWS} up to "
+                         f"{NST // 2 * CH_ROWS}; got {max_rows}")
+    dk = d // 2 if wbits == 4 else d
+    load = [0] * nb
+    pieces, group_slots, lora = [], [], []
+    for _, n_out, n_in in GEMVS:
+        quads = n_in * dk // 4
+        groups = n_out * d // CW
+        units = groups * quads
+        n_la = n_in * d // LA_ROWS
+        # on a grid of more than twice as many blocks as LoRA-A items, the
+        # items get blocks of their own, which run beside the pieces
+        free = n_la if nb > 2 * n_la else 0
+        nbj = max(1, min(nb - free, units // MIN_QUADS))
+        bounds = [i * units // nbj for i in range(nbj + 1)]
+        ranges = sorted(range(nbj), key=lambda i: (bounds[i] - bounds[i + 1], i))
+        blocks = sorted(range(nb), key=lambda b: (load[b], b))[:nbj]
+        plist = []
+        for i, blk in zip(ranges, blocks):
+            u, u1 = bounds[i], bounds[i + 1]
+            load[blk] += u1 - u
+            while u < u1:
+                g = u // quads
+                e = min(u1, (g + 1) * quads)
+                r0, r1 = 4 * (u - g * quads), 4 * (e - g * quads)
+                n = -(-(r1 - r0) // max_rows)  # pieces of near-equal whole quads
+                cuts = [r0 + 4 * ((r1 - r0) // 4 * k // n) for k in range(n + 1)]
+                plist += [(g, c0, c1, blk) for c0, c1 in zip(cuts, cuts[1:])]
+                u = e
+        plist.sort()  # slot order: by group, then by row
+        starts = [0] * (groups + 1)
+        for g, *_ in plist:
+            starts[g + 1] += 1
+        group_slots.append(tuple(np.cumsum(starts).tolist()))
+        pieces.append(tuple(sorted((blk, g, r0, r1, s)
+                                   for s, (g, r0, r1, blk) in enumerate(plist))))
+        rows = [0] * nb
+        for blk, _, r0, r1, _ in pieces[-1]:
+            rows[blk] += r1 - r0
+        cand = sorted(range(nb), key=lambda b: (rows[b], b))
+        lora.append(tuple(sorted((cand[t % nb], t) for t in range(n_la))))
+    epilogue = {j: tuple((e % nb, e) for e in range(GEMVS[j][1] * d // E_COLS))
+                for j in (0, 2)}
+    poff = np.zeros((4, nb + 1), np.int32)  # per GEMV and block: first piece
+    loff = np.zeros((4, nb + 1), np.int32)  # per GEMV and block: first LoRA-A item
+    flat_p, flat_l = [], []
+    for j in range(4):
+        for blk in range(nb):
+            poff[j, blk] = len(flat_p) // 4
+            flat_p += [x for p in pieces[j] if p[0] == blk for x in p[1:]]
+            loff[j, blk] = len(flat_l)
+            flat_l += [t for b_, t in lora[j] if b_ == blk]
+        poff[j, nb] = len(flat_p) // 4
+        loff[j, nb] = len(flat_l)
+    off_pieces = 16 + 8 * (nb + 1)
+    off_las = off_pieces + len(flat_p)
+    off_gs = [off_las + len(flat_l)]
+    for gs in group_slots[:-1]:
+        off_gs.append(off_gs[-1] + len(gs))
+    head = ([nb, LA_ROWS, off_pieces, off_las]
+            + [n_in * d // LA_ROWS for _, _, n_in in GEMVS] + off_gs
+            + [len(p) for p in pieces])
+    table = np.concatenate([np.asarray(head, np.int32), poff.reshape(-1), loff.reshape(-1),
+                            np.asarray(flat_p, np.int32), np.asarray(flat_l, np.int32)]
+                           + [np.asarray(gs, np.int32) for gs in group_slots])
+    return MegaPlan(nb, tuple(pieces), tuple(group_slots), tuple(lora), epilogue,
+                    tuple(load), table)
+
+
+def mega_barriers(n_layers: int) -> int:
+    """Grid barriers of one persistent step: one before layer 0, nine a
+    layer, less the one after the last, plus one if that count is odd (the
+    barrier's counter is left as the step found it)."""
+    n = BARRIERS_PER_LAYER * int(n_layers)
+    return n + (n & 1)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -704,10 +858,95 @@ def _scratch(dev, B: int, d: int, r: int):
     return bufs
 
 
+_MEGA_SCRATCH: Dict[tuple, tuple] = {}
+_PLANS: Dict[tuple, tuple] = {}
+_GRID: Dict[int, int] = {}
+
+
+def _mega_scratch(dev, B: int, d: int, r: int, n_slots: int):
+    """The persistent step's device scratch for (device, B, d, r, partial-sum
+    slots), allocated once: activation codes and floats of a GEMV's input
+    (B, 4d), the int32 partial sums (n_slots, B, CW), LoRA-A partials
+    (4d / LA_ROWS items, B, r), the qkv rows (B, 3d), the attention rows
+    (B, d) and the grid barrier's counter (zero; the step leaves it as it
+    found it). Calls on one stream run in order."""
+    key = (dev, B, d, r, n_slots)
+    bufs = _MEGA_SCRATCH.get(key)
+    if bufs is None:
+        f32 = torch.float32
+        bufs = (torch.empty((B, 4 * d), dtype=torch.int8, device=dev),
+                torch.empty((B, 4 * d), dtype=f32, device=dev),
+                torch.empty((n_slots, B, CW), dtype=torch.int32, device=dev),
+                torch.empty((4 * d // LA_ROWS, B, r), dtype=f32, device=dev),
+                torch.empty((B, 3 * d), dtype=f32, device=dev),
+                torch.empty((B, d), dtype=f32, device=dev),
+                torch.zeros((16,), dtype=torch.int32, device=dev))
+        _MEGA_SCRATCH[key] = bufs
+    return bufs
+
+
+def step_grid(dev) -> int:
+    """Blocks of the persistent step on device `dev`: its SMs times the
+    blocks each holds at once at the step's shared memory (the occupancy
+    the runtime reports)."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _GRID:
+        lib = _build.load("mega_decode")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _build.check(lib, lib.mega_step_grid(ctypes.byref(out)), "mega_step_grid")
+        _GRID[idx] = out.value
+    return _GRID[idx]
+
+
+def phase_clock(buf: Optional[torch.Tensor]) -> None:
+    """Instrumentation: the persistent steps launched after this call write,
+    for each grid barrier k and block i, the card's global timer (ns) at
+    arrival to buf[2k, i] and at release to buf[2k + 1, i] (buf: int64 on
+    the card, (2 · barriers, blocks) or larger); None turns it off."""
+    _build.load("mega_decode").mega_phase_clock(None if buf is None else buf.data_ptr())
+
+
+def _plan_on(dev, B: int, d: int, wbits: int, r: int, grid) -> tuple:
+    """(grid, the plan's table on `dev`, its partial-sum slots) for a step
+    of B batch rows at `grid` blocks (the device's own when None), cached."""
+    nb = step_grid(dev) if grid is None else int(grid)
+    max_rows = 4 * CH_ROWS if B <= BP else CH_ROWS
+    key = (dev, d, wbits, r, nb, max_rows)
+    got = _PLANS.get(key)
+    if got is None:
+        plan = mega_plan(d, wbits, r, nb, max_rows)
+        per_block = max(np.bincount([p[0] for j in range(4) for p in plan.pieces[j]],
+                                    minlength=nb))
+        items = max(np.bincount([q[0] for j in range(4) for q in plan.lora[j]], minlength=nb))
+        if per_block > MAX_BLOCK_PIECES or items > MAX_BLOCK_PIECES:
+            raise ValueError(f"{per_block} pieces or {items} LoRA-A items on one block of "
+                             f"{nb}: above {MAX_BLOCK_PIECES}; take a larger grid")
+        got = _PLANS[key] = (torch.as_tensor(plan.table, device=dev), plan.n_slots)
+    return (nb, *got)
+
+
+def _mega_checks(what, L, d, tbp):
+    if L > MAX_LAYERS:
+        raise ValueError(f"{what}: {L} layers above {MAX_LAYERS}")
+    if d > MAX_D:
+        raise ValueError(f"{what}: d = {d} above {MAX_D}")
+    if tbp > MAX_TBP:
+        raise ValueError(f"{what}: tbp = {tbp} above {MAX_TBP} (one cached row a thread)")
+
+
+def _mega_ptrs(h, r, grid, wbits):
+    """The scratch and the plan of a persistent step, and its grid."""
+    B, d = h.shape
+    nb, table, n_slots = _plan_on(h.device, B, d, wbits, r, grid)
+    return [*_mega_scratch(h.device, B, d, r, n_slots), table], nb
+
+
 def _launch_parts(what, h, mw, caches, head_dim, has_lora, act_dtype):
     """Checks shared by the three step kernels. `caches` maps a name to
-    (tensor, dtype). Returns (h_out, weight pointers, scratch pointers,
-    r, LoRA ints (has_lora, lora dtype, act_bf16, lora_round))."""
+    (tensor, dtype). Returns (h_out, weight pointers, r, LoRA ints
+    (has_lora, lora dtype, act_bf16, lora_round))."""
     B, d = h.shape
     r = mw.at.shape[3]
     if B > MAX_SLOTS:
@@ -737,7 +976,7 @@ def _launch_parts(what, h, mw, caches, head_dim, has_lora, act_dtype):
                mw.ln, mw.xs]
     lora = [int(bool(has_lora)), _LORA_DTYPE_CODE[mw.at.dtype], int(act_bf16),
             int(lora_round)]
-    return h_out, weights, list(_scratch(h.device, B, d, r)), r, lora
+    return h_out, weights, r, lora
 
 
 def _ptrs(ts):
@@ -748,7 +987,8 @@ def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
                          v_scale, pos, *, n_head: int, head_dim: int,
                          has_lora: bool, eps: float = 1e-5, tbp: int = 32,
                          act_dtype=torch.bfloat16, aq_max: float = 127.0,
-                         kv_bits: int = 8, tiles_per_step: int = 1):
+                         kv_bits: int = 8, tiles_per_step: int = 1,
+                         grid: Optional[int] = None):
     """One decode token through all layers; KV caches updated at `pos`.
 
     h: (B, d) f32 post-embedding hidden state. k_cache/v_cache: (L, B, T, d)
@@ -759,8 +999,10 @@ def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
     (h_out, k_cache, v_cache, k_scale, v_scale).
 
     CPU tensors take `mega_decode_step_kv8_plain`; CUDA tensors launch the
-    step in `csrc/mega_decode.cu` or raise. Counts its launches (one per
-    step) in `mega_decode_step_kv8.launches`.
+    persistent step `k_mega` of `csrc/mega_decode.cu` once, cooperatively,
+    on `step_grid` blocks (`grid` forces another count, for tests; a count
+    the card cannot hold at once is refused and raises), or raise. Counts
+    its launches (one per step) in `mega_decode_step_kv8.launches`.
     """
     if h.device.type == "cpu":
         return mega_decode_step_kv8_plain(
@@ -774,13 +1016,15 @@ def mega_decode_step_kv8(h, mw: MegaWeights, k_cache, v_cache, k_scale,
     B, d = h.shape
     caches = {"k_cache": (k_cache, torch.int8), "v_cache": (v_cache, torch.int8),
               "k_scale": (k_scale, torch.float32), "v_scale": (v_scale, torch.float32)}
-    h_out, weights, scratch, r, lora = _launch_parts(
+    _mega_checks("mega_decode_step_kv8", mw.wt.shape[0], d, tbp)
+    h_out, weights, r, lora = _launch_parts(
         "mega_decode_step_kv8", h, mw, caches, head_dim, has_lora, act_dtype)
+    scratch, nb = _mega_ptrs(h, r, grid, wbits)
     lib = _build.load("mega_decode")
     rc = lib.mega_decode_step_kv(
         *_ptrs(weights), *_ptrs((k_cache, v_cache, k_scale, v_scale)),
         *_ptrs(scratch), mw.wt.shape[0], B, d, n_head, Tc, r, int(pos), tbp, wbits,
-        kv_bits, *lora, _KSPLIT, float(eps), float(aq_max),
+        kv_bits, *lora, nb, float(eps), float(aq_max),
         1.0 / math.sqrt(head_dim), _build.stream(h))
     _build.check(lib, rc, "mega_decode_step_kv8")
     mega_decode_step_kv8.launches += 1
@@ -810,8 +1054,9 @@ def mega_decode_step(h, mw: MegaWeights, k_cache, v_cache, pos, *,
     B, d = h.shape
     cdt = k_cache.dtype
     caches = {"k_cache": (k_cache, cdt), "v_cache": (v_cache, cdt)}
-    h_out, weights, scratch, r, lora = _launch_parts(
+    h_out, weights, r, lora = _launch_parts(
         "mega_decode_step", h, mw, caches, head_dim, has_lora, act_dtype)
+    scratch = _scratch(h.device, B, d, r)
     lib = _build.load("mega_decode")
     rc = lib.mega_decode_step_f(
         *_ptrs(weights), *_ptrs((k_cache, v_cache)), *_ptrs(scratch),
@@ -828,7 +1073,8 @@ def mega_decode_step_cb(h, mw: MegaWeights, k_main, v_main, ks_main, vs_main,
                         n_head: int, head_dim: int, has_lora: bool,
                         eps: float = 1e-5, tbp: int = 64,
                         act_dtype=torch.bfloat16, aq_max: float = 127.0,
-                        kv_bits: int = 8, tiles_per_step: int = 1):
+                        kv_bits: int = 8, tiles_per_step: int = 1,
+                        grid: Optional[int] = None):
     """Continuous-batching step: per-slot prefixes, two-level KV.
 
     k_main/v_main (L, B, Tc, dc) + ks_main/vs_main (L, B, Tc): each slot's
@@ -842,8 +1088,9 @@ def mega_decode_step_cb(h, mw: MegaWeights, k_main, v_main, ks_main, vs_main,
     (h_out, k_rec, v_rec, ks_rec, vs_rec).
 
     CPU tensors take `mega_decode_step_cb_plain`; CUDA tensors launch the
-    step in `csrc/mega_decode.cu` or raise. Counts its launches in
-    `mega_decode_step_cb.launches`.
+    persistent step `k_mega` of `csrc/mega_decode.cu` once, as
+    `mega_decode_step_kv8` does (`grid` likewise), or raise. Counts its
+    launches in `mega_decode_step_cb.launches`.
     """
     if h.device.type == "cpu":
         return mega_decode_step_cb_plain(
@@ -860,14 +1107,16 @@ def mega_decode_step_cb(h, mw: MegaWeights, k_main, v_main, ks_main, vs_main,
               "ks_main": (ks_main, f32), "vs_main": (vs_main, f32),
               "k_rec": (k_rec, i8), "v_rec": (v_rec, i8),
               "ks_rec": (ks_rec, f32), "vs_rec": (vs_rec, f32)}
-    h_out, weights, scratch, r, lora = _launch_parts(
+    _mega_checks("mega_decode_step_cb", mw.wt.shape[0], d, tbp)
+    h_out, weights, r, lora = _launch_parts(
         "mega_decode_step_cb", h, mw, caches, head_dim, has_lora, act_dtype)
+    scratch, nb = _mega_ptrs(h, r, grid, wbits)
     lib = _build.load("mega_decode")
     rc = lib.mega_decode_step_cb(
         *_ptrs(weights), *_ptrs((k_main, v_main, ks_main, vs_main)),
         *_ptrs((k_rec, v_rec, ks_rec, vs_rec)), lens.ctypes.data, *_ptrs(scratch),
         mw.wt.shape[0], B, d, n_head, Tc, Tr, r, rpos, tbp, wbits, kv_bits, *lora,
-        _KSPLIT, float(eps), float(aq_max), 1.0 / math.sqrt(head_dim),
+        nb, float(eps), float(aq_max), 1.0 / math.sqrt(head_dim),
         _build.stream(h))
     _build.check(lib, rc, "mega_decode_step_cb")
     mega_decode_step_cb.launches += 1

@@ -79,17 +79,20 @@ def _small_setup(dev, n_embd=256, n_head=4):
     return cfg, p, g
 
 
+@pytest.mark.parametrize("grid", [None, 7, 61, 132])
 @pytest.mark.parametrize("wbits,kv_bits,lora_i8,act", [
     (4, 4, True, torch.bfloat16), (4, 4, True, torch.float32),
     (8, 8, False, torch.float32), (8, 8, True, torch.bfloat16)])
-def test_mega_kernel_matches_plain(cuda_device, wbits, kv_bits, lora_i8, act):
+def test_mega_kernel_matches_plain(cuda_device, wbits, kv_bits, lora_i8, act, grid):
     """Both versions compute in float32 and sum in another order. Per batch
     row, max |kernel - plain| / max |plain h_out| is within float rounding
     (1e-5 in float32, 1e-2 with bf16 `_rt` roundings) for all rows but one
     in ten, where a value sat on a rounding boundary and one activation code
     moved; every row is within 5e-2. Appended K/V codes differ by at most
     one, in at most 1% of them; their row scales to 5e-2 relative (a moved
-    code upstream shifts the row's absmax). Other cache rows are untouched."""
+    code upstream shifts the row's absmax). Other cache rows are untouched.
+    At the device's own grid (None) and at forced grids that divide no
+    GEMV's work evenly."""
     cfg, p, g = _small_setup(cuda_device)
     d, L, H, B, T = 256, 2, 4, 3, 128
     tree = quantize_for_inference(p, cfg, wbits, weight_format=f"int{wbits}_xla")
@@ -108,7 +111,7 @@ def test_mega_kernel_matches_plain(cuda_device, wbits, kv_bits, lora_i8, act):
         kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act, aq_max=aq,
                   tbp=32, kv_bits=kv_bits)
         ck, cp = [c.clone() for c in c0], [c.clone() for c in c0]
-        out_k = md.mega_decode_step_kv8(h, mw, *ck, pos, **kw)
+        out_k = md.mega_decode_step_kv8(h, mw, *ck, pos, grid=grid, **kw)
         out_p = md.mega_decode_step_kv8_plain(h, mw, *cp, pos, **kw)
         rows += ((out_k[0] - out_p[0]).abs().amax(dim=1)
                  / out_p[0].abs().max()).tolist()
@@ -817,15 +820,17 @@ def test_mega_float_cache_kernel_matches_plain(cuda_device, cache, act):
     assert sum(e <= tight for e in rows) >= 0.9 * len(rows)
 
 
+@pytest.mark.parametrize("grid", [None, 7, 61, 132])
 @pytest.mark.parametrize("kv_bits", [8, 4])
 @pytest.mark.parametrize("rpos", [0, 7])
-def test_mega_cb_kernel_matches_plain(cuda_device, kv_bits, rpos):
+def test_mega_cb_kernel_matches_plain(cuda_device, kv_bits, rpos, grid):
     """#4 against its plain version, slot lengths [40, 0, 100] over a
     128-row main cache and a 32-row recent buffer (tbp 32), held as #1:
     rows within float rounding for nine in ten, all within 5e-2; layer 0's
     appended recent codes differ by at most one in at most 1 % (in layer 1 a
     code moved upstream can shift a whole row's scale); the scales within
-    5e-2; main caches and the other recent rows untouched."""
+    5e-2; main caches and the other recent rows untouched. At the device's
+    own grid and at forced ones."""
     cfg, p, g = _small_setup(cuda_device)
     d, L, H, B, T, TR = 256, 2, 4, 3, 128, 32
     wbits = 4 if kv_bits == 4 else 8
@@ -848,7 +853,7 @@ def test_mega_cb_kernel_matches_plain(cuda_device, kv_bits, rpos):
                   tbp=32, kv_bits=kv_bits)
         before = md.mega_decode_step_cb.launches
         out_k = md.mega_decode_step_cb(h, mw, *main, *[c.clone() for c in rec0],
-                                       lengths, rpos, **kw)
+                                       lengths, rpos, grid=grid, **kw)
         assert md.mega_decode_step_cb.launches == before + 1
         out_p = md.mega_decode_step_cb_plain(h, mw, *main, *[c.clone() for c in rec0],
                                              lengths, rpos, **kw)
@@ -865,6 +870,79 @@ def test_mega_cb_kernel_matches_plain(cuda_device, kv_bits, rpos):
     print("row errors", sorted(rows))
     assert max(rows) <= 5e-2
     assert sum(e <= tight for e in rows) >= 0.9 * len(rows)
+
+
+def _mega_case(dev, kv_bits, lengths=(40, 0, 100), T=128, TR=32):
+    """#1 and #4 operands at the small config: (mw, kw, h, #1 caches, #4 main
+    caches, #4 recent caches, lengths)."""
+    cfg, p, g = _small_setup(dev)
+    d, L, H, B = 256, 2, 4, len(lengths)
+    wbits = 4 if kv_bits == 4 else 8
+    tree = quantize_for_inference(p, cfg, wbits, weight_format=f"int{wbits}_xla")
+    tree.pop("_static")
+    mw = md.pack_mega_weights(tree, cfg)
+    aq = float(tree["blocks"]["c_attn"]["qmax"][0]) if wbits == 4 else 127.0
+    dc = d if kv_bits == 8 else d // 2
+    codes = lambda n: torch.randint(-127, 128, (L, B, n, dc), generator=g, device=dev,
+                                    dtype=torch.int8)
+    scales = lambda n: 0.01 + 0.04 * torch.rand((L, B, n), generator=g, device=dev)
+    kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=torch.bfloat16, aq_max=aq,
+              tbp=32, kv_bits=kv_bits)
+    h = 0.5 * torch.randn((B, d), generator=g, device=dev)
+    return (mw, kw, h, [codes(T), codes(T), scales(T), scales(T)],
+            [codes(T), codes(T), scales(T), scales(T)],
+            [codes(TR), codes(TR), scales(TR), scales(TR)], list(lengths))
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_mega_steps_repeat_bit_equal(cuda_device, kv_bits):
+    """Two calls of #1 and of #4 on the same inputs give bit-equal h_out and
+    caches: every float sum runs in a fixed order (the int32 atomics are
+    exact in any order)."""
+    mw, kw, h, c1, main, rec, lengths = _mega_case(cuda_device, kv_bits)
+    outs = [md.mega_decode_step_kv8(h, mw, *[c.clone() for c in c1], 77, **kw)
+            for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    outs = [md.mega_decode_step_cb(h, mw, *main, *[c.clone() for c in rec], lengths, 5, **kw)
+            for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_mega_cb_empty_and_full_slots(cuda_device, kv_bits):
+    """A slot of length 0 and one at the cache's full length T in one batch,
+    held against the plain version as test_mega_cb_kernel_matches_plain
+    holds its rows (all within 5e-2, nine in ten within 1e-2)."""
+    T = 128
+    mw, kw, h, _, main, rec, lengths = _mega_case(cuda_device, kv_bits, (0, T, 61), T=T)
+    rows = []
+    for rpos in (0, 9):
+        out_k = md.mega_decode_step_cb(h, mw, *main, *[c.clone() for c in rec], lengths,
+                                       rpos, **kw)
+        out_p = md.mega_decode_step_cb_plain(h, mw, *main, *[c.clone() for c in rec],
+                                             lengths, rpos, **kw)
+        rows += ((out_k[0] - out_p[0]).abs().amax(dim=1) / out_p[0].abs().max()).tolist()
+    assert max(rows) <= 5e-2
+    assert sum(e <= 1e-2 for e in rows) >= 0.9 * len(rows)
+
+
+def test_mega_step_is_one_launch(cuda_device):
+    """One step of #1 and one of #4 are each one CUDA kernel launch (the
+    persistent k_mega), with no copy or memset beside it."""
+    mw, kw, h, c1, main, rec, lengths = _mega_case(cuda_device, 4)
+    steps = (lambda: md.mega_decode_step_kv8(h, mw, *c1, 50, **kw),
+             lambda: md.mega_decode_step_cb(h, mw, *main, *rec, lengths, 3, **kw))
+    for step in steps:
+        step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        assert [(e.key.split("(")[0], e.count) for e in evs] == [("k_mega", 1)], evs
 
 
 @pytest.mark.parametrize("layout,kv_bits", [("dense", 8), ("packed", 8), ("mega", 8),

@@ -102,16 +102,18 @@ main paths' shapes).
 
     python3 chip_smoke.py --mega-decode
 
-does the same for the decode steps #1/#4 (one launch a step of the
-persistent kernel `k_mega`): mega_decode.cu's ptxas report; #1's and #4's
-holds as in the full run; `mega_timings` at #1's pos 160 and bench shape
-and #4's server shape (events, profiler device time, graph replay, the
-launches per step by kernel, each phase's and barrier's time from the
-kernel's barrier clock, the step at 1, 2, 4 and 12 layers with its cost per
-layer, and a grid sweep: the plan's grid, half of it, one and two blocks
-per SM, each held and its repeat calls compared); then `mega_e2e`
-(`decode_tok_s` at the bench shapes and the mega W8 KV8 / W4 KV4 servers'
-end-to-end and steady tokens/s, without their token replays).
+does the same for the decode steps #1/#3/#4 (one launch a step of the
+persistent kernel `k_mega`): mega_decode.cu's ptxas report; #1's, #3's and
+#4's holds as in the full run; `mega_timings` at #1's pos 160 and bench
+shape, #3's engine shape (a 160-row bf16 cache at pos 143) and #4's server
+shape (events, profiler device time, graph replay, the launches per step
+by kernel, each phase's and barrier's time from the kernel's barrier
+clock, the step at 1, 2, 4 and 12 layers with its cost per layer, and a
+grid sweep: the plan's grid, half of it, one and two blocks per SM, each
+held and its repeat calls compared); then `mega_e2e` (`decode_tok_s` and
+the per-token step time at the bench shapes, KV4 and kv_bits 16, and the
+mega W8 KV8 / W4 KV4 servers' end-to-end and steady tokens/s, without
+their token replays).
 """
 
 from __future__ import annotations
@@ -317,6 +319,12 @@ def device_ms(fn, iters: int, names=None) -> float:
     `names`, or all of them), from torch.profiler. Unlike `cuda_ms`, gaps
     in which the card waits for the host's next launch are not counted."""
     return sum(ev.self_device_time_total for ev in _kernel_events(fn, iters, names)) / iters / 1e3
+
+
+def kernel_name(key: str) -> str:
+    """A profiler record's kernel name without its return type, template
+    arguments and parameters ("void k_mega<1>(Mega)" -> "k_mega")."""
+    return key.split("(")[0].split("<")[0].replace("void ", "").strip()
 
 
 def launch_ms(fn, iters: int, name: str):
@@ -705,7 +713,7 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     busy = sum(ms for _, ms in by_kernel.values())
     recorded, port_by = {}, {}
     for name, (c, ms) in by_kernel.items():
-        short = name.split("(")[0].split("<")[0].replace("void ", "").strip()
+        short = kernel_name(name)
         if short in made:
             recorded[short] = recorded.get(short, 0) + c
             port_by[short] = port_by.get(short, 0.0) + ms
@@ -1821,10 +1829,12 @@ MEGA_LAYER_SWEEP = (1, 2, 4, 12)  # depths of the per-layer cost fit
 def mega_cases(md, cfg, trees, eng, gen, dev, B):
     """The decode steps at the main paths' shapes: #1 at pos 160 of a
     192-row KV4 cache and at the bench shape (T = 576, pos 320), on the mega
-    W4 KV4 engine's weights; #4 at the W4 KV4 server's steady state (a
-    512-row KV4 main cache, slots at lengths 118 ... 342, rpos 32 of the
-    64-row recent buffer). Returns {tag: (wrapper name, h, weights, caches,
-    trailing positional arguments, keywords, bytes the step must move)}."""
+    W4 KV4 engine's weights; #3 at the kv_bits 16 engine's (a 160-row bf16
+    cache at pos 143, tbp 64, W4 weights); #4 at the W4 KV4 server's steady
+    state (a 512-row KV4 main cache, slots at lengths 118 ... 342, rpos 32
+    of the 64-row recent buffer). Returns {tag: (wrapper name, h, weights,
+    caches, trailing positional arguments, keywords, bytes the step must
+    move)}."""
     import torch
 
     from llm_qat_tpu_torch.models.inference import init_layer_caches
@@ -1857,7 +1867,17 @@ def mega_cases(md, cfg, trees, eng, gen, dev, B):
                           mw4, cb4, [lens4, rpos4], kw,
                           step_bytes(mw4, sum(lens4) + B * rpos4, 2 * (dc + 4), B, d,
                                      2 * (dc + 4)))
-    return cases
+    c16 = [torch.randn((L, B, 160, d), generator=gen, device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    kw16 = {k: v for k, v in kw.items() if k != "kv_bits"}
+    cases["kv16_pos143"] = ("mega_decode_step", 0.5 * torch.randn((B, d), generator=gen,
+                                                                  device=dev),
+                            mw4, c16, [143], kw16,
+                            step_bytes(mw4, B * 143, 2 * d * 2, B, d, 2 * d * 2))
+    # #3 timed first: in an A/B run an older tree's #3, a host launch
+    # sequence, took for its own the error that a grid sweep's refused
+    # cooperative launch had left in the runtime
+    return {"kv16_pos143": cases.pop("kv16_pos143"), **cases}
 
 
 def mega_call(md, case, n_layers=None, grid=None, plain=False):
@@ -1940,13 +1960,13 @@ def mega_timings(md, cases, failures):
             torch.cuda.synchronize()
         per = {}
         for ev in _kernel_events(fn, 5):
-            per[ev.key.split("(")[0]] = {"launches_per_step": ev.count / 5,
-                                         "us_per_step": ev.self_device_time_total / 5}
+            per[kernel_name(ev.key)] = {"launches_per_step": ev.count / 5,
+                                        "us_per_step": ev.self_device_time_total / 5}
         r["by_kernel"] = per
         r["launches_per_step"] = sum(v["launches_per_step"] for v in per.values())
         if hasattr(md, "mega_barriers"):
             r["barriers"] = md.mega_barriers(case[2].wt.shape[0])
-        if hasattr(md, "phase_clock"):
+        if hasattr(md, "phase_clock") and r["launches_per_step"] == 1:  # k_mega alone
             r["phases"] = mega_phase_times(md, case)
             print(f"{tag} phases (us per layer: phase, arrival spread, barrier): "
                   + ", ".join(f"{k} {v['us']:.2f}/{v['arrival_spread_us']:.2f}/"
@@ -1997,15 +2017,16 @@ def mega_timings(md, cases, failures):
 
 
 def mega_decode_phase(dev) -> int:
-    """`--mega-decode`: the decode steps #1 and #4 alone (for A/B runs of two
-    trees on one card): mega_decode.cu's ptxas report; #1's and #4's holds
-    against their plain versions as in the full run (limits unchanged);
-    `mega_timings` (events, profiler device time, graph replay, launches
-    per step by kernel, the layer sweep, the barrier count and the grid
-    sweep); then the end-to-end numbers the steps feed: `decode_tok_s` at
-    the bench shapes and the mega W8 KV8 / W4 KV4 servers' end-to-end and
-    steady tokens/s (without their token replays). Prints no result line;
-    returns 1 if a hold failed."""
+    """`--mega-decode`: the decode steps #1, #3 and #4 alone (for A/B runs of
+    two trees on one card): mega_decode.cu's ptxas report; #1's, #3's and
+    #4's holds against their plain versions as in the full run (limits
+    unchanged); `mega_timings` (events, profiler device time, graph replay,
+    launches per step by kernel, the layer sweep, the barrier count and the
+    grid sweep); then the end-to-end numbers the steps feed: `decode_tok_s`
+    and the per-token step time at the bench shapes (KV4, and kv_bits 16
+    through #3) and the mega W8 KV8 / W4 KV4 servers' end-to-end and steady
+    tokens/s (without their token replays). Prints no result line; returns
+    1 if a hold failed."""
     import torch
 
     from llm_qat_tpu_torch.models.inference import InferenceEngine, quantize_for_inference
@@ -2022,6 +2043,7 @@ def mega_decode_phase(dev) -> int:
     failures = []
     kv8_step_vs_plain(md, trees, cfg, gen, dev, B, failures)
     spread_new = {}
+    float_step_vs_plain(md, trees[4], cfg, gen, dev, B, failures, spread_new)
     cb_step_vs_plain(md, trees, cfg, gen, dev, B, failures, spread_new)
     spread_summary(spread_new, failures)
     kw_eng = dict(bits=4, max_batch=B, max_len=192, weight_format="int4_xla",
@@ -2029,7 +2051,10 @@ def mega_decode_phase(dev) -> int:
     eng = InferenceEngine(params, cfg, **kw_eng)
     tm = mega_timings(md, mega_cases(md, cfg, trees, eng, gen, dev, B), failures)
     print("mega_timings " + json.dumps(tm), flush=True)
-    e2e = {"bench": bench_decode(params, cfg, dev, B, gen, kw_eng)}
+    e2e = {"bench": bench_decode(params, cfg, dev, B, gen, kw_eng),
+           "bench_kv16": bench_decode(params, cfg, dev, B, gen, dict(kw_eng, kv_bits=16))}
+    print(f"kv16 mega engine: {e2e['bench_kv16']['decode_ms_per_token_step']:.4f} ms a "
+          f"token step (KV4: {e2e['bench']['decode_ms_per_token_step']:.4f})", flush=True)
     V = cfg.model.vocab_size
     prompts = [torch.randint(1, V, (n,), generator=gen, device=dev).tolist()
                for n, _ in zip(CB_PROMPTS * CB_REQUESTS, range(CB_REQUESTS))]
@@ -2740,7 +2765,7 @@ def main() -> int:
     per_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count:
-            name = ev.key.split("(")[0]
+            name = kernel_name(ev.key)
             per_kernel[name] = {"launches_per_step": ev.count / n_prof,
                                 "us_per_step": ev.self_device_time_total / n_prof}
     print("mega step device time by kernel (pos 160, B=8) "
@@ -2761,6 +2786,10 @@ def main() -> int:
     timings["lm_head_ms"] = cuda_ms(lambda: _lm_head(eng.iparams, hf, eng._planes), 50)
 
     timings.update(bench_decode(params, cfg, dev, B, gen, kw_eng))
+    timings.update({f"kv16_{k}": v for k, v in bench_decode(
+        params, cfg, dev, B, gen, dict(kw_eng, kv_bits=16)).items()})
+    print(f"kv16 mega engine: {timings['kv16_decode_ms_per_token_step']:.4f} ms a token step",
+          flush=True)
     print("timings " + json.dumps(timings), flush=True)
     print("serving_timings " + json.dumps({n: tm for n, (tm, _) in serve.items()}), flush=True)
 

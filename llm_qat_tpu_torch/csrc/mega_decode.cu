@@ -9,7 +9,7 @@
 //     plus a chunk-local recent buffer appended at a uniform rpos (#4,
 //     entry point mega_decode_step_cb);
 //   `_mega_kernel` behind `mega_decode_step`: a float32 or bf16
-//     head-interleaved cache (#3, mega_decode_step_f).
+//     head-interleaved cache (#3, entry point mega_decode_step_f).
 // The Python wrappers are in llm_qat_tpu_torch/ops/mega_decode.py, each
 // with a plain PyTorch version beside it that computes the same function.
 //
@@ -26,12 +26,13 @@
 // instead (95.2 MB, 28.4 us, at B = 8 and pos 143); the per-slot step reads
 // each slot's own main prefix plus its recent rows.
 //
-// #1 and #4: one persistent cooperative kernel per step (k_mega). The TPU
-// kernel runs a sequential (layer, tile) grid, double-buffers the next
-// tile's DMA under the current tile's compute and keeps the hidden state in
-// VMEM. Here one launch of PT-thread blocks, as many as the card holds at
-// once (cudaLaunchCooperativeKernel; a refused launch is an error, there is
-// no fallback), lives for the whole step, and grid barriers (grid_sync: one
+// One persistent cooperative kernel per step (k_mega, templated on the
+// attention kind: codes, float32 or bf16 cache rows). The TPU kernel runs a
+// sequential (layer, tile) grid, double-buffers the next tile's DMA under
+// the current tile's compute and keeps the hidden state in VMEM. Here one
+// launch of PT-thread blocks, as many as the card holds at once
+// (cudaLaunchCooperativeKernel; a refused launch is an error, there is no
+// fallback), lives for the whole step, and grid barriers (grid_sync: one
 // counter in device memory, acquire / release, left as found after the
 // step's even number of barriers, a trap after about 2^34 cycles) take the
 // place of kernel boundaries. Per layer, each phase spread over the grid:
@@ -39,10 +40,12 @@
 //          block's pieces of tiles 0-2 (int32 partial sums per piece), and
 //          LoRA-A items (64 input rows x all r outputs, float partials) | barrier
 //   E_qkv  epilogue in 32-column items: scale, bias, LoRA-B -> qkv rows | barrier
-//   ATT    one (b, h) item per block: quantize q and the new K/V row, the
-//          cached prefix a pass of up to 8 tbp-row blocks at a time (per-slot
-//          lengths for #4, then the recent block), the new token merged in
-//          float32, the append at the write target's row | barrier
+//   ATT    one (b, h) item per block: the cached prefix a pass of several
+//          tbp-row blocks at a time (per-slot lengths for #4, then the
+//          recent block), the new token merged in float32, the append at
+//          the write target's row; codes (#1, #4): q and the new K/V row
+//          quantized first; float rows (#3): q and the new K/V rounded to
+//          the cache dtype                             | barrier
 //   G_proj dots over the attention row, quantized as the pieces load it | barrier
 //   R1     one batch row per block: proj epilogue, residual, LN2, the fc
 //          prologue (codes and floats)                | barrier
@@ -50,8 +53,7 @@
 //   G_mlp  dots over all 4d (int32), LoRA-A items per d-wide chunk | barrier
 //   R2     mlp epilogue, residual, the next layer's LN1 and qkv prologue
 // (and one row phase before layer 0: h_in -> h_out, LN1): 9 barriers a
-// layer, 108 a 12-layer step, against the 169 kernel launches and one copy
-// of the launch sequence below. The plan (ops/mega_decode.py::mega_plan,
+// layer, 108 a 12-layer step. The plan (ops/mega_decode.py::mega_plan,
 // passed as an int32 table) fixes which block owns which pieces (a column
 // group of CW = 128 columns x a range of byte rows) of each GEMV and which
 // LoRA-A items (on blocks that hold no piece of that GEMV, where the grid
@@ -74,28 +76,17 @@
 // bit-equal. Each phase issues its device-memory loads in groups (a
 // chunk's LoRA-A partials, 8 partial-sum slots, a pass's cached rows)
 // before it uses them, and copies operands that do not depend on the
-// phase before (LoRA-B slices, LoRA-A bank rows) with cp.async under the
-// dependent loads: at B = 8 a phase is a few chains of dependent loads,
-// and their count, not the bytes, sets its time. The float sums run in
-// another order than the plain version's, so the two differ by float32
-// rounding, which can flip an activation code at a rounding boundary.
+// phase before (LoRA-B slices, LoRA-A bank rows, a pass's float V rows)
+// with cp.async under the dependent loads: at B = 8 a phase is a few
+// chains of dependent loads, and their count, not the bytes, sets its
+// time. The float sums run in another order than the plain version's, so
+// the two differ by float32 rounding, which can flip an activation code at
+// a rounding boundary.
 // Per slot, the TPU kernel streams every slot's main prefix up to the
 // batch's longest and masks; here each (b, h) item stops at its own length,
 // which gives the same result: a block that a row masks entirely adds
 // exactly 0 once the row has a score, and before that its running max is
 // -1e30, so the final correction exp(m - m_f) zeroes what it added.
-//
-// #3 still runs the host launch sequence run_step: per layer
-//   k_row  (LN1 + activation quantization) -> k_lora_a (LoRA-A)
-//   k_gemv (qkv dot and its LoRA-B) -> k_row (qkv epilogue: scale, bias)
-//   k_attn_f (append the new K/V row at pos, attention over [0, pos),
-//           float32 merge of the new token)
-//   k_row  (proj prep) -> k_gemv (proj) -> k_row (epilogue, residual, LN2,
-//           prep of fc) -> k_gemv (fc) -> k_row (epilogue, A&S GELU, prep of
-//           mlp over 4d) -> k_gemv (mlp, int32 over all 4d) -> k_row
-//           (epilogue, residual, LN1 + prep of the next layer),
-// each prologue followed by its k_lora_a: 14 launches a layer, each
-// latency-bound at B = 8; it moves onto k_mega next.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,12 +98,6 @@
 
 #define NEG_INF (-1e30f)
 #define N_TILES 12
-#define ROW_THREADS 1024
-#define GEMV_WARPS 4
-#define GEMV_COLS 128  // 32 lanes x 4 columns
-#define BCH 8          // batch rows per GEMV block
-#define ATTN_THREADS 128
-#define LB_SPLIT 4      // K-slices whose blocks also compute LoRA-B partials
 #define MAX_SLOTS 256   // batch rows of a per-slot step (lengths passed by value)
 
 extern "C" const char* kernels_error_string(int code) {
@@ -143,20 +128,6 @@ __device__ __forceinline__ float erf_as(float z) {
 
 __device__ __forceinline__ float gelu_as(float x) {
   return 0.5f * x * (1.0f + erf_as(x * 0.7071067811865476f));
-}
-
-// LoRA bank element as float: DT 0 float32, 1 bfloat16, 2 int8 codes
-template <int DT>
-__device__ __forceinline__ float bank_at(const void* p, size_t i) {
-  if (DT == 0) return __ldg(static_cast<const float*>(p) + i);
-  if (DT == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  return static_cast<float>(__ldg(static_cast<const int8_t*>(p) + i));
-}
-
-__device__ __forceinline__ float load_bank(const void* p, size_t i, int dt) {
-  if (dt == 0) return bank_at<0>(p, i);
-  if (dt == 1) return bank_at<1>(p, i);
-  return bank_at<2>(p, i);
 }
 
 // 4 signed nibbles (low / high half of each byte) -> 4 sign-extended bytes
@@ -197,348 +168,16 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int nw = (blockDim.x + 31) >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float x = lane < nw ? red[lane] : NEG_INF;
-    x = warp_max(x);
-    if (lane == 0) red[32] = x;
-  }
-  __syncthreads();
-  float r = red[32];
-  __syncthreads();
-  return r;
-}
-
 __device__ __forceinline__ float rd(float x, int lora_round) {
   return lora_round ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
-
-// ---------------------------------------------------------------------------
-// k_row: one block per batch row. Epilogue of one linear (sum of the int32
-// K-slices, scale, bias, LoRA-B, then store / residual / GELU) and the
-// prologue of the next (optional LN, quantization, LoRA-A).
-// ---------------------------------------------------------------------------
-
-struct RowArgs {
-  // epilogue (part != nullptr)
-  const int32_t* part;  // (ksplit, B, n_cols)
-  int ksplit, n_cols, epi_tile0;
-  const float* epi_xs;  // scalar on the device
-  const float* ws;      // layer's (12, d)
-  const float* bias;    // layer's (12, d)
-  const float* plb;     // (LB_SPLIT, B, n_cols) LoRA-B partial sums
-  const float* bt_s;    // layer's (12,)
-  int finish;           // 0 store y, 1 residual into h, 2 GELU into y
-  float* y;             // (B, n_cols)
-  float* h;             // (B, d)
-  // prologue
-  const float* src;     // (B, K) input when there is no epilogue
-  int prep;             // 0 none, 1 quantize, 2 LN then quantize
-  int K;
-  const float* ln_g;
-  const float* ln_b;
-  float eps;
-  const float* prep_xs; // scalar on the device
-  float aq;
-  int8_t* qx;           // (B, K)
-  float* xf;            // (B, K) the prepared row, input of k_lora_a
-  // common
-  int B, d, r, has_lora, lora_dt, lora_round, act_bf16;
-};
-
-__global__ void __launch_bounds__(ROW_THREADS) k_row(RowArgs a) {
-  extern __shared__ float smf[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  float* red = smf;                       // 33 floats
-  float* xrow = red + 33;                 // max(n_cols, K) floats
-
-  if (a.part) {
-    const float xs = *a.epi_xs;
-    for (int n = tid; n < a.n_cols; n += blockDim.x) {
-      const int tile = a.epi_tile0 + n / a.d, c = n % a.d;
-      int acc = 0;
-      for (int ks = 0; ks < a.ksplit; ++ks)
-        acc += a.part[((size_t)ks * a.B + b) * a.n_cols + n];
-      float y = (float)acc * (xs * a.ws[tile * a.d + c]) + a.bias[tile * a.d + c];
-      if (a.has_lora) {
-        float o = 0.f;
-        for (int q = 0; q < LB_SPLIT; ++q) o += a.plb[((size_t)q * a.B + b) * a.n_cols + n];
-        y = y + o * a.bt_s[tile];
-      }
-      if (a.finish == 0) {
-        a.y[(size_t)b * a.n_cols + n] = y;
-      } else if (a.finish == 1) {
-        float hv = rt(a.h[b * a.d + n] + rt(y, a.act_bf16), a.act_bf16);
-        a.h[b * a.d + n] = hv;
-        xrow[n] = hv;
-      } else {
-        float gv = rt(gelu_as(y), a.act_bf16);
-        a.y[(size_t)b * a.n_cols + n] = gv;
-        xrow[n] = gv;
-      }
-    }
-  } else if (a.prep) {
-    for (int k = tid; k < a.K; k += blockDim.x) xrow[k] = a.src[(size_t)b * a.K + k];
-  }
-  if (!a.prep) return;
-  __syncthreads();
-
-  if (a.prep == 2) {  // LayerNorm over K == d
-    float s = 0.f;
-    for (int k = tid; k < a.K; k += blockDim.x) s += xrow[k];
-    const float mean = block_sum(s, red) / (float)a.K;
-    float v = 0.f;
-    for (int k = tid; k < a.K; k += blockDim.x) {
-      const float dx = xrow[k] - mean;
-      v += dx * dx;
-    }
-    const float var = block_sum(v, red) / (float)a.K;
-    const float rstd = 1.0f / sqrtf(var + a.eps);
-    for (int k = tid; k < a.K; k += blockDim.x)
-      xrow[k] = rt(a.ln_g[k] * (xrow[k] - mean) * rstd + a.ln_b[k], a.act_bf16);
-    __syncthreads();
-  }
-
-  const float pxs = *a.prep_xs;
-  for (int k = tid; k < a.K; k += blockDim.x) {
-    a.qx[(size_t)b * a.K + k] = (int8_t)q8f(xrow[k], pxs, a.aq);
-    if (a.has_lora) a.xf[(size_t)b * a.K + k] = xrow[k];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// k_lora_a: block (b, output group) computes LoRA-A outputs j of row b,
-// per d-wide chunk: partial sums over `nparts` slices of the chunk, reduced,
-// times the tile scale; the chunk results are summed in order (the mlp's 4
-// chunks, as the TPU kernel's 4 tiles).
-// ---------------------------------------------------------------------------
-
-#define LORA_THREADS 256
-
-template <int DT>
-__device__ float lora_a_dot(const float* xf, int K, int d, const void* at,
-                            const float* at_s, int r, int j, int pidx, int nparts,
-                            int jn, int lora_round, float* lp) {
-  const int tid = threadIdx.x;
-  const int per = (d + nparts - 1) / nparts;
-  float xa_acc = 0.f;
-  for (int ch = 0; ch < K / d; ++ch) {
-    float s = 0.f;
-    if (pidx < nparts) {
-      const int k0 = pidx * per, k1 = min(d, k0 + per);
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) {
-        const size_t ai = ((size_t)ch * d + k) * r + j;
-        s += rd(xf[ch * d + k], lora_round) * rd(bank_at<DT>(at, ai), lora_round);
-      }
-    }
-    lp[tid] = s;
-    __syncthreads();
-    if (tid < jn) {
-      float td = 0.f;
-      for (int p = 0; p < nparts; ++p) td += lp[p * jn + tid];
-      const float t = td * at_s[ch];
-      xa_acc = ch == 0 ? t : xa_acc + t;
-    }
-    __syncthreads();
-  }
-  return xa_acc;
-}
-
-__global__ void __launch_bounds__(LORA_THREADS)
-k_lora_a(const float* __restrict__ xf, int K, int d, const void* at, const float* at_s,
-         int r, int jn, int lora_dt, int lora_round, float* __restrict__ xa) {
-  __shared__ float lp[LORA_THREADS];
-  extern __shared__ float xs_row[];  // K floats
-  const int b = blockIdx.x, tid = threadIdx.x;
-  for (int k = tid; k < K; k += blockDim.x) xs_row[k] = xf[(size_t)b * K + k];
-  __syncthreads();
-  const int nparts = blockDim.x / jn;
-  const int jj = tid % jn, pidx = tid / jn, j = blockIdx.y * jn + jj;
-  float v;
-  if (lora_dt == 0)
-    v = lora_a_dot<0>(xs_row, K, d, at, at_s, r, j, pidx, nparts, jn, lora_round, lp);
-  else if (lora_dt == 1)
-    v = lora_a_dot<1>(xs_row, K, d, at, at_s, r, j, pidx, nparts, jn, lora_round, lp);
-  else
-    v = lora_a_dot<2>(xs_row, K, d, at, at_s, r, j, pidx, nparts, jn, lora_round, lp);
-  if (tid < jn) xa[b * r + j] = v;
-}
-
-// ---------------------------------------------------------------------------
-// k_gemv: partial s32 dots of the activation codes with int8 or per-tile
-// K-halves int4 weight tiles, and the LoRA-B product of the same columns.
-// Block (column group of 128, K-slice, batch chunk); each lane owns 4
-// adjacent columns and reads 4 weight rows per step as 32-bit words (a warp
-// reads 128 contiguous bytes per row). The K-slices' int32 partial sums go
-// to `part`, which the next k_row adds; the first LB_SPLIT K-slices' blocks
-// also split the LoRA-B rank and leave their partial sums in `plb`.
-// ---------------------------------------------------------------------------
-
-struct GemvArgs {
-  const int8_t* qx;     // (B, K) activation codes
-  int K;
-  const uint8_t* wt;    // layer's first weight tile of this linear
-  int d, dk, wbits, n_cols, n_in, B;
-  int32_t* part;        // (ksplit, B, n_cols)
-  // LoRA-B
-  int has_lora, r, lora_dt, lora_round;
-  const float* xa;      // (B, r) LoRA-A output
-  const void* bt;       // layer's bank at the first B tile of this linear
-  float* plb;           // (LB_SPLIT, B, n_cols)
-};
-
-template <int DT>
-__device__ void lora_b_cols(const GemvArgs& a, const float* xas, int nb, int b0,
-                            int to, int c, float* redf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float lb[BCH][4];
-#pragma unroll
-  for (int i = 0; i < BCH; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) lb[i][jj] = 0.f;
-  for (int j = blockIdx.y * GEMV_WARPS + warp; j < a.r; j += LB_SPLIT * GEMV_WARPS) {
-    float w[4];
-    const size_t base = ((size_t)to * a.r + j) * a.d + c;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) w[jj] = rd(bank_at<DT>(a.bt, base + jj), a.lora_round);
-#pragma unroll
-    for (int i = 0; i < BCH; ++i) {
-      if (i < nb) {
-        const float x = xas[i * a.r + j];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) lb[i][jj] += x * w[jj];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BCH; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      redf[(warp * BCH + i) * GEMV_COLS + lane * 4 + jj] = lb[i][jj];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < nb * GEMV_COLS; idx += blockDim.x) {
-    const int i = idx / GEMV_COLS, cc = idx % GEMV_COLS;
-    float sum = 0.f;
-    for (int w2 = 0; w2 < GEMV_WARPS; ++w2) sum += redf[(w2 * BCH + i) * GEMV_COLS + cc];
-    a.plb[((size_t)blockIdx.y * a.B + b0 + i) * a.n_cols + blockIdx.x * GEMV_COLS + cc] = sum;
-  }
-}
-
-__global__ void __launch_bounds__(GEMV_WARPS * 32) k_gemv(GemvArgs a) {
-  extern __shared__ float gsm[];
-  float* redf = gsm;                                    // GEMV_WARPS*BCH*128
-  int32_t* red = reinterpret_cast<int32_t*>(gsm);       // same space, int phase
-  float* xas = redf + GEMV_WARPS * BCH * GEMV_COLS;                           // BCH*r
-  int8_t* qs = reinterpret_cast<int8_t*>(xas + BCH * a.r);                    // BCH*K
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = a.K, d = a.d, dk = a.dk;
-  const int b0 = blockIdx.z * BCH;
-  const int nb = min(BCH, a.B - b0);
-  {
-    const int words = K / 4;
-    const int32_t* src = reinterpret_cast<const int32_t*>(a.qx);
-    int32_t* dst = reinterpret_cast<int32_t*>(qs);
-    for (int i = tid; i < nb * words; i += blockDim.x)
-      dst[i] = src[(size_t)b0 * words + i];
-    if (a.has_lora)
-      for (int i = tid; i < nb * a.r; i += blockDim.x)
-        xas[i] = rd(a.xa[(size_t)b0 * a.r + i], a.lora_round);
-  }
-  __syncthreads();
-
-  const int col = blockIdx.x * GEMV_COLS + lane * 4;
-  const int to = col / d, c = col % d;
-  const int steps = a.n_in * dk / 4;
-  const int nw = gridDim.y * GEMV_WARPS;
-  int acc[BCH][4];
-#pragma unroll
-  for (int i = 0; i < BCH; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0;
-
-#pragma unroll 2
-  for (int s = blockIdx.y * GEMV_WARPS + warp; s < steps; s += nw) {
-    const int kr = 4 * s, ki = kr / dk, kk = kr % dk;
-    const uint8_t* base = a.wt + ((size_t)(to + ki) * dk + kk) * d + c;
-    const uint32_t r0 = __ldg(reinterpret_cast<const uint32_t*>(base));
-    const uint32_t r1 = __ldg(reinterpret_cast<const uint32_t*>(base + d));
-    const uint32_t r2 = __ldg(reinterpret_cast<const uint32_t*>(base + 2 * d));
-    const uint32_t r3 = __ldg(reinterpret_cast<const uint32_t*>(base + 3 * d));
-    // 4x4 byte transpose: cw[j] = column j's bytes of rows kk..kk+3
-    const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
-    const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
-    const uint32_t cw[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                            __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
-    if (a.wbits == 4) {
-      int lo[4], hi[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) { lo[jj] = sext_lo(cw[jj]); hi[jj] = sext_hi(cw[jj]); }
-#pragma unroll
-      for (int i = 0; i < BCH; ++i) {
-        if (i < nb) {
-          const int alo = *reinterpret_cast<const int*>(qs + i * K + ki * d + kk);
-          const int ahi = *reinterpret_cast<const int*>(qs + i * K + ki * d + d / 2 + kk);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            acc[i][jj] = __dp4a(alo, lo[jj], acc[i][jj]);
-            acc[i][jj] = __dp4a(ahi, hi[jj], acc[i][jj]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < BCH; ++i) {
-        if (i < nb) {
-          const int av = *reinterpret_cast<const int*>(qs + i * K + ki * d + kk);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            acc[i][jj] = __dp4a(av, static_cast<int>(cw[jj]), acc[i][jj]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BCH; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      red[(warp * BCH + i) * GEMV_COLS + lane * 4 + jj] = acc[i][jj];
-  __syncthreads();
-  for (int idx = tid; idx < nb * GEMV_COLS; idx += blockDim.x) {
-    const int i = idx / GEMV_COLS, cc = idx % GEMV_COLS;
-    int sum = 0;
-    for (int w = 0; w < GEMV_WARPS; ++w) sum += red[(w * BCH + i) * GEMV_COLS + cc];
-    a.part[((size_t)blockIdx.y * a.B + b0 + i) * a.n_cols + blockIdx.x * GEMV_COLS + cc] = sum;
-  }
-  // LoRA-B of these columns: the first LB_SPLIT K-slices' blocks split the
-  // rank and leave partial sums
-  if (!a.has_lora || blockIdx.y >= LB_SPLIT) return;
-  __syncthreads();  // the int reduction space is reused for the float sums
-  if (a.lora_dt == 0) lora_b_cols<0>(a, xas, nb, b0, to, c, redf);
-  else if (a.lora_dt == 1) lora_b_cols<1>(a, xas, nb, b0, to, c, redf);
-  else lora_b_cols<2>(a, xas, nb, b0, to, c, redf);
-}
-
 
 struct SlotLen {
   int v[MAX_SLOTS];
 };
 
-// ---------------------------------------------------------------------------
-// k_attn_f: one block per (b, h) over a float head-interleaved cache (T is
-// float or bf16; replaces the attention of the Pallas `_mega_kernel`).
-// q*sm_scale is rounded to the cache dtype for the score dots, each block's
-// probabilities before the P.V sum, and the new K/V go through the cache
-// dtype before their own score (against the unrounded q) and merge. Warps
-// take whole rows for the scores (lanes over the head's D values), and the
-// threads split rows x D lanes for P.V. The new K/V are appended at `pos`.
-// ---------------------------------------------------------------------------
-
+// float32 / bf16 cache elements (#3): to float, from float (round to
+// nearest even), and a float32 value rounded to the cache dtype
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -552,289 +191,13 @@ template <typename T> __device__ __forceinline__ float in_cdt(float x) {
   return to_f(from_f<T>(x));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(ATTN_THREADS)
-k_attn_f(const float* __restrict__ qkv, T* kc, T* vc, float* __restrict__ attn, int H,
-         int D, int d, int Tc, int pos, int tbp, float sm_scale, int act_bf16) {
-  extern __shared__ float asmf[];
-  float* qm = asmf;           // D
-  float* acc = qm + D;        // D
-  float* red = acc + D;       // 33
-  float* sb = red + 33;       // tbp
-  float* pvp = sb + tbp;      // ATTN_THREADS
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const float* qrow = qkv + (size_t)b * 3 * d + h * D;
-  const float* krow = qrow + d;
-  const float* vrow = qrow + 2 * d;
-  float sn = 0.f;
-  for (int i = tid; i < D; i += blockDim.x) {
-    const float q = qrow[i] * sm_scale;
-    qm[i] = in_cdt<T>(q);
-    acc[i] = 0.f;
-    sn += q * in_cdt<T>(krow[i]);
-  }
-  const float s_new = block_sum(sn, red);  // syncs: qm/acc visible
-
-  const T* kb = kc + (size_t)b * Tc * d + h * D;
-  const T* vb = vc + (size_t)b * Tc * d + h * D;
-  const int lane_i = tid % D, npart = blockDim.x / D, part_i = tid / D;
-  float m = NEG_INF, l = 0.f;
-  const int nblk = (pos + tbp - 1) / tbp;
-  for (int j = 0; j < nblk; ++j) {
-    const int t0 = j * tbp;
-    for (int t = warp; t < tbp; t += nwarp) {
-      const int tt = t0 + t;
-      float part = 0.f;
-      if (tt < pos)
-        for (int i = lane; i < D; i += 32) part += qm[i] * to_f(kb[(size_t)tt * d + i]);
-      part = warp_sum(part);
-      if (lane == 0) sb[t] = tt < pos ? part : NEG_INF;
-    }
-    __syncthreads();
-    float lmax = NEG_INF;
-    for (int t = tid; t < tbp; t += blockDim.x) lmax = fmaxf(lmax, sb[t]);
-    const float m_new = fmaxf(m, block_max(lmax, red));
-    const float corr = expf(m - m_new);
-    float ls = 0.f;
-    for (int t = tid; t < tbp; t += blockDim.x) {
-      const float p = expf(sb[t] - m_new);
-      ls += p;
-      sb[t] = in_cdt<T>(p);
-    }
-    l = l * corr + block_sum(ls, red);  // syncs: the rounded sb are visible
-    float pv = 0.f;
-    if (part_i < npart) {
-      const int tmax = min(tbp, pos - t0);
-      for (int t = part_i; t < tmax; t += npart)
-        pv += sb[t] * to_f(vb[(size_t)(t0 + t) * d + lane_i]);
-    }
-    pvp[tid] = pv;
-    __syncthreads();
-    if (tid < D) {
-      float tot = 0.f;
-      for (int p = 0; p < npart; ++p) tot += pvp[p * D + tid];
-      acc[tid] = acc[tid] * corr + tot;
-    }
-    m = m_new;
-    __syncthreads();
-  }
-
-  const float m_f = fmaxf(m, s_new);
-  const float corr = expf(m - m_f);
-  const float p_new = expf(s_new - m_f);
-  const float l_f = l * corr + p_new;
-  for (int i = tid; i < D; i += blockDim.x) {
-    const float out = acc[i] * corr + p_new * in_cdt<T>(vrow[i]);
-    attn[(size_t)b * d + h * D + i] = rt(out / fmaxf(l_f, 1e-30f), act_bf16);
-  }
-  // append this head's lanes of row pos
-  T* kw = kc + ((size_t)b * Tc + pos) * d + h * D;
-  T* vw = vc + ((size_t)b * Tc + pos) * d + h * D;
-  for (int i = tid; i < D; i += blockDim.x) {
-    kw[i] = from_f<T>(krow[i]);
-    vw[i] = from_f<T>(vrow[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// host side: one decode step on `stream`
-// ---------------------------------------------------------------------------
-
-// The attention of a #3 step: the float caches it reads and appends to.
-struct Attn {
-  int T, pos, tbp, cdt;
-  void* kc;      // (L, B, T, d) float32 (cdt 0) or bf16 (cdt 1)
-  void* vc;
-};
-
-static int set_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-static int launch_attn(const Attn& A, int l, const float* qkv, float* attn, int B, int H,
-                       int d, float sm_scale, int act_bf16, cudaStream_t stream) {
-  const int D = d / H;
-  int rc;
-  const size_t off = (size_t)l * B * A.T * d;
-  const size_t smem = sizeof(float) * (2 * D + 33 + A.tbp + ATTN_THREADS);
-  if (A.cdt == 0) {
-    if ((rc = set_smem((const void*)k_attn_f<float>, smem))) return rc;
-    k_attn_f<float><<<B * H, ATTN_THREADS, smem, stream>>>(
-        qkv, static_cast<float*>(A.kc) + off, static_cast<float*>(A.vc) + off, attn, H, D,
-        d, A.T, A.pos, A.tbp, sm_scale, act_bf16);
-  } else {
-    if ((rc = set_smem((const void*)k_attn_f<__nv_bfloat16>, smem))) return rc;
-    k_attn_f<__nv_bfloat16><<<B * H, ATTN_THREADS, smem, stream>>>(
-        qkv, static_cast<__nv_bfloat16*>(A.kc) + off, static_cast<__nv_bfloat16*>(A.vc) + off,
-        attn, H, D, d, A.T, A.pos, A.tbp, sm_scale, act_bf16);
-  }
-  return (int)cudaGetLastError();
-}
-
-static int launch_row(const RowArgs& a, cudaStream_t stream) {
-  const int xmax = a.part ? (a.n_cols > a.K ? a.n_cols : a.K) : a.K;
-  const size_t smem = sizeof(float) * (33 + xmax);
-  int rc = set_smem((const void*)k_row, smem);
-  if (rc) return rc;
-  k_row<<<a.B, ROW_THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-static int launch_gemv(const GemvArgs& a, int ksplit, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (GEMV_WARPS * BCH * GEMV_COLS + BCH * a.r)
-                      + (size_t)BCH * a.K;
-  int rc = set_smem((const void*)k_gemv, smem);
-  if (rc) return rc;
-  dim3 grid(a.n_cols / GEMV_COLS, ksplit, (a.B + BCH - 1) / BCH);
-  k_gemv<<<grid, GEMV_WARPS * 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The weights, scratch and shape of a step (everything but its attention).
-struct Step {
-  const float* h_in; float* h_out; const int8_t* wt; const float* ws; const float* bias;
-  const void* at; const void* bt; const float* at_s; const float* bt_s; const float* ln;
-  const float* xs; int8_t* qx; float* xa; float* xf; int32_t* part; float* plb; float* qkv;
-  float* attn; float* g;
-  int L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16, lora_round, ksplit;
-  float eps, aq_max, sm_scale;
-};
-
-static int run_step(const Step& S, const Attn& A, cudaStream_t stream) {
-  const int L = S.L, B = S.B, d = S.d, r = S.r, has_lora = S.has_lora;
-  const int dk = S.wbits == 4 ? d / 2 : d;
-  const size_t esz = S.lora_dt == 0 ? 4 : (S.lora_dt == 1 ? 2 : 1);
-  float* h_out = S.h_out;
-  int rc = (int)cudaMemcpyAsync(h_out, S.h_in, sizeof(float) * B * d,
-                                cudaMemcpyDeviceToDevice, stream);
-  if (rc) return rc;
-
-  for (int l = 0; l < L; ++l) {
-    const int8_t* wl = S.wt + (size_t)l * N_TILES * dk * d;
-    const float* xsl = S.xs + l * 4;
-    const char* btl = static_cast<const char*>(S.bt) + (size_t)l * N_TILES * r * d * esz;
-
-    RowArgs base = {};
-    base.B = B; base.d = d; base.r = r; base.has_lora = has_lora;
-    base.lora_dt = S.lora_dt; base.lora_round = S.lora_round; base.act_bf16 = S.act_bf16;
-    base.ws = S.ws + (size_t)l * N_TILES * d; base.bias = S.bias + (size_t)l * N_TILES * d;
-    base.plb = S.plb; base.bt_s = S.bt_s + l * N_TILES;
-    base.h = h_out; base.eps = S.eps; base.aq = S.aq_max; base.qx = S.qx; base.xf = S.xf;
-    base.ksplit = S.ksplit;
-
-    // prologue of a linear: LN (ln_off >= 0) or not, then quantization, of
-    // layer `lp` (the next layer's for the mlp epilogue)
-    auto prep_of = [&](RowArgs& a, int K, int ln_off, int lp, int xs_i) {
-      a.prep = ln_off >= 0 ? 2 : 1; a.K = K;
-      const float* lnp = S.ln + (size_t)lp * 4 * d;
-      a.ln_g = lnp + (ln_off >= 0 ? ln_off : 0) * d;
-      a.ln_b = lnp + (ln_off >= 0 ? ln_off + 1 : 1) * d;
-      a.prep_xs = S.xs + lp * 4 + xs_i;
-    };
-    // k_row, then the LoRA-A of its prepared row from tile a_tile of layer lp
-    auto row = [&](const RowArgs& a, int lp, int a_tile) {
-      int e = launch_row(a, stream);
-      if (e || !a.prep || !has_lora) return e;
-      const int jn = r % 8 == 0 ? 8 : r;
-      const void* atp = static_cast<const char*>(S.at)
-                        + ((size_t)lp * N_TILES + a_tile) * d * r * esz;
-      const size_t smem = sizeof(float) * a.K;
-      if ((e = set_smem((const void*)k_lora_a, smem))) return e;
-      k_lora_a<<<dim3(B, r / jn), LORA_THREADS, smem, stream>>>(
-          S.xf, a.K, d, atp, S.at_s + lp * N_TILES + a_tile, r, jn, S.lora_dt, S.lora_round,
-          S.xa);
-      return (int)cudaGetLastError();
-    };
-    auto epi_of = [&](RowArgs& a, int n_cols, int tile0, int xs_i, int finish, float* y) {
-      a.part = S.part; a.n_cols = n_cols; a.epi_tile0 = tile0; a.epi_xs = xsl + xs_i;
-      a.finish = finish; a.y = y;
-    };
-    // GEMV of a linear: weight tiles from w_tile, LoRA-B tiles from b_tile
-    auto gemv = [&](int K, int w_tile, int n_cols, int n_in, int b_tile) {
-      GemvArgs ga = {};
-      ga.qx = S.qx; ga.K = K;
-      ga.wt = reinterpret_cast<const uint8_t*>(wl + (size_t)w_tile * dk * d);
-      ga.d = d; ga.dk = dk; ga.wbits = S.wbits; ga.n_cols = n_cols; ga.n_in = n_in; ga.B = B;
-      ga.part = S.part; ga.has_lora = has_lora; ga.r = r; ga.lora_dt = S.lora_dt;
-      ga.lora_round = S.lora_round; ga.xa = S.xa; ga.bt = btl + (size_t)b_tile * r * d * esz;
-      ga.plb = S.plb;
-      return launch_gemv(ga, S.ksplit, stream);
-    };
-
-    if (l == 0) {  // LN1 + qkv prologue of the first layer
-      RowArgs a = base;
-      a.src = h_out;
-      prep_of(a, d, 0, 0, 0);
-      if ((rc = row(a, 0, 0))) return rc;
-    }
-    // qkv: 3 out-tiles, epilogue stores the float32 row
-    if ((rc = gemv(d, 0, 3 * d, 1, 0))) return rc;
-    { RowArgs a = base; epi_of(a, 3 * d, 0, 0, 0, S.qkv);
-      if ((rc = row(a, l, 0))) return rc; }
-    // attention + append
-    if ((rc = launch_attn(A, l, S.qkv, S.attn, B, S.H, d, S.sm_scale, S.act_bf16, stream)))
-      return rc;
-    // proj prologue, GEMV, epilogue + residual + LN2 + fc prologue
-    { RowArgs a = base; a.src = S.attn; prep_of(a, d, -1, l, 1);
-      if ((rc = row(a, l, 3))) return rc; }
-    if ((rc = gemv(d, 3, d, 1, 3))) return rc;
-    { RowArgs a = base; epi_of(a, d, 3, 1, 1, nullptr); prep_of(a, d, 2, l, 2);
-      if ((rc = row(a, l, 4))) return rc; }
-    // fc, epilogue + GELU + mlp prologue over 4d
-    if ((rc = gemv(d, 4, 4 * d, 1, 4))) return rc;
-    { RowArgs a = base; epi_of(a, 4 * d, 4, 2, 2, S.g); prep_of(a, 4 * d, -1, l, 3);
-      if ((rc = row(a, l, 8))) return rc; }
-    // mlp over 4 row tiles (int32 over all 4d), epilogue + residual, then
-    // the next layer's LN1 + qkv prologue
-    if ((rc = gemv(4 * d, 8, d, 4, 11))) return rc;
-    {
-      RowArgs a = base;
-      epi_of(a, d, 11, 3, 1, nullptr);
-      if (l + 1 < L) prep_of(a, d, 0, l + 1, 0);
-      if ((rc = row(a, l + 1, 0))) return rc;
-    }
-  }
-  return 0;
-}
-
 #define STEP_ARGS                                                                          \
   const float *h_in, float *h_out, const int8_t *wt, const float *ws, const float *bias,  \
       const void *at, const void *bt, const float *at_s, const float *bt_s,                 \
       const float *ln, const float *xs
-#define SCRATCH_ARGS                                                                      \
-  int8_t *qx, float *xa, float *xf, int32_t *part, float *plb, float *qkv, float *attn,   \
-      float *g
-
-static Step make_step(STEP_ARGS, SCRATCH_ARGS, int L, int B, int d, int H, int r, int wbits,
-                      int has_lora, int lora_dt, int act_bf16, int lora_round, int ksplit,
-                      float eps, float aq_max, float sm_scale) {
-  Step S = {h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa, xf, part, plb,
-            qkv, attn, g, L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16, lora_round,
-            ksplit, eps, aq_max, sm_scale};
-  return S;
-}
-
-// #3: float head-interleaved (L, B, T, d) caches (cdt 0 float32, 1 bf16),
-// appended at the shared pos.
-extern "C" int mega_decode_step_f(
-    STEP_ARGS, void* kc, void* vc, SCRATCH_ARGS, int L, int B, int d, int H, int T, int r,
-    int pos, int tbp, int wbits, int cdt, int has_lora, int lora_dt, int act_bf16,
-    int lora_round, int ksplit, float eps, float aq_max, float sm_scale,
-    cudaStream_t stream) {
-  Attn A = {};
-  A.T = T; A.pos = pos; A.tbp = tbp; A.cdt = cdt; A.kc = kc; A.vc = vc;
-  return run_step(make_step(h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xa,
-                            xf, part, plb, qkv, attn, g, L, B, d, H, r, wbits, has_lora,
-                            lora_dt, act_bf16, lora_round, ksplit, eps, aq_max, sm_scale),
-                  A, stream);
-}
-
 
 // ---------------------------------------------------------------------------
-// k_mega: the persistent step of #1 and #4 (see the comment at the top)
+// k_mega: the persistent step (see the comment at the top)
 // ---------------------------------------------------------------------------
 
 #define PT 256                  // threads of a block
@@ -855,6 +218,13 @@ extern "C" int mega_decode_step_f(
 #define WORK_BYTES (128 * 1024) // the phases' work area
 #define MAX_BP 512              // pieces of one block (all GEMVs of a layer)
 #define MAX_BI 512              // LoRA-A items of one block
+#define MAX_HD 128              // head_dim of a float-cache attention item
+#define ATT_FIXED 8192          // its arrays before the staged V rows (bytes)
+// attention kinds, k_mega's template argument: KV codes with row scales
+// (#1, #4), float32 or bf16 cache rows (#3)
+#define AK_CODES 0
+#define AK_F32 1
+#define AK_BF16 2
 // the plan table (ops/mega_decode.py::mega_plan): a header, then per GEMV
 // the blocks' offsets into the piece list and into the LoRA-A item list,
 // then the pieces (column group, first byte row, end byte row, partial-sum
@@ -877,11 +247,13 @@ struct Mega {
   // counter, the plan
   int8_t* qx; float* xf; int32_t* part; float* la; float* qkv; float* attn; unsigned* bar;
   const int* plan;
-  // caches: main (L, B, T, dc) + (L, B, T); #4's recent buffer (L, B, Tr, dc)
-  // + (L, B, Tr), or null
-  int8_t* kc; int8_t* vc; float* ksc; float* vsc;
+  // caches: main codes (L, B, T, dc) + (L, B, T) scales, or float rows
+  // (L, B, T, d) of the cache dtype and no scales (#3, kv_bits 16); #4's
+  // recent buffer (L, B, Tr, dc) + (L, B, Tr), or null
+  void* kc; void* vc; float* ksc; float* vsc;
   int8_t* kr; int8_t* vr; float* ksr; float* vsr;
-  int T, Tr, pos, rpos, tbp, kv_bits;  // the write target: main at pos (#1), recent at rpos (#4)
+  int T, Tr, pos, rpos, tbp, kv_bits;  // the write target: main at pos (#1, #3), recent at rpos (#4)
+  int att_blocks;  // #3: JAX blocks of one attention pass (ops/mega_decode.py::attn_pass_blocks)
   int L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16, lora_round;
   float eps, aq_max, sm_scale;
   SlotLen lens;  // main rows each batch row reads
@@ -969,13 +341,14 @@ __device__ __forceinline__ void l2_prefetch(const void* p, size_t bytes) {
 
 // Layer l's LoRA banks, per-tile vectors and KV rows into L2, this block's
 // share (range i of the list goes to block i % nb), asked by its thread 0.
+template <int AK>
 __device__ void prefetch_layer(const Mega& a, int l, int nb) {
   if (threadIdx.x != 0) return;
   const int d = a.d, B = a.B, r = a.r;
   const int dc = a.kv_bits == 8 ? d : d / 2;
   const size_t esz = a.lora_dt == 0 ? 4 : (a.lora_dt == 1 ? 2 : 1);
   const size_t bank = (size_t)N_TILES * d * r * esz;
-  const int nfix = 4, per_b = a.kr ? 8 : 4;
+  const int nfix = 4, per_b = AK != AK_CODES ? 2 : (a.kr ? 8 : 4);
   const int n = nfix + per_b * B;
   for (int i = blockIdx.x; i < n; i += nb) {
     if (i < nfix) {
@@ -986,13 +359,19 @@ __device__ void prefetch_layer(const Mega& a, int l, int nb) {
       continue;
     }
     const int b = (i - nfix) / per_b, w = (i - nfix) % per_b;
+    if constexpr (AK != AK_CODES) {  // float rows [0, pos) of K (w 0) or V (w 1)
+      const size_t row_bytes = (size_t)d * (AK == AK_F32 ? 4 : 2);
+      l2_prefetch(static_cast<const char*>(w ? a.vc : a.kc) + ((size_t)l * B + b) * a.T * row_bytes,
+                  (size_t)a.lens.v[b] * row_bytes);
+      continue;
+    }
     const bool rec = w >= 4;
     const int rows = rec ? a.rpos : a.lens.v[b];
     const int Tn = rec ? a.Tr : a.T;
     const size_t row0 = ((size_t)l * B + b) * Tn;
     const int wk = w % 4;
     if (wk < 2) {
-      const int8_t* base = rec ? (wk ? a.vr : a.kr) : (wk ? a.vc : a.kc);
+      const int8_t* base = rec ? (wk ? a.vr : a.kr) : static_cast<const int8_t*>(wk ? a.vc : a.kc);
       l2_prefetch(base + row0 * dc, (size_t)rows * dc);
     } else {
       const float* base = rec ? (wk == 3 ? a.vsr : a.ksr) : (wk == 3 ? a.vsc : a.ksc);
@@ -1631,8 +1010,8 @@ __device__ void attn_item(const Mega& a, int l, int b, int h, float* work) {
     const bool rec = vbk >= nblk_m;
     const int t = rec ? tid % tbp : vbk * tbp + tid % tbp;  // its row there
     const int lim = rec ? a.rpos : lim_m, Tn = rec ? a.Tr : a.T;
-    const int8_t* kb = (rec ? a.kr : a.kc) + lb * Tn * dc;
-    const int8_t* vb = (rec ? a.vr : a.vc) + lb * Tn * dc;
+    const int8_t* kb = (rec ? a.kr : static_cast<const int8_t*>(a.kc)) + lb * Tn * dc;
+    const int8_t* vb = (rec ? a.vr : static_cast<const int8_t*>(a.vc)) + lb * Tn * dc;
     const float* ksb = (rec ? a.ksr : a.ksc) + lb * Tn;
     const float* vsb = (rec ? a.vsr : a.vsc) + lb * Tn;
     const bool mine = tid < nbk * tbp, valid = mine && t < lim;
@@ -1786,7 +1165,8 @@ __device__ void attn_item(const Mega& a, int l, int b, int h, float* work) {
     kwr = a.kr + row * dc; vwr = a.vr + row * dc; ksw = a.ksr + row; vsw = a.vsr + row;
   } else {
     const size_t row = lb * a.T + a.pos;
-    kwr = a.kc + row * dc; vwr = a.vc + row * dc; ksw = a.ksc + row; vsw = a.vsc + row;
+    kwr = static_cast<int8_t*>(a.kc) + row * dc; vwr = static_cast<int8_t*>(a.vc) + row * dc;
+    ksw = a.ksc + row; vsw = a.vsc + row;
   }
   const int j1 = min((h + 1) * D, dc);
   for (int jb = h * D + tid; jb < j1; jb += PT) {
@@ -1809,6 +1189,194 @@ __device__ void attn_item(const Mega& a, int l, int b, int h, float* work) {
   __syncthreads();  // the work area is reused by the next item
 }
 
+// ---- the float-cache attention item (#3) ----------------------------------
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+__device__ __forceinline__ uint32_t word_of(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+
+// Element k of a 32-bit word of T values as float: a float32, or the low
+// (k = 0) or high bf16 of a pair.
+template <typename T>
+__device__ __forceinline__ float elem_of(uint32_t w, int k) {
+  if constexpr (std::is_same<T, float>::value) return __uint_as_float(w);
+  else return __uint_as_float(k ? w & 0xFFFF0000u : w << 16);
+}
+
+template <int VW>
+__device__ __forceinline__ void cp_async_vw(void* dst, const void* src) {
+  if constexpr (VW == 16) {
+    cp_async16(dst, src);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  }
+}
+
+// One (b, h) item of layer l's attention over float head-interleaved cache
+// rows of type T (the JAX `_mega_kernel`'s attention, at its rounding
+// points): q * sm_scale rounded to T for the scores, the new K row rounded
+// to T for its own score against the unrounded q, the new V row rounded to
+// T for the merge. The cached rows [0, pos) a pass of att_blocks JAX blocks
+// of tbp rows at a time (one row a thread, the host's plan: the pass's V
+// rows fit the work area): the thread's V lanes stream into shared memory
+// by cp.async (VW bytes a copy: 16, or 8 where a bf16 head's lanes are not
+// 16-byte aligned) while its K lanes load 128 bytes (32 registers) at a
+// time and are dotted with q. Each block's max by one warp, the running
+// maxima as prefix maxima of the block maxima (the plain version's
+// cummax), p = exp(s - m) at the block's running max, its sum l over the
+// unrounded p, P rounded to T before the float32 P.V sums per (block,
+// lane), the blocks folded into (m, l, acc) in order with the plain
+// version's recurrence. Then the new token merges in float32, the output
+// is out / max(l, 1e-30) rounded at `_rt`, and the item appends its head's
+// lanes [hD, (h+1)D) of row pos in T. With float32 rows every rounding is
+// the identity.
+template <typename T, int VW>
+__device__ void attn_item_f(const Mega& a, int l, int b, int h, float* work) {
+  using V = typename std::conditional<VW == 16, uint4, uint2>::type;
+  constexpr int WPV = VW / 4;                      // 32-bit words a copy
+  constexpr int EPW = 4 / (int)sizeof(T);          // elements a word
+  constexpr int GL = 128 / VW;                     // K copies in flight at once
+  const int d = a.d, D = d / a.H, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tbp = a.tbp, nv = D * (int)sizeof(T) / VW;  // copies of a head's row
+  float* red = work;                               // 64
+  float* qf = red + 64;                            // MAX_HD: q * sm_scale in T
+  float* vn = qf + MAX_HD;                         // MAX_HD: the new V row in T
+  float* s_p = vn + MAX_HD;                        // PT scores, then probabilities
+  float* s_pr = s_p + PT;                          // PT probabilities rounded to T
+  float* bmax = s_pr + PT;                         // 8 block maxima, then running maxima
+  float* bsum = bmax + 8;                          // 8
+  float* s_pv = bsum + 8;                          // 8 x MAX_HD P.V sums
+  T* s_v = reinterpret_cast<T*>(reinterpret_cast<char*>(work) + ATT_FIXED);  // pass rows x D
+
+  const float* qrow = a.qkv + (size_t)b * 3 * d + h * D;
+  const float* krow = qrow + d;
+  const float* vrow = qrow + 2 * d;
+  float sn = 0.f;
+  for (int i = tid; i < D; i += PT) {
+    const float q = __ldcg(qrow + i) * a.sm_scale;
+    qf[i] = in_cdt<T>(q);
+    vn[i] = in_cdt<T>(__ldcg(vrow + i));
+    sn += q * in_cdt<T>(__ldcg(krow + i));
+  }
+  const float s_new = block_sum(sn, red);  // syncs: qf / vn visible
+
+  const size_t lb = (size_t)l * a.B + b;
+  const T* kb = static_cast<const T*>(a.kc) + lb * a.T * d + h * D;
+  const T* vb = static_cast<const T*>(a.vc) + lb * a.T * d + h * D;
+  const int lim = a.lens.v[b], nvb = (lim + tbp - 1) / tbp, bpp = a.att_blocks;
+  float m = NEG_INF, lsum = 0.f, acc = 0.f;  // acc: lane tid of the head (D <= PT)
+  for (int v0 = 0; v0 < nvb; v0 += bpp) {
+    const int nbk = min(bpp, nvb - v0);    // blocks of this pass
+    const int t = v0 * tbp + tid;          // this thread's row
+    const bool mine = tid < nbk * tbp, valid = mine && t < lim;
+    T* sv = s_v + (size_t)tid * D;
+    float sc = NEG_INF;
+    if (valid) {
+      const V* vp = reinterpret_cast<const V*>(vb + (size_t)t * d);
+      for (int u = 0; u < nv; ++u) cp_async_vw<VW>(reinterpret_cast<V*>(sv) + u, vp + u);
+      const V* kp = reinterpret_cast<const V*>(kb + (size_t)t * d);
+      float s = 0.f;
+      for (int g0 = 0; g0 < nv; g0 += GL) {
+        V kw[GL];
+#pragma unroll
+        for (int u = 0; u < GL; ++u)
+          if (g0 + u < nv) kw[u] = kp[g0 + u];
+#pragma unroll
+        for (int u = 0; u < GL; ++u) {
+          if (g0 + u < nv) {
+            const float* qk = qf + (g0 + u) * WPV * EPW;
+#pragma unroll
+            for (int w = 0; w < WPV; ++w)
+#pragma unroll
+              for (int k = 0; k < EPW; ++k)
+                s += qk[w * EPW + k] * elem_of<T>(word_of(kw[u], w), k);
+          }
+        }
+      }
+      sc = s;
+    } else if (mine) {  // a row past the prefix: probability 0 against a V of 0
+      for (int u = 0; u < nv; ++u) reinterpret_cast<V*>(sv)[u] = V{};
+    }
+    s_p[tid] = sc;
+    cp_async_wait();
+    __syncthreads();
+    // each block's max (warp j of the pass), then the running maxima
+    if (warp < nbk) {
+      float mx = NEG_INF;
+      for (int i = lane; i < tbp; i += 32) mx = fmaxf(mx, s_p[warp * tbp + i]);
+      mx = warp_max(mx);
+      if (lane == 0) bmax[warp] = mx;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float run = m;
+      for (int jb = 0; jb < nbk; ++jb) {
+        run = fmaxf(run, bmax[jb]);
+        bmax[jb] = run;
+      }
+    }
+    __syncthreads();
+    if (mine) {
+      const float p = expf(sc - bmax[tid / tbp]);
+      s_p[tid] = p;
+      s_pr[tid] = in_cdt<T>(p);
+    }
+    __syncthreads();
+    // each block's probability sum, and the P.V sums per (block, lane):
+    // the block's rows in order
+    if (warp < nbk) {
+      float ps = 0.f;
+      for (int i = lane; i < tbp; i += 32) ps += s_p[warp * tbp + i];
+      ps = warp_sum(ps);
+      if (lane == 0) bsum[warp] = ps;
+    }
+    for (int o = tid; o < nbk * D; o += PT) {
+      const int jb = o / D, i = o % D;
+      const T* vcol = s_v + i;
+      float pv = 0.f;
+      for (int r = jb * tbp; r < (jb + 1) * tbp; ++r) pv += s_pr[r] * to_f(vcol[(size_t)r * D]);
+      s_pv[jb * MAX_HD + i] = pv;
+    }
+    __syncthreads();
+    for (int jb = 0; jb < nbk; ++jb) {
+      const float corr = expf(m - bmax[jb]);
+      lsum = lsum * corr + bsum[jb];
+      if (tid < D) acc = acc * corr + s_pv[jb * MAX_HD + tid];
+      m = bmax[jb];
+    }
+    __syncthreads();  // the pass's shared arrays are reused by the next
+  }
+
+  const float m_f = fmaxf(m, s_new);
+  const float corr = expf(m - m_f);
+  const float p_new = expf(s_new - m_f);
+  const float l_f = lsum * corr + p_new;
+  if (tid < D) {
+    const float out = acc * corr + p_new * vn[tid];
+    a.attn[(size_t)b * d + h * D + tid] = rt(out / fmaxf(l_f, 1e-30f), a.act_bf16);
+    const size_t row = (lb * a.T + a.pos) * d + h * D + tid;
+    static_cast<T*>(a.kc)[row] = from_f<T>(__ldcg(krow + tid));
+    static_cast<T*>(a.vc)[row] = from_f<T>(__ldcg(vrow + tid));
+  }
+  __syncthreads();  // the work area is reused by the next item
+}
+
+// Layer l's attention, the item (b, h) of attention kind AK.
+template <int AK>
+__device__ __forceinline__ void att_item(const Mega& a, int l, int b, int h, float* work) {
+  if constexpr (AK == AK_CODES) {
+    attn_item(a, l, b, h, work);
+  } else if constexpr (AK == AK_F32) {
+    attn_item_f<float, 16>(a, l, b, h, work);
+  } else {
+    if ((a.d / a.H) % 8 == 0) attn_item_f<__nv_bfloat16, 16>(a, l, b, h, work);
+    else attn_item_f<__nv_bfloat16, 8>(a, l, b, h, work);
+  }
+}
+
+template <int AK>
 __global__ void __launch_bounds__(PT, 1) k_mega(const __grid_constant__ Mega a) {
   extern __shared__ __align__(1024) uint8_t msm[];
   uint8_t* ring = msm;
@@ -1861,16 +1429,16 @@ __global__ void __launch_bounds__(PT, 1) k_mega(const __grid_constant__ Mega a) 
   int issued = 0, consumed = 0, nbar = 0;
   if (warp == 0)
     for (int s = 0; s < NST; ++s) ring_issue(a, cs, ring, mbar0, it, issued, dk);
-  prefetch_layer(a, 0, nb);
+  prefetch_layer<AK>(a, 0, nb);
   phase_first(a, cs, nb, work);
   grid_sync(a, nb, nbar);
   for (int l = 0; l < a.L; ++l) {
-    if (l + 1 < a.L) prefetch_layer(a, l + 1, nb);
+    if (l + 1 < a.L) prefetch_layer<AK>(a, l + 1, nb);
     phase_gemv(a, cs, l, 0, nb, ring, mbar0, it, issued, consumed, dk, work);
     grid_sync(a, nb, nbar);
     phase_epilogue(a, cs, l, 0, nb, work);
     grid_sync(a, nb, nbar);
-    for (int e = blockIdx.x; e < a.B * a.H; e += nb) attn_item(a, l, e / a.H, e % a.H, work);
+    for (int e = blockIdx.x; e < a.B * a.H; e += nb) att_item<AK>(a, l, e / a.H, e % a.H, work);
     grid_sync(a, nb, nbar);
     phase_gemv(a, cs, l, 1, nb, ring, mbar0, it, issued, consumed, dk, work);
     grid_sync(a, nb, nbar);
@@ -1889,26 +1457,40 @@ __global__ void __launch_bounds__(PT, 1) k_mega(const __grid_constant__ Mega a) 
 }
 
 // Dynamic shared memory of a k_mega block: the ring, its mbarriers, the
-// constants and the phases' work area (WORK_BYTES: the largest user is a
+// constants and the phases' work area (WORK_BYTES: the largest users are a
 // LoRA-A item's bank rows, inputs and partial sums, up to 64 x 256 float32
-// bank values; then an attention item's rows of V codes).
+// bank values, and a float attention item's arrays and staged V rows; then
+// a code attention item's rows of V codes).
 static size_t mega_smem() {
   return (size_t)NST * STAGE_BYTES + 8 * NST + sizeof(Consts) + WORK_BYTES;
 }
 
+// k_mega<AK> with its dynamic shared memory allowed.
+template <int AK>
+static int mega_kernel(const void** fn) {
+  *fn = (const void*)k_mega<AK>;
+  return (int)cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)mega_smem());
+}
+
 // The cooperative grid of k_mega on the current device: SMs x the blocks
-// of PT threads and mega_smem() bytes each SM holds at once.
+// of PT threads and mega_smem() bytes each SM holds at once, the least
+// over the attention kinds' instantiations.
 extern "C" int mega_step_grid(int* grid) {
-  const size_t smem = mega_smem();
-  int rc = (int)cudaFuncSetAttribute((const void*)k_mega,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc) return rc;
-  int dev = 0, nsm = 0, per = 0;
+  int rc, dev = 0, nsm = 0, least = 1 << 30;
   if ((rc = (int)cudaGetDevice(&dev))) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return rc;
-  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, (const void*)k_mega, PT, smem)))
+  const void* fns[3];
+  if ((rc = mega_kernel<AK_CODES>(&fns[0])) || (rc = mega_kernel<AK_F32>(&fns[1]))
+      || (rc = mega_kernel<AK_BF16>(&fns[2])))
     return rc;
-  *grid = nsm * per;
+  for (const void* fn : fns) {
+    int per = 0;
+    if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, PT, mega_smem())))
+      return rc;
+    least = per < least ? per : least;
+  }
+  *grid = nsm * least;
   return 0;
 }
 
@@ -1930,17 +1512,19 @@ static int weight_map(CUtensorMap* map, const void* wt, int d, long long rows) {
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+template <int AK>
 static int launch_mega(Mega& m, int grid, cudaStream_t stream) {
-  const size_t smem = mega_smem();
-  int rc = (int)cudaFuncSetAttribute((const void*)k_mega,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const void* fn;
+  int rc = mega_kernel<AK>(&fn);
   if (rc) return rc;
   const int dk = m.wbits == 4 ? m.d / 2 : m.d;
   if ((rc = weight_map(&m.wmap, m.wt, m.d, (long long)m.L * N_TILES * dk))) return rc;
   void* args[] = {&m};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)k_mega, dim3(grid), dim3(PT), args, smem,
-                                        stream);
-  if (rc) return rc;
+  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(PT), args, mega_smem(), stream);
+  if (rc) {
+    cudaGetLastError();  // a refused launch (a grid the card cannot hold) leaves no error behind
+    return rc;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1986,7 +1570,25 @@ extern "C" int mega_decode_step_kv(
   m.kc = kc; m.vc = vc; m.ksc = ksc; m.vsc = vsc;
   m.T = T; m.pos = pos; m.tbp = tbp; m.kv_bits = kv_bits;
   for (int b = 0; b < B; ++b) m.lens.v[b] = pos;
-  return launch_mega(m, grid, stream);
+  return launch_mega<AK_CODES>(m, grid, stream);
+}
+
+// #3: float head-interleaved (L, B, T, d) caches (cdt 0 float32, 1 bf16),
+// appended at the shared pos; one launch of k_mega on `grid` blocks (the
+// plan's), each attention pass att_blocks JAX blocks of tbp rows.
+extern "C" int mega_decode_step_f(
+    STEP_ARGS, void* kc, void* vc, MEGA_SCRATCH, int L, int B, int d, int H, int T, int r,
+    int pos, int tbp, int att_blocks, int wbits, int cdt, int has_lora, int lora_dt,
+    int act_bf16, int lora_round, int grid, float eps, float aq_max, float sm_scale,
+    cudaStream_t stream) {
+  if (B > MAX_SLOTS || d / H > MAX_HD) return (int)cudaErrorInvalidValue;
+  Mega m = make_mega(h_in, h_out, wt, ws, bias, at, bt, at_s, bt_s, ln, xs, qx, xf, part, la,
+                     qkv, attn, bar, plan, L, B, d, H, r, wbits, has_lora, lora_dt, act_bf16,
+                     lora_round, eps, aq_max, sm_scale);
+  m.kc = kc; m.vc = vc;
+  m.T = T; m.pos = pos; m.tbp = tbp; m.kv_bits = 16; m.att_blocks = att_blocks;
+  for (int b = 0; b < B; ++b) m.lens.v[b] = pos;
+  return cdt == 0 ? launch_mega<AK_F32>(m, grid, stream) : launch_mega<AK_BF16>(m, grid, stream);
 }
 
 // #4: per-slot main lengths (lens_host: B ints in host memory, copied into
@@ -2007,5 +1609,5 @@ extern "C" int mega_decode_step_cb(
   m.kr = kr; m.vr = vr; m.ksr = ksr; m.vsr = vsr;
   m.T = T; m.Tr = Tr; m.rpos = rpos; m.tbp = tbp; m.kv_bits = kv_bits;
   for (int b = 0; b < B; ++b) m.lens.v[b] = lens_host[b];
-  return launch_mega(m, grid, stream);
+  return launch_mega<AK_CODES>(m, grid, stream);
 }

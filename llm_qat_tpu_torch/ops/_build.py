@@ -45,7 +45,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "flash_bwd_wgmma": [_P] * 10 + [_I] * 3 + [_F, _P]},
     "mega_decode": {
         "mega_decode_step_kv": [_P] * 23 + [_I] * 15 + [_F] * 3 + [_P],
-        "mega_decode_step_f": [_P] * 21 + [_I] * 15 + [_F] * 3 + [_P],
+        "mega_decode_step_f": [_P] * 21 + [_I] * 16 + [_F] * 3 + [_P],
         "mega_decode_step_cb": [_P] * 28 + [_I] * 16 + [_F] * 3 + [_P],
         "mega_step_grid": [_P],
         "mega_phase_clock": [_P]},

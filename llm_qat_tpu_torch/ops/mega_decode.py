@@ -1,10 +1,11 @@
 """Whole-model decode step: int8 / int4 KV, float KV, continuous batching.
 
 Counterpart of `llm_qat_tpu/ops/mega_decode.py`. Three wrappers launch the
-CUDA step in `csrc/mega_decode.cu` (#1 and #4: one launch of the persistent
-cooperative kernel `k_mega`, its grid from `step_grid` and its work split
-from `mega_plan`; #3: a host launch sequence), each with a plain PyTorch
-version beside it that computes the same function op for op:
+CUDA step in `csrc/mega_decode.cu`: one launch of the persistent
+cooperative kernel `k_mega` a step, its grid from `step_grid`, its work
+split from `mega_plan` and, over float caches, its attention passes from
+`attn_pass_blocks`. Each has a plain PyTorch version beside it that
+computes the same function op for op:
 - `mega_decode_step_kv8` (the Pallas `_mega_kernel_kv8`, per_slot=False):
   int8 / int4 KV codes with row scales, one shared position;
 - `mega_decode_step` (the Pallas `_mega_kernel`): float32 or bf16
@@ -53,10 +54,9 @@ from .decode_attention import _CACHE_DTYPE_CODE, block_rows
 
 NEG_INF = -1e30
 N_TILES = 12  # 3 qkv + 1 attn-proj + 4 fc + 4 mlp-proj partials
-_KSPLIT = 16  # K-slices of #3's CUDA GEMV (its grid's y extent)
-_LB_SPLIT = 4  # of which compute LoRA-B partials (csrc/mega_decode.cu LB_SPLIT)
 MAX_SLOTS = 256  # batch rows of a step (csrc/mega_decode.cu MAX_SLOTS)
-# The persistent step of #1/#4 (csrc/mega_decode.cu k_mega)
+# The persistent step (csrc/mega_decode.cu k_mega)
+PT = 256        # threads of a block (PT)
 CW = 128        # columns of a GEMV piece (CW)
 CH_ROWS = 64    # weight byte rows of a ring stage (CH_ROWS)
 NST = 8         # ring stages (NST)
@@ -66,6 +66,9 @@ MIN_QUADS = 8   # units of 4 byte rows x CW columns a block takes of a GEMV, at 
 E_COLS = 32     # columns of an epilogue item (E_COLS)
 MAX_D, MAX_R, MAX_TBP, MAX_LAYERS = 4096, 256, 256, 64  # k_mega's limits
 MAX_BLOCK_PIECES = 512  # pieces, and LoRA-A items, of one block (MAX_BP, MAX_BI)
+WORK_BYTES = 128 * 1024  # a block's work area (WORK_BYTES)
+MAX_HD = 128           # head_dim of a float-cache attention item (MAX_HD)
+ATT_FIXED = 8192       # its arrays before the staged V rows, bytes (ATT_FIXED)
 BARRIERS_PER_LAYER = 9
 # GEMV j of a layer: (first tile, out tiles, in tiles): qkv, proj, fc, mlp
 GEMVS = ((0, 3, 1), (3, 1, 1), (4, 4, 1), (8, 1, 4))
@@ -821,6 +824,26 @@ def mega_plan(d: int, wbits: int, r: int, n_blocks: int,
                     tuple(load), table)
 
 
+def attn_pass_blocks(tbp: int, head_dim: int, cache_dtype) -> int:
+    """JAX blocks of tbp cached rows that one pass of #3's attention item
+    takes over a float32 or bf16 cache: one row a thread (PT rows a pass),
+    at most 8 blocks, and the pass's V rows (tbp·head_dim values of the
+    cache dtype a block) staged in the work area after the item's other
+    arrays (ATT_FIXED bytes). Raises ValueError where one block does not
+    fit; the kernel trusts the count, as it trusts `mega_plan`."""
+    esz = {torch.float32: 4, torch.bfloat16: 2}.get(cache_dtype)
+    if esz is None:
+        raise ValueError(f"float caches are float32 or bf16; got {cache_dtype}")
+    if not 1 <= head_dim <= MAX_HD or not 1 <= tbp <= PT:
+        raise ValueError(f"head_dim {head_dim} above {MAX_HD} or tbp {tbp} above {PT}")
+    n = min(8, PT // tbp, (WORK_BYTES - ATT_FIXED) // (tbp * head_dim * esz))
+    if n < 1:
+        raise ValueError(f"one block of {tbp} rows x {head_dim} {cache_dtype} values does "
+                         f"not fit the attention's {WORK_BYTES - ATT_FIXED} bytes; take a "
+                         f"smaller tbp")
+    return n
+
+
 def mega_barriers(n_layers: int) -> int:
     """Grid barriers of one persistent step: one before layer 0, nine a
     layer, less the one after the last, plus one if that count is odd (the
@@ -834,30 +857,6 @@ def mega_barriers(n_layers: int) -> int:
 # ---------------------------------------------------------------------------
 
 _LORA_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SCRATCH: Dict[tuple, tuple] = {}
-
-
-def _scratch(dev, B: int, d: int, r: int):
-    """The step's device scratch for (device, B, d, r), allocated once:
-    activation codes, LoRA-A output, prepared row, int32 K-slice partials,
-    LoRA-B partials, qkv, attention output and the fc output. The step
-    writes each before it reads it, and calls on one stream run in order."""
-    key = (dev, B, d, r)
-    bufs = _SCRATCH.get(key)
-    if bufs is None:
-        f32, i32 = torch.float32, torch.int32
-        bufs = (torch.empty((B, 4 * d), dtype=torch.int8, device=dev),
-                torch.empty((B, max(r, 1)), dtype=f32, device=dev),
-                torch.empty((B, 4 * d), dtype=f32, device=dev),
-                torch.empty((_KSPLIT, B, 4 * d), dtype=i32, device=dev),
-                torch.empty((_LB_SPLIT, B, 4 * d), dtype=f32, device=dev),
-                torch.empty((B, 3 * d), dtype=f32, device=dev),
-                torch.empty((B, d), dtype=f32, device=dev),
-                torch.empty((B, 4 * d), dtype=f32, device=dev))
-        _SCRATCH[key] = bufs
-    return bufs
-
-
 _MEGA_SCRATCH: Dict[tuple, tuple] = {}
 _PLANS: Dict[tuple, tuple] = {}
 _GRID: Dict[int, int] = {}
@@ -1035,14 +1034,16 @@ def mega_decode_step(h, mw: MegaWeights, k_cache, v_cache, pos, *,
                      n_head: int, head_dim: int, has_lora: bool,
                      eps: float = 1e-5, tbp: int = 32,
                      act_dtype=torch.bfloat16, aq_max: float = 127.0,
-                     tiles_per_step: int = 1):
+                     tiles_per_step: int = 1, grid: Optional[int] = None):
     """One decode token through all layers over float head-interleaved
     caches (L, B, T, d) of float32 or bf16 (row t holds every head's K or
     V), updated in place at `pos`. Returns (h_out, k_cache, v_cache).
 
-    CPU tensors take `mega_decode_step_plain`; CUDA tensors launch the step
-    in `csrc/mega_decode.cu` (attention kernel `k_attn_f`) or raise. Counts
-    its launches in `mega_decode_step.launches`.
+    CPU tensors take `mega_decode_step_plain`; CUDA tensors launch the
+    persistent step `k_mega` of `csrc/mega_decode.cu` once, as
+    `mega_decode_step_kv8` does (`grid` likewise; the attention passes from
+    `attn_pass_blocks`), or raise. Counts its launches (one per step) in
+    `mega_decode_step.launches`.
     """
     if h.device.type == "cpu":
         return mega_decode_step_plain(
@@ -1054,14 +1055,16 @@ def mega_decode_step(h, mw: MegaWeights, k_cache, v_cache, pos, *,
     B, d = h.shape
     cdt = k_cache.dtype
     caches = {"k_cache": (k_cache, cdt), "v_cache": (v_cache, cdt)}
+    _mega_checks("mega_decode_step", mw.wt.shape[0], d, tbp)
     h_out, weights, r, lora = _launch_parts(
         "mega_decode_step", h, mw, caches, head_dim, has_lora, act_dtype)
-    scratch = _scratch(h.device, B, d, r)
+    att_blocks = attn_pass_blocks(tbp, head_dim, cdt)
+    scratch, nb = _mega_ptrs(h, r, grid, wbits)
     lib = _build.load("mega_decode")
     rc = lib.mega_decode_step_f(
         *_ptrs(weights), *_ptrs((k_cache, v_cache)), *_ptrs(scratch),
-        mw.wt.shape[0], B, d, n_head, Tc, r, int(pos), tbp, wbits,
-        _CACHE_DTYPE_CODE[cdt], *lora, _KSPLIT, float(eps), float(aq_max),
+        mw.wt.shape[0], B, d, n_head, Tc, r, int(pos), tbp, att_blocks, wbits,
+        _CACHE_DTYPE_CODE[cdt], *lora, nb, float(eps), float(aq_max),
         1.0 / math.sqrt(head_dim), _build.stream(h))
     _build.check(lib, rc, "mega_decode_step")
     mega_decode_step.launches += 1

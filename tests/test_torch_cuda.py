@@ -784,17 +784,23 @@ def test_decode_attention_wrappers_check_positions(cuda_device):
         da.decode_attention_hbm_multi(q, q, q, kc, kc.clone(), [-2, 0])
 
 
-@pytest.mark.parametrize("cache,act", [(torch.float32, torch.float32),
-                                       (torch.bfloat16, torch.bfloat16),
-                                       (torch.bfloat16, torch.float32)])
-def test_mega_float_cache_kernel_matches_plain(cuda_device, cache, act):
+@pytest.mark.parametrize("grid", [None, 7, 61, 132])
+@pytest.mark.parametrize("cache,act,H", [(torch.float32, torch.float32, 4),
+                                         (torch.bfloat16, torch.bfloat16, 4),
+                                         (torch.bfloat16, torch.float32, 4),
+                                         (torch.float32, torch.float32, 2),
+                                         (torch.bfloat16, torch.bfloat16, 64)])
+def test_mega_float_cache_kernel_matches_plain(cuda_device, cache, act, H, grid):
     """#3 against its plain version, held as #1 is: per batch row max |kernel
     - plain| / max |plain h_out| within float rounding (1e-5 in float32
     activations, 1e-2 with bf16 `_rt` roundings) for nine rows in ten and
     within 5e-2 for all; the appended K/V rows within 5e-2 of their max (a
-    moved activation code upstream shifts them); other rows untouched."""
-    cfg, p, g = _small_setup(cuda_device)
-    d, L, H, B, T = 256, 2, 4, 3, 128
+    moved activation code upstream shifts them); other rows untouched; two
+    calls on the same inputs bit-equal. head_dim 64, 128 (float32: seven
+    blocks a pass of the attention item) and 4 (bf16 lanes that are not
+    16-byte aligned), at the device's own grid (None) and at forced grids."""
+    cfg, p, g = _small_setup(cuda_device, n_head=H)
+    d, L, B, T = 256, 2, 3, 128
     tree = quantize_for_inference(p, cfg, 8, weight_format="int8_xla")
     tree.pop("_static")
     mw = md.pack_mega_weights(tree, cfg)
@@ -806,8 +812,11 @@ def test_mega_float_cache_kernel_matches_plain(cuda_device, cache, act):
         h = 0.5 * torch.randn((B, d), generator=g, device=cuda_device)
         kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act, tbp=32)
         before = md.mega_decode_step.launches
-        out_k = md.mega_decode_step(h, mw, *[c.clone() for c in c0], pos, **kw)
+        out_k = md.mega_decode_step(h, mw, *[c.clone() for c in c0], pos, grid=grid, **kw)
         assert md.mega_decode_step.launches == before + 1
+        again = md.mega_decode_step(h, mw, *[c.clone() for c in c0], pos, grid=grid, **kw)
+        for a, b in zip(out_k, again):
+            assert torch.equal(a, b)
         out_p = md.mega_decode_step_plain(h, mw, *[c.clone() for c in c0], pos, **kw)
         rows += ((out_k[0] - out_p[0]).abs().amax(dim=1) / out_p[0].abs().max()).tolist()
         rest = [r for r in range(T) if r != pos]
@@ -929,11 +938,17 @@ def test_mega_cb_empty_and_full_slots(cuda_device, kv_bits):
 
 
 def test_mega_step_is_one_launch(cuda_device):
-    """One step of #1 and one of #4 are each one CUDA kernel launch (the
-    persistent k_mega), with no copy or memset beside it."""
+    """One step of #1, one of #4 and one of #3 (float32 and bf16 caches) are
+    each one CUDA kernel launch (the persistent k_mega, an instantiation of
+    its template), with no copy or memset beside it."""
     mw, kw, h, c1, main, rec, lengths = _mega_case(cuda_device, 4)
+    kw_f = {k: v for k, v in kw.items() if k != "kv_bits"}
+    f32, bf16 = ([torch.randn(c1[0].shape[:3] + (h.shape[1],), device=cuda_device).to(dt)
+                  for _ in range(2)] for dt in (torch.float32, torch.bfloat16))
     steps = (lambda: md.mega_decode_step_kv8(h, mw, *c1, 50, **kw),
-             lambda: md.mega_decode_step_cb(h, mw, *main, *rec, lengths, 3, **kw))
+             lambda: md.mega_decode_step_cb(h, mw, *main, *rec, lengths, 3, **kw),
+             lambda: md.mega_decode_step(h, mw, *f32, 50, **kw_f),
+             lambda: md.mega_decode_step(h, mw, *bf16, 50, **kw_f))
     for step in steps:
         step()
         torch.cuda.synchronize()
@@ -942,7 +957,8 @@ def test_mega_step_is_one_launch(cuda_device):
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-        assert [(e.key.split("(")[0], e.count) for e in evs] == [("k_mega", 1)], evs
+        names = [e.key.split("(")[0].split("<")[0].replace("void ", "").strip() for e in evs]
+        assert [(n, e.count) for n, e in zip(names, evs)] == [("k_mega", 1)], evs
 
 
 @pytest.mark.parametrize("layout,kv_bits", [("dense", 8), ("packed", 8), ("mega", 8),

@@ -31,12 +31,25 @@ def test_float_cache_step_matches_jax(calibrated, cache, act):
     the new K/V, whose float32 values differ by the order of the LoRA and
     dot sums: within 1e-5 relative in float32, and in bf16 at most 1 % of
     them a bf16 ulp apart (a value on a rounding boundary)."""
+    _check_against_jax(calibrated, cache, act, H)
+
+
+@pytest.mark.parametrize("cache,act", [("float32", "float32"),
+                                       ("bfloat16", "bfloat16")])
+def test_float_cache_step_head_dim_128_matches_jax(calibrated, cache, act):
+    """As test_float_cache_step_matches_jax, with one head of 128 lanes (the
+    weights do not depend on the head split): the head_dim at which a
+    float32 pass of the CUDA attention item stages the most bytes per row."""
+    _check_against_jax(calibrated, cache, act, 1)
+
+
+def _check_against_jax(calibrated, cache, act, n_head):
     jmw, tmw, aq = _weights(calibrated, 8)
     rng = np.random.default_rng(12)
     kc, vc = (rng.standard_normal((L, B, T, D_MODEL)).astype(np.float32)
               for _ in range(2))
     jdt, tdt = getattr(jnp, cache), getattr(torch, cache)
-    kw = dict(n_head=H, head_dim=D_MODEL // H, has_lora=True, aq_max=aq, tbp=16,
+    kw = dict(n_head=n_head, head_dim=D_MODEL // n_head, has_lora=True, aq_max=aq, tbp=16,
               tiles_per_step=4)
     jstep = jax.jit(functools.partial(jm.mega_decode_step, **kw,
                                       act_dtype=getattr(jnp, act), interpret=True))

@@ -1,7 +1,8 @@
 """The persistent decode step's plan (`ops/mega_decode.py::mega_plan`) on
-the CPU: which block of kernels #1/#4's cooperative grid owns which weight
-bytes, LoRA-A items and epilogue columns of each GEMV, the table the kernel
-reads, and the scratch it needs.
+the CPU: which block of the cooperative grid of kernels #1/#3/#4 owns which
+weight bytes, LoRA-A items and epilogue columns of each GEMV, the table the
+kernel reads, and the scratch it needs; and the passes of #3's float-cache
+attention item (`attn_pass_blocks`).
 """
 
 import numpy as np
@@ -219,3 +220,42 @@ def test_barrier_count_is_even():
 def test_plan_refuses_what_the_kernel_cannot_run(args):
     with pytest.raises(ValueError):
         md.mega_plan(*args)
+
+
+# The float-cache attention item's arrays before its staged V rows
+# (csrc/mega_decode.cu attn_item_f), in floats: the reduction space, q and
+# the new V row, the pass's scores and rounded probabilities, 8 block
+# maxima and sums, 8 rows of P.V sums.
+ATT_ARRAYS = 64 + 2 * md.MAX_HD + 2 * md.PT + 16 + 8 * md.MAX_HD
+
+
+@pytest.mark.parametrize("tbp", [8, 16, 24, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_attn_pass_fits_the_work_area(head_dim, dtype, tbp):
+    """A pass of #3's attention item takes 1 to 8 JAX blocks, one row a
+    thread (at most PT rows), as many as fit beside the item's arrays in the
+    work area; where one block of V rows cannot fit (float32 at head_dim
+    128, tbp 256), the plan refuses."""
+    assert 4 * ATT_ARRAYS <= md.ATT_FIXED
+    esz = torch.empty((), dtype=dtype).element_size()
+    block = tbp * head_dim * esz
+    if md.ATT_FIXED + block > md.WORK_BYTES:
+        with pytest.raises(ValueError):
+            md.attn_pass_blocks(tbp, head_dim, dtype)
+        return
+    n = md.attn_pass_blocks(tbp, head_dim, dtype)
+    assert 1 <= n <= 8 and n * tbp <= md.PT
+    assert md.ATT_FIXED + n * block <= md.WORK_BYTES
+    # no more would fit
+    assert n == 8 or (n + 1) * tbp > md.PT or md.ATT_FIXED + (n + 1) * block > md.WORK_BYTES
+
+
+@pytest.mark.parametrize("args", [(64, 64, torch.float16), (64, 64, torch.int8),
+                                  (64, 256, torch.bfloat16), (512, 64, torch.bfloat16),
+                                  (256, 128, torch.float32)])
+def test_attn_pass_refuses_what_the_kernel_cannot_run(args):
+    """A cache dtype the item has no instantiation for, a head above
+    MAX_HD, a block above one row a thread, a block too large to stage."""
+    with pytest.raises(ValueError):
+        md.attn_pass_blocks(*args)

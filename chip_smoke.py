@@ -1208,31 +1208,68 @@ def cb_step_vs_plain(md, trees, cfg, gen, dev, B, failures, spread):
             kw = dict(n_head=H, head_dim=d // H, has_lora=True, act_dtype=act, aq_max=aq,
                       tbp=64, kv_bits=kv_bits, tiles_per_step=4)
 
+            scale_rows = [0, 0, 0, 0]  # appended rows off by > the scale limit; with a
+            # moved activation code, with a moved K/V code, with either
+
             def run(l):
                 w = md.MegaWeights(*(_layer_of(t, l) for t in mw))
                 mn = [_layer_of(c, l) for c in main]
                 rc = [_layer_of(c, l) for c in rec0]
                 out_k = md.mega_decode_step_cb(h, w, *mn, *[c.clone() for c in rc], lengths,
                                                rpos, **kw)
-                out_p = md.mega_decode_step_cb_plain(h, w, *mn, *[c.clone() for c in rc],
-                                                     lengths, rpos, **kw)
+                kv_k = None
+                if l is not None:  # the kernel's new K/V rows, from its qkv scratch
+                    qkv = md._mega_ptrs(h, mw.at.shape[3], None, wbits)[0][4]
+                    kv_k = (qkv[:, d:2 * d].clone(), qkv[:, 2 * d:].clone())
+                kv_p = []
+                spy_of = md._attention_cb_plain
+
+                def spy(q_row, kn_f, vn_f, *a, **k):
+                    kv_p.append((kn_f.clone(), vn_f.clone()))
+                    return spy_of(q_row, kn_f, vn_f, *a, **k)
+
+                md._attention_cb_plain = spy
+                try:
+                    out_p = md.mega_decode_step_cb_plain(h, w, *mn, *[c.clone() for c in rc],
+                                                         lengths, rpos, **kw)
+                finally:
+                    md._attention_cb_plain = spy_of
                 rows = ((out_k[0] - out_p[0]).abs().amax(dim=1)
                         / out_p[0].abs().max()).tolist()
                 rest = [t for t in range(64) if t != rpos]
                 if not all(torch.equal(a[:, :, rest], c[:, :, rest])
                            for a, c in zip(out_k[1:], rc)):
                     failures.append("mega_decode_step_cb touched recent rows other than rpos")
-                dcode = torch.cat([(md._kv_codes(a[:, :, rpos], kv_bits)
-                                    - md._kv_codes(b[:, :, rpos], kv_bits)).flatten()
-                                   for a, b in zip(out_k[1:3], out_p[1:3])])
-                srel = max(((a[:, :, rpos] - b[:, :, rpos]).abs() / b[:, :, rpos]).max().item()
-                           for a, b in zip(out_k[3:], out_p[3:]))
+                dcodes = [md._kv_codes(a[:, :, rpos], kv_bits) - md._kv_codes(b[:, :, rpos], kv_bits)
+                          for a, b in zip(out_k[1:3], out_p[1:3])]
+                dcode = torch.cat([c.flatten() for c in dcodes])
+                srels = [(a[:, :, rpos] - b[:, :, rpos]).abs() / b[:, :, rpos]
+                         for a, b in zip(out_k[3:], out_p[3:])]
+                if kv_k is not None:
+                    # per appended row (K and V of each batch row): its scale off by more
+                    # than the limit, an activation code moved upstream of it (the new
+                    # row itself off by more than float rounding), a K/V code moved
+                    for sr, dc, nk, npl in zip(srels, dcodes, kv_k, kv_p[0]):
+                        off = sr[0] > MEGA_LAYER_SCALE_REL
+                        act_moved = ((nk - npl).abs().amax(dim=1)
+                                     / npl.abs().amax(dim=1)) > FD_ROW_TIGHT
+                        code_moved = (dc[0] != 0).any(dim=1)
+                        scale_rows[0] += int(off.sum())
+                        scale_rows[1] += int((off & act_moved).sum())
+                        scale_rows[2] += int((off & code_moved).sum())
+                        scale_rows[3] += int((off & (act_moved | code_moved)).sum())
+                srel = max(x.max().item() for x in srels)
                 return (rows, int((dcode != 0).sum()), dcode.numel(),
                         int(dcode.abs().max()), srel, (out_k[0] - out_p[0]).abs().max().item())
 
-            err = max(err, hold_layers(f"mega_decode_step_cb w{wbits} kv{kv_bits} "
-                                       f"{str(act)[6:]} rpos {rpos}", "mega_decode_step_cb",
-                                       str(act)[6:], run, L, True, failures, spread))
+            name = f"mega_decode_step_cb w{wbits} kv{kv_bits} {str(act)[6:]} rpos {rpos}"
+            err = max(err, hold_layers(name, "mega_decode_step_cb", str(act)[6:], run, L, True,
+                                       failures, spread))
+            print(f"{name}, layers alone: appended rows whose scale is off by more than "
+                  f"{MEGA_LAYER_SCALE_REL:g}: {scale_rows[0]}; of them with an activation code "
+                  f"moved upstream (the new K/V row off by more than {FD_ROW_TIGHT:g}) "
+                  f"{scale_rows[1]}, with a K/V code moved {scale_rows[2]}, with either "
+                  f"{scale_rows[3]}", flush=True)
     return err
 
 
@@ -2107,6 +2144,7 @@ def spread_summary(spread, failures):
 
 QMM_LAYER = 0                  # the layer whose weights hold #10/#11 and time them
 INT8_T0, INT8_NEW = 128, 32    # path A: prompt and new tokens
+FD_LAYER = 0                   # the layer whose weights time #12/#13
 FUSED_T0, FUSED_NEW = 128, 64  # path B: prompt and decode steps
 
 
@@ -2284,16 +2322,16 @@ def int8_engine_path(params, cfg, dev, B, gen):
     return launches, {"generate_s": wall, "tokens": B * NEW}
 
 
-def fused_decode_path(params, cfg, dev, B, gen):
+def fused_decode_path(params, cfg, dev, B, gen, replay=True):
     """Path B: a greedy decode loop over `infer_forward_unrolled(
     fused_attention=True, fused_linears=True)` on the 8-bit int8_xla tree
     with the int8 head, dense bf16 caches, B = 8: a 128-token prefill through
     flash #2, then 64 steps, each of which must run #12, #9 and #13 once per
     layer and #10 never; the counters set to 0 just before and read just
     after. The tokens held against the plain path by teacher-forced replay
-    and the jitter floor. Then the fused step's time beside the unfused
-    int8_xla step on the same tree and caches, and each step's launches.
-    Returns (launches, timings)."""
+    and the jitter floor (unless `replay` is false). Then the fused step's
+    time beside the unfused int8_xla step on the same tree and caches, and
+    each step's launches. Returns (launches, timings)."""
     import numpy as np
     import torch
 
@@ -2353,13 +2391,14 @@ def fused_decode_path(params, cfg, dev, B, gen):
     check(launches == want, f"path B: launches {launches} == {want} (#12, #9, #13: "
           f"{L} each per step)")
     check(bool(((toks >= 0) & (toks < cfg.model.vocab_size)).all()), "path B: token ids")
-    lk = decode(toks=toks)[1]
-    lp = decode(use_kernels=False, toks=toks)[1]
-    patches = [(fd, "_ln_f32", "out"), (fd, "_lora", "out"),
-               (inference, "decode_attention_plain", "out"),
-               (inference, "flash_attention_plain", "out")]
-    lj = jittered_floor(patches, lambda: decode(use_kernels=False, toks=toks)[1], dev)
-    hold_tokens("path B fused", toks, lk, lp, lj)
+    if replay:
+        lk = decode(toks=toks)[1]
+        lp = decode(use_kernels=False, toks=toks)[1]
+        patches = [(fd, "_ln_f32", "out"), (fd, "_lora", "out"),
+                   (inference, "decode_attention_plain", "out"),
+                   (inference, "flash_attention_plain", "out")]
+        lj = jittered_floor(patches, lambda: decode(use_kernels=False, toks=toks)[1], dev)
+        hold_tokens("path B fused", toks, lk, lp, lj)
 
     def steps_ms(fused):
         """Host ms per decode step over NEW steps on toks (kernels on)."""
@@ -2465,29 +2504,22 @@ def qmm_timings(tree, gen, dev, n_iter=50):
     return out
 
 
-def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
-    """#9-#13 at their main paths' shapes: device time (profiler), the plain
-    versions' time (CUDA events), bytes, operations and bounds, and the
-    library yardsticks. #10/#11: `qmm_timings`. #9: `dense_da_timing`.
-    #12/#13: layer 0 of the int8_xla tree; no single PyTorch call computes
-    either."""
+def fd_cases(tree, cfg, gen, dev, B, layer=FD_LAYER):
+    """#12's and #13's operands on one layer of the 8-bit int8_xla tree
+    (rank-64 bf16 LoRA banks, static activation scales), h and attn drawn:
+    {name: (arguments, bytes the call must move, least time of its
+    operations in seconds)}."""
     import torch
 
     from llm_qat_tpu_torch.models.sp_model import _layer
-    from llm_qat_tpu_torch.ops import fused_decode as fd
 
     m = cfg.model
-    d, H, D, r = m.n_embd, m.n_head, m.head_dim, cfg.quant.max_rank
-
-    out = qmm_timings(trees["int8"], gen, dev, n_iter)
-    out["decode_attention"] = dense_da_timing(dev, gen, B, H, D)
-
-    bp = _layer(trees[8]["blocks"], 0)
+    d, r = m.n_embd, cfg.quant.max_rank
+    bp = _layer(tree["blocks"], layer)
     ca = bp["c_attn"]
     h = torch.randn((B, d), generator=gen, device=dev)
     attn = 0.5 * torch.randn((B, d), generator=gen, device=dev)
     xs = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
-    eps = m.layer_norm_epsilon
 
     def lin_bytes(lin):
         K, N = lin["w_i8"].shape
@@ -2499,19 +2531,287 @@ def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
         K, N = lin["w_i8"].shape
         return 2 * B * K * N / PEAK_INT8_OPS + 2 * B * r * (K + N) / PEAK_BF16_FLOPS
 
-    for name, args, nbytes, ops in (
-            ("fused_ln_qkv", (h, bp["ln1"]["g"], bp["ln1"]["b"], ca["w_i8"], ca["w_s"], ca["b"],
-                              ca["x_s"], ca["lora_A"], ca["lora_B"]),
-             4 * B * d + 8 * d + lin_bytes(ca) + 4 + 4 * B * 3 * d, lin_ops(ca)),
-            ("fused_post_attention", (attn, h, bp["ln2"]["g"], bp["ln2"]["b"], bp["attn_proj"],
-                                      bp["c_fc"], bp["mlp_proj"], xs),
-             8 * B * d + 8 * d + sum(lin_bytes(bp[n]) for n in LINEARS[1:]) + 12 + 4 * B * d,
-             sum(lin_ops(bp[n]) for n in LINEARS[1:]))):
+    return {
+        "fused_ln_qkv": ((h, bp["ln1"]["g"], bp["ln1"]["b"], ca["w_i8"], ca["w_s"], ca["b"],
+                          ca["x_s"], ca["lora_A"], ca["lora_B"]),
+                         4 * B * d + 8 * d + lin_bytes(ca) + 4 + 4 * B * 3 * d, lin_ops(ca)),
+        "fused_post_attention": ((attn, h, bp["ln2"]["g"], bp["ln2"]["b"], bp["attn_proj"],
+                                  bp["c_fc"], bp["mlp_proj"], xs),
+                                 8 * B * d + 8 * d + sum(lin_bytes(bp[n]) for n in LINEARS[1:])
+                                 + 12 + 4 * B * d,
+                                 sum(lin_ops(bp[n]) for n in LINEARS[1:]))}
+
+
+def int8_kernel_timings(trees, cfg, gen, dev, B, n_iter=50):
+    """#9-#13 at their main paths' shapes: device time (profiler), the plain
+    versions' time (CUDA events), bytes, operations and bounds, and the
+    library yardsticks. #10/#11: `qmm_timings`. #9: `dense_da_timing`.
+    #12/#13: layer FD_LAYER of the int8_xla tree (`fd_cases`); no single
+    PyTorch call computes either."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    eps = cfg.model.layer_norm_epsilon
+    out = qmm_timings(trees["int8"], gen, dev, n_iter)
+    out["decode_attention"] = dense_da_timing(dev, gen, B, cfg.model.n_head, cfg.model.head_dim)
+    for name, (args, nbytes, ops) in fd_cases(trees[8], cfg, gen, dev, B).items():
         kern, plain = getattr(fd, name), getattr(fd, name + "_plain")
         out[name] = timing_row(device_ms(lambda: kern(*args, eps=eps), n_iter),
                                cuda_ms(lambda: plain(*args, eps=eps), 20), None, nbytes, ops)
     print("int8_kernel_timings " + json.dumps(out), flush=True)
     return out
+
+
+FD_BATCHES = (1, 8, 16)   # batch rows of --fused-decode's holds
+# the phases of one launch, in order (ops/fused_decode.py::barriers between them)
+FD_PHASES = {"fused_ln_qkv": ("G_qkv", "E_qkv"),
+             "fused_post_attention": ("G_proj", "E_proj", "G_fc", "E_fc", "G_mlp", "E_mlp")}
+
+
+def fd_rows(fd, name, args, eps, **kw):
+    """A wrapper call and its plain version: (kernel output, per batch row
+    max |kernel - plain| / max |plain|)."""
+    got = getattr(fd, name)(*args, eps=eps, **kw)
+    want = getattr(fd, name + "_plain")(*args, eps=eps)
+    return got, ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+
+
+def fd_hold(tag, rows, failures):
+    """Rows held as the full run holds #12/#13: FD_ROW_TIGHT for a share of
+    MEGA_TIGHT_SHARE, every row within MEGA_LAYER_MAX."""
+    share = sum(e <= FD_ROW_TIGHT for e in rows) / len(rows)
+    print(f"{tag}: {len(rows)} rows, within {FD_ROW_TIGHT:g}: {share:.3f} (tol >= "
+          f"{MEGA_TIGHT_SHARE}); row err max {max(rows):.3e} (tol {MEGA_LAYER_MAX:g})",
+          flush=True)
+    if not (share >= MEGA_TIGHT_SHARE and max(rows) <= MEGA_LAYER_MAX):
+        failures.append(f"{tag}: {share:.3f} of rows within {FD_ROW_TIGHT:g}, row err max "
+                        f"{max(rows):.3e}")
+
+
+def fd_batch_holds(tree, cfg, gen, dev, failures):
+    """#12 and #13 at B = 1, 8 and 16, each of the layers alone on its own
+    weights, held by `fd_hold`; a second call on the same inputs must be
+    bit-equal to the first."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    eps = cfg.model.layer_norm_epsilon
+    for B in FD_BATCHES:
+        rows = {name: [] for name in FD_PHASES}
+        for layer in range(cfg.model.n_layer):
+            for name, (args, _, _) in fd_cases(tree, cfg, gen, dev, B, layer).items():
+                got, rs = fd_rows(fd, name, args, eps)
+                again = getattr(fd, name)(*args, eps=eps)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    failures.append(f"{name} B={B} layer {layer}: repeat call not bit-equal")
+                rows[name] += rs
+        for name, rs in rows.items():
+            fd_hold(f"{name} B={B}, each layer alone, repeat calls bit-equal", rs, failures)
+
+
+def fd_phase_times(fd, name, args, eps, dev, calls=5):
+    """Where a launch's time goes, from the kernel's barrier clock
+    (`fd.phase_clock`: the global timer at every block's start, arrival at
+    and release from every grid barrier, and end), the median over `calls`
+    launches, in microseconds: each phase (the last release of the barrier
+    before it, or the first start, to the last arrival at the barrier after
+    it, or the last end), each barrier's latency (last arrival to last
+    release) and arrival spread (first to last arrival), the launch's start
+    skew (first to last block start) and its span (first start to last
+    end)."""
+    import statistics
+
+    import torch
+
+    names = FD_PHASES[name]
+    n_bar = fd.barriers(len(names) // 2)
+    nb = fd.fused_grid(dev)
+    fn = lambda: getattr(fd, name)(*args, eps=eps)
+    fn()
+    runs = []
+    for _ in range(calls):
+        buf = torch.zeros((2 * n_bar + 2, nb), dtype=torch.int64, device=dev)
+        fd.phase_clock(buf)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            fd.phase_clock(None)
+        t = buf.double().cpu() / 1e3
+        arr, rel, end, start = t[0:2 * n_bar:2], t[1:2 * n_bar:2], t[2 * n_bar], t[2 * n_bar + 1]
+        r = {"span_us": float(end.max() - start.min()),
+             "start_skew_us": float(start.max() - start.min())}
+        for k, ph in enumerate(names):
+            t0 = start.min() if k == 0 else rel[k - 1].max()
+            t1 = end.max() if k == n_bar else arr[k].max()
+            r[ph] = float(t1 - t0)
+        for k in range(n_bar):
+            r[f"barrier{k}_us"] = float(rel[k].max() - arr[k].max())
+            r[f"barrier{k}_spread_us"] = float(arr[k].max() - arr[k].min())
+        runs.append(r)
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def fd_grid_sweep(fd, cases, eps, dev, failures):
+    """Each kernel at the plan's grid (one block per SM), half of it and two
+    blocks per SM: held by `fd_hold`, two calls bit-equal, profiler device
+    ms; a grid the runtime refuses raises, and is recorded as refused."""
+    import torch
+
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fd.fused_grid(dev)
+    out = {}
+    for name, (args, _, _) in cases.items():
+        sweep = {}
+        for g in sorted({plan, plan // 2, 2 * nsm}):
+            try:
+                got, rows = fd_rows(fd, name, args, eps, grid=g)
+                again = getattr(fd, name)(*args, eps=eps, grid=g)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                sweep[g] = {"refused": str(e).splitlines()[0][:200]}
+                continue
+            same = torch.equal(got, again)
+            fd_hold(f"{name} grid {g}", rows, failures)
+            if not same:
+                failures.append(f"{name} grid {g}: repeat call not bit-equal")
+            sweep[g] = {"device_ms": device_ms(lambda: getattr(fd, name)(*args, eps=eps, grid=g),
+                                               20),
+                        "row_err": max(rows), "repeat_bit_equal": same}
+        check(plan in sweep and "refused" not in sweep[plan], f"{name} ran at the plan's grid")
+        out[name] = {"grid_plan": plan, "sweep": sweep}
+    return out
+
+
+def fd_timings(fd, cases, eps, dev):
+    """#12 and #13 at the table's shapes: CUDA events around back-to-back
+    calls (`ms`), profiler device time (`device_ms`), graph replay
+    (`graph_ms`, or why a capture failed), the host time of one wrapper call
+    (`host_ms`), the launches and device µs per call of each CUDA kernel or
+    copy the profiler records, the plain version's events ms, the bound;
+    and where the kernel keeps a barrier clock, `fd_phase_times`."""
+    import torch
+
+    out = {}
+    for name, (args, nbytes, ops) in cases.items():
+        kern, plain = getattr(fd, name), getattr(fd, name + "_plain")
+        fn = lambda: kern(*args, eps=eps)
+        r = timing_row(cuda_ms(fn, 50), cuda_ms(lambda: plain(*args, eps=eps), 20), None,
+                       nbytes, ops)
+        r["device_ms"] = device_ms(fn, 20)
+        try:
+            r["graph_ms"] = graph_ms(fn, 20)
+        except Exception as e:  # a capture the runtime refuses is recorded, not fatal
+            r["graph_ms"] = None
+            r["graph_error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            torch.cuda.synchronize()
+        r["host_ms"] = host_ms(fn, 50)
+        per = {}
+        for ev in _kernel_events(fn, 10):
+            per[kernel_name(ev.key)] = {"launches_per_call": ev.count / 10,
+                                        "us_per_call": ev.self_device_time_total / 10}
+        r["by_kernel"] = per
+        r["launches_per_call"] = sum(v["launches_per_call"] for v in per.values())
+        if hasattr(fd, "phase_clock"):
+            r["phases_us"] = fd_phase_times(fd, name, args, eps, dev)
+        out[name] = r
+        print(f"{name}: {r['ms']:.4f} ms by events, {r['device_ms']:.4f} device, graph "
+              f"{r['graph_ms']}, host {r['host_ms']:.4f}; {r['launches_per_call']:g} launches "
+              f"per call " + json.dumps(per), flush=True)
+        if "phases_us" in r:
+            print(f"{name} phases (us): " + json.dumps(r["phases_us"]), flush=True)
+    return out
+
+
+def fd_whole_k(fd, args, eps, dev, failures):
+    """#12's whole-K variant (`fd.launch_ln_qkv(whole_k=True)`: each column
+    group over all of K on one block, no grid barrier) beside the split-K
+    kernel the wrapper launches: held by `fd_hold`, two calls bit-equal,
+    profiler device ms, graph-replay ms and the barrier clock's span (first
+    start to last end, median of 5 launches) of each."""
+    import statistics
+
+    import torch
+
+    want = fd.fused_ln_qkv_plain(*args, eps=eps)
+    nb = fd.fused_grid(dev)
+    out = {}
+    for whole in (False, True):
+        fn = lambda: fd.launch_ln_qkv(*args, eps=eps, whole_k=whole)
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        rows = ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+        tag = "whole_k" if whole else "split_k"
+        fd_hold(f"fused_ln_qkv {tag}", rows, failures)
+        if not torch.equal(got, again):
+            failures.append(f"fused_ln_qkv {tag}: repeat call not bit-equal")
+        n_bar = fd.barriers(1, whole)
+        spans = []
+        for _ in range(5):
+            buf = torch.zeros((2 * n_bar + 2, nb), dtype=torch.int64, device=dev)
+            fd.phase_clock(buf)
+            try:
+                fn()
+                torch.cuda.synchronize()
+            finally:
+                fd.phase_clock(None)
+            spans.append((buf[2 * n_bar].max() - buf[2 * n_bar + 1].min()).item() / 1e3)
+        out[tag] = {"device_ms": device_ms(fn, 20), "graph_ms": graph_ms(fn, 20),
+                    "span_us": statistics.median(spans), "row_err": max(rows)}
+    print("fused_ln_qkv split-K against whole-K " + json.dumps(out), flush=True)
+    return out
+
+
+def fused_decode_phase(dev) -> int:
+    """`--fused-decode`: kernels #12/#13 alone (for A/B runs of two trees on
+    one card): fused_decode.cu's and mega_decode.cu's ptxas reports; the
+    full run's holds of #12/#13 (`fused_decode_vs_plain`, limits unchanged);
+    holds at B = 1, 8 and 16 with repeat calls bit-equal
+    (`fd_batch_holds`); the grid sweep (`fd_grid_sweep`); `fd_timings` at the
+    table's shapes (events, profiler and graph-replay ms, host ms a call,
+    launches per call by kernel, the barrier clock's phases); the decode
+    steps #1/#3/#4 at `mega_cases`' shapes by events and profiler (k_mega
+    shares sm90.cuh's barrier); then path B (`fused_decode_path` without its
+    token replay). Prints no result line; returns 1 if a hold failed."""
+    import torch
+
+    from llm_qat_tpu_torch.models.inference import InferenceEngine, quantize_for_inference
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+    from llm_qat_tpu_torch.ops import mega_decode as md
+
+    for src in ("fused_decode", "mega_decode"):
+        print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
+    cfg, params, gen = serve_setup(dev)
+    B, eps = 8, cfg.model.layer_norm_epsilon
+    trees = {4: quantize_for_inference(params, cfg, 4, weight_format="int4_xla"),
+             8: quantize_for_inference(params, cfg, 8, weight_format="int8_xla")}
+    for tree in trees.values():
+        tree.pop("_static")
+    failures = []
+    fused_decode_vs_plain(trees[8], cfg, gen, dev, B, failures)
+    fd_batch_holds(trees[8], cfg, gen, dev, failures)
+    cases = fd_cases(trees[8], cfg, gen, dev, B)
+    res = {}
+    if hasattr(fd, "fused_grid"):
+        res["grid_sweep"] = fd_grid_sweep(fd, cases, eps, dev, failures)
+    res["timings"] = fd_timings(fd, cases, eps, dev)
+    if hasattr(fd, "launch_ln_qkv"):
+        res["qkv_variants"] = fd_whole_k(fd, cases["fused_ln_qkv"][0], eps, dev, failures)
+    kw_eng = dict(bits=4, max_batch=B, max_len=192, weight_format="int4_xla",
+                  lm_head_bits=4, kv_layout="mega", kv_bits=4, mega_tbp=64)
+    eng = InferenceEngine(params, cfg, **kw_eng)
+    res["mega"] = {}
+    for tag, case in mega_cases(md, cfg, trees, eng, gen, dev, B).items():
+        fn = mega_call(md, case)
+        res["mega"][tag] = {"ms": cuda_ms(fn, 50), "device_ms": device_ms(fn, 10)}
+    _, res["path_b"] = fused_decode_path(params, cfg, dev, B, gen, replay=False)
+    print("fused_decode_ab " + json.dumps(res), flush=True)
+    torch.cuda.synchronize()
+    for f in failures:
+        print(f"chip_smoke --fused-decode: FAIL {f}", flush=True)
+    return 1 if failures else 0
 
 
 def main() -> int:
@@ -2529,7 +2829,9 @@ def main() -> int:
     ap.add_argument("--decode-attention", action="store_true",
                     help="only hold, sweep and time kernels #7/#8/#9")
     ap.add_argument("--mega-decode", action="store_true",
-                    help="only hold, sweep and time the decode steps #1/#4")
+                    help="only hold, sweep and time the decode steps #1/#3/#4")
+    ap.add_argument("--fused-decode", action="store_true",
+                    help="only hold, sweep and time the fused decode layer #12/#13")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2577,6 +2879,8 @@ def main() -> int:
         return decode_attention_phase(dev)
     if args.mega_decode:
         return mega_decode_phase(dev)
+    if args.fused_decode:
+        return fused_decode_phase(dev)
     for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention", "mega_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
     print_ptxas_wgmma_flash(_build)

@@ -22,46 +22,120 @@
 // the __fmul_rn/__fadd_rn intrinsics wherever a product feeds a sum, so
 // that nvcc contracts nothing into an FMA. LN's rsqrt is rsqrtf, which is
 // what torch.rsqrt runs on the card. The int8 dots are exact (__dp4a in
-// int32), so the kernels and their plain versions differ only where the
+// int32), so the kernel and its plain version differ only where the
 // float32 sums of LN and LoRA are taken in another order; such a difference
 // moves an activation code now and then, when a value sits on a rounding
 // boundary of q8.
 //
-// Design. The TPU kernels are one grid-less program each; here each entry
-// is a short sequence of launches on PyTorch's stream:
-// - `k_ln`: one block per batch row (LN statistics need the whole row);
-// - `k_lin_a`: one linear's GEMV spread over the card. Blocks x < ncg take
-//   256 columns each (64 threads x 4 columns, 4 lanes of K rows) of one
-//   chunk of K rows (the chunk halved from 64 down to 16 until there are
-//   132 blocks or more): they quantize their chunk of x in shared memory,
-//   read four rows of four columns of codes as four 32-bit words, transpose
-//   them with byte_perm and take __dp4a with the packed activation codes,
-//   then add their int32 sums into an int32 accumulator with atomics (exact,
-//   so the order does not matter; the accumulator is zeroed first). One
-//   more block per chunk (x = ncg) takes that chunk's LoRA-A partial sums
-//   (bank(x) . A over the chunk) into a float32 workspace;
-// - `k_lin_b`: one thread per output column: sums the LoRA-A partials over
-//   the chunks in a fixed order (deterministic), rounds them to the bank
-//   dtype, and forms acc * (xs * ws) + b + LoRA-B, then the residual add or
-//   the GELU of its place in the layer.
-// #12 is k_ln, k_lin_a, k_lin_b; #13 is (k_lin_a, k_lin_b) for proj, k_ln,
-// then (k_lin_a, k_lin_b) for fc and for mlp.
+// Bound. At decode batch sizes (B <= 16) the layer is a GEMV, far below
+// the card's operations-per-byte line: it must read its int8 weights (#13:
+// 8 d^2 bytes, 4.7 MB at d = 768; #12: 3 d^2, 1.8 MB), the LoRA banks (1.2
+// and 0.4 MB at rank 64 in bf16), scales, biases and the activations, about
+// 2 us and 0.7 us at 3.35 TB/s.
 //
-// Bound. The layer must read its int8 weights (12 d^2 bytes: 7.1 MB at
-// d = 768), the LoRA banks, scales and biases, and the activations: at
-// decode batch sizes it is bound by device-memory bytes (about 2.2 us per
-// layer at 3.35 TB/s at GPT-2 124M width, rank 64 bf16).
+// Design. The TPU kernels are one grid-less program each, the weights in
+// VMEM. Here each entry is one cooperative launch of the persistent kernel
+// k_fused on one block per SM (ops/fused_decode.py::fused_grid; a grid the
+// card cannot hold at once is refused and the wrapper raises, there is no
+// other path). The plan (ops/fused_decode.py::fused_plan, passed as an
+// int32 table of one record per block) gives each block pieces of each
+// linear's weight (a column group of CW columns x a range of K rows), its
+// LoRA-A items (la_rows input rows x every LoRA output) and its epilogue
+// items (E_COLS columns x every batch row), balanced by bytes over the
+// whole layer, and where each lands in the block's shared memory. The
+// layer's bytes fit the card's shared memory at once (6.5 MB for #13 at
+// GPT-2 124M width, 50 KB a block over 132 SMs): the prologue asks for all
+// of a block's operands with bulk copies (cp.async.bulk, one per weight row
+// segment of CW bytes, per LoRA-A item, per LoRA-B bank row of an epilogue
+// item, per scale and bias slice), in phase order, each linear's on its own
+// mbarrier, so that no phase waits on device memory for a weight byte: a
+// phase's first use of its linear's operands waits on that mbarrier, which
+// the copies have long completed. Then the phases, a grid barrier
+// (sm90.cuh's grid_sync, one counter in device memory, zeroed once per
+// device) after each but the last:
+//   #13  G_proj | E_proj | G_fc | E_fc | G_mlp | E_mlp     (5 barriers)
+//   #12  G_qkv  | E_qkv                                    (1 barrier)
+//   G  the block's inputs first, every load of the phase in flight at once:
+//      the raw rows of its pieces' and items' K ranges (attn, g), or for the
+//      LN linear (#12's qkv, #13's fc) all B x d input rows, LN statistics
+//      per row by one warp in one fixed order (the same in every block),
+//      and the normalized values of its rows; q8 codes and bank-rounded
+//      floats in shared memory. Then the int32 dots of its pieces (warp w:
+//      batch rows w and w + 8, lane: 4 columns, __dp4a on 4 K rows of codes
+//      from shared memory), each piece to a partial-sum slot of its own in
+//      device memory; then its LoRA-A items, float partials per item.
+//   E  per epilogue item: the rounded LoRA-A sums (every item's partials
+//      added in item order), the column group's slots in the plan's order
+//      (int32, exact), scale and bias, LoRA-B from its bank slice in shared
+//      memory, then the residual (h, or h1 for the mlp) or the A&S GELU;
+//      rows go to h1 / g in device memory, or to the output.
+// Sum orders: int32 sums are exact in any order; every float sum runs in a
+// fixed order (LN per row over lanes then a shuffle tree, LoRA-A per item
+// over strided K rows then over the strides, items in order, LoRA-B over
+// four rank groups joined by shuffles), so two calls on the same inputs and
+// grid are bit-equal. No memset and no atomics but the grid barrier's.
+//
+// The whole-K plan (#12 only, `whole_k`): each column group over all of K
+// on one block, which also owns the group's epilogue items and runs every
+// LoRA-A item itself (its bank rows from device memory, the partials in
+// shared memory), so G and E meet at a block barrier, not a grid barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NT 256      // threads per block
-#define COLS 256    // columns per GEMV block
-#define KCH 64      // the largest chunk of K rows per block
-#define MAXB 16     // batch rows
-#define MAXR 64     // LoRA rank
-#define MIN_BLOCKS 132
+#include "sm90.cuh"
+
+#define PT 256          // threads of a block
+#define NWARPS (PT / 32)
+#define CW 128          // columns of a weight piece: 32 lanes x 4
+#define E_COLS 32       // columns of an epilogue item
+#define MAXB 16         // batch rows
+#define MAXR 64         // LoRA rank
+#define MAX_LIN 3       // linears of a launch
+#define LA_LOADS 32     // LoRA-A partials an epilogue output adds (items of a linear, at most)
+#define SLOT_LOADS 8    // partial-sum slots a lane loads at once
+#define IN_LOADS 8      // input values a thread loads at once
+#define COPY_CHUNK 4096 // bytes of one bulk copy of a contiguous operand
+#define FIXED_BYTES 256 // mbarriers (32 bytes), then the scalars below
+// the block record (ops/fused_decode.py::fused_plan): a header of RH ints
+// (per linear j: pieces, LoRA-A items, epilogue items at 3j..3j+2; the
+// shared-memory offset of the LN parameters at R_LN), then per linear its
+// pieces (column group, first K row, end K row, slot, shared-memory offset
+// of the codes, offset of the activation codes in the activation region),
+// items (t, offset of the bank rows, offset of the inputs in the
+// activation region) and epilogue items (e, offset of the LoRA-B slice,
+// offset of the scale and bias slices, first and end slot of the group)
+#define RH 16
+#define R_LN 9
+#define P_PIECE 6
+#define P_ITEM 3
+#define P_EPI 5
+// the launch header (host memory): fused_plan's H_*
+#define H_NB 0
+#define H_NLIN 1
+#define H_SMEM 2
+#define H_REC_LEN 3
+#define H_REC 4
+#define H_WORK 5
+#define H_ACT 6
+#define H_RED 7
+#define H_XA 8
+#define H_LAL 9
+#define H_WHOLE 10
+#define H_LA0 11
+#define H_SC_LAP 14
+#define H_SC_H1 15
+#define H_SC_G 16
+#define H_LN_AT 18
+// scalars in shared memory (floats after the mbarriers)
+#define S_XS 0          // xs of each linear
+#define S_WS0 4         // the per-tensor weight scale of each linear
+#define S_MEAN 8        // LN statistics per batch row
+#define S_RSTD (S_MEAN + MAXB)
+#define MODE_OUT 0      // out = y
+#define MODE_RESID 1    // out = resid + y
+#define MODE_GELU 2     // out = GELU(y)
 
 extern "C" const char* kernels_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -100,279 +174,563 @@ __device__ __forceinline__ float gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, erf_as(__fmul_rn(x, 0.70710678118654752f))));
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float x = lane < NT / 32 ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    if (lane == 0) red[32] = x;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
-// y[row] = g * (x - mean) * rsqrt(var + eps) + b over one row of d.
-__global__ void __launch_bounds__(NT)
-k_ln(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
-     float* __restrict__ y, int d, float eps) {
-  __shared__ float red[33];
-  const float* xr = x + (size_t)blockIdx.x * d;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += NT) s = __fadd_rn(s, xr[i]);
-  const float mean = __fdiv_rn(block_sum(s, red), (float)d);
-  float v = 0.f;
-  for (int i = threadIdx.x; i < d; i += NT) {
-    const float dl = __fsub_rn(xr[i], mean);
-    v = __fadd_rn(v, __fmul_rn(dl, dl));
-  }
-  const float rs = rsqrtf(__fadd_rn(__fdiv_rn(block_sum(v, red), (float)d), eps));
-  float* yr = y + (size_t)blockIdx.x * d;
-  for (int i = threadIdx.x; i < d; i += NT)
-    yr[i] = __fadd_rn(__fmul_rn(__fmul_rn(g[i], __fsub_rn(xr[i], mean)), rs), b[i]);
+// One linear of a launch. Its input rows are x (B, K), or LN(x) for the
+// launch's LN linear; its output rows out (B, N), with the residual resid
+// (B, N) for MODE_RESID.
+struct FLin {
+  const int8_t* w;      // (K, N) codes
+  const float* ws;      // (N) scales, or (1)
+  const float* bias;    // (N)
+  const void* la;       // (K, r) LoRA-A bank
+  const void* lb;       // (r, N) LoRA-B bank
+  const float* x;
+  const float* resid;
+  float* out;
+  int K, N, ws_col, mode, la_rows;
+};
+
+struct Fused {
+  FLin lin[MAX_LIN];
+  const float* ln_g; const float* ln_b;  // (d) of the LN linear
+  const float* xs;                       // (n_lin) static input scales
+  int32_t* slots;                        // (slots, B, CW) int32 partial sums
+  float* lap;                            // (items, B, r) LoRA-A partials
+  unsigned* bar;                         // the grid barrier's counter
+  unsigned long long* clk;               // barrier clock, or null
+  const int* plan;                       // the blocks' records, rec_len ints each
+  int n_lin, ln_at, B, r, rec_len, rec_off, work_off, act_off, red_off, xa_off, lal_off, whole_k;
+  float eps;
+};
+
+// The block's entries of linear j start at rec + RH + ent_off(rec, j).
+__device__ __forceinline__ int ent_off(const int* rec, int j) {
+  int off = 0;
+  for (int i = 0; i < j; ++i) off += P_PIECE * rec[3 * i] + P_ITEM * rec[3 * i + 1] + P_EPI * rec[3 * i + 2];
+  return off;
 }
 
-// The codes of rows k .. k+3 and columns n .. n+3 (four row words) as four
-// column words, row k in the low byte.
-__device__ __forceinline__ void transpose4(const int* r, int* c) {
-  const int t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-  const int t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
+// Thread tid's share of njobs jobs, dealt round-robin from a running base
+// (so that consecutive lists spread over the block): calls job(i).
+template <typename F>
+__device__ __forceinline__ void deal(int njobs, int& base, F job) {
+  for (int i = (threadIdx.x - base % PT + PT) % PT; i < njobs; i += PT) job(i);
+  base += njobs;
 }
 
-// One linear's GEMV (blocks x < ncg) and LoRA-A partials (block x = ncg)
-// over chunk y of kch rows. x (B, K) float32; w (K, N) int8; la (K, r).
-// acc (B, N) int32 += q8(x) . w; part[y] (B, r) = bank(x) . la over the chunk.
+// Contiguous bytes [src, src + bytes) into shared memory at dst, in
+// COPY_CHUNK pieces (bytes, dst and src 16-byte aligned).
+template <typename F>
+__device__ __forceinline__ void copy_jobs(int bytes, int& base, F issue) {
+  deal((bytes + COPY_CHUNK - 1) / COPY_CHUNK, base, [&](int i) {
+    issue(i * COPY_CHUNK, min(COPY_CHUNK, bytes - i * COPY_CHUNK));
+  });
+}
+
+// The prologue's bulk copies of the block's operands of linear j, on mbarrier
+// bar: its pieces' weight rows, LoRA-A rows, LoRA-B slices and its epilogue
+// columns' scales and biases, and the LN parameters if j is the LN linear.
+// With count, thread 0 only adds up the bytes instead.
 template <typename TB>
-__global__ void __launch_bounds__(NT)
-k_lin_a(const float* __restrict__ x, const float* __restrict__ xs_ptr,
-        const int8_t* __restrict__ w, const TB* __restrict__ la, int* __restrict__ acc,
-        float* __restrict__ part, int B, int K, int N, int r, int ncg, int kch) {
-  __shared__ __align__(16) int8_t xq[MAXB * KCH];
-  __shared__ float xr[MAXB * KCH];
-  __shared__ int sacc[MAXB * COLS];
-  __shared__ float red[4 * MAXB * MAXR];
-  const int tid = threadIdx.x, k0 = blockIdx.y * kch, kn = min(kch, K - k0);
-
-  if ((int)blockIdx.x < ncg) {
-    const float xs = *xs_ptr;
-    for (int i = tid; i < B * kch; i += NT) {
-      const int b = i / kch, k = i % kch;
-      xq[b * KCH + k] = k < kn ? (int8_t)q8(x[(size_t)b * K + k0 + k], xs) : (int8_t)0;
+__device__ int lin_copies(const Fused& a, int j, const int* rec, uint8_t* sm, uint32_t bar,
+                          int& base, bool count) {
+  const FLin& L = a.lin[j];
+  const int np = rec[3 * j], ni = rec[3 * j + 1], ne = rec[3 * j + 2], r = a.r;
+  const int* e = rec + RH + ent_off(rec, j);
+  int bytes = 0;
+  auto copy = [&](uint32_t dst, const void* src, int n) {
+    if (!count) bulk_load(dst, src, n, bar);
+  };
+  const uint32_t s0 = smem_u32(sm);
+  if (j == a.ln_at) {
+    const int nbytes = 4 * L.K;
+    bytes += 2 * nbytes;
+    if (!count) {
+      copy_jobs(nbytes, base, [&](int o, int n) {
+        copy(s0 + rec[R_LN] + o, reinterpret_cast<const char*>(a.ln_g) + o, n);
+      });
+      copy_jobs(nbytes, base, [&](int o, int n) {
+        copy(s0 + rec[R_LN] + nbytes + o, reinterpret_cast<const char*>(a.ln_b) + o, n);
+      });
     }
-    for (int i = tid; i < B * COLS; i += NT) sacc[i] = 0;
+  }
+  for (int p = 0; p < np; ++p, e += P_PIECE) {
+    const int g = e[0], r0 = e[1], rows = e[2] - e[1], soff = e[4];
+    const int width = min(CW, L.N - g * CW);
+    bytes += rows * width;
+    if (!count)
+      deal(rows, base, [&](int i) {
+        copy(s0 + soff + i * CW, L.w + (size_t)(r0 + i) * L.N + g * CW, width);
+      });
+  }
+  const int esz = sizeof(TB);
+  for (int q = 0; q < ni; ++q, e += P_ITEM) {
+    const int t = e[0], rows = min(L.la_rows, L.K - t * L.la_rows);
+    const int nbytes = rows * r * esz;
+    if (e[1] < 0) continue;  // a whole-K plan reads the rows from device memory
+    bytes += nbytes;
+    if (!count) {
+      const char* src = static_cast<const char*>(L.la) + (size_t)t * L.la_rows * r * esz;
+      copy_jobs(nbytes, base, [&](int o, int n) { copy(s0 + e[1] + o, src + o, n); });
+    }
+  }
+  for (int q = 0; q < ne; ++q, e += P_EPI) {
+    const int c0 = e[0] * E_COLS;
+    bytes += r * E_COLS * esz + (L.ws_col ? 2 : 1) * E_COLS * 4;
+    if (count) continue;
+    deal(r, base, [&](int jr) {
+      copy(s0 + e[1] + jr * E_COLS * esz,
+           static_cast<const char*>(L.lb) + ((size_t)jr * L.N + c0) * esz, E_COLS * esz);
+    });
+    deal(2, base, [&](int i) {
+      if (i == 0 && L.ws_col) copy(s0 + e[2], L.ws + c0, E_COLS * 4);
+      if (i == 1) copy(s0 + e[2] + E_COLS * 4, L.bias + c0, E_COLS * 4);
+    });
+  }
+  return bytes;
+}
+
+// G phase of linear j: inputs, the dots of the block's pieces (to their
+// slots), its LoRA-A items (to la partials, or the block's own partials in
+// shared memory on a whole-K plan).
+template <typename TB>
+__device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, float* scal,
+                        uint32_t bar) {
+  const FLin& L = a.lin[j];
+  const int B = a.B, K = L.K, r = a.r, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int np = rec[3 * j], ni = rec[3 * j + 1];
+  const int* pc = rec + RH + ent_off(rec, j);
+  const int* it = pc + P_PIECE * np;
+  uint8_t* work = sm + a.work_off;
+  int8_t* act = reinterpret_cast<int8_t*>(work + a.act_off);
+  const float xs = scal[S_XS + j];
+  const bool ln = j == a.ln_at;
+  float* rows = reinterpret_cast<float*>(work);  // the LN linear's input rows (B, K)
+  if (np == 0 && ni == 0) return;
+  if (ln) {
+    // the rows, IN_LOADS float4 a thread in flight before any is stored
+    const float4* src = reinterpret_cast<const float4*>(L.x);
+    float4* dst = reinterpret_cast<float4*>(rows);
+    const int n4 = B * K / 4;
+    for (int i0 = tid; i0 < n4; i0 += IN_LOADS * PT) {
+      float4 v[IN_LOADS];
+#pragma unroll
+      for (int u = 0; u < IN_LOADS; ++u)
+        if (i0 + u * PT < n4) v[u] = __ldcg(src + i0 + u * PT);
+#pragma unroll
+      for (int u = 0; u < IN_LOADS; ++u)
+        if (i0 + u * PT < n4) dst[i0 + u * PT] = v[u];
+    }
     __syncthreads();
-    const int c4 = tid & 63, lane_k = tid >> 6;
-    const int n = blockIdx.x * COLS + 4 * c4;
-    int a[MAXB][4];
+    // statistics of each row: one warp, lanes over K in a fixed order
+    for (int b = warp; b < B; b += NWARPS) {
+      const float* xr = rows + b * K;
+      float s = 0.f;
+      for (int k = lane; k < K; k += 32) s = __fadd_rn(s, xr[k]);
+      const float mu = __fdiv_rn(warp_sum(s), (float)K);
+      float v = 0.f;
+      for (int k = lane; k < K; k += 32) {
+        const float dl = __fsub_rn(xr[k], mu);
+        v = __fadd_rn(v, __fmul_rn(dl, dl));
+      }
+      v = warp_sum(v);
+      if (lane == 0) {
+        scal[S_MEAN + b] = mu;
+        scal[S_RSTD + b] = rsqrtf(__fadd_rn(__fdiv_rn(v, (float)K), a.eps));
+      }
+    }
+    mbar_wait(bar, 0);  // the LN parameters
+    __syncthreads();
+  }
+  const float* lng = reinterpret_cast<const float*>(sm + rec[R_LN]);
+  const float* lnb = lng + K;
+  auto xin = [&](int b, int k) -> float {
+    if (ln)
+      return __fadd_rn(__fmul_rn(__fmul_rn(lng[k], __fsub_rn(rows[b * K + k], scal[S_MEAN + b])),
+                                 scal[S_RSTD + b]),
+                       lnb[k]);
+    return __ldcg(L.x + (size_t)b * K + k);
+  };
+  // n input values, IN_LOADS a thread in flight before any is stored:
+  // value o is x(at(o)) and goes to put(o, x)
+  auto inputs = [&](int n, auto at, auto put) {
+    for (int o0 = tid; o0 < n; o0 += IN_LOADS * PT) {
+      float v[IN_LOADS];
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b)
+      for (int u = 0; u < IN_LOADS; ++u) {
+        const int o = o0 + u * PT;
+        if (o < n) {
+          const int2 bk = at(o);
+          v[u] = xin(bk.x, bk.y);
+        }
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a[b][j] = 0;
-    if (n < N) {
-      for (int kg = lane_k; 4 * kg < kn; kg += 4) {  // K % 4 == 0: groups are whole
-        const int8_t* wp = w + (size_t)(k0 + 4 * kg) * N + n;
-        int rw[4], cw[4];
+      for (int u = 0; u < IN_LOADS; ++u)
+        if (o0 + u * PT < n) put(o0 + u * PT, v[u]);
+    }
+  };
+  // activation codes of the pieces' rows ([b][k]); bank-rounded inputs of
+  // the items, k-major ([k][b], b padded to B4) for float4 reads
+  const int B4 = (B + 3) & ~3;
+  for (int p = 0; p < np; ++p) {
+    const int* e = pc + P_PIECE * p;
+    const int r0 = e[1], R = e[2] - e[1];
+    int8_t* dst = act + e[5];
+    inputs(B * R, [&](int o) { return make_int2(o / R, r0 + o % R); },
+           [&](int o, float x) { dst[o] = (int8_t)q8(x, xs); });
+  }
+  for (int q = 0; q < ni; ++q) {
+    const int* e = it + P_ITEM * q;
+    const int k0 = e[0] * L.la_rows, nr = min(L.la_rows, K - k0);
+    float* dst = reinterpret_cast<float*>(act + e[2]);
+    for (int o = tid; o < nr * B4; o += PT)
+      if (o % B4 >= B) dst[o] = 0.f;
+    inputs(B * nr, [&](int o) { return make_int2(o % B, k0 + o / B); },
+           [&](int o, float x) { dst[(o / B) * B4 + o % B] = in_bank<TB>(x); });
+  }
+  if (!ln) mbar_wait(bar, 0);
+  __syncthreads();
+
+  for (int p = 0; p < np; ++p) {
+    const int* e = pc + P_PIECE * p;
+    const int R = e[2] - e[1], slot = e[3];
+    const uint8_t* wsm = sm + e[4] + lane * 4;
+    const int8_t* ap = act + e[5];
+    int acc[2][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) rw[i] = __ldg(reinterpret_cast<const int*>(wp + (size_t)i * N));
-        transpose4(rw, cw);
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int b = 0; b < MAXB; ++b) {
-          if (b < B) {
-            const int xw = *reinterpret_cast<const int*>(xq + b * KCH + 4 * kg);
+      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0;
+    for (int s = 0; s < R / 4; ++s) {
+      const uint8_t* base = wsm + 4 * s * CW;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(base);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(base + CW);
+      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(base + 2 * CW);
+      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(base + 3 * CW);
+      // four K rows of four columns as four column words, row 4s in the low byte
+      const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+      const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+      const int cw[4] = {(int)__byte_perm(t0, t2, 0x5410), (int)__byte_perm(t0, t2, 0x7632),
+                         (int)__byte_perm(t1, t3, 0x5410), (int)__byte_perm(t1, t3, 0x7632)};
 #pragma unroll
-            for (int j = 0; j < 4; ++j) a[b][j] = __dp4a(xw, cw[j], a[b][j]);
+      for (int i = 0; i < 2; ++i) {
+        const int b = warp + NWARPS * i;
+        if (b < B) {
+          const int av = *reinterpret_cast<const int*>(ap + b * R + 4 * s);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = __dp4a(av, cw[jj], acc[i][jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = warp + NWARPS * i;
+      if (b < B)
+        *reinterpret_cast<int4*>(a.slots + ((size_t)slot * B + b) * CW + lane * 4) =
+            make_int4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+
+  if (r == 0 || ni == 0) return;
+  // LoRA-A items: thread (jj, kgi) sums input rows kgi, kgi + kg, ... of
+  // output jj; the kg sums are then added in order
+  const int kg = PT / r, jj = tid % r, kgi = tid / r;
+  float* red = reinterpret_cast<float*>(work + a.red_off);  // (kg, B, r)
+  float* lal = reinterpret_cast<float*>(work + a.lal_off);  // whole-K: (items, B, r)
+  for (int q = 0; q < ni; ++q) {
+    const int* e = it + P_ITEM * q;
+    const int t = e[0], nr = min(L.la_rows, K - t * L.la_rows);
+    const TB* bank = e[1] < 0 ? static_cast<const TB*>(L.la) + (size_t)t * L.la_rows * r
+                              : reinterpret_cast<const TB*>(sm + e[1]);
+    const float4* x4 = reinterpret_cast<const float4*>(act + e[2]);  // (nr, B4 / 4)
+    if (kgi < kg) {
+      float acc[MAXB];
+#pragma unroll
+      for (int b = 0; b < MAXB; ++b) acc[b] = 0.f;
+      for (int k = kgi; k < nr; k += kg) {
+        const float w = to_f(bank[k * r + jj]);  // bank x bank products: exact in float32 for bf16
+#pragma unroll
+        for (int b4 = 0; b4 < MAXB / 4; ++b4) {
+          if (4 * b4 < B) {
+            const float4 x = x4[k * (B4 / 4) + b4];
+            acc[4 * b4] = fmaf(x.x, w, acc[4 * b4]);
+            acc[4 * b4 + 1] = fmaf(x.y, w, acc[4 * b4 + 1]);
+            acc[4 * b4 + 2] = fmaf(x.z, w, acc[4 * b4 + 2]);
+            acc[4 * b4 + 3] = fmaf(x.w, w, acc[4 * b4 + 3]);
           }
         }
       }
 #pragma unroll
       for (int b = 0; b < MAXB; ++b)
-        if (b < B)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) atomicAdd(&sacc[b * COLS + 4 * c4 + j], a[b][j]);
+        if (b < B) red[(kgi * B + b) * r + jj] = acc[b];
     }
     __syncthreads();
-    for (int i = tid; i < B * COLS; i += NT) {
-      const int gn = blockIdx.x * COLS + i % COLS;
-      if (gn < N && sacc[i] != 0) atomicAdd(acc + (size_t)(i / COLS) * N + gn, sacc[i]);
+    for (int o = tid; o < B * r; o += PT) {
+      float v = red[o];
+      for (int l = 1; l < kg; ++l) v = __fadd_rn(v, red[l * B * r + o]);
+      if (a.whole_k) lal[(size_t)t * B * r + o] = v;
+      else a.lap[(size_t)t * B * r + o] = v;
     }
-    return;
-  }
-
-  // LoRA-A partial sums of this chunk
-  for (int i = tid; i < B * kch; i += NT) {
-    const int b = i / kch, k = i % kch;
-    xr[b * KCH + k] = k < kn ? in_bank<TB>(x[(size_t)b * K + k0 + k]) : 0.f;
-  }
-  __syncthreads();
-  const int j = tid & 63, lane_k = tid >> 6;
-  float s[MAXB];
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) s[b] = 0.f;
-  if (j < r) {
-    for (int k = lane_k; k < kn; k += 4) {
-      const float av = to_f(la[(size_t)(k0 + k) * r + j]);
-#pragma unroll
-      for (int b = 0; b < MAXB; ++b)
-        if (b < B) s[b] = fmaf(xr[b * KCH + k], av, s[b]);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b)
-    if (b < B) red[(lane_k * MAXB + b) * MAXR + j] = s[b];
-  __syncthreads();
-  for (int i = tid; i < B * r; i += NT) {
-    const int b = i / r, jj = i % r;
-    float v = red[b * MAXR + jj];
-    for (int l = 1; l < 4; ++l) v += red[(l * MAXB + b) * MAXR + jj];
-    part[(size_t)blockIdx.y * B * r + i] = v;
+    __syncthreads();
   }
 }
 
-#define MODE_OUT 0     // out = y
-#define MODE_RESID 1   // out = resid + y
-#define MODE_GELU 2    // out = GELU(y)
-
-// y[b, n] = float(acc) * (xs * ws[n]) + bias[n] + bank(xa[b]) . lb[:, n],
-// xa = the LoRA-A partials summed over the nkc chunks in order. ws holds a
-// scale per column (ws_col = 1) or one for all (ws_col = 0).
+// E phase of linear j: the block's epilogue items.
 template <typename TB>
-__global__ void __launch_bounds__(NT)
-k_lin_b(const int* __restrict__ acc, const float* __restrict__ part, const TB* __restrict__ lb,
-        const float* __restrict__ ws, int ws_col, const float* __restrict__ bias,
-        const float* __restrict__ xs_ptr, const float* __restrict__ resid,
-        float* __restrict__ out, int B, int N, int r, int nkc, int mode) {
-  __shared__ float xa[MAXB * MAXR];
-  for (int i = threadIdx.x; i < B * r; i += NT) {
-    float v = part[i];
-    for (int c = 1; c < nkc; ++c) v += part[(size_t)c * B * r + i];
-    xa[i] = in_bank<TB>(v);
+__device__ void phase_e(const Fused& a, int j, const int* rec, uint8_t* sm, const float* scal,
+                        uint32_t bar) {
+  const FLin& L = a.lin[j];
+  const int B = a.B, N = L.N, r = a.r, tid = threadIdx.x;
+  const int np = rec[3 * j], ni = rec[3 * j + 1], ne = rec[3 * j + 2];
+  if (ne == 0) return;
+  mbar_wait(bar, 0);  // its LoRA-B slices, scales and biases
+  const int* ep = rec + RH + ent_off(rec, j) + P_PIECE * np + P_ITEM * ni;
+  uint8_t* work = sm + a.work_off;
+  float* xa = reinterpret_cast<float*>(work + a.xa_off);  // (B, r), rounded
+  const float xs = scal[S_XS + j], ws0 = scal[S_WS0 + j];
+  // outputs (item, batch row, 4 columns, lane group p of 4): p sums every
+  // fourth slot of the group and a quarter of the LoRA-B ranks; the four
+  // join by shuffles in a fixed order
+  constexpr int NQ = E_COLS / 4;
+  const int rpg = (r + 3) / 4;
+  const int nout = ne * B * NQ * 4;  // a multiple of 32
+  int4 v[SLOT_LOADS];
+  float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+  // output o's residual and its first SLOT_LOADS slots of lane group p
+  auto load = [&](int o) {
+    const int p = o & 3, q = (o >> 2) % NQ, rest = (o >> 2) / NQ;
+    const int b = rest % B, *e = ep + P_EPI * (rest / B);
+    const int n = e[0] * E_COLS + 4 * q, s0 = e[3] + p, s1 = e[4];
+    if (L.mode == MODE_RESID && p == 0) res = __ldcg(reinterpret_cast<const float4*>(L.resid + (size_t)b * N + n));
+#pragma unroll
+    for (int u = 0; u < SLOT_LOADS; ++u)
+      if (s0 + 4 * u < s1)
+        v[u] = __ldcg(reinterpret_cast<const int4*>(a.slots + ((size_t)(s0 + 4 * u) * B + b) * CW + n % CW));
+  };
+  // the slots and residual of this thread's first output are asked for
+  // before the LoRA-A sums, so that the two wait on device memory together
+  if (tid < nout) load(tid);
+  if (r > 0) {
+    // every item's partials, loaded at once, added in item order
+    const int n_items = (L.K + L.la_rows - 1) / L.la_rows;
+    const float* lal = reinterpret_cast<const float*>(work + a.lal_off);
+    for (int o = tid; o < B * r; o += PT) {
+      float pv[LA_LOADS];
+#pragma unroll
+      for (int t = 0; t < LA_LOADS; ++t)
+        if (t < n_items)
+          pv[t] = a.whole_k ? lal[(size_t)t * B * r + o] : __ldcg(a.lap + (size_t)t * B * r + o);
+      float sum = pv[0];
+#pragma unroll
+      for (int t = 1; t < LA_LOADS; ++t)
+        if (t < n_items) sum = __fadd_rn(sum, pv[t]);
+      xa[o] = in_bank<TB>(sum);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const int n = blockIdx.x * NT + threadIdx.x;
-  if (n >= N) return;
-  const float sc = __fmul_rn(*xs_ptr, ws[ws_col ? n : 0]), bn = bias[n];
-  for (int b = 0; b < B; ++b) {
-    float y = __fadd_rn(__fmul_rn((float)acc[(size_t)b * N + n], sc), bn);
+  for (int o = tid; o < nout; o += PT) {
+    if (o != tid) load(o);
+    const int p = o & 3, q = (o >> 2) % NQ, rest = (o >> 2) / NQ;
+    const int b = rest % B, *e = ep + P_EPI * (rest / B);
+    const int n = e[0] * E_COLS + 4 * q, s0 = e[3] + p, s1 = e[4];
+    int qa[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int u = 0; u < SLOT_LOADS; ++u)
+      if (s0 + 4 * u < s1) {
+        qa[0] += v[u].x; qa[1] += v[u].y; qa[2] += v[u].z; qa[3] += v[u].w;
+      }
+    for (int sb = s0 + 4 * SLOT_LOADS; sb < s1; sb += 4) {  // groups of more slots
+      const int4 w = __ldcg(reinterpret_cast<const int4*>(a.slots + ((size_t)sb * B + b) * CW + n % CW));
+      qa[0] += w.x; qa[1] += w.y; qa[2] += w.z; qa[3] += w.w;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      qa[jj] += __shfl_xor_sync(0xffffffffu, qa[jj], 1);
+      qa[jj] += __shfl_xor_sync(0xffffffffu, qa[jj], 2);
+    }
+    float lo[4] = {0.f, 0.f, 0.f, 0.f};
     if (r > 0) {
-      float l = 0.f;  // bank x bank products: exact in float32 for bf16 banks
-      for (int j = 0; j < r; ++j) l = fmaf(xa[b * r + j], to_f(lb[(size_t)j * N + n]), l);
-      y = __fadd_rn(y, l);
+      const TB* lbs = reinterpret_cast<const TB*>(sm + e[1]) + 4 * q;
+      const int j0 = p * rpg, j1 = min(r, j0 + rpg);
+      for (int jr = j0; jr < j1; ++jr) {
+        const float x = xa[b * r + jr];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) lo[jj] = fmaf(x, to_f(lbs[jr * E_COLS + jj]), lo[jj]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        lo[jj] = __fadd_rn(lo[jj], __shfl_xor_sync(0xffffffffu, lo[jj], 1));
+        lo[jj] = __fadd_rn(lo[jj], __shfl_xor_sync(0xffffffffu, lo[jj], 2));
+      }
     }
-    if (mode == MODE_RESID) y = __fadd_rn(resid[(size_t)b * N + n], y);
-    else if (mode == MODE_GELU) y = gelu(y);
-    out[(size_t)b * N + n] = y;
+    if (p != 0) continue;
+    const float* vec = reinterpret_cast<const float*>(sm + e[2]);  // ws (E_COLS), bias (E_COLS)
+    const float rv[4] = {res.x, res.y, res.z, res.w};
+    float y[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float sc = __fmul_rn(xs, L.ws_col ? vec[4 * q + jj] : ws0);
+      float val = __fadd_rn(__fmul_rn((float)qa[jj], sc), vec[E_COLS + 4 * q + jj]);
+      if (r > 0) val = __fadd_rn(val, lo[jj]);
+      if (L.mode == MODE_RESID) val = __fadd_rn(rv[jj], val);
+      else if (L.mode == MODE_GELU) val = gelu(val);
+      y[jj] = val;
+    }
+    *reinterpret_cast<float4*>(L.out + (size_t)b * N + n) = make_float4(y[0], y[1], y[2], y[3]);
   }
 }
 
-// Rows of K per GEMV block: halved from KCH while the grid is under
-// MIN_BLOCKS (down to 16).
-static int chunk_rows(int K, int ncg) {
-  int kch = KCH;
-  while (kch > 16 && ncg * ((K + kch - 1) / kch) < MIN_BLOCKS) kch /= 2;
-  return kch;
+template <typename TB>
+__global__ void __launch_bounds__(PT, 1) k_fused(const __grid_constant__ Fused a) {
+  extern __shared__ __align__(128) uint8_t sm[];
+  const int nb = gridDim.x, tid = threadIdx.x;
+  const unsigned long long t_start = a.clk ? global_ns() : 0ull;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(sm);
+  float* scal = reinterpret_cast<float*>(sm + 32);
+  int* rec = reinterpret_cast<int*>(sm + a.rec_off);
+
+  // prologue: the block's record and scalars, then every operand's bulk copy
+  if (tid == 0) {
+    for (int j = 0; j < a.n_lin; ++j) mbar_init(smem_u32(mbar + j), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int* grec = a.plan + (size_t)blockIdx.x * a.rec_len;
+  for (int i = tid; i < a.rec_len; i += PT) rec[i] = grec[i];
+  if (tid < a.n_lin) {
+    scal[S_XS + tid] = a.xs[tid];
+    scal[S_WS0 + tid] = a.lin[tid].ws_col ? 0.f : a.lin[tid].ws[0];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int base = 0;
+    for (int j = 0; j < a.n_lin; ++j)
+      mbar_expect_tx(smem_u32(mbar + j), lin_copies<TB>(a, j, rec, sm, 0, base, true));
+  }
+  __syncthreads();
+  int base = 0;
+  for (int j = 0; j < a.n_lin; ++j) lin_copies<TB>(a, j, rec, sm, smem_u32(mbar + j), base, false);
+
+  int nbar = 0;
+  for (int j = 0; j < a.n_lin; ++j) {
+    phase_g<TB>(a, j, rec, sm, scal, smem_u32(mbar + j));
+    if (a.whole_k) __syncthreads();
+    else grid_sync(a.bar, a.clk, nb, nbar);
+    phase_e<TB>(a, j, rec, sm, scal, smem_u32(mbar + j));
+    if (j + 1 < a.n_lin) grid_sync(a.bar, a.clk, nb, nbar);
+  }
+  // every operand copy has landed before the block's shared memory goes
+  for (int j = 0; j < a.n_lin; ++j) mbar_wait(smem_u32(mbar + j), 0);
+  if (a.clk && tid == 0) {
+    a.clk[(size_t)2 * nbar * nb + blockIdx.x] = global_ns();
+    a.clk[(size_t)(2 * nbar + 1) * nb + blockIdx.x] = t_start;
+  }
 }
 
-// One linear: acc zeroed, k_lin_a, k_lin_b. part holds ceil(K / 16) * B * r
-// floats, acc B * N ints.
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+#define SMEM_MAX 232448  // dynamic shared memory a block may ask for (227 KB)
+
+// Set by fused_phase_clock: the buffer the next launches write their barrier
+// times to (instrumentation), or null.
+static unsigned long long* g_clk = nullptr;
+
+extern "C" int fused_phase_clock(unsigned long long* clk) {
+  g_clk = clk;
+  return 0;
+}
+
+static FLin make_lin(const int8_t* w, const float* ws, const float* bias, const void* la,
+                     const void* lb, const float* x, const float* resid, float* out, int K,
+                     int N, int ws_col, int mode, int la_rows) {
+  FLin l = {};
+  l.w = w; l.ws = ws; l.bias = bias; l.la = la; l.lb = lb; l.x = x; l.resid = resid;
+  l.out = out; l.K = K; l.N = N; l.ws_col = ws_col; l.mode = mode; l.la_rows = la_rows;
+  return l;
+}
+
+// The launch's layout from the plan's header (hdr: host memory), the
+// scratch (slots at 0, then the LoRA-A partials, h1 and g) and the
+// counters.
+static void set_layout(Fused& f, const int* hdr, char* scratch, unsigned* bar,
+                       const int* plan, const float* xs, int B, int r, float eps) {
+  f.n_lin = hdr[H_NLIN]; f.ln_at = hdr[H_LN_AT]; f.B = B; f.r = r;
+  f.rec_len = hdr[H_REC_LEN]; f.rec_off = hdr[H_REC]; f.work_off = hdr[H_WORK];
+  f.act_off = hdr[H_ACT]; f.red_off = hdr[H_RED]; f.xa_off = hdr[H_XA]; f.lal_off = hdr[H_LAL];
+  f.whole_k = hdr[H_WHOLE]; f.eps = eps;
+  f.slots = reinterpret_cast<int32_t*>(scratch);
+  f.lap = reinterpret_cast<float*>(scratch + hdr[H_SC_LAP]);
+  f.bar = bar; f.clk = g_clk; f.plan = plan; f.xs = xs;
+}
+
 template <typename TB>
-static int linear(const float* x, const float* xs, const int8_t* w, const float* ws,
-                  int ws_col, const float* bias, const void* la, const void* lb,
-                  const float* resid,
-                  float* out, int* acc, float* part, int B, int K, int N, int r, int mode,
-                  cudaStream_t stream) {
-  cudaError_t e = cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)B * N, stream);
-  if (e != cudaSuccess) return (int)e;
-  const int ncg = (N + COLS - 1) / COLS, kch = chunk_rows(K, ncg);
-  const int nkc = (K + kch - 1) / kch;
-  k_lin_a<TB><<<dim3(ncg + (r > 0 ? 1 : 0), nkc), NT, 0, stream>>>(
-      x, xs, w, static_cast<const TB*>(la), acc, part, B, K, N, r, ncg, kch);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  k_lin_b<TB><<<(N + NT - 1) / NT, NT, 0, stream>>>(
-      acc, part, static_cast<const TB*>(lb), ws, ws_col, bias, xs, resid, out, B, N, r, nkc,
-      mode);
+static int launch(Fused& f, int grid, int smem, cudaStream_t stream) {
+  const void* fn = (const void*)k_fused<TB>;
+  int rc = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (rc) return rc;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  void* args[] = {&f};
+  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(PT), args, smem, stream);
+  if (rc) {
+    cudaGetLastError();  // a refused launch (a grid the card cannot hold) leaves no error behind
+    return rc;
+  }
   return (int)cudaGetLastError();
 }
 
-static bool bad_shape(int B, int d, int N, int r) {
-  return B < 1 || B > MAXB || r < 0 || r > MAXR || d % 4 || N % 4;
-}
-
-template <typename TB>
-static int ln_qkv(const float* h, const float* g, const float* bln, const int8_t* w,
-                  const float* ws, const float* bias, const float* xs, const void* la,
-                  const void* lb, float* out, float* hn, int* acc, float* part, int B, int d,
-                  int N, int r, int ws_col, float eps, cudaStream_t stream) {
-  k_ln<<<B, NT, 0, stream>>>(h, g, bln, hn, d, eps);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return linear<TB>(hn, xs, w, ws, ws_col, bias, la, lb, nullptr, out, acc, part, B, d, N, r,
-                    MODE_OUT, stream);
-}
+static bool bad_shape(int B, int r) { return B < 1 || B > MAXB || r < 0 || r > MAXR; }
 
 // #12: out (B, N) float32. h (B, d) float32; g, bln (d); w (d, N) int8; ws
 // (N) if ws_col, else (1); bias (N); xs (1) float32 on the device; la (d, r),
 // lb (r, N) in the bank dtype (bf16 if bank_bf16, else float32), unused when
-// r = 0. Workspace: hn (B, d) float32, acc (B, N) int32, part (ceil(d / 16),
-// B, r) float32.
+// r = 0; scratch: the plan's scratch bytes; bar: the grid barrier's counter;
+// plan: the records on the device, hdr: the plan's header in host memory.
+// Every device pointer 16-byte aligned, every width a multiple of 32.
 extern "C" int fused_ln_qkv(const float* h, const float* g, const float* bln, const int8_t* w,
                             const float* ws, const float* bias, const float* xs, const void* la,
-                            const void* lb, float* out, float* hn, int* acc, float* part,
-                            int B, int d, int N, int r, int ws_col, int bank_bf16, float eps,
-                            cudaStream_t stream) {
-  if (bad_shape(B, d, N, r)) return (int)cudaErrorInvalidValue;
-  if (bank_bf16)
-    return ln_qkv<bf16>(h, g, bln, w, ws, bias, xs, la, lb, out, hn, acc, part, B, d, N, r,
-                        ws_col, eps, stream);
-  return ln_qkv<float>(h, g, bln, w, ws, bias, xs, la, lb, out, hn, acc, part, B, d, N, r,
-                       ws_col, eps, stream);
-}
-
-template <typename TB>
-static int post(const float* attn, const float* h, const float* g2, const float* b2,
-                const int8_t* wp, const float* wps, const float* bp, const void* pa,
-                const void* pb, const int8_t* wf, const float* wfs, const float* bf,
-                const void* fa, const void* fb, const int8_t* wm, const float* wms,
-                const float* bm, const void* ma, const void* mb, const float* xs3, float* out,
-                float* h1, float* hn, float* gbuf, int* acc, float* part, int B, int d, int dff,
-                int r, int ws_cols, float eps, cudaStream_t stream) {
-  int rc = linear<TB>(attn, xs3, wp, wps, ws_cols & 1, bp, pa, pb, h, h1, acc, part, B, d, d, r,
-                      MODE_RESID, stream);
-  if (rc) return rc;
-  k_ln<<<B, NT, 0, stream>>>(h1, g2, b2, hn, d, eps);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  rc = linear<TB>(hn, xs3 + 1, wf, wfs, (ws_cols >> 1) & 1, bf, fa, fb, nullptr, gbuf, acc, part,
-                  B, d, dff, r, MODE_GELU, stream);
-  if (rc) return rc;
-  return linear<TB>(gbuf, xs3 + 2, wm, wms, (ws_cols >> 2) & 1, bm, ma, mb, h1, out, acc, part,
-                    B, dff, d, r, MODE_RESID, stream);
+                            const void* lb, float* out, void* scratch, unsigned* bar,
+                            const int* plan, const int* hdr, int B, int d, int N, int r,
+                            int ws_col, int bank_bf16, float eps, cudaStream_t stream) {
+  if (bad_shape(B, r) || hdr[H_NLIN] != 1) return (int)cudaErrorInvalidValue;
+  Fused f = {};
+  set_layout(f, hdr, static_cast<char*>(scratch), bar, plan, xs, B, r, eps);
+  f.lin[0] = make_lin(w, ws, bias, la, lb, h, nullptr, out, d, N, ws_col, MODE_OUT, hdr[H_LA0]);
+  f.ln_g = g; f.ln_b = bln;
+  return bank_bf16 ? launch<bf16>(f, hdr[H_NB], hdr[H_SMEM], stream)
+                   : launch<float>(f, hdr[H_NB], hdr[H_SMEM], stream);
 }
 
 // #13: out (B, d) float32. attn, h (B, d) float32; g2, b2 (d); proj (wp
 // (d, d), wps, bp (d)), fc (wf (d, dff), wfs, bf (dff)), mlp (wm (dff, d),
 // wms, bm (d)), each with LoRA banks (d or dff, r) and (r, d or dff) in the
 // bank dtype; bit i of ws_cols set when linear i has a scale per column
-// (else one); xs3 (3) float32 on the device. Workspace: h1, hn (B, d) and
-// gbuf (B, dff) float32, acc (B, max(d, dff)) int32, part (ceil(dff / 16),
-// B, r) float32.
+// (else one); xs3 (3) float32 on the device; scratch, bar, plan, hdr as
+// for #12 (h1 and g live in the scratch).
 extern "C" int fused_post_attention(
     const float* attn, const float* h, const float* g2, const float* b2, const int8_t* wp,
     const float* wps, const float* bp, const void* pa, const void* pb, const int8_t* wf,
     const float* wfs, const float* bf, const void* fa, const void* fb, const int8_t* wm,
     const float* wms, const float* bm, const void* ma, const void* mb, const float* xs3,
-    float* out, float* h1, float* hn, float* gbuf, int* acc, float* part, int B, int d, int dff,
-    int r, int ws_cols, int bank_bf16, float eps, cudaStream_t stream) {
-  if (bad_shape(B, d, dff, r)) return (int)cudaErrorInvalidValue;
-  if (bank_bf16)
-    return post<bf16>(attn, h, g2, b2, wp, wps, bp, pa, pb, wf, wfs, bf, fa, fb, wm, wms, bm, ma,
-                      mb, xs3, out, h1, hn, gbuf, acc, part, B, d, dff, r, ws_cols, eps, stream);
-  return post<float>(attn, h, g2, b2, wp, wps, bp, pa, pb, wf, wfs, bf, fa, fb, wm, wms, bm, ma,
-                     mb, xs3, out, h1, hn, gbuf, acc, part, B, d, dff, r, ws_cols, eps, stream);
+    float* out, void* scratch, unsigned* bar, const int* plan, const int* hdr, int B, int d,
+    int dff, int r, int ws_cols, int bank_bf16, float eps, cudaStream_t stream) {
+  if (bad_shape(B, r) || hdr[H_NLIN] != 3) return (int)cudaErrorInvalidValue;
+  Fused f = {};
+  char* sc = static_cast<char*>(scratch);
+  set_layout(f, hdr, sc, bar, plan, xs3, B, r, eps);
+  float* h1 = reinterpret_cast<float*>(sc + hdr[H_SC_H1]);
+  float* gb = reinterpret_cast<float*>(sc + hdr[H_SC_G]);
+  f.lin[0] = make_lin(wp, wps, bp, pa, pb, attn, h, h1, d, d, ws_cols & 1, MODE_RESID,
+                      hdr[H_LA0]);
+  f.lin[1] = make_lin(wf, wfs, bf, fa, fb, h1, nullptr, gb, d, dff, (ws_cols >> 1) & 1,
+                      MODE_GELU, hdr[H_LA0 + 1]);
+  f.lin[2] = make_lin(wm, wms, bm, ma, mb, gb, h1, out, dff, d, (ws_cols >> 2) & 1, MODE_RESID,
+                      hdr[H_LA0 + 2]);
+  f.ln_g = g2; f.ln_b = b2;
+  return bank_bf16 ? launch<bf16>(f, hdr[H_NB], hdr[H_SMEM], stream)
+                   : launch<float>(f, hdr[H_NB], hdr[H_SMEM], stream);
 }

@@ -293,52 +293,6 @@ __device__ __forceinline__ int la_off(const int* plan, int nb, int j, int i) {
   return plan[P_HDR + (4 + j) * (nb + 1) + i];
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Grid barrier (the algorithm of cooperative_groups' grid sync): block 0
-// adds 2^31 - (nb - 1), every other block 1, so the top bit of the counter
-// flips once all have arrived and its low bits return to where they were;
-// after an even number of barriers the counter is as the step found it.
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-__device__ void grid_sync(const Mega& a, int nb, int& nbar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (a.clk) a.clk[(size_t)(2 * nbar) * nb + blockIdx.x] = global_ns();
-    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (unsigned)(nb - 1) : 1u;
-    __threadfence();
-    const unsigned old = atomicAdd(a.bar, inc);
-    const long long t0 = clock64();
-    while (((old ^ ld_acquire(a.bar)) & 0x80000000u) == 0) {
-      if (clock64() - t0 > (1LL << 34)) __trap();
-    }
-    __threadfence();
-    if (a.clk) a.clk[(size_t)(2 * nbar + 1) * nb + blockIdx.x] = global_ns();
-  }
-  ++nbar;
-  __syncthreads();
-}
-
-// [p, p + bytes) into L2, in pieces of at most 32 KB, widened to 16-byte
-// bounds (inside the allocation: PyTorch rounds allocations to 512 bytes).
-__device__ __forceinline__ void l2_prefetch(const void* p, size_t bytes) {
-  if (!p || !bytes) return;
-  uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15;
-  const uintptr_t e = (reinterpret_cast<uintptr_t>(p) + bytes + 15) & ~(uintptr_t)15;
-  for (; a < e; a += 32768) {
-    const unsigned n = (unsigned)(e - a < 32768 ? e - a : 32768);
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(a), "r"(n) : "memory");
-  }
-}
-
 // Layer l's LoRA banks, per-tile vectors and KV rows into L2, this block's
 // share (range i of the list goes to block i % nb), asked by its thread 0.
 template <int AK>
@@ -1431,29 +1385,29 @@ __global__ void __launch_bounds__(PT, 1) k_mega(const __grid_constant__ Mega a) 
     for (int s = 0; s < NST; ++s) ring_issue(a, cs, ring, mbar0, it, issued, dk);
   prefetch_layer<AK>(a, 0, nb);
   phase_first(a, cs, nb, work);
-  grid_sync(a, nb, nbar);
+  grid_sync(a.bar, a.clk, nb, nbar);
   for (int l = 0; l < a.L; ++l) {
     if (l + 1 < a.L) prefetch_layer<AK>(a, l + 1, nb);
     phase_gemv(a, cs, l, 0, nb, ring, mbar0, it, issued, consumed, dk, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_epilogue(a, cs, l, 0, nb, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     for (int e = blockIdx.x; e < a.B * a.H; e += nb) att_item<AK>(a, l, e / a.H, e % a.H, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_gemv(a, cs, l, 1, nb, ring, mbar0, it, issued, consumed, dk, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_row(a, cs, l, 1, nb, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_gemv(a, cs, l, 2, nb, ring, mbar0, it, issued, consumed, dk, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_epilogue(a, cs, l, 2, nb, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_gemv(a, cs, l, 3, nb, ring, mbar0, it, issued, consumed, dk, work);
-    grid_sync(a, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_row(a, cs, l, 3, nb, work);
-    if (l + 1 < a.L) grid_sync(a, nb, nbar);
+    if (l + 1 < a.L) grid_sync(a.bar, a.clk, nb, nbar);
   }
-  if (nbar & 1) grid_sync(a, nb, nbar);  // leave the counter as the step found it
+  if (nbar & 1) grid_sync(a.bar, a.clk, nb, nbar);  // leave the counter as the step found it
 }
 
 // Dynamic shared memory of a k_mega block: the ring, its mbarriers, the

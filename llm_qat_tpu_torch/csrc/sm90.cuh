@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's TMA-fed wgmma
-// kernels: `csrc/fused_linear.cu` (#14-#16) and `csrc/flash_attention.cu`
-// (#6 with bf16 operands). PTX wrappers for mbarriers, TMA and bulk copies
-// into shared memory, wgmma's shared-memory descriptors and its m64n64,
+// Hopper (sm_90a) building blocks shared by the port's kernels: the TMA-fed
+// wgmma kernels of `csrc/fused_linear.cu` (#14-#16) and
+// `csrc/flash_attention.cu` (#5/#6 with bf16 operands), and the persistent
+// cooperative kernels of `csrc/mega_decode.cu` (#1/#3/#4) and
+// `csrc/fused_decode.cu` (#12/#13). PTX wrappers for mbarriers, TMA and
+// bulk copies into shared memory, the grid barrier and an L2 prefetch,
+// wgmma's shared-memory descriptors and its m64n64,
 // m64n128 and m64n256 bf16 products (shared-memory operands, and m64n64
 // with A from registers), and on the host the tensor-map encoders.
 // Included by the sources; `ops/_build.py` hashes it with each of them.
@@ -79,6 +82,56 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int byt
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Grid barrier of a cooperative launch (the algorithm of cooperative_groups'
+// grid sync) on the counter *bar in device memory: block 0 adds
+// 2^31 - (nb - 1), every other block 1, so the top bit of the counter flips
+// once all have arrived and its low bits return to where they were; after
+// an even number of barriers the counter is as the launch found it. A wait
+// of more than about 2^34 cycles traps. Instrumentation: with clk set, the
+// global timer (ns) at block i's arrival at barrier k goes to
+// clk[(2k) nb + i] and at its release to clk[(2k + 1) nb + i].
+__device__ void grid_sync(unsigned* bar, unsigned long long* clk, int nb, int& nbar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (clk) clk[(size_t)(2 * nbar) * nb + blockIdx.x] = global_ns();
+    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (unsigned)(nb - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, inc);
+    const long long t0 = clock64();
+    while (((old ^ ld_acquire(bar)) & 0x80000000u) == 0) {
+      if (clock64() - t0 > (1LL << 34)) __trap();
+    }
+    __threadfence();
+    if (clk) clk[(size_t)(2 * nbar + 1) * nb + blockIdx.x] = global_ns();
+  }
+  ++nbar;
+  __syncthreads();
+}
+
+// [p, p + bytes) into L2, in pieces of at most 32 KB, widened to 16-byte
+// bounds (inside the allocation: PyTorch rounds allocations to 512 bytes).
+__device__ __forceinline__ void l2_prefetch(const void* p, size_t bytes) {
+  if (!p || !bytes) return;
+  uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15;
+  const uintptr_t e = (reinterpret_cast<uintptr_t>(p) + bytes + 15) & ~(uintptr_t)15;
+  for (; a < e; a += 32768) {
+    const unsigned n = (unsigned)(e - a < 32768 ? e - a : 32768);
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(a), "r"(n) : "memory");
+  }
 }
 
 // wgmma shared-memory descriptor of the k16 slice kk of a tile written by

@@ -63,8 +63,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_decode": {
-        "fused_ln_qkv": [_P] * 13 + [_I] * 6 + [_F, _P],
-        "fused_post_attention": [_P] * 26 + [_I] * 6 + [_F, _P]},
+        "fused_ln_qkv": [_P] * 14 + [_I] * 6 + [_F, _P],
+        "fused_post_attention": [_P] * 25 + [_I] * 6 + [_F, _P],
+        "fused_phase_clock": [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -13,26 +13,36 @@ around the attention:
 JAX kernels use), `_gelu_exact` and `_lora` are the JAX kernels' helpers;
 `fused_ln_qkv_plain` and `fused_post_attention_plain` compute both kernels
 from them in plain PyTorch. The wrappers take the plain versions for CPU
-tensors only; for CUDA tensors they launch the CUDA sequences in
-`csrc/fused_decode.cu` or raise. Each counts its launches in
-`<fn>.launches`. Without LoRA banks the LoRA branch is skipped (JAX passes
-zero banks to the same kernel).
+tensors only; for CUDA tensors they launch the persistent cooperative
+kernel of `csrc/fused_decode.cu` once, or raise. Each counts its launches
+in `<fn>.launches`. Without LoRA banks the LoRA branch is skipped (JAX
+passes zero banks to the same kernel).
+
+`fused_plan` is the host side of that kernel: which block of the grid owns
+which weight bytes (pieces: a column group of `CW` columns times a range
+of K rows), LoRA-A items (`la_rows` input rows times every LoRA output)
+and epilogue items (`E_COLS` columns times every batch row) of each
+linear, and where each lands in the block's shared memory. The kernel
+trusts it; a shape it cannot hold raises ValueError here.
 
 The integer dots are exact (`exact_int_matmul` here, int32 __dp4a on the
 card); the float32 sums of LN and LoRA are taken in another order by the
-kernels, which now and then moves an activation code on a rounding
+kernel, which now and then moves an activation code on a rounding
 boundary of q8.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
 import torch
 
 from . import _build
 from .mega_decode import exact_int_matmul
 
-MAX_B = 16     # batch rows the kernels take
-MAX_RANK = 64  # LoRA rank the kernels take
+MAX_B = 16     # batch rows the kernel takes
+MAX_RANK = 64  # LoRA rank the kernel takes
 
 
 def _ln_f32(x, g, b, eps):
@@ -107,38 +117,357 @@ def fused_post_attention_plain(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *
     return h1 + _linear_plain(g, mlp, s[2])
 
 
+
+
+# ---------------------------------------------------------------------------
+# The kernel's plan
+# ---------------------------------------------------------------------------
+
+PT = 256           # threads of a block (csrc/fused_decode.cu PT)
+CW = 128           # columns of a weight piece: 32 lanes x 4 (CW)
+E_COLS = 32        # columns of an epilogue item (E_COLS)
+LA_ROWS = 128      # input rows of a LoRA-A item: a multiple of this, so that
+LA_MAX_ITEMS = 32  # no linear has more items than an output sums at once (LA_LOADS)
+SMEM_MAX = 232448  # dynamic shared memory a block may ask for on an H100 (227 KB)
+FIXED_BYTES = 256  # mbarriers, scalars and LN statistics (FIXED_BYTES)
+RH = 16            # ints of a block record's header (RH)
+PIECE, ITEM, EPI = 6, 3, 5  # ints of a record's entries (P_PIECE, P_ITEM, P_EPI)
+# The launch header, read by the host entry points (csrc/fused_decode.cu H_*):
+# blocks, linears, dynamic shared memory, record ints, and the shared-memory
+# offsets of the record, the work area and, inside the work area, the
+# activation region, the LoRA-A reduction, the rounded LoRA-A sums and the
+# block-local LoRA-A partials (whole-K plan only); whole-K, the LoRA-A item
+# rows of each linear, the scratch offsets of the LoRA-A partials, h1 and
+# g, the scratch bytes, and the linear whose input is LN(x).
+(H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA, H_LAL,
+ H_WHOLE, H_LA0, H_SC_LAP, H_SC_H1, H_SC_G, H_SC_BYTES, H_LN_AT) = (
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 14, 15, 16, 17, 18)
+HDR = 20
+
+
+class FusedPlan(NamedTuple):
+    """Which block of the kernel's grid owns which work of each linear j.
+
+    pieces[j]: (block, column group, first K row, end K row, slot), by
+    slot; every weight byte lies in exactly one. A piece's int32 sums go to
+    partial-sum slot `slot`; a column group's slots are contiguous and in
+    row order (group_slots[j][g] to group_slots[j][g + 1]), and its
+    epilogue adds them in that order. lora[j]: (block, t), item t the input
+    rows [t·la_rows[j], (t + 1)·la_rows[j]) times every LoRA output (on a
+    whole-K plan every owning block runs every item). epilogue[j]: (block,
+    e), item e the columns [e·E_COLS, (e + 1)·E_COLS) of every batch row.
+    block_bytes: per block, the bytes its prologue copies into shared
+    memory. smem_bytes: the dynamic shared memory the launch asks for.
+    header: the launch header (H_*); table: the blocks' records, rec_len
+    ints each, which the kernel reads."""
+
+    n_blocks: int
+    pieces: tuple
+    group_slots: tuple
+    lora: tuple
+    epilogue: tuple
+    la_rows: tuple
+    block_bytes: tuple
+    smem_bytes: int
+    header: np.ndarray
+    table: np.ndarray
+
+    @property
+    def n_slots(self) -> int:
+        return max(len(p) for p in self.pieces)
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _fill(load, units: int, unit_bytes: int):
+    """Units per block that bring load[b] + n_b·unit_bytes to one level:
+    the least level whose fill holds every unit, less the excess taken from
+    the fullest blocks."""
+    lo, hi = min(load), max(load) + units * unit_bytes
+
+    def count(level):
+        return sum(max(0, (level - x) // unit_bytes) for x in load)
+
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if count(mid) >= units:
+            hi = mid
+        else:
+            lo = mid + 1
+    n = [max(0, (lo - x) // unit_bytes) for x in load]
+    excess = sum(n) - units
+    for b in sorted(range(len(load)), key=lambda b: (-(load[b] + n[b] * unit_bytes), -b)):
+        if excess == 0:
+            break
+        if n[b]:
+            n[b] -= 1
+            excess -= 1
+    return n
+
+
+def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
+               n_blocks: int, *, batch: int = MAX_B, bank_bytes: int = 2,
+               ln_at: Optional[int] = None, whole_k: bool = False) -> FusedPlan:
+    """Split the linears of one fused decode kernel over `n_blocks` blocks.
+
+    Linear j reads K_list[j] input rows and writes n_out_list[j] columns;
+    `ln_at` is the linear whose input is LN(x) over d (default: the first
+    of one linear, #12; the second of three, #13's fc). `batch` rows, LoRA
+    rank r (0: none) with banks of `bank_bytes` (2 bf16, 4 float32) per
+    element.
+
+    Linear by linear, in phase order: its LoRA-A items and then its
+    epilogue items go to the block with the fewest bytes so far, and its
+    weight (column group × quad of K rows units, group after group) is cut
+    into contiguous ranges, in block order, whose sizes bring every block to
+    one level of bytes (water-filling): a block that owns little of one
+    linear owns more of the next, so the bytes each block copies are
+    balanced over the whole layer. A range splits at column groups into
+    pieces. With `whole_k` (one linear only) each column group is one piece
+    over all K rows on block g mod n_blocks, which also owns the group's
+    epilogue items and runs every LoRA-A item itself, its bank rows read
+    from device memory: no grid barrier.
+
+    Raises ValueError on what the kernel cannot run: batch outside 1..16,
+    rank above 64, a width that is not a multiple of E_COLS = 32 (the
+    epilogue items; the bulk copies also need 16-byte rows), or a block whose operands and work area do
+    not fit SMEM_MAX bytes of shared memory."""
+    ns, ks = [int(n) for n in n_out_list], [int(k) for k in K_list]
+    n_lin, d, r, nb, B = len(ns), int(d), int(r), int(n_blocks), int(batch)
+    if not 1 <= n_lin <= 3 or len(ks) != n_lin:
+        raise ValueError(f"one to three linears; got {n_out_list}, {K_list}")
+    if not 1 <= B <= MAX_B:
+        raise ValueError(f"1 to {MAX_B} batch rows; got {B}")
+    if not 0 <= r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} outside [0, {MAX_RANK}]")
+    if bank_bytes not in (2, 4):
+        raise ValueError(f"LoRA banks are bf16 (2) or float32 (4); got {bank_bytes}")
+    for w in [d, *ns, *ks]:
+        if w < E_COLS or w % E_COLS:
+            raise ValueError(f"widths must be positive multiples of {E_COLS}; got {w}")
+    if nb < 1:
+        raise ValueError(f"n_blocks must be at least 1; got {n_blocks}")
+    if ln_at is None:
+        ln_at = 0 if n_lin == 1 else 1
+    if not 0 <= ln_at < n_lin or ks[ln_at] != d:
+        raise ValueError(f"the LN linear {ln_at} must read d = {d} rows")
+    if whole_k and n_lin != 1:
+        raise ValueError("a whole-K plan has one linear")
+    esz = bank_bytes if r else 0
+    la_rows = tuple(LA_ROWS * -(-K // (LA_ROWS * LA_MAX_ITEMS)) for K in ks)
+    load = [0] * nb
+    pieces, group_slots, lora, epilogue = [], [], [], []
+    for j, (N, K) in enumerate(zip(ns, ks)):
+        groups, quads, la = -(-N // CW), K // 4, la_rows[j]
+        width = [min(CW, N - g * CW) for g in range(groups)]
+        n_la = -(-K // la) if r else 0
+        item_bytes = [min(la, K - t * la) * r * esz for t in range(n_la)]
+        epi_bytes = r * E_COLS * esz + 2 * E_COLS * 4
+        if j == ln_at:
+            load = [x + 2 * d * 4 for x in load]
+        plist, items, epis = [], [], []
+        if whole_k:
+            owner = [g % nb for g in range(groups)]
+            plist = [(owner[g], g, 0, K) for g in range(groups)]
+            for blk in sorted(set(owner)):
+                items += [(blk, t) for t in range(n_la)]
+            for e in range(N // E_COLS):
+                blk = owner[e * E_COLS // CW]
+                epis.append((blk, e))
+                load[blk] += epi_bytes
+            for blk, g, r0, r1 in plist:
+                load[blk] += (r1 - r0) * width[g]
+        else:
+            for t in range(n_la):
+                blk = min(range(nb), key=lambda b: (load[b], b))
+                items.append((blk, t))
+                load[blk] += item_bytes[t]
+            for e in range(N // E_COLS):
+                blk = min(range(nb), key=lambda b: (load[b], b))
+                epis.append((blk, e))
+                load[blk] += epi_bytes
+            counts = _fill(load, groups * quads, 4 * CW)
+            u = 0
+            for blk in range(nb):
+                u1 = u + counts[blk]
+                while u < u1:
+                    g = u // quads
+                    e = min(u1, (g + 1) * quads)
+                    r0, r1 = 4 * (u - g * quads), 4 * (e - g * quads)
+                    plist.append((blk, g, r0, r1))
+                    load[blk] += (r1 - r0) * width[g]
+                    u = e
+        plist.sort(key=lambda p: (p[1], p[2]))  # slot order: by group, then by row
+        starts = [0] * (groups + 1)
+        for _, g, _, _ in plist:
+            starts[g + 1] += 1
+        group_slots.append(tuple(np.cumsum(starts).tolist()))
+        pieces.append(tuple((blk, g, r0, r1, s) for s, (blk, g, r0, r1) in enumerate(plist)))
+        lora.append(tuple(items))
+        epilogue.append(tuple(epis))
+
+    # the blocks' records and shared-memory layouts
+    recs, op_end, act_bytes, block_bytes = [], [], 0, []
+    for blk in range(nb):
+        own = [([p for p in pieces[j] if p[0] == blk], [q for q in lora[j] if q[0] == blk],
+                [e for e in epilogue[j] if e[0] == blk]) for j in range(n_lin)]
+        head = [0] * RH
+        for j, (pj, qj, ej) in enumerate(own):
+            head[3 * j:3 * j + 3] = [len(pj), len(qj), len(ej)]
+        recs.append((head, own))
+    rec_len = max(RH + sum(PIECE * len(p) + ITEM * len(q) + EPI * len(e) for p, q, e in own)
+                  for _, own in recs)
+    op0 = _align(FIXED_BYTES + 4 * rec_len, 128)
+    table = np.zeros((nb, rec_len), np.int32)
+    for blk, (head, own) in enumerate(recs):
+        off, body, copied = op0, [], 0
+        for j, (pj, qj, ej) in enumerate(own):
+            N, la = ns[j], la_rows[j]
+            if j == ln_at:
+                head[9] = off
+                off += _align(2 * d * 4, 16)
+                copied += 2 * d * 4
+            act = 0
+            for _, g, r0, r1, s in pj:
+                body += [g, r0, r1, s, off, act]
+                off += (r1 - r0) * CW
+                copied += (r1 - r0) * min(CW, N - g * CW)
+                act += _align(B * (r1 - r0), 16)
+            for _, t in qj:  # a whole-K plan reads its LoRA-A rows from device memory
+                rows = min(la, ks[j] - t * la)
+                body += [t, -1 if whole_k else off, act]
+                if not whole_k:
+                    off += _align(rows * r * esz, 16)
+                    copied += rows * r * esz
+                act += _align(B, 4) * rows * 4
+            for _, e in ej:
+                g = e * E_COLS // CW
+                body += [e, off, off + r * E_COLS * esz, group_slots[j][g],
+                         group_slots[j][g + 1]]
+                off += r * E_COLS * esz + 2 * E_COLS * 4
+                copied += r * E_COLS * esz + E_COLS * 4 * 2
+            act_bytes = max(act_bytes, act)
+        table[blk, :RH + len(body)] = head + body
+        op_end.append(off)
+        block_bytes.append(copied)
+    work_off = _align(max(op_end), 128)
+    ln_bytes = B * d * 4
+    red = (PT // r) * B * r * 4 if r else 0
+    n_items = max((len(q) for q in lora), default=0)
+    n_la_max = max(-(-K // la) for K, la in zip(ks, la_rows)) if r else 0
+    act_off = ln_bytes
+    red_off = act_off + _align(act_bytes, 16)
+    xa_off = red_off + red
+    lal_off = xa_off + B * r * 4
+    work = lal_off + (n_la_max * B * r * 4 if whole_k else 0)
+    smem = work_off + _align(work, 16)
+    if smem > SMEM_MAX:
+        worst = int(np.argmax(op_end))
+        raise ValueError(f"block {worst} of {nb} needs {smem} bytes of shared memory "
+                         f"({op_end[worst] - op0} of operands, {work} of work area); the "
+                         f"kernel may ask for {SMEM_MAX}: take a larger grid")
+    sc_lap = _align(max(len(p) for p in pieces) * B * CW * 4, 256)
+    sc_h1 = sc_lap + _align(0 if whole_k else n_items * B * r * 4, 256)
+    sc_g = sc_h1 + (_align(B * ns[0] * 4, 256) if n_lin == 3 else 0)
+    sc_bytes = sc_g + (_align(B * ns[1] * 4, 256) if n_lin == 3 else 0)
+    header = np.zeros(HDR, np.int32)
+    header[[H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA, H_LAL,
+            H_WHOLE]] = [nb, n_lin, smem, rec_len, FIXED_BYTES, work_off, act_off, red_off,
+                         xa_off, lal_off, int(whole_k)]
+    header[H_LA0:H_LA0 + n_lin] = la_rows
+    header[[H_SC_LAP, H_SC_H1, H_SC_G, H_SC_BYTES, H_LN_AT]] = [sc_lap, sc_h1, sc_g,
+                                                                sc_bytes, ln_at]
+    return FusedPlan(nb, tuple(pieces), tuple(group_slots), tuple(lora), tuple(epilogue),
+                     la_rows, tuple(block_bytes), smem, header, table.reshape(-1))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+_PLANS = {}
+_GRID = {}
+_BAR = {}
 
-def _f32(t, n, dev, what, name):
-    """t as a contiguous float32 (n,) tensor on dev."""
+
+def fused_grid(dev) -> int:
+    """Blocks of the kernel's cooperative grid on `dev`: one per SM."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _GRID:
+        _GRID[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _GRID[idx]
+
+
+def barriers(n_lin: int, whole_k: bool = False) -> int:
+    """Grid barriers of one launch of n_lin linears: one after each phase
+    but the last (none between a whole-K plan's two phases)."""
+    return 2 * n_lin - 1 - int(whole_k)
+
+
+def _barrier(dev):
+    """The grid barrier's counter on `dev`, zeroed once: the barrier only
+    flips its top bit, so any count of barriers leaves it usable."""
+    bar = _BAR.get(dev)
+    if bar is None:
+        bar = _BAR[dev] = torch.zeros((16,), dtype=torch.int32, device=dev)
+    return bar
+
+
+def _plan_on(dev, d, ns, ks, r, grid, B, bank_bytes, whole_k=False):
+    """(plan, its table on `dev`) at `grid` blocks (one per SM when None),
+    cached."""
+    nb = fused_grid(dev) if grid is None else int(grid)
+    key = (dev, d, tuple(ns), tuple(ks), r, nb, B, bank_bytes, whole_k)
+    got = _PLANS.get(key)
+    if got is None:
+        plan = fused_plan(d, ns, ks, r, nb, batch=B, bank_bytes=bank_bytes, whole_k=whole_k)
+        got = _PLANS[key] = (plan, torch.as_tensor(plan.table, device=dev))
+    return got
+
+
+def phase_clock(buf: Optional[torch.Tensor]) -> None:
+    """Instrumentation: the launches after this call write, for each grid
+    barrier k and block i, the card's global timer (ns) at arrival to
+    buf[2k, i] and at release to buf[2k + 1, i], at the block's end to
+    buf[2n, i] and at its start to buf[2n + 1, i] (n barriers: `barriers`;
+    buf: int64 on the card, (2n + 2, blocks) or larger); None turns it
+    off."""
+    _build.load("fused_decode").fused_phase_clock(None if buf is None else buf.data_ptr())
+
+
+def _f32(t, n, dev, what, name, copied=True):
+    """t as a contiguous float32 (n,) tensor on dev; 16-byte aligned (a
+    copy where it is not) if the kernel copies it with bulk copies."""
     t = t.to(torch.float32).reshape(-1)
     if t.numel() != n or t.device != dev:
         raise ValueError(f"{what}: {name} must hold {n} values on {dev}; got "
                          f"{t.numel()} on {t.device}")
-    return t.contiguous()
+    t = t.contiguous()
+    return t if not copied or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _scale(t, n, dev, what, name):
-    """A weight scale of n values or one (per tensor): (tensor, per column)."""
+    """A weight scale of n values or one (per tensor, which the kernel
+    loads as a scalar): (tensor, per column)."""
     per_col = t.numel() != 1
-    return _f32(t, n if per_col else 1, dev, what, name), per_col
+    return _f32(t, n if per_col else 1, dev, what, name, copied=per_col), per_col
 
 
 def _codes(w, K, N, dev, what, name):
     if (w.dtype != torch.int8 or tuple(w.shape) != (K, N) or not w.is_contiguous()
-            or w.device != dev or w.data_ptr() % 4):
-        raise ValueError(f"{what}: {name} must be a contiguous, 4-byte aligned int8 "
+            or w.device != dev or w.data_ptr() % 16):
+        raise ValueError(f"{what}: {name} must be a contiguous, 16-byte aligned int8 "
                          f"({K}, {N}) tensor on {dev}; got {w.dtype} "
                          f"{tuple(w.shape)} on {w.device}")
     return w
 
 
 def _banks(a, b, K, N, dev, what, name):
-    """The LoRA banks as contiguous tensors of one dtype; (None, None, 0)
-    without LoRA."""
+    """The LoRA banks as contiguous, 16-byte aligned tensors of one dtype;
+    (None, None, 0) without LoRA."""
     if a is None:
         return None, None, 0
     r = a.shape[1]
@@ -150,7 +479,9 @@ def _banks(a, b, K, N, dev, what, name):
                          f"got {a.dtype}, {b.dtype}")
     if a.device != dev or b.device != dev:
         raise ValueError(f"{what}: {name} LoRA banks must be on {dev}")
-    return a.contiguous(), b.contiguous(), r
+    a, b = a.contiguous(), b.contiguous()
+    return (a if a.data_ptr() % 16 == 0 else a.clone(),
+            b if b.data_ptr() % 16 == 0 else b.clone(), r)
 
 
 def _ptr(t):
@@ -161,62 +492,83 @@ def _check_rows(h, what):
     B, d = h.shape
     if not 1 <= B <= MAX_B:
         raise ValueError(f"{what}: 1 to {MAX_B} batch rows; got {B}")
-    if d % 4:
-        raise ValueError(f"{what}: the width must be a multiple of 4; got {d}")
+    if d % E_COLS:
+        raise ValueError(f"{what}: the width must be a multiple of {E_COLS}; got {d}")
     return B, d
 
 
-def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
-                 eps: float = 1e-5):
-    """LN1 + int8 QKV + LoRA of one decode layer (kernel #12): h (B, d)
-    float32 → (B, N) float32. w_i8 (d, N) int8 codes, w_s (N,) or (1,)
-    scales, bias (N,), x_s the static input scale (a tensor on h's device:
-    no host sync), lora_a (d, r) / lora_b (r, N) or None. CPU tensors take
-    `fused_ln_qkv_plain`."""
-    if h.device.type == "cpu":
-        return fused_ln_qkv_plain(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b,
-                                  eps=eps)
+def _ln_qkv_parts(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b):
+    """The checked operands of #12 on h's device."""
     what, dev = "fused_ln_qkv", h.device
     B, d = _check_rows(h, what)
     N = w_i8.shape[1]
-    if N % 4:
-        raise ValueError(f"{what}: N must be a multiple of 4; got {N}")
+    if N % E_COLS:
+        raise ValueError(f"{what}: N must be a multiple of {E_COLS}; got {N}")
     w = _codes(w_i8, d, N, dev, what, "w_i8")
     la, lb, r = _banks(lora_a, lora_b, d, N, dev, what, "qkv")
     hf = h.to(torch.float32).contiguous()
     g, b = _f32(ln_g, d, dev, what, "ln_g"), _f32(ln_b, d, dev, what, "ln_b")
     (ws, ws_col), bs = _scale(w_s, N, dev, what, "w_s"), _f32(bias, N, dev, what, "bias")
-    xs = _f32(torch.as_tensor(x_s, device=dev), 1, dev, what, "x_s")
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((B, N), **f32)
-    hn = torch.empty((B, d), **f32)
-    acc = torch.empty((B, N), dtype=torch.int32, device=dev)
-    part = torch.empty((-(-d // 16) * B * max(r, 1),), **f32)
+    xs = _f32(torch.as_tensor(x_s, device=dev), 1, dev, what, "x_s", copied=False)
+    return B, d, N, r, [hf, g, b, w, ws, bs, xs, la, lb], int(ws_col), la
+
+
+def launch_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
+                  eps: float = 1e-5, grid: Optional[int] = None, whole_k: bool = False):
+    """#12's kernel on CUDA tensors at `grid` blocks (one per SM when None)
+    on the split-K plan (`whole_k`: every column group over all of K on one
+    block, no grid barrier), without counting the launch. Returns qkv."""
+    B, d, N, r, ops, ws_col, la = _ln_qkv_parts(h, ln_g, ln_b, w_i8, w_s, bias, x_s,
+                                                lora_a, lora_b)
+    dev = h.device
+    bank_bf16 = la is not None and la.dtype == torch.bfloat16
+    plan, table = _plan_on(dev, d, (N,), (d,), r, grid, B, 2 if bank_bf16 else 4, whole_k)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
     lib = _build.load("fused_decode")
     rc = lib.fused_ln_qkv(
-        hf.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), ws.data_ptr(),
-        bs.data_ptr(), xs.data_ptr(), _ptr(la), _ptr(lb), out.data_ptr(), hn.data_ptr(),
-        acc.data_ptr(), part.data_ptr(), B, d, N, r, int(ws_col),
-        int(la is not None and la.dtype == torch.bfloat16), float(eps), _build.stream(h))
-    _build.check(lib, rc, what)
+        *[_ptr(t) for t in ops], out.data_ptr(), scratch.data_ptr(),
+        _barrier(dev).data_ptr(), table.data_ptr(), plan.header.ctypes.data, B, d, N, r,
+        ws_col, int(bank_bf16), float(eps), _build.stream(h))
+    _build.check(lib, rc, "fused_ln_qkv")
+    return out
+
+
+def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
+                 eps: float = 1e-5, grid: Optional[int] = None):
+    """LN1 + int8 QKV + LoRA of one decode layer (kernel #12): h (B, d)
+    float32 → (B, N) float32. w_i8 (d, N) int8 codes, w_s (N,) or (1,)
+    scales, bias (N,), x_s the static input scale (a tensor on h's device:
+    no host sync), lora_a (d, r) / lora_b (r, N) or None. CPU tensors take
+    `fused_ln_qkv_plain`; CUDA tensors launch the kernel of
+    `csrc/fused_decode.cu` once, cooperatively, on `fused_grid` blocks
+    (`grid` forces another count, for tests; a count the card cannot hold
+    at once is refused and raises), or raise."""
+    if h.device.type == "cpu":
+        return fused_ln_qkv_plain(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b,
+                                  eps=eps)
+    out = launch_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, eps=eps,
+                        grid=grid)
     fused_ln_qkv.launches += 1
     return out
 
 
 def fused_post_attention(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *,
-                         eps: float = 1e-5):
+                         eps: float = 1e-5, grid: Optional[int] = None):
     """proj(+LoRA), residual, LN2, fc(+LoRA), GELU, mlp(+LoRA), residual of
     one decode layer (kernel #13): attn, h (B, d) float32 → h' (B, d)
     float32. proj / fc / mlp as in `fused_post_attention_plain`; x_scales a
-    (3,) tensor on the device. CPU tensors take the plain version."""
+    (3,) tensor on the device. CPU tensors take the plain version; CUDA
+    tensors launch the kernel once, as `fused_ln_qkv` does (`grid`
+    likewise), or raise."""
     if h.device.type == "cpu":
         return fused_post_attention_plain(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales,
                                           eps=eps)
     what, dev = "fused_post_attention", h.device
     B, d = _check_rows(h, what)
     dff = fc["w_i8"].shape[1]
-    if dff % 4:
-        raise ValueError(f"{what}: the MLP width must be a multiple of 4; got {dff}")
+    if dff % E_COLS:
+        raise ValueError(f"{what}: the MLP width must be a multiple of {E_COLS}; got {dff}")
     if tuple(attn.shape) != (B, d):
         raise ValueError(f"{what}: attn has shape {tuple(attn.shape)}; want {(B, d)}")
     has_lora = "lora_A" in proj
@@ -238,19 +590,18 @@ def fused_post_attention(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *,
     af = attn.to(torch.float32).contiguous()
     hf = h.to(torch.float32).contiguous()
     g, b = _f32(ln2_g, d, dev, what, "ln2_g"), _f32(ln2_b, d, dev, what, "ln2_b")
-    xs3 = _f32(x_scales, 3, dev, what, "x_scales")
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((B, d), **f32)
-    h1, hn = torch.empty((B, d), **f32), torch.empty((B, d), **f32)
-    gbuf = torch.empty((B, dff), **f32)
-    acc = torch.empty((B, max(d, dff)), dtype=torch.int32, device=dev)
-    part = torch.empty((-(-max(d, dff) // 16) * B * max(rank, 1),), **f32)
+    xs3 = _f32(x_scales, 3, dev, what, "x_scales", copied=False)
+    bank_bf16 = bank == torch.bfloat16
+    plan, table = _plan_on(dev, d, (d, dff, d), (d, d, dff), rank, grid, B,
+                           2 if bank_bf16 else 4)
+    out = torch.empty((B, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
     lib = _build.load("fused_decode")
     rc = lib.fused_post_attention(
         af.data_ptr(), hf.data_ptr(), g.data_ptr(), b.data_ptr(),
-        *[_ptr(t) for t in args], xs3.data_ptr(), out.data_ptr(), h1.data_ptr(),
-        hn.data_ptr(), gbuf.data_ptr(), acc.data_ptr(), part.data_ptr(), B, d, dff, rank,
-        ws_cols, int(bank == torch.bfloat16), float(eps), _build.stream(h))
+        *[_ptr(t) for t in args], xs3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        _barrier(dev).data_ptr(), table.data_ptr(), plan.header.ctypes.data, B, d, dff, rank,
+        ws_cols, int(bank_bf16), float(eps), _build.stream(h))
     _build.check(lib, rc, what)
     fused_post_attention.launches += 1
     return out

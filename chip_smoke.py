@@ -54,7 +54,8 @@ of one wrapper call), profiles one iteration of each path, and prints:
 - the card's name and power limit (nvidia-smi);
 - ptxas's registers, shared memory and spills of each kernel of
   `csrc/fused_linear.cu`, `csrc/quant_matmul.cu`,
-  `csrc/flash_attention.cu` and `csrc/decode_attention.cu`, and a
+  `csrc/flash_attention.cu`, `csrc/decode_attention.cu`,
+  `csrc/mega_decode.cu` and `csrc/fused_decode.cu`, and a
   `ptxas_flash_wgmma` JSON line with the
   registers, stack frame and spills of the wgmma kernels of #5/#6;
 - one line per comparison, its error beside its tolerance;
@@ -114,6 +115,20 @@ held and its repeat calls compared); then `mega_e2e` (`decode_tok_s` and
 the per-token step time at the bench shapes, KV4 and kv_bits 16, and the
 mega W8 KV8 / W4 KV4 servers' end-to-end and steady tokens/s, without
 their token replays).
+
+    python3 chip_smoke.py --fused-decode
+
+does the same for the fused int8 decode layer #12/#13 (one launch a call
+of the persistent cooperative kernel `k_fused`): fused_decode.cu's and
+mega_decode.cu's ptxas reports; the full run's holds of #12/#13; holds at
+B = 1, 8 and 16 on each layer alone with repeat calls compared bit for
+bit; a grid sweep (the plan's grid, half of it, two blocks per SM, each
+held where the card takes it; a grid the runtime refuses raises); each
+kernel's events, profiler and graph-replay ms, host ms a call and launches
+a call by kernel name at the table's shapes, and the phase and barrier µs
+of the kernel's barrier clock; the decode steps #1/#3/#4 by events and
+profiler (they share sm90.cuh's grid barrier); and path B's
+`fused_decode_timings` without its token replay.
 """
 
 from __future__ import annotations
@@ -2724,45 +2739,6 @@ def fd_timings(fd, cases, eps, dev):
     return out
 
 
-def fd_whole_k(fd, args, eps, dev, failures):
-    """#12's whole-K variant (`fd.launch_ln_qkv(whole_k=True)`: each column
-    group over all of K on one block, no grid barrier) beside the split-K
-    kernel the wrapper launches: held by `fd_hold`, two calls bit-equal,
-    profiler device ms, graph-replay ms and the barrier clock's span (first
-    start to last end, median of 5 launches) of each."""
-    import statistics
-
-    import torch
-
-    want = fd.fused_ln_qkv_plain(*args, eps=eps)
-    nb = fd.fused_grid(dev)
-    out = {}
-    for whole in (False, True):
-        fn = lambda: fd.launch_ln_qkv(*args, eps=eps, whole_k=whole)
-        got, again = fn(), fn()
-        torch.cuda.synchronize()
-        rows = ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
-        tag = "whole_k" if whole else "split_k"
-        fd_hold(f"fused_ln_qkv {tag}", rows, failures)
-        if not torch.equal(got, again):
-            failures.append(f"fused_ln_qkv {tag}: repeat call not bit-equal")
-        n_bar = fd.barriers(1, whole)
-        spans = []
-        for _ in range(5):
-            buf = torch.zeros((2 * n_bar + 2, nb), dtype=torch.int64, device=dev)
-            fd.phase_clock(buf)
-            try:
-                fn()
-                torch.cuda.synchronize()
-            finally:
-                fd.phase_clock(None)
-            spans.append((buf[2 * n_bar].max() - buf[2 * n_bar + 1].min()).item() / 1e3)
-        out[tag] = {"device_ms": device_ms(fn, 20), "graph_ms": graph_ms(fn, 20),
-                    "span_us": statistics.median(spans), "row_err": max(rows)}
-    print("fused_ln_qkv split-K against whole-K " + json.dumps(out), flush=True)
-    return out
-
-
 def fused_decode_phase(dev) -> int:
     """`--fused-decode`: kernels #12/#13 alone (for A/B runs of two trees on
     one card): fused_decode.cu's and mega_decode.cu's ptxas reports; the
@@ -2797,8 +2773,6 @@ def fused_decode_phase(dev) -> int:
     if hasattr(fd, "fused_grid"):
         res["grid_sweep"] = fd_grid_sweep(fd, cases, eps, dev, failures)
     res["timings"] = fd_timings(fd, cases, eps, dev)
-    if hasattr(fd, "launch_ln_qkv"):
-        res["qkv_variants"] = fd_whole_k(fd, cases["fused_ln_qkv"][0], eps, dev, failures)
     kw_eng = dict(bits=4, max_batch=B, max_len=192, weight_format="int4_xla",
                   lm_head_bits=4, kv_layout="mega", kv_bits=4, mega_tbp=64)
     eng = InferenceEngine(params, cfg, **kw_eng)
@@ -2881,7 +2855,8 @@ def main() -> int:
         return mega_decode_phase(dev)
     if args.fused_decode:
         return fused_decode_phase(dev)
-    for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention", "mega_decode"):
+    for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention",
+                "mega_decode", "fused_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
     print_ptxas_wgmma_flash(_build)
 

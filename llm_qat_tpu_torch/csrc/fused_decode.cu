@@ -45,12 +45,14 @@
 // whole layer, and where each lands in the block's shared memory. The
 // layer's bytes fit the card's shared memory at once (6.5 MB for #13 at
 // GPT-2 124M width, 50 KB a block over 132 SMs): the prologue asks for all
-// of a block's operands with bulk copies (cp.async.bulk, one per weight row
-// segment of CW bytes, per LoRA-A item, per LoRA-B bank row of an epilogue
-// item, per scale and bias slice), in phase order, each linear's on its own
-// mbarrier, so that no phase waits on device memory for a weight byte: a
+// of a block's operands, in phase order, each linear's on its own
+// mbarrier: its weight rows and LoRA-B slices as 2-D TMA boxes (BOX_ROWS
+// rows x CW bytes of codes; r rows x E_COLS of a bank; tensor maps built
+// once per weight), its LoRA-A rows, scales, biases and LN parameters as
+// bulk copies. No phase waits on device memory for a weight byte: a
 // phase's first use of its linear's operands waits on that mbarrier, which
-// the copies have long completed. Then the phases, a grid barrier
+// the copies have long completed (a few dozen requests a block; one per
+// 128-byte row took about 3 us to issue). Then the phases, a grid barrier
 // (sm90.cuh's grid_sync, one counter in device memory, zeroed once per
 // device) after each but the last:
 //   #13  G_proj | E_proj | G_fc | E_fc | G_mlp | E_mlp     (5 barriers)
@@ -63,7 +65,8 @@
 //      floats in shared memory. Then the int32 dots of its pieces (warp w:
 //      batch rows w and w + 8, lane: 4 columns, __dp4a on 4 K rows of codes
 //      from shared memory), each piece to a partial-sum slot of its own in
-//      device memory; then its LoRA-A items, float partials per item.
+//      device memory; then its LoRA-A items, float partials per item, from
+//      inputs stored k-major and read as float4.
 //   E  per epilogue item: the rounded LoRA-A sums (every item's partials
 //      added in item order), the column group's slots in the plan's order
 //      (int32, exact), scale and bias, LoRA-B from its bank slice in shared
@@ -74,15 +77,16 @@
 // over strided K rows then over the strides, items in order, LoRA-B over
 // four rank groups joined by shuffles), so two calls on the same inputs and
 // grid are bit-equal. No memset and no atomics but the grid barrier's.
-//
-// The whole-K plan (#12 only, `whole_k`): each column group over all of K
-// on one block, which also owns the group's epilogue items and runs every
-// LoRA-A item itself (its bank rows from device memory, the partials in
-// shared memory), so G and E meet at a block barrier, not a grid barrier.
+// Loads from device memory inside a phase are issued unconditionally at
+// clamped indices, only their use guarded: behind a runtime guard each
+// load compiled to a branch of its own, and a round of them took 3 us
+// instead of 0.25.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "sm90.cuh"
 
@@ -93,10 +97,11 @@
 #define MAXB 16         // batch rows
 #define MAXR 64         // LoRA rank
 #define MAX_LIN 3       // linears of a launch
-#define LA_LOADS 32     // LoRA-A partials an epilogue output adds (items of a linear, at most)
+#define LA_LOADS 24     // LoRA-A partials an epilogue output adds (items of a linear, at most)
 #define SLOT_LOADS 8    // partial-sum slots a lane loads at once
 #define IN_LOADS 8      // input values a thread loads at once
 #define COPY_CHUNK 4096 // bytes of one bulk copy of a contiguous operand
+#define BOX_ROWS 16     // weight rows of one TMA box (CW bytes wide)
 #define FIXED_BYTES 256 // mbarriers (32 bytes), then the scalars below
 // the block record (ops/fused_decode.py::fused_plan): a header of RH ints
 // (per linear j: pieces, LoRA-A items, epilogue items at 3j..3j+2; the
@@ -121,18 +126,17 @@
 #define H_ACT 6
 #define H_RED 7
 #define H_XA 8
-#define H_LAL 9
-#define H_WHOLE 10
-#define H_LA0 11
-#define H_SC_LAP 14
-#define H_SC_H1 15
-#define H_SC_G 16
-#define H_LN_AT 18
+#define H_LA0 9
+#define H_SC_LAP 12
+#define H_SC_H1 13
+#define H_SC_G 14
+#define H_LN_AT 16
 // scalars in shared memory (floats after the mbarriers)
 #define S_XS 0          // xs of each linear
 #define S_WS0 4         // the per-tensor weight scale of each linear
 #define S_MEAN 8        // LN statistics per batch row
 #define S_RSTD (S_MEAN + MAXB)
+static_assert(32 + 4 * (S_RSTD + MAXB) <= FIXED_BYTES, "the scalars fit before the record");
 #define MODE_OUT 0      // out = y
 #define MODE_RESID 1    // out = resid + y
 #define MODE_GELU 2     // out = GELU(y)
@@ -195,6 +199,8 @@ struct FLin {
 };
 
 struct Fused {
+  CUtensorMap wmap[MAX_LIN];   // each linear's codes (K rows of N bytes), boxes of BOX_ROWS x CW
+  CUtensorMap lbmap[MAX_LIN];  // its LoRA-B bank (r rows of N), boxes of r x E_COLS
   FLin lin[MAX_LIN];
   const float* ln_g; const float* ln_b;  // (d) of the LN linear
   const float* xs;                       // (n_lin) static input scales
@@ -203,7 +209,7 @@ struct Fused {
   unsigned* bar;                         // the grid barrier's counter
   unsigned long long* clk;               // barrier clock, or null
   const int* plan;                       // the blocks' records, rec_len ints each
-  int n_lin, ln_at, B, r, rec_len, rec_off, work_off, act_off, red_off, xa_off, lal_off, whole_k;
+  int n_lin, ln_at, B, r, rec_len, rec_off, work_off, act_off, red_off, xa_off;
   float eps;
 };
 
@@ -231,10 +237,12 @@ __device__ __forceinline__ void copy_jobs(int bytes, int& base, F issue) {
   });
 }
 
-// The prologue's bulk copies of the block's operands of linear j, on mbarrier
-// bar: its pieces' weight rows, LoRA-A rows, LoRA-B slices and its epilogue
-// columns' scales and biases, and the LN parameters if j is the LN linear.
-// With count, thread 0 only adds up the bytes instead.
+// The prologue's copies of the block's operands of linear j, on mbarrier
+// bar: its pieces' weight rows (TMA boxes of BOX_ROWS rows: a piece's last
+// box may reach past it, into the padding of its shared-memory range), its
+// LoRA-A rows (bulk copies), LoRA-B slices (one box each) and its epilogue
+// columns' scales and biases (bulk copies), and the LN parameters if j is
+// the LN linear. With count, thread 0 only adds up the bytes instead.
 template <typename TB>
 __device__ int lin_copies(const Fused& a, int j, const int* rec, uint8_t* sm, uint32_t bar,
                           int& base, bool count) {
@@ -259,19 +267,17 @@ __device__ int lin_copies(const Fused& a, int j, const int* rec, uint8_t* sm, ui
     }
   }
   for (int p = 0; p < np; ++p, e += P_PIECE) {
-    const int g = e[0], r0 = e[1], rows = e[2] - e[1], soff = e[4];
-    const int width = min(CW, L.N - g * CW);
-    bytes += rows * width;
+    const int g = e[0], r0 = e[1], boxes = (e[2] - e[1] + BOX_ROWS - 1) / BOX_ROWS, soff = e[4];
+    bytes += boxes * BOX_ROWS * CW;  // a box past the codes' edge is filled with zeros
     if (!count)
-      deal(rows, base, [&](int i) {
-        copy(s0 + soff + i * CW, L.w + (size_t)(r0 + i) * L.N + g * CW, width);
+      deal(boxes, base, [&](int i) {
+        tma_load(s0 + soff + i * BOX_ROWS * CW, &a.wmap[j], g * CW, r0 + i * BOX_ROWS, bar);
       });
   }
   const int esz = sizeof(TB);
   for (int q = 0; q < ni; ++q, e += P_ITEM) {
     const int t = e[0], rows = min(L.la_rows, L.K - t * L.la_rows);
     const int nbytes = rows * r * esz;
-    if (e[1] < 0) continue;  // a whole-K plan reads the rows from device memory
     bytes += nbytes;
     if (!count) {
       const char* src = static_cast<const char*>(L.la) + (size_t)t * L.la_rows * r * esz;
@@ -282,21 +288,17 @@ __device__ int lin_copies(const Fused& a, int j, const int* rec, uint8_t* sm, ui
     const int c0 = e[0] * E_COLS;
     bytes += r * E_COLS * esz + (L.ws_col ? 2 : 1) * E_COLS * 4;
     if (count) continue;
-    deal(r, base, [&](int jr) {
-      copy(s0 + e[1] + jr * E_COLS * esz,
-           static_cast<const char*>(L.lb) + ((size_t)jr * L.N + c0) * esz, E_COLS * esz);
-    });
-    deal(2, base, [&](int i) {
-      if (i == 0 && L.ws_col) copy(s0 + e[2], L.ws + c0, E_COLS * 4);
-      if (i == 1) copy(s0 + e[2] + E_COLS * 4, L.bias + c0, E_COLS * 4);
+    deal(3, base, [&](int i) {
+      if (i == 0 && r > 0) tma_load(s0 + e[1], &a.lbmap[j], c0, 0, bar);
+      if (i == 1 && L.ws_col) copy(s0 + e[2], L.ws + c0, E_COLS * 4);
+      if (i == 2) copy(s0 + e[2] + E_COLS * 4, L.bias + c0, E_COLS * 4);
     });
   }
   return bytes;
 }
 
 // G phase of linear j: inputs, the dots of the block's pieces (to their
-// slots), its LoRA-A items (to la partials, or the block's own partials in
-// shared memory on a whole-K plan).
+// slots), its LoRA-A items (to the LoRA-A partials).
 template <typename TB>
 __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, float* scal,
                         uint32_t bar) {
@@ -319,8 +321,7 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
     for (int i0 = tid; i0 < n4; i0 += IN_LOADS * PT) {
       float4 v[IN_LOADS];
 #pragma unroll
-      for (int u = 0; u < IN_LOADS; ++u)
-        if (i0 + u * PT < n4) v[u] = __ldcg(src + i0 + u * PT);
+      for (int u = 0; u < IN_LOADS; ++u) v[u] = __ldcg(src + min(i0 + u * PT, n4 - 1));
 #pragma unroll
       for (int u = 0; u < IN_LOADS; ++u)
         if (i0 + u * PT < n4) dst[i0 + u * PT] = v[u];
@@ -355,18 +356,16 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
                        lnb[k]);
     return __ldcg(L.x + (size_t)b * K + k);
   };
-  // n input values, IN_LOADS a thread in flight before any is stored:
-  // value o is x(at(o)) and goes to put(o, x)
+  // n input values, IN_LOADS a thread in flight before any is stored
+  // (loads at clamped indices, so that none waits on a branch): value o is
+  // x(at(o)) and goes to put(o, x)
   auto inputs = [&](int n, auto at, auto put) {
     for (int o0 = tid; o0 < n; o0 += IN_LOADS * PT) {
       float v[IN_LOADS];
 #pragma unroll
       for (int u = 0; u < IN_LOADS; ++u) {
-        const int o = o0 + u * PT;
-        if (o < n) {
-          const int2 bk = at(o);
-          v[u] = xin(bk.x, bk.y);
-        }
+        const int2 bk = at(min(o0 + u * PT, n - 1));
+        v[u] = xin(bk.x, bk.y);
       }
 #pragma unroll
       for (int u = 0; u < IN_LOADS; ++u)
@@ -395,6 +394,8 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
   if (!ln) mbar_wait(bar, 0);
   __syncthreads();
 
+  // the dots of each piece: warp w takes batch rows w and w + 8, a lane 4
+  // columns, over all of the piece's K rows
   for (int p = 0; p < np; ++p) {
     const int* e = pc + P_PIECE * p;
     const int R = e[2] - e[1], slot = e[3];
@@ -405,6 +406,7 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0;
+#pragma unroll 4
     for (int s = 0; s < R / 4; ++s) {
       const uint8_t* base = wsm + 4 * s * CW;
       const uint32_t w0 = *reinterpret_cast<const uint32_t*>(base);
@@ -440,17 +442,16 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
   // output jj; the kg sums are then added in order
   const int kg = PT / r, jj = tid % r, kgi = tid / r;
   float* red = reinterpret_cast<float*>(work + a.red_off);  // (kg, B, r)
-  float* lal = reinterpret_cast<float*>(work + a.lal_off);  // whole-K: (items, B, r)
   for (int q = 0; q < ni; ++q) {
     const int* e = it + P_ITEM * q;
     const int t = e[0], nr = min(L.la_rows, K - t * L.la_rows);
-    const TB* bank = e[1] < 0 ? static_cast<const TB*>(L.la) + (size_t)t * L.la_rows * r
-                              : reinterpret_cast<const TB*>(sm + e[1]);
+    const TB* bank = reinterpret_cast<const TB*>(sm + e[1]);
     const float4* x4 = reinterpret_cast<const float4*>(act + e[2]);  // (nr, B4 / 4)
     if (kgi < kg) {
       float acc[MAXB];
 #pragma unroll
       for (int b = 0; b < MAXB; ++b) acc[b] = 0.f;
+#pragma unroll 4
       for (int k = kgi; k < nr; k += kg) {
         const float w = to_f(bank[k * r + jj]);  // bank x bank products: exact in float32 for bf16
 #pragma unroll
@@ -472,10 +473,35 @@ __device__ void phase_g(const Fused& a, int j, const int* rec, uint8_t* sm, floa
     for (int o = tid; o < B * r; o += PT) {
       float v = red[o];
       for (int l = 1; l < kg; ++l) v = __fadd_rn(v, red[l * B * r + o]);
-      if (a.whole_k) lal[(size_t)t * B * r + o] = v;
-      else a.lap[(size_t)t * B * r + o] = v;
+      a.lap[(size_t)t * B * r + o] = v;
     }
     __syncthreads();
+  }
+}
+
+// xa[o] = bank(sum of the n_items LoRA-A partials lap[t][o], in item
+// order) for o < n: every partial of two outputs loaded at once (NI loads
+// an output at clamped indices, none behind a branch), then added.
+template <int NI, typename TB>
+__device__ void lora_a_sums(const float* lap, int n_items, int n, float* xa) {
+  for (int o0 = threadIdx.x; o0 < n; o0 += 2 * PT) {
+    const int ob = min(o0 + PT, n - 1);
+    float pa[NI], pb[NI];
+#pragma unroll
+    for (int t = 0; t < NI; ++t) {
+      const size_t tt = (size_t)min(t, n_items - 1) * n;
+      pa[t] = __ldcg(lap + tt + o0);
+      pb[t] = __ldcg(lap + tt + ob);
+    }
+    float sa = pa[0], sb = pb[0];
+#pragma unroll
+    for (int t = 1; t < NI; ++t)
+      if (t < n_items) {
+        sa = __fadd_rn(sa, pa[t]);
+        sb = __fadd_rn(sb, pb[t]);
+      }
+    xa[o0] = in_bank<TB>(sa);
+    if (o0 + PT < n) xa[o0 + PT] = in_bank<TB>(sb);
   }
 }
 
@@ -505,31 +531,20 @@ __device__ void phase_e(const Fused& a, int j, const int* rec, uint8_t* sm, cons
     const int p = o & 3, q = (o >> 2) % NQ, rest = (o >> 2) / NQ;
     const int b = rest % B, *e = ep + P_EPI * (rest / B);
     const int n = e[0] * E_COLS + 4 * q, s0 = e[3] + p, s1 = e[4];
-    if (L.mode == MODE_RESID && p == 0) res = __ldcg(reinterpret_cast<const float4*>(L.resid + (size_t)b * N + n));
+    if (L.mode == MODE_RESID) res = __ldcg(reinterpret_cast<const float4*>(L.resid + (size_t)b * N + n));
 #pragma unroll
-    for (int u = 0; u < SLOT_LOADS; ++u)
-      if (s0 + 4 * u < s1)
-        v[u] = __ldcg(reinterpret_cast<const int4*>(a.slots + ((size_t)(s0 + 4 * u) * B + b) * CW + n % CW));
+    for (int u = 0; u < SLOT_LOADS; ++u)  // clamped: slots past the group's are loaded, not added
+      v[u] = __ldcg(reinterpret_cast<const int4*>(
+          a.slots + ((size_t)min(s0 + 4 * u, s1 - 1) * B + b) * CW + n % CW));
   };
   // the slots and residual of this thread's first output are asked for
   // before the LoRA-A sums, so that the two wait on device memory together
   if (tid < nout) load(tid);
   if (r > 0) {
-    // every item's partials, loaded at once, added in item order
     const int n_items = (L.K + L.la_rows - 1) / L.la_rows;
-    const float* lal = reinterpret_cast<const float*>(work + a.lal_off);
-    for (int o = tid; o < B * r; o += PT) {
-      float pv[LA_LOADS];
-#pragma unroll
-      for (int t = 0; t < LA_LOADS; ++t)
-        if (t < n_items)
-          pv[t] = a.whole_k ? lal[(size_t)t * B * r + o] : __ldcg(a.lap + (size_t)t * B * r + o);
-      float sum = pv[0];
-#pragma unroll
-      for (int t = 1; t < LA_LOADS; ++t)
-        if (t < n_items) sum = __fadd_rn(sum, pv[t]);
-      xa[o] = in_bank<TB>(sum);
-    }
+    if (n_items <= 8) lora_a_sums<8, TB>(a.lap, n_items, B * r, xa);
+    else if (n_items <= 16) lora_a_sums<16, TB>(a.lap, n_items, B * r, xa);
+    else lora_a_sums<LA_LOADS, TB>(a.lap, n_items, B * r, xa);
     __syncthreads();
   }
   for (int o = tid; o < nout; o += PT) {
@@ -617,8 +632,7 @@ __global__ void __launch_bounds__(PT, 1) k_fused(const __grid_constant__ Fused a
   int nbar = 0;
   for (int j = 0; j < a.n_lin; ++j) {
     phase_g<TB>(a, j, rec, sm, scal, smem_u32(mbar + j));
-    if (a.whole_k) __syncthreads();
-    else grid_sync(a.bar, a.clk, nb, nbar);
+    grid_sync(a.bar, a.clk, nb, nbar);
     phase_e<TB>(a, j, rec, sm, scal, smem_u32(mbar + j));
     if (j + 1 < a.n_lin) grid_sync(a.bar, a.clk, nb, nbar);
   }
@@ -661,8 +675,7 @@ static void set_layout(Fused& f, const int* hdr, char* scratch, unsigned* bar,
                        const int* plan, const float* xs, int B, int r, float eps) {
   f.n_lin = hdr[H_NLIN]; f.ln_at = hdr[H_LN_AT]; f.B = B; f.r = r;
   f.rec_len = hdr[H_REC_LEN]; f.rec_off = hdr[H_REC]; f.work_off = hdr[H_WORK];
-  f.act_off = hdr[H_ACT]; f.red_off = hdr[H_RED]; f.xa_off = hdr[H_XA]; f.lal_off = hdr[H_LAL];
-  f.whole_k = hdr[H_WHOLE]; f.eps = eps;
+  f.act_off = hdr[H_ACT]; f.red_off = hdr[H_RED]; f.xa_off = hdr[H_XA]; f.eps = eps;
   f.slots = reinterpret_cast<int32_t*>(scratch);
   f.lap = reinterpret_cast<float*>(scratch + hdr[H_SC_LAP]);
   f.bar = bar; f.clk = g_clk; f.plan = plan; f.xs = xs;
@@ -685,6 +698,61 @@ static int launch(Fused& f, int grid, int smem, cudaStream_t stream) {
 
 static bool bad_shape(int B, int r) { return B < 1 || B > MAXB || r < 0 || r > MAXR; }
 
+// The 2-D tensor map of a row-major matrix (outer rows of inner elements of
+// type dt, `esz` bytes each), read in boxes of box_in x box_out with no
+// swizzle; built once per (matrix, box) and kept in a small cache (a map
+// describes addresses and shapes only, so a reused address stays right).
+static int tile_map(CUtensorMap* out, CUtensorMapDataType dt, int esz, const void* ptr,
+                    int inner, int outer, int box_in, int box_out) {
+  struct Entry {
+    const void* ptr;
+    int dt, inner, outer, box_in, box_out;
+    CUtensorMap map;
+  };
+  static Entry cache[256];
+  static int n_cached = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cached; ++i) {
+    const Entry& c = cache[i];
+    if (c.ptr == ptr && c.dt == (int)dt && c.inner == inner && c.outer == outer &&
+        c.box_in == box_in && c.box_out == box_out) {
+      *out = c.map;
+      return 0;
+    }
+  }
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorSharedObjectSymbolNotFound;
+  Entry& c = cache[next];
+  next = (next + 1) % 256;
+  n_cached = n_cached < 256 ? n_cached + 1 : 256;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)box_in, (cuuint32_t)box_out};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult rc = enc(&c.map, dt, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) {
+    c.ptr = nullptr;
+    return (int)cudaErrorInvalidValue;
+  }
+  c.ptr = ptr; c.dt = (int)dt; c.inner = inner; c.outer = outer; c.box_in = box_in;
+  c.box_out = box_out;
+  *out = c.map;
+  return 0;
+}
+
+// The maps of linear j's codes and LoRA-B bank.
+static int lin_maps(Fused& f, int j, int bank_bf16) {
+  const FLin& l = f.lin[j];
+  int rc = tile_map(&f.wmap[j], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, l.w, l.N, l.K, CW, BOX_ROWS);
+  if (rc || f.r == 0) return rc;
+  return tile_map(&f.lbmap[j],
+                  bank_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  bank_bf16 ? 2 : 4, l.lb, l.N, f.r, E_COLS, f.r);
+}
+
 // #12: out (B, N) float32. h (B, d) float32; g, bln (d); w (d, N) int8; ws
 // (N) if ws_col, else (1); bias (N); xs (1) float32 on the device; la (d, r),
 // lb (r, N) in the bank dtype (bf16 if bank_bf16, else float32), unused when
@@ -701,6 +769,8 @@ extern "C" int fused_ln_qkv(const float* h, const float* g, const float* bln, co
   set_layout(f, hdr, static_cast<char*>(scratch), bar, plan, xs, B, r, eps);
   f.lin[0] = make_lin(w, ws, bias, la, lb, h, nullptr, out, d, N, ws_col, MODE_OUT, hdr[H_LA0]);
   f.ln_g = g; f.ln_b = bln;
+  const int rc = lin_maps(f, 0, bank_bf16);
+  if (rc) return rc;
   return bank_bf16 ? launch<bf16>(f, hdr[H_NB], hdr[H_SMEM], stream)
                    : launch<float>(f, hdr[H_NB], hdr[H_SMEM], stream);
 }
@@ -731,6 +801,10 @@ extern "C" int fused_post_attention(
   f.lin[2] = make_lin(wm, wms, bm, ma, mb, gb, h1, out, dff, d, (ws_cols >> 2) & 1, MODE_RESID,
                       hdr[H_LA0 + 2]);
   f.ln_g = g2; f.ln_b = b2;
+  for (int j = 0; j < 3; ++j) {
+    const int rc = lin_maps(f, j, bank_bf16);
+    if (rc) return rc;
+  }
   return bank_bf16 ? launch<bf16>(f, hdr[H_NB], hdr[H_SMEM], stream)
                    : launch<float>(f, hdr[H_NB], hdr[H_SMEM], stream);
 }

@@ -125,9 +125,10 @@ def fused_post_attention_plain(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *
 
 PT = 256           # threads of a block (csrc/fused_decode.cu PT)
 CW = 128           # columns of a weight piece: 32 lanes x 4 (CW)
+BOX_ROWS = 16      # weight rows of one TMA box; a piece's range is whole boxes (BOX_ROWS)
 E_COLS = 32        # columns of an epilogue item (E_COLS)
 LA_ROWS = 128      # input rows of a LoRA-A item: a multiple of this, so that
-LA_MAX_ITEMS = 32  # no linear has more items than an output sums at once (LA_LOADS)
+LA_MAX_ITEMS = 24  # no linear has more items than an output sums at once (LA_LOADS)
 SMEM_MAX = 232448  # dynamic shared memory a block may ask for on an H100 (227 KB)
 FIXED_BYTES = 256  # mbarriers, scalars and LN statistics (FIXED_BYTES)
 RH = 16            # ints of a block record's header (RH)
@@ -135,14 +136,13 @@ PIECE, ITEM, EPI = 6, 3, 5  # ints of a record's entries (P_PIECE, P_ITEM, P_EPI
 # The launch header, read by the host entry points (csrc/fused_decode.cu H_*):
 # blocks, linears, dynamic shared memory, record ints, and the shared-memory
 # offsets of the record, the work area and, inside the work area, the
-# activation region, the LoRA-A reduction, the rounded LoRA-A sums and the
-# block-local LoRA-A partials (whole-K plan only); whole-K, the LoRA-A item
-# rows of each linear, the scratch offsets of the LoRA-A partials, h1 and
-# g, the scratch bytes, and the linear whose input is LN(x).
-(H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA, H_LAL,
- H_WHOLE, H_LA0, H_SC_LAP, H_SC_H1, H_SC_G, H_SC_BYTES, H_LN_AT) = (
-    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 14, 15, 16, 17, 18)
-HDR = 20
+# activation region, the LoRA-A reduction and the rounded LoRA-A sums; the
+# LoRA-A item rows of each linear, the scratch offsets of the LoRA-A
+# partials, h1 and g, the scratch bytes, and the linear whose input is LN(x).
+(H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA, H_LA0,
+ H_SC_LAP, H_SC_H1, H_SC_G, H_SC_BYTES, H_LN_AT) = (
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 13, 14, 15, 16)
+HDR = 17
 
 
 class FusedPlan(NamedTuple):
@@ -153,8 +153,8 @@ class FusedPlan(NamedTuple):
     partial-sum slot `slot`; a column group's slots are contiguous and in
     row order (group_slots[j][g] to group_slots[j][g + 1]), and its
     epilogue adds them in that order. lora[j]: (block, t), item t the input
-    rows [t·la_rows[j], (t + 1)·la_rows[j]) times every LoRA output (on a
-    whole-K plan every owning block runs every item). epilogue[j]: (block,
+    rows [t·la_rows[j], (t + 1)·la_rows[j]) times every LoRA output.
+    epilogue[j]: (block,
     e), item e the columns [e·E_COLS, (e + 1)·E_COLS) of every batch row.
     block_bytes: per block, the bytes its prologue copies into shared
     memory. smem_bytes: the dynamic shared memory the launch asks for.
@@ -171,10 +171,6 @@ class FusedPlan(NamedTuple):
     smem_bytes: int
     header: np.ndarray
     table: np.ndarray
-
-    @property
-    def n_slots(self) -> int:
-        return max(len(p) for p in self.pieces)
 
 
 def _align(x: int, a: int) -> int:
@@ -208,15 +204,13 @@ def _fill(load, units: int, unit_bytes: int):
 
 
 def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
-               n_blocks: int, *, batch: int = MAX_B, bank_bytes: int = 2,
-               ln_at: Optional[int] = None, whole_k: bool = False) -> FusedPlan:
+               n_blocks: int, *, batch: int = MAX_B, bank_bytes: int = 2) -> FusedPlan:
     """Split the linears of one fused decode kernel over `n_blocks` blocks.
 
     Linear j reads K_list[j] input rows and writes n_out_list[j] columns;
-    `ln_at` is the linear whose input is LN(x) over d (default: the first
-    of one linear, #12; the second of three, #13's fc). `batch` rows, LoRA
-    rank r (0: none) with banks of `bank_bytes` (2 bf16, 4 float32) per
-    element.
+    the input of one of them is LN(x) over d: the first of one linear
+    (#12's qkv), the second of three (#13's fc). `batch` rows, LoRA rank r
+    (0: none) with banks of `bank_bytes` (2 bf16, 4 float32) per element.
 
     Linear by linear, in phase order: its LoRA-A items and then its
     epilogue items go to the block with the fewest bytes so far, and its
@@ -225,10 +219,7 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
     one level of bytes (water-filling): a block that owns little of one
     linear owns more of the next, so the bytes each block copies are
     balanced over the whole layer. A range splits at column groups into
-    pieces. With `whole_k` (one linear only) each column group is one piece
-    over all K rows on block g mod n_blocks, which also owns the group's
-    epilogue items and runs every LoRA-A item itself, its bank rows read
-    from device memory: no grid barrier.
+    pieces.
 
     Raises ValueError on what the kernel cannot run: batch outside 1..16,
     rank above 64, a width that is not a multiple of E_COLS = 32 (the
@@ -236,8 +227,8 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
     not fit SMEM_MAX bytes of shared memory."""
     ns, ks = [int(n) for n in n_out_list], [int(k) for k in K_list]
     n_lin, d, r, nb, B = len(ns), int(d), int(r), int(n_blocks), int(batch)
-    if not 1 <= n_lin <= 3 or len(ks) != n_lin:
-        raise ValueError(f"one to three linears; got {n_out_list}, {K_list}")
+    if n_lin not in (1, 3) or len(ks) != n_lin:
+        raise ValueError(f"one linear (#12) or three (#13); got {n_out_list}, {K_list}")
     if not 1 <= B <= MAX_B:
         raise ValueError(f"1 to {MAX_B} batch rows; got {B}")
     if not 0 <= r <= MAX_RANK:
@@ -249,12 +240,9 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
             raise ValueError(f"widths must be positive multiples of {E_COLS}; got {w}")
     if nb < 1:
         raise ValueError(f"n_blocks must be at least 1; got {n_blocks}")
-    if ln_at is None:
-        ln_at = 0 if n_lin == 1 else 1
-    if not 0 <= ln_at < n_lin or ks[ln_at] != d:
+    ln_at = 0 if n_lin == 1 else 1
+    if ks[ln_at] != d:
         raise ValueError(f"the LN linear {ln_at} must read d = {d} rows")
-    if whole_k and n_lin != 1:
-        raise ValueError("a whole-K plan has one linear")
     esz = bank_bytes if r else 0
     la_rows = tuple(LA_ROWS * -(-K // (LA_ROWS * LA_MAX_ITEMS)) for K in ks)
     load = [0] * nb
@@ -268,37 +256,25 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
         if j == ln_at:
             load = [x + 2 * d * 4 for x in load]
         plist, items, epis = [], [], []
-        if whole_k:
-            owner = [g % nb for g in range(groups)]
-            plist = [(owner[g], g, 0, K) for g in range(groups)]
-            for blk in sorted(set(owner)):
-                items += [(blk, t) for t in range(n_la)]
-            for e in range(N // E_COLS):
-                blk = owner[e * E_COLS // CW]
-                epis.append((blk, e))
-                load[blk] += epi_bytes
-            for blk, g, r0, r1 in plist:
+        for t in range(n_la):
+            blk = min(range(nb), key=lambda b: (load[b], b))
+            items.append((blk, t))
+            load[blk] += item_bytes[t]
+        for e in range(N // E_COLS):
+            blk = min(range(nb), key=lambda b: (load[b], b))
+            epis.append((blk, e))
+            load[blk] += epi_bytes
+        counts = _fill(load, groups * quads, 4 * CW)
+        u = 0
+        for blk in range(nb):
+            u1 = u + counts[blk]
+            while u < u1:
+                g = u // quads
+                e = min(u1, (g + 1) * quads)
+                r0, r1 = 4 * (u - g * quads), 4 * (e - g * quads)
+                plist.append((blk, g, r0, r1))
                 load[blk] += (r1 - r0) * width[g]
-        else:
-            for t in range(n_la):
-                blk = min(range(nb), key=lambda b: (load[b], b))
-                items.append((blk, t))
-                load[blk] += item_bytes[t]
-            for e in range(N // E_COLS):
-                blk = min(range(nb), key=lambda b: (load[b], b))
-                epis.append((blk, e))
-                load[blk] += epi_bytes
-            counts = _fill(load, groups * quads, 4 * CW)
-            u = 0
-            for blk in range(nb):
-                u1 = u + counts[blk]
-                while u < u1:
-                    g = u // quads
-                    e = min(u1, (g + 1) * quads)
-                    r0, r1 = 4 * (u - g * quads), 4 * (e - g * quads)
-                    plist.append((blk, g, r0, r1))
-                    load[blk] += (r1 - r0) * width[g]
-                    u = e
+                u = e
         plist.sort(key=lambda p: (p[1], p[2]))  # slot order: by group, then by row
         starts = [0] * (groups + 1)
         for _, g, _, _ in plist:
@@ -331,19 +307,20 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
                 copied += 2 * d * 4
             act = 0
             for _, g, r0, r1, s in pj:
+                off = _align(off, 128)
                 body += [g, r0, r1, s, off, act]
-                off += (r1 - r0) * CW
+                off += _align(r1 - r0, BOX_ROWS) * CW  # whole TMA boxes
                 copied += (r1 - r0) * min(CW, N - g * CW)
                 act += _align(B * (r1 - r0), 16)
-            for _, t in qj:  # a whole-K plan reads its LoRA-A rows from device memory
+            for _, t in qj:
                 rows = min(la, ks[j] - t * la)
-                body += [t, -1 if whole_k else off, act]
-                if not whole_k:
-                    off += _align(rows * r * esz, 16)
-                    copied += rows * r * esz
+                body += [t, off, act]
+                off += _align(rows * r * esz, 16)
+                copied += rows * r * esz
                 act += _align(B, 4) * rows * 4
             for _, e in ej:
                 g = e * E_COLS // CW
+                off = _align(off, 128)
                 body += [e, off, off + r * E_COLS * esz, group_slots[j][g],
                          group_slots[j][g + 1]]
                 off += r * E_COLS * esz + 2 * E_COLS * 4
@@ -356,12 +333,10 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
     ln_bytes = B * d * 4
     red = (PT // r) * B * r * 4 if r else 0
     n_items = max((len(q) for q in lora), default=0)
-    n_la_max = max(-(-K // la) for K, la in zip(ks, la_rows)) if r else 0
     act_off = ln_bytes
     red_off = act_off + _align(act_bytes, 16)
     xa_off = red_off + red
-    lal_off = xa_off + B * r * 4
-    work = lal_off + (n_la_max * B * r * 4 if whole_k else 0)
+    work = xa_off + B * r * 4
     smem = work_off + _align(work, 16)
     if smem > SMEM_MAX:
         worst = int(np.argmax(op_end))
@@ -369,13 +344,12 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
                          f"({op_end[worst] - op0} of operands, {work} of work area); the "
                          f"kernel may ask for {SMEM_MAX}: take a larger grid")
     sc_lap = _align(max(len(p) for p in pieces) * B * CW * 4, 256)
-    sc_h1 = sc_lap + _align(0 if whole_k else n_items * B * r * 4, 256)
+    sc_h1 = sc_lap + _align(n_items * B * r * 4, 256)
     sc_g = sc_h1 + (_align(B * ns[0] * 4, 256) if n_lin == 3 else 0)
     sc_bytes = sc_g + (_align(B * ns[1] * 4, 256) if n_lin == 3 else 0)
     header = np.zeros(HDR, np.int32)
-    header[[H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA, H_LAL,
-            H_WHOLE]] = [nb, n_lin, smem, rec_len, FIXED_BYTES, work_off, act_off, red_off,
-                         xa_off, lal_off, int(whole_k)]
+    header[[H_NB, H_NLIN, H_SMEM, H_REC_LEN, H_REC, H_WORK, H_ACT, H_RED, H_XA]] = [
+        nb, n_lin, smem, rec_len, FIXED_BYTES, work_off, act_off, red_off, xa_off]
     header[H_LA0:H_LA0 + n_lin] = la_rows
     header[[H_SC_LAP, H_SC_H1, H_SC_G, H_SC_BYTES, H_LN_AT]] = [sc_lap, sc_h1, sc_g,
                                                                 sc_bytes, ln_at]
@@ -401,10 +375,10 @@ def fused_grid(dev) -> int:
     return _GRID[idx]
 
 
-def barriers(n_lin: int, whole_k: bool = False) -> int:
+def barriers(n_lin: int) -> int:
     """Grid barriers of one launch of n_lin linears: one after each phase
-    but the last (none between a whole-K plan's two phases)."""
-    return 2 * n_lin - 1 - int(whole_k)
+    but the last."""
+    return 2 * n_lin - 1
 
 
 def _barrier(dev):
@@ -416,14 +390,14 @@ def _barrier(dev):
     return bar
 
 
-def _plan_on(dev, d, ns, ks, r, grid, B, bank_bytes, whole_k=False):
+def _plan_on(dev, d, ns, ks, r, grid, B, bank_bytes):
     """(plan, its table on `dev`) at `grid` blocks (one per SM when None),
     cached."""
     nb = fused_grid(dev) if grid is None else int(grid)
-    key = (dev, d, tuple(ns), tuple(ks), r, nb, B, bank_bytes, whole_k)
+    key = (dev, d, tuple(ns), tuple(ks), r, nb, B, bank_bytes)
     got = _PLANS.get(key)
     if got is None:
-        plan = fused_plan(d, ns, ks, r, nb, batch=B, bank_bytes=bank_bytes, whole_k=whole_k)
+        plan = fused_plan(d, ns, ks, r, nb, batch=B, bank_bytes=bank_bytes)
         got = _PLANS[key] = (plan, torch.as_tensor(plan.table, device=dev))
     return got
 
@@ -439,13 +413,14 @@ def phase_clock(buf: Optional[torch.Tensor]) -> None:
 
 
 def _f32(t, n, dev, what, name, copied=True):
-    """t as a contiguous float32 (n,) tensor on dev; 16-byte aligned (a
-    copy where it is not) if the kernel copies it with bulk copies."""
-    t = t.to(torch.float32).reshape(-1)
+    """t as a contiguous float32 tensor of n values on dev (only its data
+    pointer is passed on); 16-byte aligned (a copy where it is not) if the
+    kernel copies it with bulk copies."""
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
     if t.numel() != n or t.device != dev:
         raise ValueError(f"{what}: {name} must hold {n} values on {dev}; got "
                          f"{t.numel()} on {t.device}")
-    t = t.contiguous()
     return t if not copied or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -497,43 +472,6 @@ def _check_rows(h, what):
     return B, d
 
 
-def _ln_qkv_parts(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b):
-    """The checked operands of #12 on h's device."""
-    what, dev = "fused_ln_qkv", h.device
-    B, d = _check_rows(h, what)
-    N = w_i8.shape[1]
-    if N % E_COLS:
-        raise ValueError(f"{what}: N must be a multiple of {E_COLS}; got {N}")
-    w = _codes(w_i8, d, N, dev, what, "w_i8")
-    la, lb, r = _banks(lora_a, lora_b, d, N, dev, what, "qkv")
-    hf = h.to(torch.float32).contiguous()
-    g, b = _f32(ln_g, d, dev, what, "ln_g"), _f32(ln_b, d, dev, what, "ln_b")
-    (ws, ws_col), bs = _scale(w_s, N, dev, what, "w_s"), _f32(bias, N, dev, what, "bias")
-    xs = _f32(torch.as_tensor(x_s, device=dev), 1, dev, what, "x_s", copied=False)
-    return B, d, N, r, [hf, g, b, w, ws, bs, xs, la, lb], int(ws_col), la
-
-
-def launch_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
-                  eps: float = 1e-5, grid: Optional[int] = None, whole_k: bool = False):
-    """#12's kernel on CUDA tensors at `grid` blocks (one per SM when None)
-    on the split-K plan (`whole_k`: every column group over all of K on one
-    block, no grid barrier), without counting the launch. Returns qkv."""
-    B, d, N, r, ops, ws_col, la = _ln_qkv_parts(h, ln_g, ln_b, w_i8, w_s, bias, x_s,
-                                                lora_a, lora_b)
-    dev = h.device
-    bank_bf16 = la is not None and la.dtype == torch.bfloat16
-    plan, table = _plan_on(dev, d, (N,), (d,), r, grid, B, 2 if bank_bf16 else 4, whole_k)
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
-    lib = _build.load("fused_decode")
-    rc = lib.fused_ln_qkv(
-        *[_ptr(t) for t in ops], out.data_ptr(), scratch.data_ptr(),
-        _barrier(dev).data_ptr(), table.data_ptr(), plan.header.ctypes.data, B, d, N, r,
-        ws_col, int(bank_bf16), float(eps), _build.stream(h))
-    _build.check(lib, rc, "fused_ln_qkv")
-    return out
-
-
 def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
                  eps: float = 1e-5, grid: Optional[int] = None):
     """LN1 + int8 QKV + LoRA of one decode layer (kernel #12): h (B, d)
@@ -547,8 +485,28 @@ def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
     if h.device.type == "cpu":
         return fused_ln_qkv_plain(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b,
                                   eps=eps)
-    out = launch_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, eps=eps,
-                        grid=grid)
+    what, dev = "fused_ln_qkv", h.device
+    B, d = _check_rows(h, what)
+    N = w_i8.shape[1]
+    if N % E_COLS:
+        raise ValueError(f"{what}: N must be a multiple of {E_COLS}; got {N}")
+    w = _codes(w_i8, d, N, dev, what, "w_i8")
+    la, lb, r = _banks(lora_a, lora_b, d, N, dev, what, "qkv")
+    hf = h.to(torch.float32).contiguous()
+    g, b = _f32(ln_g, d, dev, what, "ln_g"), _f32(ln_b, d, dev, what, "ln_b")
+    (ws, ws_col), bs = _scale(w_s, N, dev, what, "w_s"), _f32(bias, N, dev, what, "bias")
+    xs = _f32(torch.as_tensor(x_s, device=dev), 1, dev, what, "x_s", copied=False)
+    bank_bf16 = la is not None and la.dtype == torch.bfloat16
+    plan, table = _plan_on(dev, d, (N,), (d,), r, grid, B, 2 if bank_bf16 else 4)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
+    lib = _build.load("fused_decode")
+    rc = lib.fused_ln_qkv(
+        *[_ptr(t) for t in (hf, g, b, w, ws, bs, xs, la, lb)], out.data_ptr(),
+        scratch.data_ptr(), _barrier(dev).data_ptr(), table.data_ptr(),
+        plan.header.ctypes.data, B, d, N, r, int(ws_col), int(bank_bf16), float(eps),
+        _build.stream(h))
+    _build.check(lib, rc, what)
     fused_ln_qkv.launches += 1
     return out
 

@@ -1223,6 +1223,80 @@ def test_fused_decode_kernels_match_plain(cuda_device, lora):
         assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
 
 
+def _fused_gpt2(dev, B, seed):
+    """#12's and #13's operands at GPT-2 124M width (d = 768, dff = 3072),
+    rank-64 bf16 LoRA banks: (qkv args, post args)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(dev, g, 768, 3072,
+                                                                   torch.bfloat16)
+    for lin in (qkv, proj, fc, mlp):  # rank 64, as the bench's quant config
+        K, N = lin["w_i8"].shape
+        lin["lora_A"] = (0.3 * torch.randn((K, 64), generator=g, device=dev)).bfloat16()
+        lin["lora_B"] = (0.05 * torch.randn((64, N), generator=g, device=dev)).bfloat16()
+    h = torch.randn((B, 768), generator=g, device=dev)
+    attn = torch.randn((B, 768), generator=g, device=dev)
+    return ((h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], qkv["lora_A"],
+             qkv["lora_B"]), (attn, h, g2, b2, proj, fc, mlp, xs[1:]))
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_fused_decode_gpt2_width_matches_plain(cuda_device, B):
+    """#12 and #13 at GPT-2 width against their plain versions, held as
+    test_fused_decode_kernels_match_plain holds them (rows within 1e-5 for
+    nine in ten, every row within 2e-2), over four draws; each call one
+    launch of the wrapper's counter and a second call bit-equal."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    rows = {"qkv": [], "post": []}
+    for seed in range(4):
+        qa, pa = _fused_gpt2(cuda_device, B, seed)
+        for name, kern, plain, args in (("qkv", fd.fused_ln_qkv, fd.fused_ln_qkv_plain, qa),
+                                        ("post", fd.fused_post_attention,
+                                         fd.fused_post_attention_plain, pa)):
+            before = kern.launches
+            got, again = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 2
+            assert torch.equal(got, again), name
+            want = plain(*args)
+            rows[name] += ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+    print("row errors", {k: max(v) for k, v in rows.items()})
+    for name, rs in rows.items():
+        assert max(rs) <= 2e-2, name
+        assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
+
+
+def test_fused_decode_is_one_launch_and_refuses_a_large_grid(cuda_device):
+    """A call of #12 or #13 is one CUDA kernel launch (the persistent
+    k_fused; five calls profiled), with no copy or memset beside it; half
+    the plan's grid holds
+    and repeats bit-equal; two blocks per SM, more than the card holds at
+    once, is refused by the runtime and raises."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    qa, pa = _fused_gpt2(cuda_device, 8, 0)
+    nsm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kern, args in ((fd.fused_ln_qkv, qa), (fd.fused_post_attention, pa)):
+        ref = kern(*args)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kern(*args)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        names = [e.key.split("(")[0].split("<")[0].replace("void ", "").strip() for e in evs]
+        assert [(n, e.count) for n, e in zip(names, evs)] == [("k_fused", 5)], evs
+        assert fd.fused_grid(cuda_device) == nsm
+        half, again = kern(*args, grid=nsm // 2), kern(*args, grid=nsm // 2)
+        torch.cuda.synchronize()
+        assert torch.equal(half, again)
+        torch.testing.assert_close(half, ref, atol=2e-2 * ref.abs().max().item(), rtol=0)
+        with pytest.raises(RuntimeError, match="cooperative"):
+            kern(*args, grid=2 * nsm)
+        torch.cuda.synchronize()
+
+
 def test_fused_decode_wrappers_check_their_inputs(cuda_device):
     from llm_qat_tpu_torch.ops import fused_decode as fd
 

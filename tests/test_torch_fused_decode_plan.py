@@ -98,10 +98,11 @@ def test_every_weight_byte_lora_row_and_column_owned_once(kind, name, d, n, nb):
 @pytest.mark.parametrize("kind,name,d,n,nb", CASES)
 @pytest.mark.parametrize("batch", [1, 8, 16])
 def test_shared_memory_layout_fits_the_request(kind, name, d, n, nb, batch):
-    """Each block's operands (LN parameters, weight rows at CW bytes each,
-    LoRA-A rows, LoRA-B slices with their scale and bias slices) lie in
-    disjoint 16-byte aligned ranges after its record and before the work
-    area; its activation codes and LoRA-A inputs in disjoint ranges of the
+    """Each block's operands (LN parameters, weight rows at CW bytes each
+    in whole TMA boxes of BOX_ROWS rows, LoRA-A rows, LoRA-B slices with
+    their scale and bias slices) lie in disjoint 16-byte aligned ranges
+    (128-byte aligned where a TMA box lands) after its record and before
+    the work area; its activation codes and LoRA-A inputs in disjoint ranges of the
     activation region; the work area's parts within the request, which is
     within SMEM_MAX."""
     ns, ks, plan = _plans(kind, d, n, nb, batch=batch)
@@ -111,8 +112,8 @@ def test_shared_memory_layout_fits_the_request(kind, name, d, n, nb, batch):
     op0 = h[fd.H_REC] + 4 * h[fd.H_REC_LEN]
     work, act0 = h[fd.H_WORK], h[fd.H_WORK] + h[fd.H_ACT]
     assert h[fd.H_WORK] >= op0 and h[fd.H_ACT] == batch * d * 4
-    assert h[fd.H_ACT] <= h[fd.H_RED] <= h[fd.H_XA] <= h[fd.H_LAL]
-    assert work + h[fd.H_LAL] <= plan.smem_bytes
+    assert h[fd.H_ACT] <= h[fd.H_RED] <= h[fd.H_XA]
+    assert work + h[fd.H_XA] + batch * r * 4 <= plan.smem_bytes
     act_end = work + h[fd.H_RED]
     for per, ln_off in _records(plan, len(ns)):
         spans = [(ln_off, ln_off + 2 * d * 4)]
@@ -120,14 +121,15 @@ def test_shared_memory_layout_fits_the_request(kind, name, d, n, nb, batch):
             N, K, la = ns[j], ks[j], plan.la_rows[j]
             acts = []
             for g, r0, r1, slot, soff, aoff in pcs:
-                spans.append((soff, soff + (r1 - r0) * fd.CW))
+                assert soff % 128 == 0
+                spans.append((soff, soff + -(-(r1 - r0) // fd.BOX_ROWS) * fd.BOX_ROWS * fd.CW))
                 acts.append((aoff, aoff + batch * (r1 - r0)))
             for t, soff, aoff in its:
                 rows = min(la, K - t * la)
                 spans.append((soff, soff + rows * r * esz))
                 acts.append((aoff, aoff + -(-batch // 4) * 4 * rows * 4))
             for e, lb_off, vec_off, s0, s1 in eps:
-                assert vec_off == lb_off + r * fd.E_COLS * esz
+                assert lb_off % 128 == 0 and vec_off == lb_off + r * fd.E_COLS * esz
                 spans.append((lb_off, vec_off + 2 * fd.E_COLS * 4))
                 g = e * fd.E_COLS // fd.CW
                 assert (s0, s1) == plan.group_slots[j][g:g + 2]
@@ -197,9 +199,8 @@ def test_bytes_balanced_over_the_layer(kind, nb):
 
 def test_plan_refuses_what_the_kernel_cannot_run():
     """More than 16 batch rows, a rank above 64, widths that are not a
-    multiple of 32 (of 4 among them), GPT-2's layer on 8 blocks (its
-    operands do not fit their shared memory), and a whole-K plan of more
-    than one linear: ValueError."""
+    multiple of 32 (of 4 among them), and GPT-2's layer on 8 blocks (its
+    operands do not fit their shared memory): ValueError."""
     ns, ks = _post(768, 3072)
     with pytest.raises(ValueError, match="batch rows"):
         fd.fused_plan(768, ns, ks, 64, 132, batch=17)
@@ -212,8 +213,6 @@ def test_plan_refuses_what_the_kernel_cannot_run():
             fd.fused_plan(bad, (768,), (bad,), 64, 132)
     with pytest.raises(ValueError, match="shared memory"):
         fd.fused_plan(768, ns, ks, 64, 8)
-    with pytest.raises(ValueError, match="whole-K"):
-        fd.fused_plan(768, ns, ks, 64, 132, whole_k=True)
 
 
 def test_plan_without_lora_and_float_banks():

@@ -2,18 +2,17 @@
 // with the log-sum-exp rows) and the training backward.
 //
 // Replaces three Pallas kernels of llm_qat_tpu/ops/attention.py:
-// - `_flash_kernel` (serving prefill, float32) with `flash_attention_fwd_f32`;
-// - `_flash_fwd_kernel` (called by `_flash_fwd_call`) with
-//   `flash_fwd_lse_wgmma` (bf16 operands at head_dim 64) or `flash_fwd_lse`;
+// - `_flash_kernel` (serving prefill, #2) and `_flash_fwd_kernel` (called by
+//   `_flash_fwd_call`, #5) with `flash_forward_wgmma` (bf16 operands at
+//   head_dim 64) or `flash_forward`, the one forward without or with the
+//   log-sum-exp rows;
 // - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with
 //   `flash_bwd_wgmma` (bf16 operands at head_dim 64) or `flash_bwd`, each
 //   three CUDA kernels that together compute what the one TPU kernel does.
-// `flash_attention_fwd_f32` and `flash_fwd_lse` launch the one templated
-// SIMT forward kernel; the serving one passes float operands and no LSE
-// pointer. The Python wrappers
-// are llm_qat_tpu_torch/ops/attention.py::flash_attention, ::flash_fwd_lse
-// and ::flash_bwd; `flash_attention_plain`, `flash_fwd_lse_plain` and
-// `flash_bwd_plain` beside them compute the same functions in plain PyTorch.
+// The Python wrappers are llm_qat_tpu_torch/ops/attention.py::
+// flash_attention, ::flash_fwd_lse and ::flash_bwd; `flash_attention_plain`,
+// `flash_fwd_lse_plain` and `flash_bwd_plain` beside them compute the same
+// functions in plain PyTorch.
 //
 // Operands q, k, v, o, dO are (B*H, T, D) in the operand type (float or
 // bf16), LSE and the row dots D are (B*H, T) float32. As in the JAX
@@ -27,22 +26,34 @@
 // kernels mask the ragged tail themselves (keys and query rows >= T), so T
 // need not be a multiple of the tile.
 //
+// Where the forward rounds P. The JAX kernels take k-blocks of block_k keys
+// (128 or 256, `flash_blocks`) and round P at the running max of the row
+// over the blocks so far, m = max(m_prev, the block's max), so the rounding
+// depends on the block. The forwards here take block_k as an argument and
+// keep that rule: a k-block is 1, 2 or 4 of their 64-key tiles, its row
+// maxima are taken over all its tiles before any of its P is formed, and O
+// and l are rescaled by exp(m_prev - m) once per block.
+//
 // Forward (SIMT, `flash_fwd`): one block per (b*h, 64-row q tile): K/V
 // tiles up to the causal limit stream through shared memory, each of 256
-// threads owns a 4x4 patch of the score tile and 4 x D/16 output columns,
-// with an online softmax per row. P is rounded at the running max of its
-// row, as in the JAX kernel. With bf16 operands at head_dim 64 (every GPT-2
-// size; the training path) the forward is `flash_fwd_wgmma`, on the tensor
-// cores, in the wgmma backward's block layout (below): one block per
-// (b*h, 128-row q tile), Q loaded once, the K/V tiles up to the causal
-// limit through the TMA ring; per 64-key step a warpgroup takes S = Q.K^T
-// by wgmma from shared memory, runs the online softmax on the accumulators'
-// registers (row max over the thread's 16 values and its quad; the float32
-// P into the thread's share of the row sum, which the quad adds up at the
-// end; O and l scaled by exp(m_old - m_new)), rounds P at the running max
-// to bf16 pairs in place and takes O += P.V in wgmma's register form, V
-// read MN-major. Each output row is written by one block, so repeat calls
-// are bit-equal.
+// threads owns a 4x4 patch of the score tile and 4 x D/16 output columns.
+// With bf16 operands a k-block of several tiles is walked twice: the K
+// tiles for the row maxima, then the K/V tiles for P, l and O. With bf16
+// operands at head_dim 64 (every GPT-2 size) the forward is
+// `flash_fwd_wgmma`, on the tensor cores, in the wgmma backward's block
+// layout (below): one block per (b*h, 128-row q tile), Q loaded once, the
+// K/V tiles up to the causal limit through the TMA ring, which holds a
+// whole k-block. Per k-block a warpgroup takes S = Q.K^T of each tile by
+// wgmma from shared memory for the row maxima (over the thread's 16 values
+// and its quad), scales O and l by exp(m_old - m) once, then per tile forms
+// P from the accumulators' registers (the float32 P into the thread's share
+// of the row sum, which the quad adds up at the end), rounds it to bf16
+// pairs in place and takes O += P.V in wgmma's register form, V read
+// MN-major. The block's last tile's S is kept from the first walk and goes
+// first; its other tiles are taken again (one more Q.K^T each, no more
+// expf). The template flag LSE writes the log-sum-exp rows (#5) or not
+// (#2). Each output row is written by one block, so repeat calls are
+// bit-equal.
 //
 // Backward (FlashAttention-2 order, deterministic, no atomics). The JAX
 // kernel holds the whole T x T of one (b, h) in VMEM; at T = 1024 that is
@@ -84,11 +95,12 @@
 // `flash_bwd_dkdv` and `flash_bwd_dq` (64-row tiles, float32 FMA on the
 // CUDA cores, each thread a 4x4 patch of S and dP).
 //
-// Bounds. Serving forward (float32): q, k, v read once and o written once
-// (16 * T * D bytes per (b, h)) and 2*T*(T+1)*D flops per (b, h) for QK^T
-// and PV over the causal half, on the CUDA cores; at the serving prefill's
-// T = 128 the two bounds are close, from T = 512 on it is bound by
-// operations. Training, at (B, H, T, D) = (8, 12, 1024, 64) in bf16.
+// Bounds. Serving forward at the prefill's (8, 12, 128, 64) in bf16: q, k,
+// v read once and o written once (8 * T * D bytes per (b, h), 6.29 MB,
+// 1.9 us at 3.35 TB/s) and 2*T*(T+1)*D flops per (b, h) for QK^T and PV
+// over the causal half (0.2 GFLOP, 0.2 us at the bf16 tensor-core peak):
+// bound by bytes. In float32 the bytes double and the products run on the
+// CUDA cores; from T = 512 on that route is bound by operations. Training, at (B, H, T, D) = (8, 12, 1024, 64) in bf16.
 // Forward: q, k, v and o once (4 x 12.58 MB) plus LSE (0.39 MB), 50.7 MB,
 // 15 us at 3.35 TB/s; Q.K^T and P.V over the causal half,
 // 2 * 2 * D * T(T+1)/2 per (b, h), 12.9 GFLOP, 13 us at the bf16
@@ -111,6 +123,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -144,11 +157,65 @@ __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); 
 // Forward, with the log-sum-exp rows when lse is given
 // ---------------------------------------------------------------------------
 
-// lse may be null (the serving forward writes none).
+// The scores of the thread's 4x4 patch of a 64 x 64 tile, S*scale, -1e30
+// above the diagonal and past seq, and their maxima per row over the 16
+// threads of the row group (16 adjacent lanes of one warp).
+template <int D>
+__device__ __forceinline__ void fwd_scores(const float* Qt, const float* Kt, int ty, int tx,
+                                           int q0, int k0, int seq, float sm_scale,
+                                           float s[4][4], float mx[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * PADQ + ty * 4]);
+    const float4 ka = *reinterpret_cast<const float4*>(&Kt[c * PADQ + tx * 4]);
+    const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+    const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    mx[i] = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + tx * 4 + j;
+      float x = s[i][j] * sm_scale;
+      if (kj > qi || kj >= seq) x = NEG_INF;
+      s[i][j] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+    for (int w = 8; w > 0; w >>= 1) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], w));
+  }
+}
+
+// Rows of the 64 x D tile [r0, r0 + 64) of x into shared memory as float,
+// transposed (dst[c][r], pitch PADQ), zero past the sequence end.
+template <typename T, int D>
+__device__ __forceinline__ void load_cols(float* dst, const T* __restrict__ x, int r0, int seq,
+                                          int tid) {
+  for (int i = tid; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D, gr = r0 + r;
+    dst[c * PADQ + r] = gr < seq ? to_f(x[(size_t)gr * D + c]) : 0.f;
+  }
+}
+
+// lse may be null (the serving forward writes none). nb: 64-key tiles per
+// k-block of the JAX kernel, whose running max P is rounded at. With bf16
+// operands and nb > 1 each k-block is walked twice: once for its row maxima
+// (S only), then for P, l and O (S again), so that O and l are rescaled
+// only where the JAX kernel's m changes, at block boundaries. Rounding P to
+// float is exact, so with float operands each tile is its own block.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, float* __restrict__ lse, int seq, float sm_scale) {
+          T* __restrict__ o, float* __restrict__ lse, int seq, float sm_scale, int nb) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qt = smem;             // [D][PADQ]  Qt[c][r] = q[r][c]
@@ -156,6 +223,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   float* Vs = Kt + D * PADQ;    // [BK][D]
   float* Ps = Vs + BK * D;      // [BQ][BK]  P rounded to the operand type
   constexpr int DC = D / 16;    // output columns per thread
+  constexpr bool exact_p = std::is_same<T, float>::value;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const size_t off = (size_t)bh * seq * D;
@@ -163,11 +231,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const T* kb = k + off;
   const T* vb = v + off;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, gr = q0 + r;
-    Qt[c * PADQ + r] = gr < seq ? to_f(qb[(size_t)gr * D + c]) : 0.f;
-  }
+  load_cols<T, D>(Qt, qb, q0, seq, tid);
 
   float acc[4][DC];
   float m[4], l[4];
@@ -181,81 +245,80 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   const int kmax = min(seq, q0 + BQ);
   const int nkb = (kmax + BK - 1) / BK;
-  for (int kt = 0; kt < nkb; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's Kt/Vs/Ps fully consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, gr = k0 + r;
-      const bool in = gr < seq;
-      Kt[c * PADQ + r] = in ? to_f(kb[(size_t)gr * D + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[(size_t)gr * D + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+  const int blk = exact_p ? 1 : nb;
+  for (int b0 = 0; b0 < nkb; b0 += blk) {
+    const int b1 = min(nkb, b0 + blk);
+    float s[4][4], mx[4];
+    if (blk > 1) {  // the k-block's row maxima, then O and l rescaled once
+      float mb[4] = {m[0], m[1], m[2], m[3]};
+      for (int kt = b0; kt < b1; ++kt) {
+        __syncthreads();  // the previous tile's Kt fully consumed
+        load_cols<T, D>(Kt, kb, kt * BK, seq, tid);
+        __syncthreads();
+        fwd_scores<D>(Qt, Kt, ty, tx, q0, kt * BK, seq, sm_scale, s, mx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * PADQ + ty * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[c * PADQ + tx * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
-        float x = s[i][j] * sm_scale;
-        if (kj > qi || kj >= seq) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        for (int i = 0; i < 4; ++i) mb[i] = fmaxf(mb[i], mx[i]);
       }
-      // the 16 threads of a row group are 16 adjacent lanes of one warp
-      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;                   // the row sum takes the float32 p
-        s[i][j] = round_to<T>(p);  // P.V takes p in the operand type
+      for (int i = 0; i < 4; ++i) {
+        const float corr = expf(m[i] - mb[i]);
+        l[i] *= corr;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+        m[i] = mb[i];
       }
-      for (int w = 8; w > 0; w >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      l[i] = l[i] * corr + rs;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * BK + tx * 4 + j] = s[i][j];
     }
-    __syncthreads();
+    for (int kt = b0; kt < b1; ++kt) {
+      const int k0 = kt * BK;
+      __syncthreads();  // previous tile's Kt/Vs/Ps fully consumed
+      for (int i = tid; i < BK * D; i += NT) {
+        const int r = i / D, c = i % D, gr = k0 + r;
+        const bool in = gr < seq;
+        Kt[c * PADQ + r] = in ? to_f(kb[(size_t)gr * D + c]) : 0.f;
+        Vs[r * D + c] = in ? to_f(vb[(size_t)gr * D + c]) : 0.f;
+      }
+      __syncthreads();
+      fwd_scores<D>(Qt, Kt, ty, tx, q0, k0, seq, sm_scale, s, mx);
+
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (blk == 1) {  // the tile is the block: the running max moves here
+          const float m_new = fmaxf(m[i], mx[i]);
+          const float corr = expf(m[i] - m_new);
+          l[i] *= corr;
+#pragma unroll
+          for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+          m[i] = m_new;
+        }
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[i][j] - m[i]);
+          rs += p;                   // the row sum takes the float32 p
+          s[i][j] = round_to<T>(p);  // P.V takes p in the operand type
+        }
+        for (int w = 8; w > 0; w >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
+        l[i] += rs;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * BK + tx * 4 + j] = s[i][j];
+      }
+      __syncthreads();
 
 #pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
+      for (int kk = 0; kk < BK; ++kk) {
+        float p[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * BK + kk];
+        for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * BK + kk];
 #pragma unroll
-      for (int cc = 0; cc < DC / 4; ++cc) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[kk * D + cc * 64 + tx * 4]);
+        for (int cc = 0; cc < DC / 4; ++cc) {
+          const float4 vv = *reinterpret_cast<const float4*>(&Vs[kk * D + cc * 64 + tx * 4]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][cc * 4 + 0] += p[i] * vv.x;
-          acc[i][cc * 4 + 1] += p[i] * vv.y;
-          acc[i][cc * 4 + 2] += p[i] * vv.z;
-          acc[i][cc * 4 + 3] += p[i] * vv.w;
+          for (int i = 0; i < 4; ++i) {
+            acc[i][cc * 4 + 0] += p[i] * vv.x;
+            acc[i][cc * 4 + 1] += p[i] * vv.y;
+            acc[i][cc * 4 + 2] += p[i] * vv.z;
+            acc[i][cc * 4 + 3] += p[i] * vv.w;
+          }
         }
       }
     }
@@ -642,18 +705,72 @@ __device__ __forceinline__ void rs_accumulate(float* d, const uint32_t* a, uint3
 // forward exp(S*scale - m) at the running max m, in the backward
 // exp(S*scale - lse) and dS = P*(dP - D) from the float32 P.
 
-// o and lse of the queries [q0, q0 + 128) of head bh: warpgroup w owns
-// queries q0 + 64 w .. + 63 and walks the 64-row k tiles from 0 to its
-// causal limit; per tile S = Q.K^T, then the online softmax of each row in
-// registers (S*scale, masked to -1e30 above the diagonal; the running max
-// m; corr = exp(m_old - m); P = exp(S*scale - m); l = l*corr + the float32
-// P), then O = O*corr + bf16(P).V. Rows past seq compute on zero-filled Q
-// and are not written; keys past seq lie above every written row's
-// diagonal.
+// S*scale of the consumer thread's accumulators of tile k0 (sa, in place),
+// -1e30 above the diagonal, and with MAX the running maxima of its two rows
+// (mx, over the quad). Keys past seq lie above every written row's diagonal.
+template <bool MAX>
+__device__ __forceinline__ void fwd_mask(float* sa, float mx[2], int k0, int qw, int qrow, int c,
+                                         float sm_scale) {
+  const bool diag = k0 + W_ROWS - 1 > qw;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1, q = qrow + 8 * h, k = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+    float x = __fmul_rn(sa[e], sm_scale);
+    if (diag && k > q) x = NEG_INF;
+    sa[e] = x;
+    if (MAX) mx[h] = fmaxf(mx[h], x);
+  }
+  if (!MAX) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+}
+
+// One tile's P = exp(S*scale - m) at the k-block's running max m, the
+// float32 P into the thread's shares of the row sums, then O += bf16(P).V
+// (V the tile at vs, read MN-major), waited for.
+__device__ __forceinline__ void fwd_pv(float* oa, const float* sa, const float mr[2], float lr[2],
+                                       uint32_t vs) {
+  uint32_t pf[16];
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h;
+      const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), expf(__fsub_rn(sa[e + 1], mr[h]))};
+      rs[h] = __fadd_rn(__fadd_rn(rs[h], p[0]), p[1]);  // the row sum takes the float32 P
+      pf[2 * j + h] = bf16x2(p[0], p[1]);               // P.V takes P in bf16
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lr[h] = __fadd_rn(lr[h], rs[h]);
+  fence_acc<32>(oa);
+  wgmma_fence();
+  rs_accumulate(oa, pf, vs);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(oa);
+  fence_frag<16>(pf);
+}
+
+// o (and lse, when given) of the queries [q0, q0 + 128) of head bh:
+// warpgroup w owns queries q0 + 64 w .. + 63 and walks the 64-row k tiles
+// from 0 to its causal limit in k-blocks of nb tiles (the JAX kernel's
+// block_k / 64; nb <= W_STAGES, so a whole k-block stays in the ring). Per
+// k-block: first S = Q.K^T of each of its tiles by wgmma, for the block's
+// row maxima m (S*scale, masked to -1e30 above the diagonal); then
+// corr = exp(m_old - m), O and l scaled by corr once; then per tile
+// P = exp(S*scale - m), l += the float32 P, O += bf16(P).V. The block's
+// last tile's S stays in registers from the first walk and goes first; the
+// others are taken again. So with nb = 1 nothing is taken twice. Rows past
+// seq compute on zero-filled Q and are not written; keys past seq lie
+// above every written row's diagonal.
 __device__ __forceinline__ void fwd_block(const CUtensorMap* mq, const CUtensorMap* mk,
                                           const CUtensorMap* mv, bf16* __restrict__ o,
                                           float* __restrict__ lse, int bh, int q0, int seq,
-                                          float sm_scale) {
+                                          int nb, float sm_scale) {
   const WgSmem m = wg_smem();
   const int n = (min(seq, q0 + W_TILE) + W_ROWS - 1) / W_ROWS;  // k tiles to the causal limit
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -676,63 +793,54 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* mq, const CUtensorM
   const int qw = q0 + W_ROWS * wg, warp = t / 32, lane = t % 32, c = lane % 4;
   const int qrow = qw + 16 * warp + lane / 4;  // the thread's queries qrow, qrow + 8
   const uint32_t qa = m.own + wg * W_BOX;
+  const int active = qw / W_ROWS + 1;  // tiles with a key at or below one of the rows
   float oa[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) oa[e] = 0.f;
   // per row h: the running max, and the thread's share of the row sum
   float mr[2] = {NEG_INF, NEG_INF}, lr[2] = {0.f, 0.f};
   mbar_wait(m.own_bar, 0);
-  for (int i = 0; i < n; ++i) {
-    const int s = i % W_STAGES, k0 = i * W_ROWS;
-    mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
-    if (k0 < qw + W_ROWS) {  // not every (q, k) of the tile has k > q
-      const uint32_t ks = m.ring + s * W_STAGE, vs = ks + W_BOX;
-      float sa[32];
-      scores(sa, qa, ks);
-      const bool diag = k0 + W_ROWS - 1 > qw;
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int h = (e >> 1) & 1, q = qrow + 8 * h, k = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
-        float x = __fmul_rn(sa[e], sm_scale);
-        if (diag && k > q) x = NEG_INF;
-        sa[e] = x;
-        mx[h] = fmaxf(mx[h], x);
+  for (int b0 = 0; b0 < n; b0 += nb) {
+    const int b1 = min(n, b0 + nb), a1 = min(b1, active);
+    float sa[32];
+    if (b0 < a1) {
+      float mx[2] = {mr[0], mr[1]};
+      for (int i = b0; i < a1; ++i) {  // the k-block's row maxima
+        const int s = i % W_STAGES;
+        mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
+        scores(sa, qa, m.ring + s * W_STAGE);
+        fwd_mask<true>(sa, mx, i * W_ROWS, qw, qrow, c, sm_scale);
       }
       float corr[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(mr[h], mx[h]);
-        corr[h] = expf(__fsub_rn(mr[h], m_new));
-        mr[h] = m_new;
+        corr[h] = expf(__fsub_rn(mr[h], mx[h]));
+        mr[h] = mx[h];
       }
-      uint32_t pf[16];
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 4 * j + 2 * h;
-          const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), expf(__fsub_rn(sa[e + 1], mr[h]))};
-          rs[h] = __fadd_rn(__fadd_rn(rs[h], p[0]), p[1]);  // the row sum takes the float32 P
-          pf[2 * j + h] = bf16x2(p[0], p[1]);               // P.V takes P in bf16
-        }
       fence_acc<32>(oa);
 #pragma unroll
       for (int e = 0; e < 32; ++e) oa[e] = __fmul_rn(oa[e], corr[(e >> 1) & 1]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) lr[h] = __fadd_rn(__fmul_rn(lr[h], corr[h]), rs[h]);
-      fence_acc<32>(oa);
-      wgmma_fence();
-      rs_accumulate(oa, pf, vs);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc<32>(oa);
-      fence_frag<16>(pf);
+      for (int h = 0; h < 2; ++h) lr[h] = __fmul_rn(lr[h], corr[h]);
+      {  // the last tile first: its S is in sa
+        const int s = (a1 - 1) % W_STAGES;
+        fwd_pv(oa, sa, mr, lr, m.ring + s * W_STAGE + W_BOX);
+        if (lane == 0) mbar_arrive(m.empty + 8 * s);
+      }
+      for (int i = b0; i < a1 - 1; ++i) {
+        const int s = i % W_STAGES;
+        const uint32_t ks = m.ring + s * W_STAGE;
+        scores(sa, qa, ks);
+        fwd_mask<false>(sa, nullptr, i * W_ROWS, qw, qrow, c, sm_scale);
+        fwd_pv(oa, sa, mr, lr, ks + W_BOX);
+        if (lane == 0) mbar_arrive(m.empty + 8 * s);
+      }
     }
-    if (lane == 0) mbar_arrive(m.empty + 8 * s);
+    for (int i = max(b0, a1); i < b1; ++i) {  // tiles wholly above the diagonal
+      const int s = i % W_STAGES;
+      mbar_wait(m.full + 8 * s, (i / W_STAGES) & 1);
+      if (lane == 0) mbar_arrive(m.empty + 8 * s);
+    }
   }
 
   const size_t off = (size_t)bh * seq;
@@ -750,7 +858,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* mq, const CUtensorM
         *reinterpret_cast<__nv_bfloat162*>(o + (off + q) * W_HD + 8 * j + 2 * c) =
             __floats2bfloat162_rn(oa[e] / den, oa[e + 1] / den);
       }
-      if (c == 0) lse[off + q] = __fadd_rn(mr[h], logf(den));
+      if (lse != nullptr && c == 0) lse[off + q] = __fadd_rn(mr[h], logf(den));
     }
   }
 }
@@ -947,13 +1055,15 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
 
 // Blocks (bh, y): the q tile gridDim.y - 1 - y, so the last q tile, whose
 // walk over the k tiles is longest, comes first. Two blocks per SM (99 KB
-// of shared memory each, at most 112 registers a thread).
+// of shared memory each, at most 112 registers a thread). LSE: write the
+// log-sum-exp rows (#5) or not (#2).
+template <bool LSE>
 __global__ void __launch_bounds__(W_THREADS, 2)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
-                float* __restrict__ lse, int seq, float sm_scale) {
-  fwd_block(&mq, &mk, &mv, o, lse, blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,
-            sm_scale);
+                float* __restrict__ lse, int seq, int nb, float sm_scale) {
+  fwd_block(&mq, &mk, &mv, o, LSE ? lse : nullptr, blockIdx.x,
+            (gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);
 }
 
 // Blocks (bh, y): the k tile y, so the tile whose walk over the q tiles is
@@ -1021,15 +1131,21 @@ static cudaError_t set_smem(K kernel, size_t bytes) {
 
 template <typename T, int D>
 static int fwd_launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int BH, int seq, float sm_scale, cudaStream_t stream) {
+                      int BH, int seq, int nb, float sm_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * PADQ + BK * D + BQ * BK);
   cudaError_t e = set_smem(flash_fwd<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((seq + BQ - 1) / BQ, BH);
   flash_fwd<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seq, sm_scale);
+      static_cast<T*>(o), lse, seq, sm_scale, nb);
   return (int)cudaGetLastError();
+}
+
+// k-blocks of block_k keys as 64-key tiles: 1, 2 or 4 (the wgmma forward's
+// ring holds a whole k-block), 0 for any other block_k.
+static int tiles_per_block(int block_k) {
+  return (block_k == 64 || block_k == 128 || block_k == 256) ? block_k / BK : 0;
 }
 
 template <typename T, int D>
@@ -1060,37 +1176,34 @@ static int bwd_launch(const void* q, const void* k, const void* v, const void* o
   return (int)cudaGetLastError();
 }
 
-// Serving forward: o from float q, k, v (BH, T, D), no LSE.
-extern "C" int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
-                                       float* o, int BH, int T, int D, float sm_scale,
-                                       cudaStream_t stream) {
-  if (D == 64) return fwd_launch<float, 64>(q, k, v, o, nullptr, BH, T, sm_scale, stream);
-  if (D == 128) return fwd_launch<float, 128>(q, k, v, o, nullptr, BH, T, sm_scale, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Training forward on the SIMT kernel: o and lse from q, k, v (BH, T, D) in
-// float (is_bf16 = 0) or bf16 (bf16 at head_dim 64 is flash_fwd_lse_wgmma's).
-extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
-                             float* lse, int BH, int seq, int D, int is_bf16,
-                             float sm_scale, cudaStream_t stream) {
+// #2 and #5 on the SIMT kernel: o and, when lse is not null, lse from q, k,
+// v (BH, seq, D) in float (is_bf16 = 0) or bf16, P rounded at the running
+// max of k-blocks of block_k keys (bf16 at head_dim 64 is
+// flash_forward_wgmma's).
+extern "C" int flash_forward(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int BH, int seq, int D, int is_bf16, int block_k, float sm_scale,
+                             cudaStream_t stream) {
+  const int nb = tiles_per_block(block_k);
+  if (seq < 1 || nb == 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D == 64) return fwd_launch<__nv_bfloat16, 64>(q, k, v, o, lse, BH, seq, sm_scale, stream);
-    if (D == 128) return fwd_launch<__nv_bfloat16, 128>(q, k, v, o, lse, BH, seq, sm_scale, stream);
+    if (D == 64) return fwd_launch<bf16, 64>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
+    if (D == 128) return fwd_launch<bf16, 128>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
   } else {
-    if (D == 64) return fwd_launch<float, 64>(q, k, v, o, lse, BH, seq, sm_scale, stream);
-    if (D == 128) return fwd_launch<float, 128>(q, k, v, o, lse, BH, seq, sm_scale, stream);
+    if (D == 64) return fwd_launch<float, 64>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
+    if (D == 128) return fwd_launch<float, 128>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// #5 with bf16 operands at head_dim 64: o (BH, seq, 64) bf16 and lse
-// (BH * seq) float32 from q, k, v (BH, seq, 64) bf16, each 16-byte aligned.
-// One call: the three tensor maps, then one launch.
-extern "C" int flash_fwd_lse_wgmma(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int BH, int seq, float sm_scale,
+// #2 and #5 with bf16 operands at head_dim 64: o (BH, seq, 64) bf16 and,
+// when lse is not null, lse (BH * seq) float32 from q, k, v (BH, seq, 64)
+// bf16, each 16-byte aligned, P rounded at the running max of k-blocks of
+// block_k keys. One call: the three tensor maps, then one launch.
+extern "C" int flash_forward_wgmma(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int BH, int seq, int block_k, float sm_scale,
                                    cudaStream_t stream) {
-  if (seq < 1) return (int)cudaErrorInvalidValue;
+  const int nb = tiles_per_block(block_k);
+  if (seq < 1 || nb == 0 || nb > W_STAGES) return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, (const void*)o})
     if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -1098,10 +1211,17 @@ extern "C" int flash_fwd_lse_wgmma(const void* q, const void* k, const void* v, 
   if (!rc) rc = bf16_map3(&mk, k, seq, BH, W_ROWS);
   if (!rc) rc = bf16_map3(&mv, v, seq, BH, W_ROWS);
   if (rc) return rc;
-  static const cudaError_t e = set_smem(flash_fwd_wgmma, W_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  flash_fwd_wgmma<<<dim3(BH, (seq + W_TILE - 1) / W_TILE), W_THREADS, W_SMEM, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), lse, seq, sm_scale);
+  static const cudaError_t e_lse = set_smem(flash_fwd_wgmma<true>, W_SMEM);
+  static const cudaError_t e_o = set_smem(flash_fwd_wgmma<false>, W_SMEM);
+  if (e_lse != cudaSuccess) return (int)e_lse;
+  if (e_o != cudaSuccess) return (int)e_o;
+  const dim3 grid(BH, (seq + W_TILE - 1) / W_TILE);
+  if (lse != nullptr)
+    flash_fwd_wgmma<true><<<grid, W_THREADS, W_SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o),
+                                                               lse, seq, nb, sm_scale);
+  else
+    flash_fwd_wgmma<false><<<grid, W_THREADS, W_SMEM, stream>>>(
+        mq, mk, mv, static_cast<bf16*>(o), nullptr, seq, nb, sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -37,7 +37,10 @@
 // VMEM. Here each entry is one cooperative launch of the persistent kernel
 // k_fused on one block per SM (ops/fused_decode.py::fused_grid; a grid the
 // card cannot hold at once is refused and the wrapper raises, there is no
-// other path). The plan (ops/fused_decode.py::fused_plan, passed as an
+// other path); a launch takes at most MAXB batch rows and the wrappers
+// launch once per 16 rows, and an output width that is not a multiple of
+// E_COLS runs on operands padded with zero columns. The plan
+// (ops/fused_decode.py::fused_plan, passed as an
 // int32 table of one record per block) gives each block pieces of each
 // linear's weight (a column group of CW columns x a range of K rows), its
 // LoRA-A items (la_rows input rows x every LoRA output) and its epilogue
@@ -94,8 +97,8 @@
 #define NWARPS (PT / 32)
 #define CW 128          // columns of a weight piece: 32 lanes x 4
 #define E_COLS 32       // columns of an epilogue item
-#define MAXB 16         // batch rows
-#define MAXR 64         // LoRA rank
+#define MAXB 16         // batch rows of one launch (the wrappers launch once per 16)
+#define MAXR 128        // LoRA rank: a loop bound and a TMA box dimension (<= 256)
 #define MAX_LIN 3       // linears of a launch
 #define LA_LOADS 24     // LoRA-A partials an epilogue output adds (items of a linear, at most)
 #define SLOT_LOADS 8    // partial-sum slots a lane loads at once

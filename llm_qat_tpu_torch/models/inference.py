@@ -345,7 +345,10 @@ def _write_rows(kc, vc, kh, vh, start, P):
 def _flash_prefill_attn(qh, kh, vh, use_kernels=True):
     """Initial-prefill attention through the flash kernel: the cache prefix
     is empty, so causal attention over the fresh k/v is the whole answer.
-    The kernel masks the ragged tail, so no padding is needed."""
+    q, k and v keep their dtype (float32 from the linears, as in JAX), and
+    P is rounded at the k-block that JAX takes for S padded to a multiple
+    of 128 (`jax_block_k`). The kernel masks the ragged tail, so no padding
+    is needed."""
     fn = flash_attention if use_kernels else flash_attention_plain
     return fn(qh.contiguous(), kh.contiguous(), vh.contiguous())
 
@@ -416,8 +419,7 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
             attn = step(qh, kh, vh, kc, vc, start)[0]
         elif initial_prefill and S >= 128 and D in (64, 128):
             _write_rows(kc, vc, kh, vh, start, P if packed else 1)
-            attn = _flash_prefill_attn(qh.to(f32), kh.to(f32), vh.to(f32),
-                                       use_kernels)
+            attn = _flash_prefill_attn(qh, kh, vh, use_kernels)
         else:
             _write_rows(kc, vc, kh, vh, start, P if packed else 1)
             if packed:

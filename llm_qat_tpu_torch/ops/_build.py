@@ -38,9 +38,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # code (0 on success)
 KERNELS: Dict[str, Dict[str, list]] = {
     "flash_attention": {
-        "flash_attention_fwd_f32": [_P] * 4 + [_I] * 3 + [_F, _P],
-        "flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_F, _P],
-        "flash_fwd_lse_wgmma": [_P] * 5 + [_I] * 2 + [_F, _P],
+        "flash_forward": [_P] * 5 + [_I] * 5 + [_F, _P],
+        "flash_forward_wgmma": [_P] * 5 + [_I] * 3 + [_F, _P],
         "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
         "flash_bwd_wgmma": [_P] * 10 + [_I] * 3 + [_F, _P]},
     "mega_decode": {

@@ -3,17 +3,20 @@
 Counterpart of `llm_qat_tpu/ops/attention.py`. Three Pallas kernels are
 replaced by hand-written CUDA kernels in `csrc/flash_attention.cu`, each
 with its plain PyTorch version beside it:
-- `flash_attention` (serving prefill, float32) replaces `_flash_kernel`;
-  plain version `flash_attention_plain`;
+- `flash_attention` (serving prefill) replaces `_flash_kernel`; plain
+  version `flash_attention_plain`;
 - `flash_fwd_lse` (training forward, also writes the log-sum-exp rows)
   replaces `_flash_fwd_kernel`; plain version `flash_fwd_lse_plain`;
 - `flash_bwd` (training backward) replaces `_flash_bwd_kernel`; plain
   version `flash_bwd_plain`.
-With bf16 operands at head_dim 64 both training wrappers launch TMA-fed
-wgmma kernels, otherwise tiled float32 kernels (`flash_route` picks, for
-both); the latter forward is the templated kernel `flash_attention` runs.
-`flash_attention_trainable` joins the last two in an `autograd.Function`,
-and `causal_attention` dispatches between it and the dense reference.
+Both forwards are one kernel each route: with bf16 operands at head_dim 64
+the TMA-fed wgmma forward, otherwise the tiled float32 SIMT forward
+(`flash_route` picks, for the backward too); `flash_attention` runs it
+without the log-sum-exp rows. Both round P to v's dtype at the running
+maximum of the JAX kernel's k-blocks (`flash_blocks`, `jax_block_k`), as
+the JAX kernels do. `flash_attention_trainable` joins the last two in an
+`autograd.Function`, and `causal_attention` dispatches between it and the
+dense reference.
 
 A wrapper takes its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in `<fn>.launches`.
@@ -64,6 +67,32 @@ def flash_supported(T: int, D: int, mask) -> bool:
     return mask is None and T % 128 == 0 and D in (64, 128)
 
 
+def flash_blocks(T: int) -> tuple:
+    """(block_q, block_k) of the JAX flash kernels for T (a multiple of
+    128), as `llm_qat_tpu/ops/attention.py::flash_blocks` picks them: 128
+    keys up to T = 256, 256 keys above it where 256 divides T, else 128."""
+    if T <= 256:
+        bq, bk = 128, 128
+    elif T <= 512:
+        bq, bk = 128, 256
+    else:
+        bq, bk = 256, 256
+    if T % bk:
+        bk = 128
+    if T % bq:
+        bq = 128
+    return bq, bk
+
+
+def jax_block_k(T: int) -> int:
+    """The JAX kernels' k-block for a length T: `flash_blocks` of T padded
+    to a multiple of 128, as the JAX serving prefill pads a ragged prompt
+    (and the trainable path's T is such a multiple already). The JAX
+    kernels round P at each k-block's running maximum, so the block sets
+    the numbers."""
+    return flash_blocks(-(-T // 128) * 128)[1]
+
+
 def causal_attention(q, k, v, *, mask=None, use_flash=False):
     """Dispatch: the trainable flash path when `use_flash` and the shape
     allows it, the dense reference otherwise."""
@@ -73,43 +102,67 @@ def causal_attention(q, k, v, *, mask=None, use_flash=False):
     return causal_attention_reference(q, k, v, mask=mask)
 
 
+def _flash_loop(q, k, v, block_k):
+    """The JAX flash forward's loop in float32 over k-blocks of `block_k`
+    keys (the last may be short): per block s = q·kᵀ·scale (causal),
+    m = max(m, the block's max), p = exp(s − m), l = l·α + Σp (p
+    unrounded), acc = acc·α + (p rounded to v's dtype)·v, α = exp(m_old −
+    m). Returns (acc, l clamped to 1e-30, m), float32."""
+    B, H, T, D = q.shape
+    f32 = torch.float32
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, H, T, 1), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, T, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
+    rows = torch.arange(T, device=q.device)[:, None]
+    for k0 in range(0, T, block_k):
+        k1 = min(k0 + block_k, T)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k1]) * scale
+        s = torch.where(rows >= torch.arange(k0, k1, device=q.device)[None], s,
+                        torch.full_like(s, NEG_INF))
+        m_cur = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_cur)
+        alpha = torch.exp(m - m_cur)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(f32),
+                                         vf[:, :, k0:k1])
+        m = m_cur
+    return acc, torch.clamp(l, min=1e-30), m
+
+
 def flash_attention_plain(q, k, v):
-    """Plain PyTorch version of the flash kernel: the dense causal softmax
-    in float32 (`causal_attention_reference`), any T."""
-    return causal_attention_reference(q, k, v)
+    """Plain PyTorch version of kernel #2: the JAX kernel's loop written out
+    in float32 (`_flash_loop` over the JAX k-blocks for T, `jax_block_k`),
+    P rounded to v's dtype at each k-block's running max. q,k,v: (B, H, T,
+    D) float32 or bf16, any T. Returns q's dtype."""
+    acc, l, _ = _flash_loop(q, k, v, jax_block_k(q.shape[2]))
+    return (acc / l).to(q.dtype)
 
 
 def flash_attention(q, k, v):
-    """Causal flash attention forward. q,k,v: (B, H, T, D) float32, any T.
+    """Causal flash attention forward (kernel #2). q,k,v: (B, H, T, D)
+    float32 or bf16 (all one dtype), any T; returns q's dtype. P is rounded
+    to v's dtype at the running max of each JAX k-block for T
+    (`jax_block_k`).
 
-    CPU tensors take `flash_attention_plain`. CUDA tensors launch the
-    kernel (one block per (b·h, 64-row q tile); it streams the K/V tiles up
-    to the causal limit with a float32 online softmax and masks the ragged
-    tail itself) or raise. Counts its launches in `flash_attention.launches`.
+    CPU tensors take `flash_attention_plain`. CUDA tensors launch one kernel
+    (`flash_route`'s: the wgmma forward for bf16 at head_dim 64, otherwise
+    the SIMT forward, each without the log-sum-exp rows; each output row is
+    written by one block, which masks the ragged tail itself) or raise.
+    Counts its launches in `flash_attention.launches`, and by route in
+    `flash_attention.route_launches`.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    B, H, T, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(f"flash_attention: {name} must be a float32 CUDA "
-                             f"tensor; got {t.dtype} on {t.device}")
-        if t.shape != q.shape or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             f"with shape {tuple(q.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim must be 64 or 128; got {D}")
-    out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    rc = lib.flash_attention_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D,
-        1.0 / math.sqrt(D), _build.stream(q))
-    _build.check(lib, rc, "flash_attention")
+    o, route = _launch_fwd("flash_attention", q, k, v, None)
     flash_attention.launches += 1
-    return out
+    flash_attention.route_launches[route] += 1
+    return o
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +180,13 @@ def _causal_scores(q, k):
 
 
 def flash_fwd_lse_plain(q, k, v):
-    """Plain version of kernel #5: the dense float32 softmax with the
-    kernel's casts. q,k,v: (B, H, T, D). Returns o in q's dtype and
-    lse = m + log(max(l, 1e-30)), (B, H, T, 1) float32. P is rounded to v's
-    dtype before P·V; the row sum takes the float32 P."""
-    s, _ = _causal_scores(q, k)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(torch.float32),
-                     v.to(torch.float32)) / den
-    return o.to(q.dtype), m + torch.log(den)
+    """Plain version of kernel #5: the JAX kernel's loop written out in
+    float32 (`_flash_loop` over the JAX k-blocks for T, `jax_block_k`; P
+    rounded to v's dtype at each k-block's running max). q,k,v: (B, H, T,
+    D). Returns o in q's dtype and lse = m + log(max(l, 1e-30)), (B, H, T,
+    1) float32."""
+    acc, l, m = _flash_loop(q, k, v, jax_block_k(q.shape[2]))
+    return (acc / l).to(q.dtype), m + torch.log(l)
 
 
 def flash_bwd_plain(q, k, v, o, lse, do):
@@ -178,45 +227,60 @@ def _check_operands(what, named, like):
 
 
 def flash_route(dtype, D: int) -> str:
-    """The kernels #5 and #6 run on the card for operands of `dtype` at
+    """The kernels #2, #5 and #6 run on the card for operands of `dtype` at
     head_dim D: "wgmma" (bf16 at head_dim 64, every GPT-2 size: the TMA-fed
     tensor-core kernels) or "simt" (float32 operands, which wgmma has no
     exact product for, and bf16 at head_dim 128: the tiled float32
-    kernels). One rule for both, so that the forward and the backward
+    kernels). One rule for all three, so that the forwards and the backward
     change route together."""
     return "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
+
+
+def _launch_fwd(what, q, k, v, lse):
+    """(o, route) from one launch of the forward kernel `flash_route` names,
+    over the JAX k-blocks for T (`jax_block_k`), after checking the
+    operands; raises on a CUDA error. lse: a (B, H, T, 1) float32 tensor to
+    write, or None."""
+    _check_operands(what, (("q", q), ("k", k), ("v", v)), q)
+    B, H, T, D = q.shape
+    o = torch.empty_like(q)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    lib = _build.load("flash_attention")
+    scale, block_k, route = 1.0 / math.sqrt(D), jax_block_k(T), flash_route(q.dtype, D)
+    if route == "wgmma":
+        # TMA reads rows from 16-byte aligned addresses
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+        rc = lib.flash_forward_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                     lse_ptr, B * H, T, block_k, scale, _build.stream(q))
+    else:
+        rc = lib.flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               lse_ptr, B * H, T, D, int(q.dtype == torch.bfloat16),
+                               block_k, scale, _build.stream(q))
+    _build.check(lib, rc, what)
+    return o, route
 
 
 def flash_fwd_lse(q, k, v):
     """Causal flash forward with log-sum-exp (kernel #5). q,k,v: (B, H, T, D)
     float32 or bf16, any T. Returns (o in q's dtype, lse (B, H, T, 1)
-    float32). CPU tensors take `flash_fwd_lse_plain`; CUDA tensors launch
-    the kernel `flash_route` names (one launch; each output row written by
-    one block, so repeat calls are bit-equal) or raise."""
+    float32). P is rounded to v's dtype at the running max of each JAX
+    k-block for T (`jax_block_k`; `flash_blocks(T)[1]` at the trainable
+    path's T, a multiple of 128, as in JAX). CPU tensors take
+    `flash_fwd_lse_plain`; CUDA tensors launch the kernel `flash_route`
+    names (one launch; each output row written by one block, so repeat
+    calls are bit-equal) or raise. Counts its launches as `flash_attention`
+    does."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v)
-    _check_operands("flash_fwd_lse", (("q", q), ("k", k), ("v", v)), q)
-    B, H, T, D = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention")
-    if flash_route(q.dtype, D) == "wgmma":
-        # TMA reads rows from 16-byte aligned addresses
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-        rc = lib.flash_fwd_lse_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B * H, T, 1.0 / math.sqrt(D), _build.stream(q))
-    else:
-        rc = lib.flash_fwd_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-            _build.stream(q))
-    _build.check(lib, rc, "flash_fwd_lse")
+    lse = torch.empty(q.shape[:3] + (1,), dtype=torch.float32, device=q.device)
+    o, route = _launch_fwd("flash_fwd_lse", q, k, v, lse)
     flash_fwd_lse.launches += 1
+    flash_fwd_lse.route_launches[route] += 1
     return o, lse
 
 
 flash_fwd_lse.launches = 0
+flash_fwd_lse.route_launches = {"wgmma": 0, "simt": 0}
 
 
 # Kernel #6's wgmma kernels: a block owns BWD_TILE rows (two warpgroups of
@@ -296,5 +360,7 @@ def flash_attention_trainable(q, k, v):
     """Causal flash attention with a flash backward. q,k,v: (B, H, T, D) in
     the operand dtype; the output is in q's dtype, and the cotangent arrives
     in it too (the AMP cast's backward), as in the JAX package. The forward
-    saves (q, k, v, o, lse); the backward recomputes P from lse."""
+    takes JAX's k-block for T (`jax_block_k`), as `causal_attention` does in
+    JAX; it saves (q, k, v, o, lse), and the backward recomputes P from
+    lse."""
     return _FlashTrainable.apply(q, k, v)

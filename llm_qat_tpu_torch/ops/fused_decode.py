@@ -16,7 +16,15 @@ from them in plain PyTorch. The wrappers take the plain versions for CPU
 tensors only; for CUDA tensors they launch the persistent cooperative
 kernel of `csrc/fused_decode.cu` once, or raise. Each counts its launches
 in `<fn>.launches`. Without LoRA banks the LoRA branch is skipped (JAX
-passes zero banks to the same kernel).
+passes zero banks to the same kernel). A launch takes at most `MAX_B`
+batch rows, so more rows take one launch per 16 (rows are independent: LN
+per row, static activation scales). An output width (#12's N, #13's MLP
+width) that is not a multiple of `E_COLS` runs on operands padded with
+zero columns (and the MLP's zero input rows), copied on each call
+(`padded_qkv`, `padded_post`), and the result is sliced: the padded
+columns are 0 and add 0, so the function is the same. The port's models
+never pad: their widths are 3d and 4d, multiples of 32 whenever d is,
+which the kernel needs anyway.
 
 `fused_plan` is the host side of that kernel: which block of the grid owns
 which weight bytes (pieces: a column group of `CW` columns times a range
@@ -41,8 +49,8 @@ import torch
 from . import _build
 from .mega_decode import exact_int_matmul
 
-MAX_B = 16     # batch rows the kernel takes
-MAX_RANK = 64  # LoRA rank the kernel takes
+MAX_B = 16      # batch rows of one launch: the wrappers launch once per 16 rows
+MAX_RANK = 128  # LoRA rank the kernel takes
 
 
 def _ln_f32(x, g, b, eps):
@@ -221,10 +229,11 @@ def fused_plan(d: int, n_out_list: Sequence[int], K_list: Sequence[int], r: int,
     balanced over the whole layer. A range splits at column groups into
     pieces.
 
-    Raises ValueError on what the kernel cannot run: batch outside 1..16,
-    rank above 64, a width that is not a multiple of E_COLS = 32 (the
-    epilogue items; the bulk copies also need 16-byte rows), or a block whose operands and work area do
-    not fit SMEM_MAX bytes of shared memory."""
+    Raises ValueError on what one launch cannot run: batch outside 1..16,
+    rank above 128, a width that is not a multiple of E_COLS = 32 (the
+    epilogue items; the bulk copies also need 16-byte rows), or a block
+    whose operands and work area do not fit SMEM_MAX bytes of shared
+    memory. (The wrappers launch once per 16 rows and pad output widths.)"""
     ns, ks = [int(n) for n in n_out_list], [int(k) for k in K_list]
     n_lin, d, r, nb, B = len(ns), int(d), int(r), int(n_blocks), int(batch)
     if n_lin not in (1, 3) or len(ks) != n_lin:
@@ -463,13 +472,56 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_rows(h, what):
+def _check_width(h, what):
+    """(B, d) of h: d, the LN and residual width, must be a multiple of
+    E_COLS (every GPT-2 width is); B may be any count."""
     B, d = h.shape
-    if not 1 <= B <= MAX_B:
-        raise ValueError(f"{what}: 1 to {MAX_B} batch rows; got {B}")
+    if B < 1:
+        raise ValueError(f"{what}: at least one batch row; got {B}")
     if d % E_COLS:
         raise ValueError(f"{what}: the width must be a multiple of {E_COLS}; got {d}")
     return B, d
+
+
+def _pad(t, dim: int, n: int, n_pad: int):
+    """t with zeros appended along `dim` from n to n_pad; t itself if it is
+    None or not n long there (a shape the wrapper's checks then refuse)."""
+    if t is None or n_pad == n or t.shape[dim] != n:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, n_pad - n]
+    return torch.nn.functional.pad(t, pad).contiguous()
+
+
+def padded_qkv(w_i8, w_s, bias, lora_b):
+    """#12's operands with the output width N padded to a multiple of
+    E_COLS: zero code columns, scales (per column) and biases, and zero
+    LoRA-B columns. The padded outputs are 0. The operands themselves where
+    N is such a multiple."""
+    N = w_i8.shape[1]
+    Np = _align(N, E_COLS)
+    if Np == N:
+        return w_i8, w_s, bias, lora_b
+    return (_pad(w_i8, 1, N, Np), _pad(w_s, 0, N, Np) if w_s.numel() == N else w_s,
+            _pad(bias, 0, N, Np), _pad(lora_b, 1, N, Np))
+
+
+def padded_post(fc, mlp):
+    """#13's fc and mlp with the MLP width padded to a multiple of E_COLS:
+    fc as `padded_qkv` pads it, mlp with zero code rows and zero LoRA-A
+    rows. The padded fc outputs are 0, GELU(0) = 0 and its code 0, so the
+    padded rows add nothing. fc and mlp themselves where the width is such
+    a multiple."""
+    dff = fc["w_i8"].shape[1]
+    dp = _align(dff, E_COLS)
+    if dp == dff:
+        return fc, mlp
+    w, ws, b, lb = padded_qkv(fc["w_i8"], fc["w_s"], fc["b"], fc.get("lora_B"))
+    fc = dict(fc, w_i8=w, w_s=ws, b=b)
+    mlp = dict(mlp, w_i8=_pad(mlp["w_i8"], 0, dff, dp))
+    if lb is not None and "lora_A" in mlp:
+        fc["lora_B"] = lb
+        mlp["lora_A"] = _pad(mlp["lora_A"], 0, dff, dp)
+    return fc, mlp
 
 
 def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
@@ -479,36 +531,39 @@ def fused_ln_qkv(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b, *,
     scales, bias (N,), x_s the static input scale (a tensor on h's device:
     no host sync), lora_a (d, r) / lora_b (r, N) or None. CPU tensors take
     `fused_ln_qkv_plain`; CUDA tensors launch the kernel of
-    `csrc/fused_decode.cu` once, cooperatively, on `fused_grid` blocks
-    (`grid` forces another count, for tests; a count the card cannot hold
-    at once is refused and raises), or raise."""
+    `csrc/fused_decode.cu` cooperatively on `fused_grid` blocks, once per
+    16 batch rows (`grid` forces another count, for tests; a count the card
+    cannot hold at once is refused and raises), or raise."""
     if h.device.type == "cpu":
         return fused_ln_qkv_plain(h, ln_g, ln_b, w_i8, w_s, bias, x_s, lora_a, lora_b,
                                   eps=eps)
     what, dev = "fused_ln_qkv", h.device
-    B, d = _check_rows(h, what)
+    B, d = _check_width(h, what)
     N = w_i8.shape[1]
-    if N % E_COLS:
-        raise ValueError(f"{what}: N must be a multiple of {E_COLS}; got {N}")
-    w = _codes(w_i8, d, N, dev, what, "w_i8")
-    la, lb, r = _banks(lora_a, lora_b, d, N, dev, what, "qkv")
+    w_i8, w_s, bias, lora_b = padded_qkv(w_i8, w_s, bias, lora_b)
+    Np = w_i8.shape[1]
+    w = _codes(w_i8, d, Np, dev, what, "w_i8")
+    la, lb, r = _banks(lora_a, lora_b, d, Np, dev, what, "qkv")
     hf = h.to(torch.float32).contiguous()
     g, b = _f32(ln_g, d, dev, what, "ln_g"), _f32(ln_b, d, dev, what, "ln_b")
-    (ws, ws_col), bs = _scale(w_s, N, dev, what, "w_s"), _f32(bias, N, dev, what, "bias")
+    (ws, ws_col), bs = _scale(w_s, Np, dev, what, "w_s"), _f32(bias, Np, dev, what, "bias")
     xs = _f32(torch.as_tensor(x_s, device=dev), 1, dev, what, "x_s", copied=False)
     bank_bf16 = la is not None and la.dtype == torch.bfloat16
-    plan, table = _plan_on(dev, d, (N,), (d,), r, grid, B, 2 if bank_bf16 else 4)
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
+    out = torch.empty((B, Np), dtype=torch.float32, device=dev)
     lib = _build.load("fused_decode")
-    rc = lib.fused_ln_qkv(
-        *[_ptr(t) for t in (hf, g, b, w, ws, bs, xs, la, lb)], out.data_ptr(),
-        scratch.data_ptr(), _barrier(dev).data_ptr(), table.data_ptr(),
-        plan.header.ctypes.data, B, d, N, r, int(ws_col), int(bank_bf16), float(eps),
-        _build.stream(h))
-    _build.check(lib, rc, what)
-    fused_ln_qkv.launches += 1
-    return out
+    ptrs = [_ptr(t) for t in (g, b, w, ws, bs, xs, la, lb)]
+    for b0 in range(0, B, MAX_B):  # rows are independent: a launch per 16
+        Bc = min(MAX_B, B - b0)
+        plan, table = _plan_on(dev, d, (Np,), (d,), r, grid, Bc, 2 if bank_bf16 else 4)
+        scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
+        rc = lib.fused_ln_qkv(
+            hf.data_ptr() + 4 * b0 * d, *ptrs, out.data_ptr() + 4 * b0 * Np,
+            scratch.data_ptr(), _barrier(dev).data_ptr(), table.data_ptr(),
+            plan.header.ctypes.data, Bc, d, Np, r, int(ws_col), int(bank_bf16), float(eps),
+            _build.stream(h))
+        _build.check(lib, rc, what)
+        fused_ln_qkv.launches += 1
+    return out if Np == N else out[:, :N].contiguous()
 
 
 def fused_post_attention(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *,
@@ -517,19 +572,18 @@ def fused_post_attention(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *,
     one decode layer (kernel #13): attn, h (B, d) float32 → h' (B, d)
     float32. proj / fc / mlp as in `fused_post_attention_plain`; x_scales a
     (3,) tensor on the device. CPU tensors take the plain version; CUDA
-    tensors launch the kernel once, as `fused_ln_qkv` does (`grid`
-    likewise), or raise."""
+    tensors launch the kernel once per 16 batch rows, as `fused_ln_qkv`
+    does (`grid` likewise), or raise."""
     if h.device.type == "cpu":
         return fused_post_attention_plain(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales,
                                           eps=eps)
     what, dev = "fused_post_attention", h.device
-    B, d = _check_rows(h, what)
-    dff = fc["w_i8"].shape[1]
-    if dff % E_COLS:
-        raise ValueError(f"{what}: the MLP width must be a multiple of {E_COLS}; got {dff}")
+    B, d = _check_width(h, what)
     if tuple(attn.shape) != (B, d):
         raise ValueError(f"{what}: attn has shape {tuple(attn.shape)}; want {(B, d)}")
     has_lora = "lora_A" in proj
+    fc, mlp = padded_post(fc, mlp)
+    dff = fc["w_i8"].shape[1]
     args, rank, bank, ws_cols = [], None, None, 0
     for i, (name, lin, K, N) in enumerate((("proj", proj, d, d), ("fc", fc, d, dff),
                                            ("mlp", mlp, dff, d))):
@@ -550,18 +604,22 @@ def fused_post_attention(attn, h, ln2_g, ln2_b, proj, fc, mlp, x_scales, *,
     g, b = _f32(ln2_g, d, dev, what, "ln2_g"), _f32(ln2_b, d, dev, what, "ln2_b")
     xs3 = _f32(x_scales, 3, dev, what, "x_scales", copied=False)
     bank_bf16 = bank == torch.bfloat16
-    plan, table = _plan_on(dev, d, (d, dff, d), (d, d, dff), rank, grid, B,
-                           2 if bank_bf16 else 4)
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
     lib = _build.load("fused_decode")
-    rc = lib.fused_post_attention(
-        af.data_ptr(), hf.data_ptr(), g.data_ptr(), b.data_ptr(),
-        *[_ptr(t) for t in args], xs3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        _barrier(dev).data_ptr(), table.data_ptr(), plan.header.ctypes.data, B, d, dff, rank,
-        ws_cols, int(bank_bf16), float(eps), _build.stream(h))
-    _build.check(lib, rc, what)
-    fused_post_attention.launches += 1
+    ptrs = [_ptr(t) for t in args]
+    for b0 in range(0, B, MAX_B):  # rows are independent: a launch per 16
+        Bc = min(MAX_B, B - b0)
+        plan, table = _plan_on(dev, d, (d, dff, d), (d, d, dff), rank, grid, Bc,
+                               2 if bank_bf16 else 4)
+        scratch = torch.empty((int(plan.header[H_SC_BYTES]),), dtype=torch.uint8, device=dev)
+        row = 4 * b0 * d  # byte offset of row b0 in the float32 (B, d) tensors
+        rc = lib.fused_post_attention(
+            af.data_ptr() + row, hf.data_ptr() + row, g.data_ptr(), b.data_ptr(), *ptrs,
+            xs3.data_ptr(), out.data_ptr() + row, scratch.data_ptr(),
+            _barrier(dev).data_ptr(), table.data_ptr(), plan.header.ctypes.data, Bc, d, dff,
+            rank, ws_cols, int(bank_bf16), float(eps), _build.stream(h))
+        _build.check(lib, rc, what)
+        fused_post_attention.launches += 1
     return out
 
 

@@ -22,7 +22,10 @@ cases at head_dim 128); in the wgmma kernels (bf16 at head_dim 64, whose
 products take bf16 operands, so a rounding cannot be removed, only
 changed) P or dS rounded toward zero instead of to nearest, dS taken from
 the rounded P instead of the float32 one, or the forward's row sum taken
-from the rounded P instead of the float32 one. The bf16 cases
+from the rounded P instead of the float32 one. Two more move the forward's
+rounding point: P rounded at the running max of each 64-key tile instead
+of the JAX k-block's (128 or 256 keys), in the wgmma forward and in the
+SIMT forward. The bf16 cases
 of `tests/test_torch_cuda.py::test_flash_train_kernels_match_plain` at
 head_dim 64 and 128 (T = 128 and 1024) must fail on every mutant. The
 script prints the test's own lines (largest error in bf16 ulps, share of
@@ -120,6 +123,11 @@ MUTANTS = {
     "wgmma forward row sum from the rounded P": [
         ("rs[h] = __fadd_rn(__fadd_rn(rs[h], p[0]), p[1]);",
          f"rs[h] = __fadd_rn(__fadd_rn(rs[h], {ROUND.format('p[0]')}), {ROUND.format('p[1]')});")],
+    "wgmma forward P at the 64-key tile's running max": [
+        ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
+         "(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, 1, sm_scale);")],
+    "SIMT forward P at the 64-key tile's running max": [
+        ("const int blk = exact_p ? 1 : nb;", "const int blk = 1;")],
 }
 SELECT = ("test_flash_train_kernels_match_plain and (64-128-dtype1 or 64-1024-dtype1 "
           "or 128-128-dtype1 or 128-1024-dtype1)")
@@ -136,7 +144,7 @@ EXPS = [("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), l2.x));", "sa[e]"),
         ("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), lr[h]));", "sa[e]"),
         ("p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), lr[h]));", "sa[e + 1]")]
 ISSUED = "      rs_accumulate({}, sf, {});\n      wgmma_commit();\n"
-FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], m_new));", "corr[h] = 1.f;"),
+FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], mx[h]));", "corr[h] = 1.f;"),
             ("const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), "
              "expf(__fsub_rn(sa[e + 1], mr[h]))};",
              "const float p[2] = {__fsub_rn(sa[e], mr[h]) * 0.f + 1.f, "
@@ -144,7 +152,7 @@ FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], m_new));", "corr[h] = 1.f;"),
 ABLATIONS = {
     "forward fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in FWD_EXPS],
     "forward no exp": FWD_EXPS,
-    "forward no P.V": [("      rs_accumulate(oa, pf, vs);\n", "")],
+    "forward no P.V": [("  rs_accumulate(oa, pf, vs);\n", "")],
     "forward one block per SM": [("__launch_bounds__(W_THREADS, 2)\nflash_fwd_wgmma",
                                   "__launch_bounds__(W_THREADS, 1)\nflash_fwd_wgmma")],
     "fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in EXPS],
@@ -162,8 +170,8 @@ ABLATIONS = {
         ("blockIdx.x, blockIdx.y * W_TILE, seq,",
          "blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,"),
         ("const int y = gridDim.y - 1 - blockIdx.y;", "const int y = blockIdx.y;"),
-        ("blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,\n            sm_scale);",
-         "blockIdx.x, blockIdx.y * W_TILE, seq,\n            sm_scale);")],
+        ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
+         "blockIdx.y * W_TILE, seq, nb, sm_scale);")],
 }
 HOLD = "test_flash_train_kernels_match_plain and (64-1024-dtype1 or 64-200-dtype1)"
 TIME = """

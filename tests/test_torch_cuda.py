@@ -61,6 +61,33 @@ def test_flash_kernel_matches_plain(cuda_device, T, D):
     torch.testing.assert_close(got, flash_attention_plain(q, k, v), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("T", [64, 128, 200, 512])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_bf16_matches_plain(cuda_device, T, D):
+    """Kernel #2 with bf16 operands (the serving prefill's dtype; the wgmma
+    forward at head_dim 64, the SIMT forward at 128), ragged T = 200
+    included, its k-block JAX's for T (128 keys up to T = 256, 256 at
+    T = 512): one launch a call, repeat calls bit-equal, and within #5's
+    bf16 limits of its plain version over all rows: 2 bf16 ulps at the max
+    |plain| of the element's row plus 1e-5 of max |plain|, and at most 2 %
+    of the outputs differing (both round P at the same k-block maxima, so
+    they differ only by float32 summation order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + D + 1)
+    q, k, v = (torch.randn((2, 3, T, D), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    for _ in range(2):
+        assert torch.equal(flash_attention(q, k, v), got)
+    want = flash_attention_plain(q, k, v)
+    ulps = bf16_row_ulps(got, want, 1e-5 * want.float().abs().max()).max().item()
+    share = (got != want).float().mean().item()
+    print("out max bf16 ulps of the row's max", ulps, "share differing", share)
+    assert ulps <= 2 and share <= 2e-2
+
+
 def _small_setup(dev, n_embd=256, n_head=4):
     cfg = tc.SPModelConfig(
         model=tc.GPT2Config(vocab_size=512, n_positions=256, n_embd=n_embd,
@@ -135,8 +162,8 @@ def test_engine_runs_both_kernels(cuda_device):
     per layer in prefill and one mega step per new token; the plain engine
     launches neither. Their prefill logits agree: the mean absolute
     difference is within 0.12 of the logits' standard deviation and the
-    argmax agrees at 80% of positions or more. The flash kernel differs from
-    its plain version by float32 rounding, which can flip a bf16 rounding
+    argmax agrees at 80% of positions or more. The flash kernel differs
+    from its plain version by float32 rounding, which can flip a bf16 rounding
     and so a 4-bit activation code downstream; with random weights the
     logits are nearly flat, so a few such flips already move the mean
     difference to a few hundredths of the standard deviation, while a 1%
@@ -184,19 +211,21 @@ def test_flash_train_kernels_match_plain(cuda_device, dtype, T, D):
     (the backward on the kernel's own o and lse), ragged T = 200 included,
     and lengths whose last 128-row block is nearly empty: T = 65 (one row
     of the second warpgroup) and 129 (one row of the second block), whose
-    rows and keys past T the wgmma kernels' tensor maps zero-fill.
+    rows and keys past T the wgmma kernels' tensor maps zero-fill. The
+    forward takes JAX's k-block for T (128 keys up to T = 256, 256 at
+    T = 1024), as its plain version does.
     float32: O, dq, dk, dv within 1e-5 of max |plain| (sums in another
     order). bf16, element by element: within 2 bf16 ulps at the max |plain|
     of the element's row (a float32 value a rounding apart may round to the
-    neighbouring bf16 value, and the forward rounds P at its row's running
-    max, the plain version at the final max), plus 1e-5 of max |plain| (in
-    row 0, dP = D in exact arithmetic, so dS and the dq row are float32
-    cancellation noise in both versions). Where both round P and dS at
-    the same scale (the backward; the forward's first 64 query rows, whose
-    keys lie in one k tile) they differ only by float32 summation order, so
-    at most 2% of those bf16 outputs may differ at all; skipping the
-    rounding of P or dS would move a third or more. LSE (float32 in both):
-    1e-5 absolute."""
+    neighbouring bf16 value), plus 1e-5 of max |plain| (in row 0, dP = D in
+    exact arithmetic, so dS and the dq row are float32 cancellation noise
+    in both versions). Both round P and dS at the same scale (the forward
+    at the running max of the same k-blocks, the backward from the LSE), so
+    they differ only by float32 summation order, and at most 2% of the bf16
+    outputs may differ at all, over all rows; skipping the rounding of P or
+    dS would move a third or more, and rounding P at the running max of
+    64-key tiles instead of the k-block moves several percent. LSE
+    (float32 in both): 1e-5 absolute."""
     g = torch.Generator(device=cuda_device).manual_seed(T + D)
     q, k, v, do = (torch.randn((2, 3, T, D), generator=g, device=cuda_device).to(dtype)
                    for _ in range(4))
@@ -216,8 +245,7 @@ def test_flash_train_kernels_match_plain(cuda_device, dtype, T, D):
             assert err <= 1e-5 * want.abs().max().item(), (name, err)
             continue
         ulps = bf16_row_ulps(got, want, 1e-5 * want.float().abs().max()).max().item()
-        rows = slice(0, 64) if name == "o" else slice(None)
-        share = (got[:, :, rows] != want[:, :, rows]).float().mean().item()
+        share = (got != want).float().mean().item()
         print(name, "max bf16 ulps of the row's max", ulps, "share differing", share)
         assert ulps <= 2, (name, ulps)
         assert share <= 2e-2, (name, share)
@@ -329,6 +357,22 @@ def test_flash_train_wrappers_check_their_inputs(cuda_device):
     o, lse = flash_fwd_lse(q, q, q)
     with pytest.raises(ValueError, match="lse"):
         flash_bwd(q, q, q, o, lse[..., 0], q)
+    for fn in (flash_attention, flash_fwd_lse):
+        with pytest.raises(ValueError, match="float32 CUDA"):
+            fn(q, q.to(torch.bfloat16), q)
+    # the C entries take k-blocks of 64, 128 or 256 keys only
+    from llm_qat_tpu_torch.ops import _build
+
+    lib, qb = _build.load("flash_attention"), q.to(torch.bfloat16)
+    stream = _build.stream(q)
+    for bk in (96, 512):
+        assert lib.flash_forward_wgmma(*(qb.data_ptr(),) * 4, None, 2, 128, bk, 0.125,
+                                       stream) != 0
+        assert lib.flash_forward(*(q.data_ptr(),) * 4, None, 2, 128, 64, 0, bk, 0.125,
+                                 stream) != 0
+    assert lib.flash_forward_wgmma(qb.data_ptr(), qb.data_ptr(), qb.data_ptr(),
+                                   torch.empty_like(qb).data_ptr(), None, 2, 128, 64, 0.125,
+                                   stream) == 0
 
 
 @pytest.mark.parametrize("T,flash", [(512, False), (1024, True)])
@@ -1223,16 +1267,17 @@ def test_fused_decode_kernels_match_plain(cuda_device, lora):
         assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
 
 
-def _fused_gpt2(dev, B, seed):
+def _fused_gpt2(dev, B, seed, rank=64):
     """#12's and #13's operands at GPT-2 124M width (d = 768, dff = 3072),
-    rank-64 bf16 LoRA banks: (qkv args, post args)."""
+    bf16 LoRA banks of `rank` (64, as the bench's quant config):
+    (qkv args, post args)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(dev, g, 768, 3072,
                                                                    torch.bfloat16)
-    for lin in (qkv, proj, fc, mlp):  # rank 64, as the bench's quant config
+    for lin in (qkv, proj, fc, mlp):
         K, N = lin["w_i8"].shape
-        lin["lora_A"] = (0.3 * torch.randn((K, 64), generator=g, device=dev)).bfloat16()
-        lin["lora_B"] = (0.05 * torch.randn((64, N), generator=g, device=dev)).bfloat16()
+        lin["lora_A"] = (0.3 * torch.randn((K, rank), generator=g, device=dev)).bfloat16()
+        lin["lora_B"] = (0.05 * torch.randn((rank, N), generator=g, device=dev)).bfloat16()
     h = torch.randn((B, 768), generator=g, device=dev)
     attn = torch.randn((B, 768), generator=g, device=dev)
     return ((h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], qkv["lora_A"],
@@ -1264,6 +1309,63 @@ def test_fused_decode_gpt2_width_matches_plain(cuda_device, B):
     for name, rs in rows.items():
         assert max(rs) <= 2e-2, name
         assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
+
+
+@pytest.mark.parametrize("B,rank", [(32, 64), (17, 64), (8, 128)])
+def test_fused_decode_beyond_one_launch_matches_plain(cuda_device, B, rank):
+    """#12 and #13 at GPT-2 width with more than 16 batch rows (32: two
+    launches of 16 rows; 17: 16 and 1) and at LoRA rank 128, against their
+    plain versions over two draws, held as
+    test_fused_decode_kernels_match_plain holds them; each call one launch
+    per 16 rows of the wrapper's counter, a second call bit-equal."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    rows = {"qkv": [], "post": []}
+    for seed in range(2):
+        qa, pa = _fused_gpt2(cuda_device, B, seed, rank)
+        for name, kern, plain, args in (("qkv", fd.fused_ln_qkv, fd.fused_ln_qkv_plain, qa),
+                                        ("post", fd.fused_post_attention,
+                                         fd.fused_post_attention_plain, pa)):
+            before = kern.launches
+            got, again = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 2 * -(-B // fd.MAX_B)
+            assert torch.equal(got, again), name
+            want = plain(*args)
+            assert got.shape == want.shape
+            rows[name] += ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+    print("row errors", {k: max(v) for k, v in rows.items()})
+    for name, rs in rows.items():
+        assert max(rs) <= 2e-2, name
+        assert sum(e <= 1e-5 for e in rs) >= 0.9 * len(rs), name
+
+
+@pytest.mark.parametrize("lora", [torch.bfloat16, None])
+def test_fused_decode_pads_odd_widths(cuda_device, lora):
+    """Output widths that are not a multiple of 32 (#12's N = 200, #13's
+    MLP width 1000) run on operands padded with zeros and are sliced:
+    against the plain versions on the originals, held as
+    test_fused_decode_kernels_match_plain holds them."""
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, d, dff = 16, 256, 1000
+    (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(cuda_device, g, d, dff, lora)
+    qkv = {k: (v[..., :200] if k != "lora_A" else v) for k, v in qkv.items()}
+    qkv = {k: v.contiguous() for k, v in qkv.items()}
+    h = torch.randn((B, d), generator=g, device=cuda_device)
+    attn = torch.randn((B, d), generator=g, device=cuda_device)
+    args = (h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], qkv.get("lora_A"),
+            qkv.get("lora_B"))
+    rows = []
+    for got, want in ((fd.fused_ln_qkv(*args), fd.fused_ln_qkv_plain(*args)),
+                      (fd.fused_post_attention(attn, h, g2, b2, proj, fc, mlp, xs[1:]),
+                       fd.fused_post_attention_plain(attn, h, g2, b2, proj, fc, mlp, xs[1:]))):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.is_contiguous()
+        rows += ((got - want).abs().amax(dim=1) / want.abs().max()).tolist()
+    print("row errors", rows)
+    assert max(rows) <= 2e-2 and sum(e <= 1e-5 for e in rows) >= 0.9 * len(rows)
 
 
 def test_fused_decode_is_one_launch_and_refuses_a_large_grid(cuda_device):
@@ -1304,8 +1406,9 @@ def test_fused_decode_wrappers_check_their_inputs(cuda_device):
     (qkv, proj, fc, mlp), ((g1, b1), (g2, b2)), xs = _fused_layer(cuda_device, g, 64, 256,
                                                                    torch.bfloat16)
     h = torch.randn((17, 64), device=cuda_device)
-    with pytest.raises(ValueError, match="batch rows"):
-        fd.fused_ln_qkv(h, g1, b1, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0], None, None)
+    with pytest.raises(ValueError, match="multiple of 32"):  # d, the LN width
+        fd.fused_ln_qkv(torch.randn((2, 72), device=cuda_device), g1, b1, qkv["w_i8"],
+                        qkv["w_s"], qkv["b"], xs[0], None, None)
     with pytest.raises(ValueError, match="int8"):
         fd.fused_ln_qkv(h[:2], g1, b1, qkv["w_i8"].float(), qkv["w_s"], qkv["b"], xs[0],
                         None, None)

@@ -8,6 +8,7 @@ shapes the kernel refuses.
 
 import numpy as np
 import pytest
+import torch
 
 from llm_qat_tpu_torch.ops import fused_decode as fd
 
@@ -198,14 +199,16 @@ def test_bytes_balanced_over_the_layer(kind, nb):
 
 
 def test_plan_refuses_what_the_kernel_cannot_run():
-    """More than 16 batch rows, a rank above 64, widths that are not a
-    multiple of 32 (of 4 among them), and GPT-2's layer on 8 blocks (its
-    operands do not fit their shared memory): ValueError."""
+    """More than 16 batch rows in one launch (the wrappers launch once per
+    16), a rank above 128, widths that are not a multiple of 32 (of 4 among
+    them; the wrappers pad output widths), and GPT-2's layer on 8 blocks,
+    or at rank 128 on 16 (its operands do not fit their shared memory):
+    ValueError."""
     ns, ks = _post(768, 3072)
     with pytest.raises(ValueError, match="batch rows"):
         fd.fused_plan(768, ns, ks, 64, 132, batch=17)
     with pytest.raises(ValueError, match="rank"):
-        fd.fused_plan(768, ns, ks, 65, 132)
+        fd.fused_plan(768, ns, ks, 129, 132)
     for bad in (770, 784):
         with pytest.raises(ValueError, match="multiples"):
             fd.fused_plan(768, (bad,), (768,), 64, 132)
@@ -213,6 +216,84 @@ def test_plan_refuses_what_the_kernel_cannot_run():
             fd.fused_plan(bad, (768,), (bad,), 64, 132)
     with pytest.raises(ValueError, match="shared memory"):
         fd.fused_plan(768, ns, ks, 64, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_plan(768, ns, ks, fd.MAX_RANK, 16)
+
+
+@pytest.mark.parametrize("nb", [132, 66])
+@pytest.mark.parametrize("kind", ["post", "qkv"])
+def test_plan_takes_rank_128_at_gpt2_width(kind, nb):
+    """Rank 128 (`--lora_rank` is the user's) at GPT-2 124M width fits the
+    plan's grid and half of it, at 16 batch rows: every weight byte owned
+    once and the request within the card's shared memory."""
+    d, n = (768, 3072) if kind == "post" else (768, 2304)
+    ns, ks = _post(d, n) if kind == "post" else ((n,), (d,))
+    plan = fd.fused_plan(d, ns, ks, fd.MAX_RANK, nb, batch=16)
+    assert fd.MAX_RANK >= 128 and plan.smem_bytes <= fd.SMEM_MAX
+    for j, (N, K) in enumerate(zip(ns, ks)):
+        assert sum((r1 - r0) * min(fd.CW, N - g * fd.CW)
+                   for _, g, r0, r1, _ in plan.pieces[j]) == N * K
+
+
+def _layer(K, N, rank, bank, seed):
+    g = torch.Generator().manual_seed(seed)
+    lin = {"w_i8": torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8),
+           "w_s": 2e-4 + 8e-4 * torch.rand((N,), generator=g),
+           "b": 0.1 * torch.randn((N,), generator=g)}
+    if rank:
+        lin["lora_A"] = (0.3 * torch.randn((K, rank), generator=g)).to(bank)
+        lin["lora_B"] = (0.05 * torch.randn((rank, N), generator=g)).to(bank)
+    return lin
+
+
+@pytest.mark.parametrize("rank,bank", [(8, torch.bfloat16), (8, torch.float32), (0, None)])
+def test_padded_widths_give_the_same_function(rank, bank):
+    """An output width that is not a multiple of 32 runs on operands padded
+    with zeros (#12's N = 200; #13's MLP width 1000, whose padded fc outputs
+    are 0, GELU(0) = 0 and its code 0): the plain versions on the padded
+    operands, sliced, equal them on the originals to float32 rounding (the
+    integer dots are exact; a float32 LoRA matmul over 1024 rows instead of
+    1000 may sum in another order), and the padded columns are 0."""
+    d, N, dff, B = 64, 200, 1000, 3
+    g = torch.Generator().manual_seed(rank)
+    h, attn = torch.randn((B, d), generator=g), torch.randn((B, d), generator=g)
+    lng, lnb = 0.5 + torch.rand((d,), generator=g), 0.1 * torch.randn((d,), generator=g)
+    xs = torch.tensor([3.0, 3.0, 4.0, 2.0]) / 127.0
+    qkv = _layer(d, N, rank, bank, 1)
+    proj, fc, mlp = _layer(d, d, rank, bank, 2), _layer(d, dff, rank, bank, 3), \
+        _layer(dff, d, rank, bank, 4)
+    w, ws, b, lb = fd.padded_qkv(qkv["w_i8"], qkv["w_s"], qkv["b"], qkv.get("lora_B"))
+    assert w.shape == (d, 224) and ws.shape == b.shape == (224,)
+    want = fd.fused_ln_qkv_plain(h, lng, lnb, qkv["w_i8"], qkv["w_s"], qkv["b"], xs[0],
+                                 qkv.get("lora_A"), qkv.get("lora_B"))
+    got = fd.fused_ln_qkv_plain(h, lng, lnb, w, ws, b, xs[0], qkv.get("lora_A"), lb)
+    torch.testing.assert_close(got[:, :N], want, atol=1e-6 * want.abs().max().item(), rtol=0)
+    assert not got[:, N:].any()
+    pfc, pmlp = fd.padded_post(fc, mlp)
+    assert pfc["w_i8"].shape == (d, 1024) and pmlp["w_i8"].shape == (1024, d)
+    want = fd.fused_post_attention_plain(attn, h, lng, lnb, proj, fc, mlp, xs[1:])
+    got = fd.fused_post_attention_plain(attn, h, lng, lnb, proj, pfc, pmlp, xs[1:])
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("d", [768, 1024, 1280, 1600])
+def test_model_widths_are_never_padded(d):
+    """At every GPT-2 width the model's output widths (#12's 3d, #13's MLP
+    width 4d) are multiples of 32, so the wrappers pass each layer's
+    operands on as they are, for all 12 layers: no copy is made. A width
+    that is not a multiple pads only the operands of that width; one of
+    another width is left for the wrapper's checks to refuse."""
+    for layer in range(12):
+        qkv, fc, mlp = (_layer(K, N, 8, torch.bfloat16, layer)
+                        for K, N in ((d, 3 * d), (d, 4 * d), (4 * d, d)))
+        ops = (qkv["w_i8"], qkv["w_s"], qkv["b"], qkv["lora_B"])
+        assert all(a is b for a, b in zip(fd.padded_qkv(*ops), ops))
+        pfc, pmlp = fd.padded_post(fc, mlp)
+        assert pfc is fc and pmlp is mlp
+    w, ws, b, lb = fd.padded_qkv(qkv["w_i8"][:, :200].contiguous(), qkv["w_s"][:201],
+                                 qkv["b"][:200], qkv["lora_B"][:, :200])
+    assert w.shape == (d, 224) and b.shape == (224,) and lb.shape == (8, 224)
+    assert ws.shape == (201,)
 
 
 def test_plan_without_lora_and_float_banks():

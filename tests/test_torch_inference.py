@@ -15,6 +15,7 @@ from llm_qat_tpu_torch import bridge
 from llm_qat_tpu_torch.models import config as tc
 from llm_qat_tpu_torch.models import inference as ti
 from llm_qat_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+from test_torch_train_attention import bf16_spread
 
 L, D_MODEL, H, R, V = 2, 128, 2, 4, 256
 
@@ -90,15 +91,18 @@ def test_int8_dot_exact_past_two_to_the_24():
     assert np.abs(codes @ w.astype(np.int64)).max() > 2 ** 24
 
 
-@pytest.mark.parametrize("S", [40, 128])
+@pytest.mark.parametrize("S", [40, 128, 256])
 def test_prefill_logits_match_jax(calibrated, S):
-    """Dense-cache prefill of the W4A4 tree with the int4 head. S=128 takes
-    the flash branch (JAX: `flash_attention(interpret=True)`; port: the
-    flash wrapper's plain version on the CPU). Tolerance: at most 1% of the
-    O(1) logits differ by more than 1e-5, none by more than 1e-2, and ≥ 99%
-    of the argmaxes agree — float32 attention sums in another order can flip
-    a bf16 rounding, and a flipped activation code (±7 in the linears, ±127
-    in the head) moves a logit by one code step."""
+    """Dense-cache prefill of the W4A4 tree (bf16 activations) with the
+    int4 head. S = 128 and 256 take the flash branch (JAX:
+    `flash_attention(interpret=True)`; port: the flash wrapper's plain
+    version on the CPU), both with q, k, v in bf16 and P rounded to bf16 at
+    the running max of JAX's k-blocks. Tolerance: at most 1% of the O(1)
+    logits differ by more than 1e-5, none by more than 1e-2, and ≥ 99% of
+    the argmaxes agree. Both sides round at the same points, but a float32
+    sum in another order (in the attention, the LayerNorms and the LoRA
+    products) can flip a bf16 rounding, and a flipped activation code (±7
+    in the linears, ±127 in the head) moves a logit by one code step."""
     jcfg, tcfg, jp, tp = calibrated
     jt = ji.quantize_for_inference(jp, jcfg, 4, weight_format="int4_xla",
                                    lm_head_bits=4)
@@ -107,12 +111,13 @@ def test_prefill_logits_match_jax(calibrated, S):
                                    lm_head_bits=4)
     tstatic = tt.pop("_static")
     ids = np.random.default_rng(S).integers(0, V, (2, S))
-    jc = ji.init_layer_caches(jcfg, 2, 160, jnp.bfloat16)
+    max_len = max(160, S)
+    jc = ji.init_layer_caches(jcfg, 2, max_len, jnp.bfloat16)
     jl, jc, _ = ji.infer_forward_unrolled(jt, jnp.asarray(ids), jcfg, jc,
                                           jnp.int32(0), static=jstatic,
                                           initial_prefill=True,
                                           attn_interpret=True)
-    tcaches = ti.init_layer_caches(tcfg, 2, 160, torch.bfloat16, device="cpu")
+    tcaches = ti.init_layer_caches(tcfg, 2, max_len, torch.bfloat16, device="cpu")
     tl, tcaches, n = ti.infer_forward_unrolled(tt, torch.tensor(ids), tcfg,
                                                tcaches, 0, static=tstatic,
                                                initial_prefill=True)
@@ -144,3 +149,25 @@ def test_flash_plain_matches_jax_interpret():
     # ragged T: the plain version needs no padding (the kernel masks the tail)
     got_r = flash_attention_plain(*(torch.tensor(t[:, :, :200]) for t in (q, k, v)))
     np.testing.assert_allclose(got_r.numpy(), want[:, :, :200], atol=2e-6)
+
+
+@pytest.mark.parametrize("S,H", [(128, 2), (200, 3), (256, 4), (384, 2), (512, 2)])
+def test_flash_prefill_bf16_matches_jax(S, H):
+    """Kernel #2's route on CPU tensors in bf16, through the prefill's
+    `_flash_prefill_attn` and through `flash_attention` itself, against
+    JAX's `_flash_prefill_attn` in interpret mode (S padded to a multiple
+    of 128, `flash_blocks` of that: k-blocks of 128 keys up to 256, 256
+    from 512; S = 200 is ragged, S = 384 takes 128). Both take q, k and v
+    in bf16 and round P to bf16 at the running max of the same k-blocks, so
+    at most 0.1 % of the bf16 outputs differ (float32 sums in another
+    order; measured ≤ 0.008 %), each by at most one bf16 ulp of its row's
+    max. Without the rounding of P 35-38 % of them differ."""
+    rng = np.random.default_rng(S + H)
+    x = [rng.normal(0, 1, (1, H, S, 64)).astype(np.float32) for _ in range(3)]
+    want = ji._flash_prefill_attn(*(jnp.asarray(a, jnp.bfloat16) for a in x), True)
+    t = [torch.tensor(a).to(torch.bfloat16) for a in x]
+    for got in (ti._flash_prefill_attn(*t), flash_attention(*t)):
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+        share, ulps = bf16_spread(got, want)
+        print(f"S={S}: share differing {share:.2e}, max ulps of the row's max {ulps}")
+        assert share <= 1e-3 and ulps <= 1

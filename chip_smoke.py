@@ -10,6 +10,9 @@ kernel against its plain PyTorch version at GPT-2 124M widths, and drives
 the port's paths with random weights from a seed, each with the launch
 counters set to 0 just before it and read just after:
 
+- first, the SP command line `python -m llm_qat_tpu_torch.cli.main_sp` at
+  GPT-2 124M, T = 1024, offline, as `--main-sp` below runs it;
+
 - serving (calibrate → quantize_for_inference → prefill → mega decode →
   int4 LM head → greedy sampling) through `InferenceEngine.generate`, which
   must go through the flash prefill kernel #2 (once a layer, all on one
@@ -63,7 +66,7 @@ of one wrapper call), profiles one iteration of each path, and prints:
   and without the LSE, SIMT by operand type and head_dim) and the wgmma
   kernels of #6;
 - one line per comparison, its error beside its tolerance;
-- `timings`, `serving_timings`, `fused_decode_timings`,
+- `main_sp_timings`, `timings`, `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
   `fused_train_profile`, `train_timings`, `flash_serve_timings`,
   `flash_timings` and `fused_kernel_timings` JSON lines and a `kernels` JSON line (all sixteen
@@ -124,6 +127,19 @@ held and its repeat calls compared); then `mega_e2e` (`decode_tok_s` and
 the per-token step time at the bench shapes, KV4 and kv_bits 16, and the
 mega W8 KV8 / W4 KV4 servers' end-to-end and steady tokens/s, without
 their token replays).
+
+    python3 chip_smoke.py --main-sp
+
+runs only the SP command line (`main_sp.main`, GPT-2 124M, B = 8, T =
+1024, accum 8, bits 4/8/32, offline: the byte tokenizer, the synthetic
+corpus, random init) three times: a 5-iteration run with elastic saves
+stopped after 3 iterations, its relaunch with `--auto-resume` (2
+iterations, to step 5, then the per-bit checkpoints, which must reload
+bit for bit), and 5 iterations uninterrupted, whose final state the
+relaunch must equal bit for bit. Every train step must launch #5 and #6 96
+times each on their wgmma route. Prints `main_sp_timings` (dataset build,
+calibration, each iteration, host ms of each async save) and no result
+line.
 
     python3 chip_smoke.py --fused-decode
 
@@ -2929,6 +2945,199 @@ def fused_decode_phase(dev) -> int:
     return 1 if failures else 0
 
 
+# The SP command line at GPT-2 124M, T = 1024 (the trainable flash kernels'
+# shape), offline: the synthetic corpus, the byte tokenizer, random init.
+MAIN_SP_FLAGS = ["--max-seq-length", "1024", "--batch-size", "8", "--grad-accum", "8",
+                 "--bit-widths", "4", "8", "32", "--eval-interval", "2",
+                 "--num-iterations", "5"]
+MAIN_SP_PREEMPT = 3   # iterations the first run takes before it is stopped
+
+
+class Preempted(Exception):
+    """Stops a `main_sp` run between two iterations, as a preemption would."""
+
+
+def main_sp_phase(dev, card: str) -> int:
+    """`--main-sp` (and part of the default run): `python -m
+    llm_qat_tpu_torch.cli.main_sp` through `main_sp.main`, three times:
+
+    A. the command with `--save-every 1 --auto-resume`, stopped before its
+       fourth iteration once its third elastic save has landed;
+    B. the same command relaunched: it resumes at iteration 3, takes 2
+       iterations, ends at step 5 and writes the per-bit checkpoints;
+    C. the command without elastic saves, from a fresh directory, 5
+       iterations uninterrupted.
+
+    Around every train step the counters of #5 and #6 are set to 0 just
+    before and read just after: 96 launches each (12 layers x 8
+    micro-steps), all on the wgmma route. Eval and calibration run outside
+    the steps. Checks finite losses, the per-bit files reloading bit for
+    bit, and B's final state (params, AdamW moments, count, step) against
+    C's, bit for bit. Prints `main_sp_timings`: the dataset build, the
+    calibration, every iteration (host clock around a synchronised step)
+    and the host ms of each async save. Returns 0, or raises."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from llm_qat_tpu_torch.cli import main_sp
+    from llm_qat_tpu_torch.deploy import elastic, load_checkpoint
+    from llm_qat_tpu_torch.ops import attention as att
+
+    # offline: the tokenizer, corpus and pretrained weights fall back to the
+    # byte tokenizer, the synthetic corpus and random init, and the hub is
+    # never asked
+    for var in ("HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE", "HF_DATASETS_OFFLINE"):
+        os.environ[var] = "1"
+    rec = {"data_s": [], "calib_s": [], "iter_ms": {}, "save_host_ms": [],
+           "losses": {}, "data": []}
+    managers = []
+    per_iter = 12 * 8
+    make, manager_cls, calib_cls = (main_sp.make_sp_train_step, main_sp.AsyncCheckpointManager,
+                                    main_sp.CalibrationManager)
+    make_dataloaders = main_sp.create_dataloaders
+
+    def instrumented(run, stop_after=None):
+        """Wraps main_sp's steps, data build, calibration and saves for one
+        run named `run`."""
+        rec["iter_ms"][run], rec["losses"][run] = [], []
+
+        def make_counted(*a, **k):
+            init_state, step = make(*a, **k)
+
+            def train_step(state, ids, gen):
+                if stop_after is not None and len(rec["iter_ms"][run]) == stop_after:
+                    raise Preempted
+                for fn in (att.flash_fwd_lse, att.flash_bwd):
+                    fn.launches = 0
+                    fn.route_launches.update(wgmma=0, simt=0)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, mt = step(state, ids, gen)
+                torch.cuda.synchronize()
+                rec["iter_ms"][run].append(1e3 * (time.perf_counter() - t))
+                for fn in (att.flash_fwd_lse, att.flash_bwd):
+                    check(fn.launches == per_iter and fn.route_launches["wgmma"] == per_iter,
+                          f"main_sp {run}: {fn.__name__} ran {fn.launches} times in a train "
+                          f"step, by route {fn.route_launches}; want {per_iter} on wgmma")
+                rec["losses"][run].append([float(mt[k]) for k in ("loss", "teacher_loss")])
+                return state, mt
+
+            return init_state, train_step
+
+        def timed_dataloaders(tokenizer, *a, **k):
+            t = time.perf_counter()
+            out = make_dataloaders(tokenizer, *a, **k)
+            rec["data_s"].append(time.perf_counter() - t)
+            rec["data"].append({"tokenizer": type(tokenizer).__name__,
+                                "train_windows": len(out[0]), "val_windows": len(out[1])})
+            return out
+
+        class Calibration(calib_cls):
+            def calibrate_all_precisions(self, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = super().calibrate_all_precisions(*a, **k)
+                torch.cuda.synchronize()
+                rec["calib_s"].append(time.perf_counter() - t)
+                return out
+
+        class Manager(manager_cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                managers.append(self)
+
+            def save(self, *a, **k):
+                t = time.perf_counter()
+                super().save(*a, **k)
+                rec["save_host_ms"].append(1e3 * (time.perf_counter() - t))
+
+        return {"make_sp_train_step": make_counted, "create_dataloaders": timed_dataloaders,
+                "CalibrationManager": Calibration, "AsyncCheckpointManager": Manager}
+
+    def run_main(run, argv, stop_after=None):
+        patches = instrumented(run, stop_after)
+        saved = {name: getattr(main_sp, name) for name in patches}
+        for name, fn in patches.items():
+            setattr(main_sp, name, fn)
+        try:
+            return main_sp.main(argv)
+        finally:
+            for name, fn in saved.items():
+                setattr(main_sp, name, fn)
+            for mgr in managers:
+                mgr.wait()
+            managers.clear()
+
+    root = tempfile.mkdtemp(prefix="main_sp_")
+    try:
+        dir_ab, dir_c = os.path.join(root, "ab"), os.path.join(root, "c")
+        elastic_flags = ["--save-every", "1", "--auto-resume"]
+        try:
+            run_main("A", MAIN_SP_FLAGS + elastic_flags + ["--output-dir", dir_ab],
+                     stop_after=MAIN_SP_PREEMPT)
+            check(False, "main_sp A was not stopped")
+        except Preempted:
+            pass
+        saved_steps = sorted(os.listdir(os.path.join(dir_ab, "elastic")))
+        check(saved_steps == [f"step_{s:010d}.npz" for s in range(MAIN_SP_PREEMPT)],
+              f"main_sp A: elastic saves {saved_steps}")
+        state_b, stats_b = run_main("B", MAIN_SP_FLAGS + elastic_flags
+                                    + ["--output-dir", dir_ab])
+        check(len(stats_b.iteration_losses) == 2 and state_b.step == 5,
+              f"main_sp B resumed at iteration 3 and took 2 ({stats_b.iteration_losses}), "
+              f"ending at step 5 ({state_b.step})")
+        for bits in (4, 8):
+            params, meta = load_checkpoint(os.path.join(dir_ab, f"sp_{bits}bit.npz"), device=dev)
+            check(meta["bit_width"] == bits, f"main_sp B: sp_{bits}bit.npz meta {meta['bit_width']}")
+            same = [torch.equal(a, b) for a, b in zip(elastic.tree_leaves(params),
+                                                       elastic.tree_leaves(state_b.params))]
+            check(len(same) == len(elastic.tree_leaves(state_b.params)) and all(same),
+                  f"main_sp B: sp_{bits}bit.npz reloads bit for bit")
+        check(not os.path.exists(os.path.join(dir_ab, "sp_32bit.npz")),
+              "main_sp B: no file for the 32-bit teacher")
+        shutil.rmtree(dir_ab)
+        state_c, stats_c = run_main("C", MAIN_SP_FLAGS + ["--output-dir", dir_c])
+        check(len(stats_c.iteration_losses) == 5 and state_c.step == 5,
+              "main_sp C took 5 iterations")
+        losses = [x for run in "ABC" for pair in rec["losses"][run] for x in pair]
+        check(all(math.isfinite(x) for x in losses), f"main_sp: finite losses {rec['losses']}")
+        check(rec["losses"]["A"] == rec["losses"]["C"][:MAIN_SP_PREEMPT]
+              and rec["losses"]["B"] == rec["losses"]["C"][MAIN_SP_PREEMPT:],
+              f"main_sp: A and B's losses are C's: {rec['losses']}")
+        lb, lc = elastic.tree_leaves(state_b), elastic.tree_leaves(state_c)
+        check(len(lb) == len(lc), "main_sp: B and C have the same state structure")
+        n_diff, max_diff = 0, 0.0
+        for x, y in zip(lb, lc):
+            if isinstance(x, torch.Tensor):
+                if not torch.equal(x, y):
+                    n_diff += 1
+                    max_diff = max(max_diff, (x.double() - y.double()).abs().max().item())
+            elif x != y:
+                n_diff += 1
+        print(f"main_sp resumed (B) vs uninterrupted (C): {n_diff} of {len(lb)} state leaves "
+              f"differ, max |difference| {max_diff!r}", flush=True)
+        check(n_diff == 0, "main_sp: the resumed run's final state equals the uninterrupted "
+              "run's bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    iters = [ms for run in "ABC" for ms in rec["iter_ms"][run]]
+    steady = rec["iter_ms"]["C"][1:]
+    out = {"card": card, "B": 8, "T": 1024, "accum": 8,
+           "data": rec["data"], "dataset_build_s": rec["data_s"],
+           "calibration_s": rec["calib_s"],
+           "iter_ms": rec["iter_ms"], "median_iter_ms": statistics.median(iters),
+           "median_iter_ms_C_after_first": statistics.median(steady),
+           "save_host_ms": rec["save_host_ms"],
+           "median_save_host_ms": statistics.median(rec["save_host_ms"]),
+           "flash_launches_per_iteration": {"flash_fwd_lse": per_iter, "flash_bwd": per_iter},
+           "resumed_vs_uninterrupted_max_abs_diff": max_diff}
+    print("main_sp_timings " + json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -2947,6 +3156,8 @@ def main() -> int:
                     help="only hold, sweep and time the decode steps #1/#3/#4")
     ap.add_argument("--fused-decode", action="store_true",
                     help="only hold, sweep and time the fused decode layer #12/#13")
+    ap.add_argument("--main-sp", action="store_true",
+                    help="only run the SP command line at GPT-2 124M, T = 1024")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2976,7 +3187,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
 
     # 2. build
     t = time.time()
@@ -2995,10 +3207,16 @@ def main() -> int:
         return mega_decode_phase(dev)
     if args.fused_decode:
         return fused_decode_phase(dev)
+    if args.main_sp:
+        return main_sp_phase(dev, card)
     for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention",
                 "mega_decode", "fused_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
     print_ptxas_wgmma_flash(_build)
+
+    # the SP command line first: its dataset and states are freed before
+    # the other paths start
+    main_sp_phase(dev, card)
 
     cfg, params, gen = serve_setup(dev)
     m = cfg.model

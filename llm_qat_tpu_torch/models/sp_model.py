@@ -347,7 +347,9 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
         T = h.shape[1]
     else:
         T = input_ids.shape[1]
-        h = params["wte"][input_ids] + params["wpe"][:T][None]
+        # ids past the vocabulary read its last row, as JAX's gather clamps
+        ids = input_ids.clamp(max=params["wte"].shape[0] - 1)
+        h = params["wte"][ids] + params["wpe"][:T][None]
 
     if not deterministic and cfg.model.embd_pdrop > 0.0:
         keep = 1.0 - cfg.model.embd_pdrop
@@ -391,12 +393,15 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
 
 
 def lm_cross_entropy(logits, labels):
-    """Shifted LM cross-entropy, mean over labels != -100."""
+    """Shifted LM cross-entropy, mean over labels != -100. A label past the
+    vocabulary gives NaN, as JAX's `take_along_axis` fills it."""
     shift_logits = logits[:, :-1].to(torch.float32)
     shift_labels = labels[:, 1:]
+    V = shift_logits.shape[-1]
     valid = shift_labels != -100
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     logp = torch.log_softmax(shift_logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = -torch.gather(logp, -1, safe.clamp(max=V - 1)[..., None])[..., 0]
+    nll = torch.where(safe < V, nll, torch.full_like(nll, math.nan))
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / torch.clamp(valid.sum(), min=1)

@@ -306,7 +306,7 @@ def flash_bwd(q, k, v, o, lse, do):
     `flash_bwd_plain`; CUDA tensors launch the kernels `flash_bwd_plan`
     names (three CUDA kernels: D = rowsum(dO∘O), then dK/dV per k tile,
     then dQ per q tile; no atomics, so repeat calls are bit-equal) or
-    raise."""
+    raise. Counts its launches, and by route, as `flash_fwd_lse` does."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do)
     _check_operands("flash_bwd", (("q", q), ("k", k), ("v", v), ("o", o),
@@ -337,10 +337,12 @@ def flash_bwd(q, k, v, o, lse, do):
             _build.stream(q))
     _build.check(lib, rc, "flash_bwd")
     flash_bwd.launches += 1
+    flash_bwd.route_launches[plan.route] += 1
     return out
 
 
 flash_bwd.launches = 0
+flash_bwd.route_launches = {"wgmma": 0, "simt": 0}
 
 
 class _FlashTrainable(torch.autograd.Function):

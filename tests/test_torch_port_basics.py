@@ -27,8 +27,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module (the training slice's, the fused linear's, the
-    decode attention's, the server's, the packed-weight product's and the
-    fused decode layer's among them) and chip_smoke.py import without JAX
+    decode attention's, the server's, the packed-weight product's, the
+    fused decode layer's and the command line's data, deploy, utils, cli
+    and HF-import modules among them) and chip_smoke.py import without JAX
     or llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
@@ -43,6 +44,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "         ('attention', 'matmul', 'fused_linear', 'decode_attention',\n"
         "          'quant_matmul', 'fused_decode')}\n"
         "want |= {'llm_qat_tpu_torch.serving', 'llm_qat_tpu_torch.serving.engine'}\n"
+        "want |= {'llm_qat_tpu_torch.' + n for n in\n"
+        "         ('data', 'data.lm_datasets', 'data.native', 'deploy',\n"
+        "          'deploy.checkpoint', 'deploy.elastic', 'utils', 'utils.stats',\n"
+        "          'cli', 'cli.main_sp', 'cli.check_init', 'models.hf_import')}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

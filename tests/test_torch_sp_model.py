@@ -134,3 +134,26 @@ def test_sp_forward_matches_jax(compute_dtype):
         np.testing.assert_allclose(tl["logits"].numpy(), np.asarray(jl["logits"]),
                                    atol=2e-4, err_msg=f"prec {prec}")
         np.testing.assert_allclose(float(tl["loss"]), float(jl["loss"]), rtol=1e-5)
+
+
+def test_out_of_vocabulary_ids_match_jax():
+    """Ids past the vocabulary (the byte tokenizer's eos 256 and pad 257
+    under a vocabulary of 256, as `main_sp --tiny` builds them): the
+    embedding reads the last row, as JAX's gather clamps, and such a label
+    makes the loss NaN, as JAX's `take_along_axis` fills it. Logits 2e-4
+    absolute, loss 1e-5 relative, as above."""
+    jcfg, tcfg = _cfgs(True)
+    jp = _jax_params(jcfg, seed=2)
+    tp = bridge.params_from_numpy(jp, "cpu")
+    ids = np.random.default_rng(6).integers(0, 256, (2, 12))
+    ids[0, 3], ids[1, 7] = 256, 257
+    labels = ids.copy()
+    labels[0, 3], labels[1, 7] = -100, -100
+    for lab, finite in ((labels, True), (ids, False)):
+        jo = J.sp_forward(jax.tree.map(jnp.asarray, jp), jnp.asarray(ids), 2, jcfg,
+                          labels=jnp.asarray(lab))
+        to = tsp.sp_forward(tp, torch.tensor(ids), 2, tcfg, labels=torch.tensor(lab))
+        np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]),
+                                   atol=2e-4)
+        assert np.isfinite(float(jo["loss"])) == finite
+        np.testing.assert_allclose(float(to["loss"]), float(jo["loss"]), rtol=1e-5)

@@ -37,6 +37,9 @@ counters set to 0 just before it and read just after:
   LN+QKV kernel #12, the dense-cache attention #9 and the fused
   post-attention kernel #13 once per layer; both held against their plain
   paths as above, path B's step timed beside the unfused int8_xla step;
+- KV-cached generation with the serving parameters, as `--cached-generate`
+  below runs it, and the SP evaluation command `python -m
+  llm_qat_tpu_torch.cli.eval_sp` at T = 1024, as `--eval-sp` below runs it;
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
@@ -66,7 +69,8 @@ of one wrapper call), profiles one iteration of each path, and prints:
   and without the LSE, SIMT by operand type and head_dim) and the wgmma
   kernels of #6;
 - one line per comparison, its error beside its tolerance;
-- `main_sp_timings`, `timings`, `serving_timings`, `fused_decode_timings`,
+- `main_sp_timings`, `cached_generate_timings`, `eval_sp_timings`, `timings`,
+  `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
   `fused_train_profile`, `train_timings`, `flash_serve_timings`,
   `flash_timings` and `fused_kernel_timings` JSON lines and a `kernels` JSON line (all sixteen
@@ -140,6 +144,34 @@ relaunch must equal bit for bit. Every train step must launch #5 and #6 96
 times each on their wgmma route. Prints `main_sp_timings` (dataset build,
 calibration, each iteration, host ms of each async save) and no result
 line.
+
+    python3 chip_smoke.py --cached-generate
+
+runs only the KV-cached generation paths at GPT-2 124M (serve_setup's
+calibrated parameters, B = 8, a 128-token prompt, 32 greedy tokens), each
+with every kernel's counter set to 0 just before it and read just after:
+(a) `models.generate.generate` on the SP parameters at 8 bits (float32),
+which runs no kernel, its tokens held by a teacher-forced replay through
+the uncached `sp_forward`; (b) a greedy loop of `infer_forward_with_cache`
+on the `weight_format="int8"` tree, which must run #10 48 times a call
+(33 calls); (c) the same loop over `infer_forward_unrolled` on
+`init_layer_caches(kv_bits=8)` (the int8 `QuantizedKV` caches), #10 as in
+(b), its caches after the prefill held against the plain path's (layer 0
+tightly, all layers against the jitter floor); (b) and (c) held against
+`use_kernels=False`; (d) the folded LoRA tree against the factored one,
+float32, within the floor. Prints `cached_generate_timings` (prefill and
+token-step ms, launches by kernel) and no result line.
+
+    python3 chip_smoke.py --eval-sp
+
+runs only the SP evaluation command: a calibrated GPT-2 124M (bits
+4/8/32, per-channel) saved by `save_per_bit_checkpoints`, then
+`eval_sp.main` offline on sp_8bit.npz and sp_4bit.npz (`--max-length 1024
+--stride 512 --synthetic-tasks`; the 4-bit run without the zero-shot
+suite), which must run #5 12 times per forward, all on its float32 SIMT
+route; the 8-bit run again on #5's plain version: the perplexity within
+1e-4, the zero-shot choices the same but at ties. Prints `eval_sp_timings`
+and no result line. The two flags may be given together.
 
     python3 chip_smoke.py --fused-decode
 
@@ -3138,6 +3170,596 @@ def main_sp_phase(dev, card: str) -> int:
     return 0
 
 
+def kernel_counters():
+    """The sixteen kernels' wrappers (their `launches` counters), by name."""
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import decode_attention as da
+    from llm_qat_tpu_torch.ops import fused_decode as fd
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+    from llm_qat_tpu_torch.ops import mega_decode as md
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    fns = (md.mega_decode_step_kv8, md.mega_decode_step, md.mega_decode_step_cb,
+           att.flash_attention, att.flash_fwd_lse, att.flash_bwd, da.decode_attention_hbm,
+           da.decode_attention_hbm_multi, da.decode_attention, qm.quant_matmul_int8,
+           qm.quant_matmul_int4, fd.fused_ln_qkv, fd.fused_post_attention,
+           fl.fused_linear_fwd, fl.fused_linear_bwd_dx, fl.fused_linear_bwd_dw)
+    return {fn.__name__: fn for fn in fns}
+
+
+def zero_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches.update(wgmma=0, simt=0)
+
+
+def read_counters():
+    """Every kernel's launches since `zero_counters`, the kernels that ran."""
+    return {name: fn.launches for name, fn in kernel_counters().items() if fn.launches}
+
+
+# --cached-generate: B = 8, a 128-token prompt, 32 greedy tokens
+CG_B, CG_T0, CG_NEW = 8, 128, 32
+# (c)'s int8 KV caches after the prefill, kernel path against plain path.
+# Layer 0's K/V rows come from identical inputs through #10, whose sums run in
+# another order: a code moves (by one) only where a value sat on a rounding
+# boundary of its row's grid, in at most CG_KV_LAYER0_SHARE of the codes, and
+# every row scale is within CG_KV_SCALE_REL. Through 12 layers a moved
+# activation code upstream moves whole rows (6.4 % of all codes, by up to 7,
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md), so the whole cache is held
+# against the floor the plain path sets against itself under the jitter of
+# `jittered_floor`: at most CG_KV_FLOOR_FACTOR times the floor's share of
+# moved codes; rows without a moved code keep their scales within
+# CG_KV_SCALE_REL.
+CG_KV_LAYER0_SHARE = 1e-3
+CG_KV_SCALE_REL = 1e-4
+CG_KV_FLOOR_FACTOR = 2.0
+
+
+def call_profile(fn):
+    """One call of fn: its host wall ms (synchronised, unprofiled, after a
+    warm-up call), then under torch.profiler the CUDA records it made
+    (kernels, copies, sets), their summed device ms, the share of the wall
+    the device sat idle (an upper bound: the profiler drops records under
+    load) and the three dearest kernels with their device ms and counts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == cuda and e.count]
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:3]
+    return {"wall_ms": wall, "device_ms": dev_ms, "cuda_records": sum(e.count for e in evs),
+            "idle_share": max(0.0, 1.0 - dev_ms / wall),
+            "top": [[kernel_name(e.key), e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+class CallTimer:
+    """Wraps `fn` in `module`: each call synchronised and timed on the host
+    clock (ms), while `on` is set."""
+
+    def __init__(self, module, name):
+        import torch
+
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.ms, self.on = [], False
+
+        def timed(*a, **k):
+            if not self.on:
+                return self.fn(*a, **k)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        setattr(module, name, timed)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+    def summary(self, launches):
+        import statistics
+
+        return {"prefill_ms": self.ms[0], "step_ms": statistics.median(self.ms[1:]),
+                "step_ms_min_max": [min(self.ms[1:]), max(self.ms[1:])],
+                "calls": len(self.ms), "launches": launches}
+
+
+def cached_generate_phase(params, cfg, dev, gen, card):
+    """`--cached-generate` (and part of the default run), at GPT-2 124M with
+    serve_setup's calibrated parameters, B = 8, a 128-token prompt, 32
+    greedy tokens; every kernel's counter set to 0 just before each path
+    and read just after:
+
+    (a) `models.generate.generate` on the SP parameters at 8 bits, in
+        float32 (the cached forward's head is float32 in JAX whatever the
+        config, and in float32 the uncached `sp_forward` computes the same
+        function): no kernel on this path (dense attention below T = 1024,
+        the flat linear); the tokens held by a teacher-forced replay through
+        `sp_forward` against the jitter floor;
+    (b) a greedy loop of `infer_forward_with_cache` on
+        `quantize_for_inference(bits=8, weight_format="int8")`: #10 48
+        times a call, 33 calls (the prefill, then one call per token, the
+        last as `generate` takes it); held against `use_kernels=False`;
+    (c) the same loop over `infer_forward_unrolled` on
+        `init_layer_caches(kv_bits=8)`: the caches' codes and scales after
+        the prefill against the plain path's, then the tokens as in (b);
+    (d) the folded float32 tree (`lora_format="folded"`) against the factored
+        one through `infer_forward_with_cache`: the prefill's logits against
+        the floor of the factored tree with its LoRA products jittered.
+
+    Prints `cached_generate_timings` (prefill ms and the median ms of a token
+    step of each path, host clock around synchronised calls, beside its
+    launches by kernel). Returns #10's launches on (b) and (c)."""
+    import torch
+
+    from llm_qat_tpu_torch.models import inference
+    from llm_qat_tpu_torch.models import sp_model
+    from llm_qat_tpu_torch.models.generate import generate, init_kv_cache
+    from llm_qat_tpu_torch.models.inference import (
+        infer_forward_with_cache,
+        init_layer_caches,
+        quantize_for_inference,
+    )
+    from llm_qat_tpu_torch.models.sp_model import sp_forward
+
+    gen_mod = sys.modules["llm_qat_tpu_torch.models.generate"]
+    B, T0, NEW, L = CG_B, CG_T0, CG_NEW, cfg.model.n_layer
+    V = cfg.model.vocab_size
+    prompt = torch.randint(0, V, (B, T0), generator=gen, device=dev)
+    out = {"card": card, "B": B, "T0": T0, "new_tokens": NEW}
+
+    # (a) cached generation on the SP parameters
+    gcfg = cfg.replace(compute_dtype="float32")
+    prec = cfg.quant.prec_index(8)
+    generate(params, prompt[:, :16], prec, gcfg, max_new_tokens=2, do_sample=False)
+    timer = CallTimer(gen_mod, "forward_with_cache")
+    try:
+        zero_counters()
+        timer.on = True
+        res = generate(params, prompt, prec, gcfg, max_new_tokens=NEW, do_sample=False)
+        timer.on = False
+        launches = read_counters()
+    finally:
+        timer.restore()
+    check(tuple(res.shape) == (B, T0 + NEW) and torch.equal(res[:, :T0], prompt),
+          "(a) generate: shape and prompt kept")
+    check(launches == {}, f"(a) generate launched no kernel: {launches}")
+    out["generate"] = timer.summary(launches)
+    toks = res[:, T0:]
+
+    def cached_replay():
+        cache = init_kv_cache(gcfg, B, T0 + NEW, device=dev)
+        logits, cache = gen_mod.forward_with_cache(params, prompt, prec, gcfg, cache)
+        steps = [logits[:, -1]]
+        for i in range(NEW - 1):
+            logits, cache = gen_mod.forward_with_cache(params, toks[:, i:i + 1], prec, gcfg,
+                                                       cache)
+            steps.append(logits[:, 0])
+        return torch.stack(steps, dim=1)
+
+    def uncached():
+        with torch.no_grad():
+            return sp_forward(params, res[:, :T0 + NEW - 1], prec, gcfg)["logits"][:, T0 - 1:]
+
+    lk, lp = cached_replay(), uncached()
+    lj = jittered_floor([(sp_model, "matmul_bf16", "out"),
+                         (sp_model, "causal_attention", "out")], uncached, dev)
+    hold_tokens("(a) generate (cached) vs sp_forward (uncached)", toks, lk, lp, lj)
+    del lk, lp, lj
+
+    # (b) and (c) on the int8 tree
+    tree = quantize_for_inference(params, cfg, 8, weight_format="int8")
+    static = tree.pop("_static")
+
+    def with_cache_loop(use_kernels, forced=None):
+        """(tokens, per-step logits (B, NEW, V)): the prefill, then one call
+        per token (33 calls); `forced` feeds those tokens instead."""
+        cache = init_kv_cache(cfg, B, T0 + NEW, device=dev)
+        logits, cache = inference.infer_forward_with_cache(tree, prompt, cfg, cache,
+                                                           use_kernels=use_kernels)
+        steps, picked = [logits[:, -1]], []
+        for i in range(NEW):
+            tok = steps[-1].argmax(-1) if forced is None else forced[:, i]
+            picked.append(tok)
+            logits, cache = inference.infer_forward_with_cache(tree, tok[:, None], cfg, cache,
+                                                               use_kernels=use_kernels)
+            steps.append(logits[:, 0])
+        return torch.stack(picked, dim=1), torch.stack(steps[:NEW], dim=1)
+
+    snaps = {}
+
+    def unrolled_loop(use_kernels, forced=None):
+        caches = init_layer_caches(cfg, B, T0 + NEW, kv_bits=8, device=dev)
+        logits, caches, n = inference.infer_forward_unrolled(
+            tree, prompt, cfg, caches, 0, static=static, initial_prefill=True,
+            use_kernels=use_kernels)
+        snaps[use_kernels] = [(c.codes.clone(), c.scales.clone()) for c in caches]
+        steps, picked = [logits[:, -1]], []
+        for i in range(NEW):
+            tok = steps[-1].argmax(-1) if forced is None else forced[:, i]
+            picked.append(tok)
+            logits, caches, n = inference.infer_forward_unrolled(
+                tree, tok[:, None], cfg, caches, n, static=static, use_kernels=use_kernels)
+            steps.append(logits[:, 0])
+        return torch.stack(picked, dim=1), torch.stack(steps[:NEW], dim=1)
+
+    patches = [(inference, "quant_matmul_int8_plain", "out")]
+    a_launches = {}
+    for key, tag, loop, name in (
+            ("with_cache_int8", "(b) infer_forward_with_cache int8", with_cache_loop,
+             "infer_forward_with_cache"),
+            ("unrolled_kv8", "(c) infer_forward_unrolled int8, kv_bits=8", unrolled_loop,
+             "infer_forward_unrolled")):
+        loop(True)  # warm-up
+        timer = CallTimer(inference, name)
+        try:
+            zero_counters()
+            timer.on = True
+            toks, _ = loop(True)
+            timer.on = False
+            launches = read_counters()
+        finally:
+            timer.restore()
+        want = {"quant_matmul_int8": 4 * L * (1 + NEW)}
+        print(f"{tag} main path: {B} x {NEW} tokens; launches {launches}", flush=True)
+        check(launches == want, f"{tag}: launches {launches} == {want} (#10: 48 per call)")
+        check(bool(((toks >= 0) & (toks < V)).all()), f"{tag}: token ids")
+        out[key] = timer.summary(launches)
+        a_launches[key] = launches.get("quant_matmul_int8", 0)
+        lk = loop(True, toks)[1]
+        lp = loop(False, toks)[1]
+        plain_snap = snaps.get(False)
+        lj = jittered_floor(patches, lambda: loop(False, toks)[1], dev)
+        hold_tokens(tag, toks, lk, lp, lj)
+        del lk, lp, lj
+
+    # (c)'s caches after the prefill: the kernel path's and the jittered plain
+    # path's against the plain path's
+    def cache_spread(snap, ref):
+        moved, total, max_scale_rel, per_layer = 0, 0, 0.0, []
+        for i, ((kc, ks), (pc, ps)) in enumerate(zip(snap, ref)):
+            d = (kc.int() - pc.int()).abs()
+            rows_moved = (d > 0).any(dim=-1)
+            rel = ((ks - ps).abs() / ps.abs().clamp(min=1e-30))[..., 0]
+            if bool((~rows_moved).any()):
+                max_scale_rel = max(max_scale_rel, float(rel[~rows_moved].max()))
+            moved += int((d > 0).sum())
+            total += d.numel()
+            per_layer.append({"moved": int((d > 0).sum()), "max_move": int(d.max()),
+                              "max_scale_rel": float(rel.max())})
+        return {"share": moved / total, "max_scale_rel_unmoved_rows": max_scale_rel,
+                "layer0": [per_layer[0], per_layer[1]], "codes": total,
+                "max_move": max(x["max_move"] for x in per_layer)}
+
+    kern_c, floor_c = cache_spread(snaps[True], plain_snap), cache_spread(snaps[False],
+                                                                          plain_snap)
+    l0 = kern_c["layer0"]
+    l0_share = sum(x["moved"] for x in l0) / (2 * plain_snap[0][0].numel())
+    out["kv8_prefill_caches"] = {"kernel": kern_c, "floor": floor_c, "layer0_share": l0_share}
+    print(f"(c) int8 KV caches after the prefill, kernel vs plain: layer 0 (K, V) "
+          f"{[x['moved'] for x in l0]} codes moved (share {l0_share:.3e}, tol "
+          f"{CG_KV_LAYER0_SHARE}), by at most {max(x['max_move'] for x in l0)}, scales within "
+          f"{max(x['max_scale_rel'] for x in l0):.3e} (tol {CG_KV_SCALE_REL}); all {L} layers "
+          f"{kern_c['share']:.3e} of {kern_c['codes']} codes moved, by at most "
+          f"{kern_c['max_move']} (floor {floor_c['share']:.3e}, by at most "
+          f"{floor_c['max_move']}; tol {CG_KV_FLOOR_FACTOR}x floor); rows without a moved "
+          f"code: scales within {kern_c['max_scale_rel_unmoved_rows']:.3e} (tol "
+          f"{CG_KV_SCALE_REL})", flush=True)
+    check(l0_share <= CG_KV_LAYER0_SHARE and all(x["max_move"] <= 1 for x in l0)
+          and all(x["max_scale_rel"] <= CG_KV_SCALE_REL for x in l0),
+          "(c) layer 0's int8 KV codes and scales after the prefill agree with the plain "
+          "path's")
+    check(kern_c["share"] <= CG_KV_FLOOR_FACTOR * floor_c["share"]
+          and kern_c["max_scale_rel_unmoved_rows"] <= CG_KV_SCALE_REL,
+          "(c) the int8 KV caches after the prefill agree with the plain path's within the "
+          "floor")
+
+    # one token step of each path at position T0, profiled
+    tok1 = toks[:, :1]
+    cache_a = init_kv_cache(gcfg, B, T0 + 1, device=dev)
+    _, cache_a = gen_mod.forward_with_cache(params, prompt, prec, gcfg, cache_a)
+    cache_b = init_kv_cache(cfg, B, T0 + 1, device=dev)
+    _, cache_b = inference.infer_forward_with_cache(tree, prompt, cfg, cache_b)
+    caches_c = init_layer_caches(cfg, B, T0 + 1, kv_bits=8, device=dev)
+    inference.infer_forward_unrolled(tree, prompt, cfg, caches_c, 0, static=static)
+    profiles = {
+        "generate": call_profile(lambda: gen_mod.forward_with_cache(
+            params, tok1, prec, gcfg, cache_a)),
+        "with_cache_int8": call_profile(lambda: inference.infer_forward_with_cache(
+            tree, tok1, cfg, cache_b)),
+        "unrolled_kv8": call_profile(lambda: inference.infer_forward_unrolled(
+            tree, tok1, cfg, caches_c, T0, static=static))}
+    for key, prof in profiles.items():
+        out[key]["step_profile"] = prof
+        print(f"{key} token step at position {T0}: wall {prof['wall_ms']:.2f} ms, "
+              f"{prof['cuda_records']} CUDA records, device {prof['device_ms']:.2f} ms "
+              f"(idle share at most {prof['idle_share']:.3f}); dearest {prof['top']}",
+              flush=True)
+    del cache_a, cache_b, caches_c
+
+    # (d) folded against factored, float32 trees
+    trees = {fmt: quantize_for_inference(params, cfg, 8, torch.float32, weight_format="int8",
+                                         lora_format=fmt) for fmt in ("factored", "folded")}
+    for t in trees.values():
+        t.pop("_static")
+    check(all("lora_AB" in trees["folded"]["blocks"][n] and "lora_A"
+              not in trees["folded"]["blocks"][n] for n in LINEARS),
+          "(d) the folded tree holds lora_AB in place of the factors")
+
+    def prefill(fmt):
+        cache = init_kv_cache(cfg, B, T0, device=dev)
+        return infer_forward_with_cache(trees[fmt], prompt, cfg, cache)[0]
+
+    lk, lp = prefill("folded"), prefill("factored")
+    lj = jittered_floor([(inference, "_lora", "out")], lambda: prefill("factored"), dev)
+    agree, rel = agreement(lk, lp)
+    f_agree, f_rel = agreement(lj, lp)
+    print(f"(d) folded vs factored LoRA (float32 trees, prefill logits): argmax agreement "
+          f"{agree:.4f} (floor {f_agree:.4f}, tol floor - {TOKEN_AGREE_MARGIN}); mean abs "
+          f"diff / std {rel:.3e} (floor {f_rel:.3e}, tol {LOGIT_FLOOR_FACTOR}x floor); max "
+          f"abs diff {float((lk - lp).abs().max()):.3e}", flush=True)
+    check(bool(torch.isfinite(lk).all()), "(d) finite logits")
+    check(agree >= f_agree - TOKEN_AGREE_MARGIN and rel <= LOGIT_FLOOR_FACTOR * f_rel,
+          "(d) folded LoRA logits agree with the factored tree's within float rounding")
+    out["folded_vs_factored"] = {"argmax_agreement": agree, "mean_abs_over_std": rel,
+                                 "floor_agreement": f_agree, "floor_mean_abs_over_std": f_rel}
+    del lk, lp, lj, trees
+    print("cached_generate_timings " + json.dumps(out), flush=True)
+    return a_launches
+
+
+def eval_setup(dev):
+    """GPT-2 124M with the evaluation command's quant config (bits 4/8/32,
+    the default kinds, per-channel, rank 64: the fields a checkpoint's
+    metadata carries), random weights from seed 0, LoRA B banks drawn small,
+    weight and input quantizers calibrated as serve_setup does. Returns
+    (cfg, params)."""
+    import torch
+
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.train.calibration_manager import (
+        calibrate_input_quantizers,
+        calibrate_weight_quantizers,
+    )
+
+    cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=(4, 8, 32)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    for lin in LINEARS:
+        lb = params["blocks"][lin]["lora_B"]
+        params["blocks"][lin]["lora_B"] = 0.02 * torch.randn(lb.shape, generator=gen,
+                                                             device=dev)
+    params = calibrate_weight_quantizers(params, cfg)
+    cal = [torch.randint(0, cfg.model.vocab_size, (2, 64), generator=gen, device=dev)
+           for _ in range(3)]
+    return cfg, calibrate_input_quantizers(params, cfg, cal)
+
+
+def eval_forward_profiles(params, cfg, dev):
+    """The evaluation forward at its two shapes, (16, 1024) (a perplexity
+    batch) and (4, 1024) (a four-choice zero-shot example), each profiled
+    by `call_profile`; and #5 on its float32 SIMT route at the batch's
+    attention shape (16, 12, 1024, 64): CUDA-event ms beside its plain
+    version's, SDPA's causal float32 forward on the same operands and the
+    bound (q, k, v, o and the LSE moved once; Q·Kᵀ and P·V over the causal
+    pairs at the float32 peak outside the tensor cores)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.models.sp_model import sp_forward
+    from llm_qat_tpu_torch.ops import attention as att
+
+    prec = cfg.quant.prec_index(8)
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, D, T = cfg.model.n_head, cfg.model.head_dim, cfg.model.n_positions
+    out = {}
+    with torch.no_grad():
+        for B in (16, 4):
+            ids = torch.randint(0, cfg.model.vocab_size, (B, T), generator=g, device=dev)
+            out[f"forward_profile_{B}x{T}"] = call_profile(
+                lambda: sp_forward(params, ids, prec, cfg)["logits"])
+    B = 16
+    q, k, v = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(3))
+    nbytes = (4 * B * H * T * D + B * H * T) * 4
+    flops = 2 * 2 * D * B * H * T * (T + 1) // 2
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    out[f"flash_fwd_lse_simt_{B}x{H}x{T}x{D}"] = {
+        "ms": cuda_ms(lambda: att.flash_fwd_lse(q, k, v), 20),
+        "plain_ms": cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 3, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                              20),
+        "bound_ms": 1e3 * bound,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS
+        else "operations"}
+    for key, val in out.items():
+        print(f"eval {key}: {json.dumps(val)}", flush=True)
+    return out
+
+
+EVAL_SP_FLAGS = ["--max-length", "1024", "--stride", "512", "--synthetic-tasks"]
+EVAL_PPL_REL = 1e-4      # perplexity, kernels against plain versions, relative
+EVAL_TIE = 1e-4          # zero-shot: a choice may differ where the plain top two are this close
+
+
+def eval_sp_phase(dev, card) -> int:
+    """`--eval-sp` (and part of the default run): the calibrated GPT-2 124M
+    saved with the port's `save_per_bit_checkpoints` (sp_4bit.npz,
+    sp_8bit.npz), then `python -m llm_qat_tpu_torch.cli.eval_sp` through
+    `eval_sp.main` on each, offline (the byte tokenizer, the synthetic
+    corpus, `--synthetic-tasks`; the 4-bit file with `--skip-zero-shot`), at
+    `--max-length 1024 --stride 512`: the
+    float32 forward's attention runs #5 on its SIMT route, 12 launches a
+    forward (counters set to 0 just before each run, read just after, and
+    each forward counted). Checks `results.json`'s keys against the JAX
+    command's and a finite perplexity. The 8-bit run again with #5's plain
+    version patched in (as `step_vs_plain` patches): the perplexity within
+    EVAL_PPL_REL, the same zero-shot choices except where the plain run's
+    two best scores are within EVAL_TIE. Prints `eval_sp_timings`. Returns
+    #5's launches in the kernel runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from llm_qat_tpu_torch.cli import eval_sp
+    from llm_qat_tpu_torch.deploy import save_per_bit_checkpoints
+    from llm_qat_tpu_torch.ops import attention as att
+
+    for var in ("HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE", "HF_DATASETS_OFFLINE"):
+        os.environ[var] = "1"
+    cfg, params = eval_setup(dev)
+    prof = eval_forward_profiles(params, cfg, dev)
+    root = tempfile.mkdtemp(prefix="eval_sp_")
+    saved = {n: getattr(eval_sp, n) for n in ("load_switchable_model", "sp_forward",
+                                              "PerplexityEvaluator", "ZeroShotEvaluator")}
+
+    def run(path, tag, plain=False, extra=()):
+        rec = {"forwards": 0, "scores": [], "ppl": []}
+
+        def load(*a, **k):
+            t = time.perf_counter()
+            res = saved["load_switchable_model"](*a, **k)
+            torch.cuda.synchronize()
+            rec["load_s"] = time.perf_counter() - t
+            return res
+
+        def forward(*a, **k):
+            rec["forwards"] += 1
+            return saved["sp_forward"](*a, **k)
+
+        class Perplexity(saved["PerplexityEvaluator"]):
+            def calculate_perplexity(self, seqs):
+                rec["windows"] = len(self.windows(seqs))
+                rec["window_tokens"] = rec["windows"] * self.max_length
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ppl = super().calculate_perplexity(seqs)
+                rec["perplexity_s"] = time.perf_counter() - t
+                rec["ppl"].append(ppl)
+                return ppl
+
+        class ZeroShot(saved["ZeroShotEvaluator"]):
+            def score_choices(self, context, choices):
+                s = super().score_choices(context, choices)
+                rec["scores"].append(s)
+                return s
+
+            def evaluate_all_tasks(self, tasks):
+                t = time.perf_counter()
+                res = super().evaluate_all_tasks(tasks)
+                rec["zero_shot_s"] = time.perf_counter() - t
+                return res
+
+        patches = {"load_switchable_model": load, "sp_forward": forward,
+                   "PerplexityEvaluator": Perplexity, "ZeroShotEvaluator": ZeroShot}
+        kernel = att.flash_fwd_lse
+        for n, f in patches.items():
+            setattr(eval_sp, n, f)
+        if plain:
+            att.flash_fwd_lse = att.flash_fwd_lse_plain
+        zero_counters()
+        try:
+            t = time.perf_counter()
+            results = eval_sp.main(["--model-path", path, "--output-dir",
+                                    os.path.join(root, tag), *EVAL_SP_FLAGS, *extra])
+            rec["total_s"] = time.perf_counter() - t
+            rec["launches"] = read_counters()
+            rec["flash_routes"] = dict(kernel.route_launches)
+        finally:
+            att.flash_fwd_lse = kernel
+            for n, f in saved.items():
+                setattr(eval_sp, n, f)
+        rec["results"] = results
+        return rec
+
+    try:
+        paths = save_per_bit_checkpoints(root, params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        names = sorted(os.path.basename(p) for p in paths.values())
+        check(names == ["sp_4bit.npz", "sp_8bit.npz"], f"per-bit checkpoints {names}")
+        runs = {}
+        # the 4-bit file (the minmax kind) without the zero-shot suite, which
+        # the 8-bit runs take (about 20 s a run)
+        for bits, extra in ((8, ()), (4, ("--skip-zero-shot",))):
+            path = os.path.join(root, f"sp_{bits}bit.npz")
+            r = runs[bits] = run(path, f"k{bits}", extra=extra)
+            n = r["forwards"]
+            print(f"eval_sp {bits}-bit: {n} forwards; launches {r['launches']}; #5 by route "
+                  f"{r['flash_routes']}; perplexity {r['ppl']}; zero-shot "
+                  f"{r['results'].get('zero_shot')}", flush=True)
+            L = cfg.model.n_layer
+            check(n > 0 and r["launches"] == {"flash_fwd_lse": L * n}
+                  and r["flash_routes"] == {"wgmma": 0, "simt": L * n},
+                  f"eval_sp {bits}-bit: #5 ran {L} times per forward, all on SIMT")
+            res = r["results"]
+            with open(os.path.join(root, f"k{bits}", "results.json")) as f:
+                on_disk = json.load(f)
+            keys = {"bit_width", "perplexity", "model_size_gb", "compression_ratio",
+                    "model_size_sweep"} | ({"zero_shot"} if not extra else set())
+            check(set(on_disk) == keys
+                  and on_disk["bit_width"] == bits and set(on_disk["perplexity"]) == {"wikitext2"}
+                  and (extra or set(on_disk["zero_shot"]) == {
+                      "BoolQ", "HellaSwag", "WinoGrande", "ARC-e", "ARC-c", "OBQA", "Average"})
+                  and len(on_disk["model_size_sweep"]) == 13,
+                  f"eval_sp {bits}-bit: results.json has the JAX command's keys")
+            check(len(r["ppl"]) == 1 and math.isfinite(r["ppl"][0]) and r["ppl"][0] > 0,
+                  f"eval_sp {bits}-bit: finite perplexity")
+            check(res["perplexity"]["wikitext2"] == round(r["ppl"][0], 1),
+                  f"eval_sp {bits}-bit: results hold the evaluator's perplexity")
+        kern, plain = runs[8], run(os.path.join(root, "sp_8bit.npz"), "p8", plain=True)
+        check(plain["launches"] == {}, f"eval_sp plain: no kernel launched: {plain['launches']}")
+        ppl_rel = abs(kern["ppl"][0] - plain["ppl"][0]) / plain["ppl"][0]
+        check(len(kern["scores"]) == len(plain["scores"]) > 0, "eval_sp: the same examples")
+        differ = ties = 0
+        max_score_diff = 0.0
+        for sk, sp in zip(kern["scores"], plain["scores"]):
+            fin = np.isfinite(sp)
+            check(bool((np.isfinite(sk) == fin).all()), "eval_sp: the same empty spans")
+            if fin.any():
+                max_score_diff = max(max_score_diff, float(np.abs(sk[fin] - sp[fin]).max()))
+            if int(np.argmax(sk)) != int(np.argmax(sp)):
+                top = np.sort(sp[fin])[::-1]
+                tie = len(top) > 1 and top[0] - top[1] <= EVAL_TIE
+                ties += tie
+                differ += not tie
+        print(f"eval_sp 8-bit, kernels vs plain versions: perplexity {kern['ppl'][0]!r} vs "
+              f"{plain['ppl'][0]!r} (relative {ppl_rel:.3e}, tol {EVAL_PPL_REL}); "
+              f"{len(kern['scores'])} zero-shot examples, choice scores within "
+              f"{max_score_diff:.3e}, {ties} choices moved at a tie (plain top two within "
+              f"{EVAL_TIE}), {differ} elsewhere (tol 0)", flush=True)
+        check(ppl_rel <= EVAL_PPL_REL, "eval_sp: perplexity agrees with the plain versions'")
+        check(differ == 0, "eval_sp: the same zero-shot choices as the plain versions'")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"card": card, "flags": EVAL_SP_FLAGS}
+    for tag, r in (("k8", runs[8]), ("k4", runs[4]), ("p8", plain)):
+        out[tag] = {k: r.get(k) for k in ("load_s", "perplexity_s", "windows",
+                                          "window_tokens", "zero_shot_s", "total_s",
+                                          "forwards", "launches", "flash_routes")}
+        out[tag]["window_tokens_per_s"] = r["window_tokens"] / r["perplexity_s"]
+        out[tag]["perplexity"] = r["ppl"][0]
+        out[tag]["zero_shot"] = r["results"].get("zero_shot")
+    out["perplexity_rel_diff_kernel_vs_plain"] = ppl_rel
+    out.update(prof)
+    print("eval_sp_timings " + json.dumps(out), flush=True)
+    return sum(runs[b]["launches"].get("flash_fwd_lse", 0) for b in (8, 4))
+
+
 def main() -> int:
     import argparse
 
@@ -3158,6 +3780,12 @@ def main() -> int:
                     help="only hold, sweep and time the fused decode layer #12/#13")
     ap.add_argument("--main-sp", action="store_true",
                     help="only run the SP command line at GPT-2 124M, T = 1024")
+    ap.add_argument("--cached-generate", action="store_true",
+                    help="only run the KV-cached generation paths (may be combined with "
+                         "--eval-sp)")
+    ap.add_argument("--eval-sp", action="store_true",
+                    help="only run the SP evaluation command at T = 1024 (may be combined "
+                         "with --cached-generate)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3209,6 +3837,15 @@ def main() -> int:
         return fused_decode_phase(dev)
     if args.main_sp:
         return main_sp_phase(dev, card)
+    if args.cached_generate or args.eval_sp:
+        if args.cached_generate:
+            cfg, params, gen = serve_setup(dev)
+            cached_generate_phase(params, cfg, dev, gen, card)
+            del params
+            torch.cuda.empty_cache()
+        if args.eval_sp:
+            eval_sp_phase(dev, card)
+        return 0
     for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention",
                 "mega_decode", "fused_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
@@ -3321,7 +3958,12 @@ def main() -> int:
     a_launches, _ = int8_engine_path(params, cfg, dev, B, gen)
     b_launches, _ = fused_decode_path(params, cfg, dev, B, gen)
 
-    # 4c. training: kernels #14-#16 against their plain versions at the
+    # 4c. KV-cached generation (generate, infer_forward_with_cache, the int8
+    #     KV cache, the folded LoRA) and the SP evaluation command
+    cg_launches = cached_generate_phase(params, cfg, dev, gen, card)
+    eval_launches = eval_sp_phase(dev, card)
+
+    # 4d. training: kernels #14-#16 against their plain versions at the
     #     GPT-2 linear shapes, then the flat and the fused main paths from
     #     the same calibrated parameters, each with one step against the
     #     same step on its kernels' plain versions
@@ -3508,11 +4150,16 @@ def main() -> int:
              ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"])):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
+        # #5 also runs in the evaluation command (float32, SIMT route)
+        by_path = {"train": tlaunch[name]}
+        if name == "flash_fwd_lse":
+            by_path["eval_sp"] = eval_launches
         kernels.append({
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"llm_qat_tpu/ops/attention.py:{line}",
-            "launches": tlaunch[name], "max_abs_err": errs[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": errs[name],
             "ms": tt[f"{name}_ms"], "plain_ms": tt[f"{name}_plain_ms"],
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
@@ -3561,7 +4208,8 @@ def main() -> int:
     # kernels #9-#13: #10/#11 per layer (four linears) at a decode step's
     # M = 8; #9 at path B's cache, #12/#13 one layer
     new_launches = {"decode_attention": b_launches["decode_attention"],
-                    "quant_matmul_int8": a_launches["quant_matmul_int8"],
+                    "quant_matmul_int8": (a_launches["quant_matmul_int8"]
+                                          + sum(cg_launches.values())),
                     "quant_matmul_int4": int4_launches["quant_matmul_int4"],
                     "fused_ln_qkv": b_launches["fused_ln_qkv"],
                     "fused_post_attention": b_launches["fused_post_attention"]}
@@ -3580,6 +4228,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t_["ms"], "plain_ms": t_["plain_ms"],
             "bound_ms": t_["bound_ms"], "bound_by": t_["bound_by"],
             "library_ms": t_["library_ms"]})
+        if name == "quant_matmul_int8":
+            kernels[-1]["launches_by_path"] = {"path_a": a_launches["quant_matmul_int8"],
+                                               **cg_launches}
     check(len(kernels) == 16, "the kernels line has a row for each of the 16 kernels")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

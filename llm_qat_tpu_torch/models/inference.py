@@ -1,15 +1,16 @@
 """Inference path: weights pre-quantized once, prefill, decode.
 
-Counterpart of `llm_qat_tpu/models/inference.py` for the serving slices:
+Counterpart of `llm_qat_tpu/models/inference.py`:
 `quantize_for_inference` (dense, `int8`, `int8_xla` and `int4_xla` weight
-formats, int4/int8 LM head, factored LoRA with int8 codes), the forward
-`infer_forward_unrolled` over dense or packed caches (flash prefill
-branch; single-token steps on packed caches through the
-`decode_attention_hbm` kernel; the `int8` format's linears through
-`quant_matmul`; the decode options `fused_attention` and `fused_linears`
-through `decode_attention` and the fused int8 decode layer), `_lm_head`,
-and `InferenceEngine` with `kv_layout` "dense", "packed" and "mega" (KV 16,
-8 or 4 bits).
+formats, int4/int8 LM head, factored LoRA with int8 codes or the folded
+`lora_AB`), the forward `infer_forward_unrolled` over dense, packed or
+int8 (`QuantizedKV`) caches (flash prefill branch; single-token steps on
+packed caches through the `decode_attention_hbm` kernel; the `int8`
+format's linears through `quant_matmul`; the decode options
+`fused_attention` and `fused_linears` through `decode_attention` and the
+fused int8 decode layer), `infer_forward_with_cache` over the stacked
+`KVCache` of `models/generate.py`, `_lm_head`, and `InferenceEngine` with
+`kv_layout` "dense", "packed" and "mega" (KV 16, 8 or 4 bits).
 
 Integer dots (`_int4_dot`, `_int8_dot`, the int4/int8 head) are exact: the
 codes go through float32 matmuls in K-chunks small enough that every
@@ -20,7 +21,6 @@ plain PyTorch version on the CPU. Caches are updated in place.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -44,6 +44,12 @@ from ..ops.fused_decode import (
     fused_post_attention,
     fused_post_attention_plain,
 )
+from ..ops.kv_cache import (
+    QuantizedKV,
+    append_rows,
+    attention_with_quantized_kv,
+    init_quantized_kv,
+)
 from ..ops.mega_decode import (
     exact_int_matmul,
     mega_decode_step,
@@ -61,10 +67,8 @@ from ..quant.functional import (
     fake_quant,
 )
 from .config import SPModelConfig
-from .generate import _filter_logits
+from .generate import KVCache, _filter_logits, cached_attention, embed_positions, update_rows
 from .sp_model import _layer, prec_tables
-
-NEG_INF = -1e30
 
 
 class StaticMeta(NamedTuple):
@@ -130,10 +134,14 @@ def _int4_dot(x, w_i4, w_s, x_s, qmax=7.0):
 def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
                            dtype=torch.bfloat16, weight_format: str = "dense",
                            lm_head_int8: bool = False,
-                           lm_head_bits: int = None) -> Dict[str, Any]:
+                           lm_head_bits: int = None,
+                           lora_format: str = "factored") -> Dict[str, Any]:
     """Materialize a single-precision inference tree (same keys and layouts
     as the JAX package's). `lm_head_int8` is the older spelling of
-    `lm_head_bits=8`."""
+    `lm_head_bits=8`. `lora_format="factored"` keeps the rank factors
+    `lora_A` and `lora_B` (scaling folded into B; int8 codes of both where
+    the grid is minmax-symmetric); "folded" stores the one (in, out) matrix
+    `lora_AB` = scaling · Aq @ Bq in `dtype` instead."""
     if lm_head_bits is None and lm_head_int8:
         lm_head_bits = 8
     q = cfg.quant
@@ -146,6 +154,8 @@ def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
     minmax_sym = q.symmetric and q.kind_name(bits) == "minmax"
     if weight_format not in ("dense", "int8", "int8_xla", "int4_xla"):
         raise ValueError(f"unknown weight_format {weight_format!r}")
+    if lora_format not in ("factored", "folded"):
+        raise ValueError(f"unknown lora_format {lora_format!r}")
 
     def codes_of(wq, ws):
         return torch.round(wq / torch.clamp(ws[:, None, :], min=1e-12)).to(torch.int8)
@@ -198,6 +208,9 @@ def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
                                           q.eps, batch_dims=1)
             Aq = fake_quant(A, a_s, a_z, bits_t, kind_t, q.symmetric, q.eps)
             Bq = fake_quant(B, b_s, b_z, bits_t, kind_t, q.symmetric, q.eps)
+            if lora_format == "folded":
+                out["lora_AB"] = (scaling * torch.einsum("lir,lro->lio", Aq, Bq)).to(dtype)
+                return out
             out["lora_A"] = Aq.to(dtype)
             out["lora_B"] = (scaling * Bq).to(dtype)
             if minmax_sym and bits <= 8:
@@ -254,11 +267,15 @@ def quantize_for_inference(params, cfg: SPModelConfig, bits: int,
 
 
 def _lora_branch(x, lin):
-    """LoRA epilogue on the raw input, x@Aq@(scaling·Bq). Operands round to
-    the bank dtype; products accumulate in float32."""
-    if "lora_A" not in lin:
-        return 0.0
-    return _lora(x, lin["lora_A"], lin["lora_B"])
+    """LoRA epilogue on the raw input: factored x@Aq@(scaling·Bq), or the
+    folded (in, out) matrix. Operands round to the bank dtype; products
+    accumulate in float32."""
+    if "lora_A" in lin:
+        return _lora(x, lin["lora_A"], lin["lora_B"])
+    if "lora_AB" in lin:
+        ab = lin["lora_AB"]
+        return torch.matmul(x.to(ab.dtype).to(torch.float32), ab.to(torch.float32))
+    return 0.0
 
 
 def _infer_linear(x, lin, cfg: SPModelConfig, quantize_input: bool,
@@ -311,7 +328,8 @@ def init_layer_caches(cfg: SPModelConfig, batch: int, max_len: int,
     """Per-layer KV caches as a flat tuple (k0, v0, k1, v1, ...) of `dtype`:
     (B, H, T, head_dim), or with `kv_layout="packed"` (B, H, T/P, P·head_dim)
     with P = `kv_pack_factor(head_dim)` timesteps per 128-lane row and T
-    rounded up to a multiple of max(8·P, 128)."""
+    rounded up to a multiple of max(8·P, 128). `kv_bits=8` (dense layout)
+    gives `QuantizedKV` pairs: int8 codes with a float32 scale per row."""
     if kv_layout == "packed":
         m = cfg.model
         P = kv_pack_factor(m.head_dim)
@@ -321,12 +339,11 @@ def init_layer_caches(cfg: SPModelConfig, batch: int, max_len: int,
         dev = resolve_device(device)
         return tuple(torch.zeros(shape, dtype=dtype, device=dev)
                      for _ in range(2 * m.n_layer))
-    if kv_bits == 8:
-        raise NotImplementedError(
-            "the unfused int8 KV cache (ops/kv_cache.py) is not yet ported "
-            "(ROADMAP queue A); use kv_layout='mega' with kv_bits=8")
     m = cfg.model
     dev = resolve_device(device)
+    if kv_bits == 8:
+        return tuple(init_quantized_kv(batch, m.n_head, max_len, m.head_dim, device=dev)
+                     for _ in range(2 * m.n_layer))
     shape = (batch, m.n_head, max_len, m.head_dim)
     return tuple(torch.zeros(shape, dtype=dtype, device=dev)
                  for _ in range(2 * m.n_layer))
@@ -360,10 +377,13 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
                            fused_linears: bool = False,
                            initial_prefill: bool = False,
                            use_kernels: bool = True):
-    """Forward over dense or packed per-layer caches, layers unrolled.
+    """Forward over dense, packed or int8 per-layer caches, layers unrolled.
 
     Writes the new K/V rows into `caches` in place at [length, length+S).
-    Returns (logits, caches, length + S). `initial_prefill` with S >= 128
+    Returns (logits, caches, length + S). On `QuantizedKV` caches
+    (`init_layer_caches(kv_bits=8)`) every segment, a prefill included,
+    appends its quantized rows and attends through
+    `attention_with_quantized_kv`, as in JAX. `initial_prefill` with S >= 128
     and head_dim 64/128 takes the flash kernel for attention. On packed
     caches (`init_layer_caches(kv_layout="packed")`) a single token goes
     through `decode_attention_hbm`; a longer segment must start and end on
@@ -382,8 +402,8 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
     start = int(length)
     D = m.head_dim
     P = kv_pack_factor(D)
-    packed = P > 1 and caches[0].shape[-1] == P * D
-    T_max = P * caches[0].shape[2] if packed else caches[0].shape[2]
+    quant_kv = isinstance(caches[0], QuantizedKV)
+    packed = not quant_kv and P > 1 and caches[0].shape[-1] == P * D
     if packed and S > 1 and (start % P or S % P):
         raise ValueError(f"a packed-cache segment must start and end on a "
                          f"multiple of {P}; got [{start}, {start + S})")
@@ -411,7 +431,11 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
         qh, kh, vh = (t.reshape(B, S, m.n_head, m.head_dim).permute(0, 2, 1, 3)
                       for t in torch.split(qkv, m.n_embd, dim=-1))
         kc, vc = caches[2 * li], caches[2 * li + 1]
-        if packed and S == 1:
+        if quant_kv:
+            append_rows(kc, kh, start)
+            append_rows(vc, vh, start)
+            attn = attention_with_quantized_kv(qh, kc, vc, start, S, m.n_positions)
+        elif packed and S == 1:
             step = decode_attention_hbm if use_kernels else decode_attention_hbm_plain
             attn = step(qh, kh, vh, kc, vc, start)[0]
         elif fused_attention and S == 1 and not packed:
@@ -424,15 +448,7 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
             _write_rows(kc, vc, kh, vh, start, P if packed else 1)
             if packed:
                 kc, vc = unpack_kv(kc, D), unpack_kv(vc, D)
-            scale = 1.0 / math.sqrt(m.head_dim)
-            scores = torch.einsum("bhsd,bhtd->bhst", qh.to(f32), kc.to(f32)) * scale
-            q_pos = start + torch.arange(S, device=h.device)[:, None]
-            k_pos = torch.arange(T_max, device=h.device)[None, :]
-            scores = torch.where((k_pos <= q_pos)[None, None], scores,
-                                 torch.full_like(scores, NEG_INF))
-            probs = torch.softmax(scores, dim=-1).to(vc.dtype)
-            attn = torch.einsum("bhst,bhtd->bhsd", probs.to(f32),
-                                vc.to(f32)).to(vc.dtype)
+            attn = cached_attention(qh, kc, vc, start)
         if use_fused:
             x_s = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
             h = post(attn.permute(0, 2, 1, 3).reshape(B, -1).to(f32), h2d,
@@ -447,6 +463,46 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
 
     h = _ln(h, iparams["ln_f"]["g"], iparams["ln_f"]["b"], eps)
     return _lm_head(iparams, h), caches, start + S
+
+
+@torch.no_grad()
+def infer_forward_with_cache(iparams, input_ids, cfg: SPModelConfig, cache: KVCache, *,
+                             quantize_input: bool = True, use_kernels: bool = True):
+    """KV-cached forward over the pre-quantized tree, on the stacked
+    `KVCache` of `models/generate.py` (the cache's dtype; float32 from
+    `init_kv_cache`). Returns (logits (B, S, V) float32, the cache written
+    in place with its length advanced by S).
+
+    The JAX function's rounding points: h in the tree's `wte` dtype, the
+    attention output and each linear's output cast to it; its mask is
+    k_pos <= q_pos. Activation quantization takes the tree's `_bits` and
+    `_kind`. A `w_int8` tree's linears run kernel #10 on the card
+    (`use_kernels=False`: its plain version), its reference on the CPU;
+    the LM head is the tied float `wte` product, as in JAX."""
+    m = cfg.model
+    bits, kind = iparams["_bits"], iparams["_kind"]
+    B, S = input_ids.shape
+    start = int(cache.length)
+    wte = iparams["wte"]
+    h = wte[input_ids] + embed_positions(iparams["wpe"], start, S)[None].to(wte.dtype)
+    lin = lambda x, p: _infer_linear(x, p, cfg, quantize_input, None, bits, kind,
+                                     use_kernels)
+    eps = m.layer_norm_epsilon
+    for li in range(m.n_layer):
+        bp = _layer(iparams["blocks"], li)
+        qkv = lin(_ln(h, bp["ln1"]["g"], bp["ln1"]["b"], eps), bp["c_attn"])
+        qh, kh, vh = (t.reshape(B, S, m.n_head, m.head_dim).permute(0, 2, 1, 3)
+                      for t in torch.split(qkv, m.n_embd, dim=-1))
+        attn = cached_attention(qh, update_rows(cache.k[li], kh, start),
+                                update_rows(cache.v[li], vh, start), start)
+        attn = attn.permute(0, 2, 1, 3).reshape(B, S, -1).to(h.dtype)
+        h = h + lin(attn, bp["attn_proj"]).to(h.dtype)
+        h2 = _ln(h, bp["ln2"]["g"], bp["ln2"]["b"], eps)
+        fc = F.gelu(lin(h2, bp["c_fc"])).to(h.dtype)  # exact erf
+        h = h + lin(fc, bp["mlp_proj"]).to(h.dtype)
+    h = _ln(h, iparams["ln_f"]["g"], iparams["ln_f"]["b"], eps)
+    logits = torch.matmul(h.to(torch.float32), wte.to(torch.float32).T)
+    return logits, KVCache(k=cache.k, v=cache.v, length=start + S)
 
 
 def head_planes(iparams):

@@ -11,6 +11,7 @@ need not have.)
 """
 
 import ctypes
+import math
 
 import pytest
 import torch
@@ -1468,3 +1469,97 @@ def test_int8_and_fused_decode_paths_run_their_kernels(cuda_device):
     assert bool(torch.isfinite(lk).all())
     assert err.mean() <= 0.12 * lp.std()
     assert (lk.argmax(-1) == lp.argmax(-1)).float().mean() >= 0.8
+
+
+def test_infer_forward_with_cache_runs_quant_matmul(cuda_device):
+    """`infer_forward_with_cache` on a `weight_format="int8"` tree of a
+    12-layer model: #10 once per linear and layer, 48 launches a call (a
+    16-token prefill and 3 decode steps), none with `use_kernels=False`.
+    Each call's logits against the plain path's from the same cache: #10
+    and its plain version differ by the order of float32 sums, so a row is
+    within 1e-5 of max |plain| unless an activation code moved on a
+    rounding boundary upstream; at least 90 % of the rows are, and every
+    row is within 2e-2 (the decode steps' rule, chip_smoke.py)."""
+    from llm_qat_tpu_torch.models.generate import init_kv_cache
+    from llm_qat_tpu_torch.models.inference import infer_forward_with_cache
+    from llm_qat_tpu_torch.ops import quant_matmul as qm
+
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=64, n_embd=128, n_layer=12,
+                            n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 8, 32), quantizer_per_bit={8: "minmax"},
+                             per_channel=False),
+        compute_dtype="bfloat16")
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    p = init_sp_params(g, cfg, device=cuda_device)
+    for lin in ("c_attn", "attn_proj", "c_fc", "mlp_proj"):
+        lb = p["blocks"][lin]["lora_B"]
+        p["blocks"][lin]["lora_B"] = 0.02 * torch.randn(lb.shape, generator=g,
+                                                        device=cuda_device)
+    p = calibrate_weight_quantizers(p, cfg)
+    p = calibrate_input_quantizers(
+        p, cfg, [torch.randint(0, 512, (2, 32), generator=g, device=cuda_device)
+                 for _ in range(2)])
+    tree = quantize_for_inference(p, cfg, 8, weight_format="int8")
+    tree.pop("_static")
+    ids = torch.randint(0, 512, (2, 19), generator=g, device=cuda_device)
+    caches = {k: init_kv_cache(cfg, 2, 19, device=cuda_device) for k in (True, False)}
+    rows_tight, rows = 0, 0
+    for a, b in ((0, 16), (16, 17), (17, 18), (18, 19)):
+        out = {}
+        for use_kernels in (True, False):
+            before = qm.quant_matmul_int8.launches
+            out[use_kernels], caches[use_kernels] = infer_forward_with_cache(
+                tree, ids[:, a:b], cfg, caches[use_kernels], use_kernels=use_kernels)
+            torch.cuda.synchronize()
+            assert qm.quant_matmul_int8.launches - before == (48 if use_kernels else 0)
+        lk, lp = out[True], out[False]
+        assert bool(torch.isfinite(lk).all())
+        err = (lk - lp).abs().amax(dim=-1).flatten() / lp.abs().max()
+        rows_tight += int((err <= 1e-5).sum())
+        rows += err.numel()
+        assert float(err.max()) <= 2e-2, (a, b, float(err.max()))
+    print(f"with-cache rows within 1e-5: {rows_tight} of {rows}")
+    assert rows_tight >= 0.9 * rows
+
+
+def test_perplexity_batch_runs_flash_simt(cuda_device):
+    """`sp_forward` at T = 1024 in float32 (the evaluation command's config)
+    inside a `PerplexityEvaluator` batch: #5 once per layer and forward, all
+    on the SIMT route; the perplexity within 1e-5 relative of the one with
+    #5's plain version patched in."""
+    from llm_qat_tpu_torch.evals import PerplexityEvaluator
+    from llm_qat_tpu_torch.ops import attention as att
+
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=1024, n_embd=128, n_layer=2,
+                            n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 8, 32)))
+    assert cfg.compute_dtype == "float32"
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    p = init_sp_params(g, cfg, device=cuda_device)
+    p = calibrate_weight_quantizers(p, cfg)
+    p = calibrate_input_quantizers(
+        p, cfg, [torch.randint(0, 512, (2, 64), generator=g, device=cuda_device)])
+    calls = []
+
+    def logits_fn(ids):
+        calls.append(tuple(ids.shape))
+        return sp_forward(p, ids, 1, cfg)["logits"]
+
+    cpu_g = torch.Generator().manual_seed(5)
+    docs = [torch.randint(0, 512, (n,), generator=cpu_g).numpy() for n in (2100, 700)]
+    ev = PerplexityEvaluator(logits_fn, 1024, 512, batch_size=2, device=cuda_device)
+    att.flash_fwd_lse.launches = 0
+    att.flash_fwd_lse.route_launches.update(wgmma=0, simt=0)
+    ppl = ev.calculate_perplexity(docs)
+    launches = att.flash_fwd_lse.launches
+    assert calls and all(c == (2, 1024) for c in calls)
+    assert launches == 2 * len(calls) == att.flash_fwd_lse.route_launches["simt"]
+    kernel = att.flash_fwd_lse
+    try:
+        att.flash_fwd_lse = att.flash_fwd_lse_plain
+        plain = ev.calculate_perplexity(docs)
+    finally:
+        att.flash_fwd_lse = kernel
+    assert math.isfinite(ppl) and abs(ppl - plain) <= 1e-5 * plain, (ppl, plain)

@@ -73,16 +73,28 @@ def test_greedy_generate_matches_jax_engine(calibrated, kv_layout, kv_bits, prom
 
 
 def test_engine_refuses_unported_layouts_and_overlong_requests(calibrated):
-    """What still raises: the unfused int8 KV cache on the dense layout
-    (`ops/kv_cache.py`, not yet ported), KV8 / KV4 outside the mega layout,
-    an unknown layout, and requests past max_len. "auto" picks the dense
-    layout on the CPU."""
-    _, tcfg, _, tp = calibrated
+    """What raises: KV8 / KV4 outside the mega layout (the engine, as the
+    JAX engine does, even though `init_layer_caches(kv_bits=8)` gives the
+    unfused int8 caches: 2·L `QuantizedKV`s of JAX's shapes), an unknown
+    layout, and requests past max_len. "auto" picks the dense layout on the
+    CPU."""
+    from llm_qat_tpu.models.inference import init_layer_caches as j_init
+    from llm_qat_tpu_torch.ops.kv_cache import QuantizedKV
+
+    jcfg, tcfg, _, tp = calibrated
     kw = dict(bits=4, weight_format="int4_xla", device="cpu")
     eng = TEngine(tp, tcfg, **kw)
     assert eng.kv_layout == "dense"
-    with pytest.raises(NotImplementedError, match="kv_cache"):
-        init_layer_caches(tcfg, 1, 16, kv_bits=8, device="cpu")
+    got, want = init_layer_caches(tcfg, 1, 16, kv_bits=8, device="cpu"), j_init(jcfg, 1, 16,
+                                                                                 kv_bits=8)
+    assert len(got) == len(want) == 2 * tcfg.model.n_layer
+    for g, w in zip(got, want):
+        assert isinstance(g, QuantizedKV)
+        assert (g.codes.dtype, g.scales.dtype) == (torch.int8, torch.float32)
+        assert (tuple(g.codes.shape), tuple(g.scales.shape)) == (w.codes.shape, w.scales.shape)
+        assert not g.codes.any() and not g.scales.any()
+    with pytest.raises(ValueError, match="requires kv_layout='mega'"):
+        TEngine(tp, tcfg, kv_bits=8, **kw)
     with pytest.raises(ValueError, match="requires kv_layout='mega'"):
         TEngine(tp, tcfg, kv_bits=4, **kw)
     with pytest.raises(ValueError, match="unknown kv_layout"):

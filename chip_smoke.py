@@ -3170,6 +3170,488 @@ def main_sp_phase(dev, card: str) -> int:
     return 0
 
 
+# The CPT command line at GPT-2 124M (float32, as the JAX command), offline:
+# the command's defaults but for these flags, the PRT on.
+MAIN_CPT_FLAGS = ["--max-seq-length", "256", "--batch-size", "8", "--total-epochs", "4",
+                  "--total-cycles", "2"]
+# Documents of the 80,000-document offline corpus the train windows are cut
+# from: 14 give 67 windows of 256 bytes, 8 batches of 8 an epoch (the
+# validation windows, which main_cpt never reads, from as many).
+MAIN_CPT_DOCS = 14
+EVAL_CPT_FLAGS = ["--max-length", "1024", "--stride", "512"]
+# The SQuAD command line at its defaults (GPT-2 124M, T = 384, stride 128,
+# B = 16, accum 4, bits 7/32, float32) but for 4 iterations, on 256 of the
+# offline synthetic examples.
+MAIN_SQUAD_FLAGS = ["--num-iterations", "4"]
+MAIN_SQUAD_EXAMPLES = 256
+
+
+def no_kernel(tag, fn, *a, **k):
+    """fn(*a, **k) with every kernel's counter set to 0 just before and read
+    just after; raises if any kernel ran (the JAX CPT and QA paths run no
+    Pallas kernel: a launch would be a silent flash or fused route)."""
+    zero_counters()
+    out = fn(*a, **k)
+    ran = read_counters()
+    check(not ran, f"{tag}: launched {ran}; the path runs no kernel")
+    return out
+
+
+def synced_ms(fn, *a, **k):
+    """(fn(*a, **k), host ms around it, synchronised on both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _patched(module, patches):
+    """Sets `module`'s attributes from `patches`; returns the old values."""
+    saved = {name: getattr(module, name) for name in patches}
+    for name, fn in patches.items():
+        setattr(module, name, fn)
+    return saved
+
+
+def step_hold(tag, run_step, trainable, jitter_patches, failures):
+    """One train step on the card against the same step on the CPU, from
+    the same parameters, batch and draws (`run_step(device)` -> (metrics,
+    {path: update})), held against the floor the CPU step sets against
+    itself under 2^-22 jitter at `jitter_patches` (`jittered_floor`, the
+    largest of FLOOR_DRAWS draws): loss, grad_norm and the relative L2 of
+    the update over the trainable leaves, each within TRAIN_FLOOR_FACTOR
+    times the floor's. Every kernel counter reads 0 across the card step."""
+    import torch
+
+    card = no_kernel(f"{tag} step on the card", run_step, torch.device("cuda"))
+    cpu = run_step(torch.device("cpu"))
+
+    def diffs(x):
+        out = {k: abs(float(x[0][k]) - float(cpu[0][k])) / abs(float(cpu[0][k]))
+               for k in ("loss", "grad_norm")}
+        num = math.sqrt(sum(float(((x[1][p].cpu() - cpu[1][p]) ** 2).sum()) for p in trainable))
+        den = math.sqrt(sum(float((cpu[1][p] ** 2).sum()) for p in trainable))
+        out["update"] = num / den
+        return out
+
+    got = diffs(card)
+    each = [diffs(jittered_floor(jitter_patches, lambda: run_step(torch.device("cpu")),
+                                 torch.device("cpu"), seed=s))
+            for s in range(1, FLOOR_DRAWS + 1)]
+    base = {k: max(d[k] for d in each) for k in got}
+    print(f"{tag} train step card vs CPU (relative): "
+          + "; ".join(f"{k} {got[k]:.3e} (floor {base[k]:.3e}, draws "
+                      + " ".join(f"{d[k]:.2e}" for d in each)
+                      + f", tol {TRAIN_FLOOR_FACTOR}x floor)" for k in got)
+          + f"; card {float(card[0]['loss'])!r} / {float(card[0]['grad_norm'])!r}, "
+          f"CPU {float(cpu[0]['loss'])!r} / {float(cpu[0]['grad_norm'])!r}", flush=True)
+    check(all(math.isfinite(float(x[0][k])) for x in (card, cpu) for k in ("loss", "grad_norm")),
+          f"{tag}: finite loss and grad_norm")
+    for k in got:
+        if not got[k] <= TRAIN_FLOOR_FACTOR * base[k]:
+            failures.append(f"{tag} train step {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
+    return {"card_vs_cpu": got, "floor": base}
+
+
+def cpt_step_hold(failures):
+    """One CPT train step at GPT-2 width with 2 layers, B = 2, T = 128, at
+    the 5-bit log slot with the LoRA gradients quantized, on the card and
+    on the CPU (`step_hold`); the floor jitters every quantizer input and
+    every product's left operand. The parameters: random from seed 0,
+    lora_B N(0, 0.02²), calibrated at 5 bits and for the gradient
+    quantizers on the card, then copied to the CPU."""
+    import torch
+
+    from llm_qat_tpu_torch.models import cpt_model
+    from llm_qat_tpu_torch.models.config import CPTConfig, GPT2Config
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.cpt_trainer import (
+        CPTCalibrationManager,
+        cpt_trainable_mask,
+        make_cpt_train_step,
+    )
+
+    cfg = CPTConfig(model=GPT2Config(n_layer=2))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cpt_model.init_cpt_params(gen, cfg, device=dev)
+    for lin in [params["blocks"][n] for n in LINEARS] + [params["lm_head"]]:
+        lin["lora_B"] = 0.02 * torch.randn(lin["lora_B"].shape, generator=gen, device=dev)
+    ids = torch.randint(0, cfg.model.vocab_size, (2, 128), generator=gen, device=dev)
+    mgr = CPTCalibrationManager(cfg, 2)
+    params = mgr.calibrate_gradient_quantizers(params, ids)
+    params = mgr.ensure_calibrated(params, 5, [ids])
+    on = {d: optim.replace_leaves(params, {p: v.to(d) for p, v in optim.leaves_with_paths(params)})
+          for d in ("cuda", "cpu")}
+    slot = cpt_model.prec_index(cfg, 5)
+    trainable = [p for p, m in optim.leaves_with_paths(cpt_trainable_mask(params)) if m]
+
+    def run_step(d):
+        init_state, step = make_cpt_train_step(cfg, learning_rate=1e-4, total_steps=10)
+        state = init_state(on[d.type])
+        new, m = step(state, ids.to(d), slot)
+        return m, {p: optim.get_leaf(new["params"], p) - optim.get_leaf(on[d.type], p)
+                   for p in trainable}
+
+    return step_hold("cpt", run_step, trainable,
+                     [(cpt_model, "fake_quant", "in"), (cpt_model, "matmul_bf16", "in")],
+                     failures)
+
+
+def qa_step_hold(failures):
+    """One QA train step (`make_squad_train_step`, accum 4: the teacher and
+    three students) at GPT-2 width with 2 layers, B = 2, T = 128 (windows of
+    the synthetic SQuAD set), bits 7/32 (7: log), on the card and on the
+    CPU (`step_hold`), with the same student slots, feature layers and
+    dropout uniforms given to both; the floor jitters every quantizer input
+    and every product's left operand of the SP trunk."""
+    import torch
+
+    from llm_qat_tpu_torch.data.squad import OffsetByteTokenizer, SQuADDataset, synthetic_squad
+    from llm_qat_tpu_torch.models import sp_model
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig, TrainConfig
+    from llm_qat_tpu_torch.models.qa import init_qa_params
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+    from llm_qat_tpu_torch.train.sp_trainer import trainable_paths
+    from llm_qat_tpu_torch.train.squad_trainer import make_squad_train_step
+
+    cfg = SPModelConfig(model=GPT2Config(n_layer=2), quant=QuantConfig(bit_widths=(7, 32)))
+    tcfg = TrainConfig(batch_size=2, learning_rate=3e-5, num_iterations=4,
+                       gradient_accumulation_steps=4)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_qa_params(gen, cfg, device=dev)
+    for n in LINEARS:
+        b = params["blocks"][n]["lora_B"]
+        params["blocks"][n]["lora_B"] = 0.02 * torch.randn(b.shape, generator=gen, device=dev)
+    ds = SQuADDataset(synthetic_squad(8), OffsetByteTokenizer(), 128, 128)
+    batch = next(ds.batches(2))
+    cal = [torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)]
+    params = CalibrationManager(cfg, 1).calibrate_all_precisions(params, cal)
+    on = {d: optim.replace_leaves(params, {p: v.to(d) for p, v in optim.leaves_with_paths(params)})
+          for d in ("cuda", "cpu")}
+    draws = torch.Generator().manual_seed(1)
+    uniforms = [torch.rand((2, 128, cfg.model.n_embd), generator=draws) for _ in range(4)]
+    trainable = trainable_paths(params)
+
+    def run_step(d):
+        init_state, step = make_squad_train_step(cfg, tcfg)
+        state = init_state(on[d.type])
+        tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items() if k != "example_ids"}
+        tb["input_ids"] = tb["input_ids"].long()
+        new, m = step(state, tb, torch.Generator(device=d).manual_seed(2), precs=[0, 0, 0],
+                      layers=[0, 1, 2], uniforms=[u.to(d) for u in uniforms])
+        return m, {p: optim.get_leaf(new.params, p) - optim.get_leaf(on[d.type], p)
+                   for p in trainable}
+
+    return step_hold("qa", run_step, trainable,
+                     [(sp_model, "fake_quant_flat", "in"), (sp_model, "matmul_bf16", "in")],
+                     failures)
+
+
+def main_cpt_phase(dev, card) -> int:
+    """`--main-cpt` (and part of the default run): `python -m
+    llm_qat_tpu_torch.cli.main_cpt` through `main_cpt.main` at GPT-2 124M
+    (float32), offline, at MAIN_CPT_FLAGS with the PRT on, its train windows
+    cut from MAIN_CPT_DOCS documents (8 batches an epoch); then
+    `eval_cpt.main` on the saved checkpoint at EVAL_CPT_FLAGS, and again
+    with `--bits` at a width the checkpoint left uncalibrated (its
+    emergency re-calibration runs). Every kernel counter reads 0 across
+    each train step and each evaluation. Checks finite losses, the
+    checkpoint reloading bit for bit with its meta read back as a
+    `CPTConfig`, and finite perplexities; then the card-vs-CPU hold of one
+    CPT step (`cpt_step_hold`). Prints `main_cpt_timings` (gradient-
+    quantizer calibration s, the PRT's s and bounds, the bits of each
+    epoch, ms per train step, save s, each evaluation's load s,
+    perplexity and window tokens/s, the step's ms with and without the
+    frozen leaves' gradients that JAX's grad_norm needs, each also
+    profiled once, and a profiled (16, 1024) evaluation forward). Returns
+    0, or raises."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from llm_qat_tpu_torch.cli import eval_cpt, main_cpt
+    from llm_qat_tpu_torch.deploy import load_checkpoint
+    from llm_qat_tpu_torch.deploy.checkpoint import _config_to_dict
+    from llm_qat_tpu_torch.deploy.elastic import tree_leaves
+    from llm_qat_tpu_torch.models.config import CPTConfig, GPT2Config
+    from llm_qat_tpu_torch.models.cpt_model import prec_index
+    from llm_qat_tpu_torch.train import cpt_trainer
+
+    for var in ("HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE", "HF_DATASETS_OFFLINE"):
+        os.environ[var] = "1"
+    rec = {"step_ms": [], "losses": [], "bits": [], "eval": []}
+    make_dataloaders = main_cpt.create_dataloaders
+
+    def dataloaders(tokenizer, *a, **k):
+        t = time.perf_counter()
+        out = make_dataloaders(tokenizer, *a, train_limit=MAIN_CPT_DOCS,
+                               val_limit=MAIN_CPT_DOCS, **k)
+        rec["data"] = {"tokenizer": type(tokenizer).__name__, "train_windows": len(out[0]),
+                       "s": time.perf_counter() - t}
+        return out
+
+    class Calibration(main_cpt.CPTCalibrationManager):
+        def calibrate_gradient_quantizers(self, *a, **k):
+            out, ms = synced_ms(super().calibrate_gradient_quantizers, *a, **k)
+            rec["gq_calibration_s"] = ms / 1e3
+            return out
+
+    class PRT(main_cpt.PrecisionRangeTest):
+        def find_bounds(self, *a, **k):
+            bounds, ms = synced_ms(super().find_bounds, *a, **k)
+            rec["prt"] = {"s": ms / 1e3, "bounds": list(bounds)}
+            return bounds
+
+    class Scheduler(main_cpt.CyclicPrecisionScheduler):
+        def get_precision_for_epoch(self, epoch):
+            bits = super().get_precision_for_epoch(epoch)
+            rec["bits"].append(bits)
+            return bits
+
+    make, save_ckpt = main_cpt.make_cpt_train_step, main_cpt.save_checkpoint
+
+    def make_step(*a, **k):
+        init_state, step = make(*a, **k)
+
+        def train_step(state, ids, prec):
+            (state, m), ms = synced_ms(no_kernel, "main_cpt train step", step, state, ids, prec)
+            rec["step_ms"].append(ms)
+            rec["losses"].append(float(m["loss"]))
+            return state, m
+
+        return init_state, train_step
+
+    def save(*a, **k):
+        out, ms = synced_ms(save_ckpt, *a, **k)
+        rec["save_s"] = ms / 1e3
+        return out
+
+    root = tempfile.mkdtemp(prefix="main_cpt_")
+    saved = _patched(main_cpt, {"create_dataloaders": dataloaders,
+                                "CPTCalibrationManager": Calibration,
+                                "PrecisionRangeTest": PRT, "CyclicPrecisionScheduler": Scheduler,
+                                "make_cpt_train_step": make_step, "save_checkpoint": save})
+    try:
+        state, stats = main_cpt.main(MAIN_CPT_FLAGS + ["--output-dir", root])
+    finally:
+        _patched(main_cpt, saved)
+    try:
+        per_epoch = len(rec["step_ms"]) // 4
+        check(per_epoch == 8 and len(rec["step_ms"]) == 32,
+              f"main_cpt: 8 steps in each of 4 epochs ({rec['data']}, {len(rec['step_ms'])})")
+        check(all(math.isfinite(x) for x in rec["losses"]), "main_cpt: finite losses")
+        ckpt = os.path.join(root, "cpt_target_5bit.npz")
+        params, meta = load_checkpoint(ckpt, device=dev)
+        same = [torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                   tree_leaves(state["params"]))]
+        check(len(same) == len(tree_leaves(state["params"])) and all(same),
+              "main_cpt: the checkpoint reloads bit for bit")
+        c = meta["config"]
+        read = CPTConfig(**{**c, "model": GPT2Config(**c["model"]),
+                            "bit_widths": tuple(c["bit_widths"])})
+        want = CPTConfig(target_bits=5, total_epochs=4, total_cycles=2)
+        check(read == want and _config_to_dict(read) == c and meta["bit_width"] == 5,
+              f"main_cpt: the meta reads back as the command's CPTConfig: {c}")
+        forensics = eval_cpt.calibration_forensics(params, read)
+        missing = [b for b, ok in forensics.items() if not ok]
+        check(forensics[5] and missing, f"main_cpt: calibration forensics {forensics}")
+
+        def timed_load(*a, **k):
+            out, ms = synced_ms(load_checkpoint, *a, **k)
+            rec["eval"][-1]["load_s"] = ms / 1e3
+            return out
+
+        class Evaluator(eval_cpt.PerplexityEvaluator):
+            def calculate_perplexity(self, seqs):
+                n = len(self.windows(seqs))
+                ppl, ms = synced_ms(super().calculate_perplexity, seqs)
+                rec["eval"][-1].update(perplexity=ppl, perplexity_s=ms / 1e3, windows=n,
+                                       window_tokens_per_s=n * self.max_length / (ms / 1e3))
+                return ppl
+
+        recal = []
+
+        class EvalCalibration(eval_cpt.CPTCalibrationManager):
+            def ensure_calibrated(self, *a, **k):
+                recal.append(a[1])
+                return super().ensure_calibrated(*a, **k)
+
+        saved = _patched(eval_cpt, {"load_checkpoint": timed_load, "PerplexityEvaluator": Evaluator,
+                                    "CPTCalibrationManager": EvalCalibration})
+        try:
+            for extra in ([], ["--bits", str(max(missing))]):
+                rec["eval"].append({"flags": EVAL_CPT_FLAGS + extra})
+                res, ms = synced_ms(no_kernel, "eval_cpt", eval_cpt.main,
+                                    ["--model-path", ckpt, "--output-dir",
+                                     os.path.join(root, "eval", str(len(rec["eval"])))]
+                                    + EVAL_CPT_FLAGS + extra)
+                rec["eval"][-1].update(s=ms / 1e3, bit_width=res["bit_width"],
+                                       results=res["perplexity"])
+                check(math.isfinite(rec["eval"][-1]["perplexity"]),
+                      f"eval_cpt {extra}: finite perplexity")
+        finally:
+            _patched(eval_cpt, saved)
+        check(recal == [max(missing)], f"eval_cpt: the emergency re-calibration ran once, at "
+              f"{max(missing)} bits: {recal}")
+
+        # what JAX's grad_norm costs: the step at the command's shape with
+        # and without the frozen leaves' gradients, in turns, 4 of each by
+        # the host clock, then one profiled call of each
+        gen = torch.Generator(device=dev).manual_seed(3)
+        ids = torch.randint(0, read.model.vocab_size, (8, min(256, read.model.n_positions)),
+                            generator=gen, device=dev)
+        init_state, step = make(read, 1e-4, total_steps=10)
+        st = init_state(state["params"])
+        paths = cpt_trainer._gradient_paths
+        slot = prec_index(read, 5)
+        modes = ("with_frozen_grads", "trainable_only")
+        rec["grad_norm_cost_ms"] = {m: [] for m in modes}
+
+        def run(mode, fn):
+            if mode == "trainable_only":
+                cpt_trainer._gradient_paths = lambda p: (paths(p)[0], [])
+            try:
+                return fn()
+            finally:
+                cpt_trainer._gradient_paths = paths
+
+        for i in range(8):
+            mode = modes[i % 2]
+            _, ms = run(mode, lambda: synced_ms(step, st, ids, slot))
+            rec["grad_norm_cost_ms"][mode].append(ms)
+        rec["step_profile"] = {m: run(m, lambda: call_profile(lambda: step(st, ids, slot)))
+                               for m in modes}
+        with torch.no_grad():
+            x = torch.randint(0, read.model.vocab_size, (16, min(1024, read.model.n_positions)),
+                              generator=gen, device=dev)
+            rec["eval_forward_profile"] = call_profile(
+                lambda: main_cpt.cpt_forward(params, x, slot, read)["logits"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    hold = cpt_step_hold(failures)
+    check(not failures, "; ".join(failures))
+    out = {"card": card, "flags": MAIN_CPT_FLAGS, "data": rec["data"],
+           "gq_calibration_s": rec["gq_calibration_s"], "prt": rec["prt"],
+           "bits_per_epoch": rec["bits"], "steps": len(rec["step_ms"]),
+           "step_ms": rec["step_ms"], "median_step_ms": statistics.median(rec["step_ms"]),
+           "median_step_ms_after_first_epoch": statistics.median(rec["step_ms"][8:]),
+           "epoch_losses": stats.iteration_losses, "save_s": rec["save_s"],
+           "eval_cpt": rec["eval"], "grad_norm_cost_ms": rec["grad_norm_cost_ms"],
+           "step_profile": rec["step_profile"],
+           "eval_forward_profile_16x1024": rec["eval_forward_profile"], "step_hold": hold}
+    print("main_cpt_timings " + json.dumps(out), flush=True)
+    return 0
+
+
+def main_squad_phase(dev, card) -> int:
+    """`--main-squad` (and part of the default run): `python -m
+    llm_qat_tpu_torch.cli.main_squad` through `main_squad.main` at its
+    defaults (GPT-2 124M, float32, T = 384, stride 128, B = 16, accum 4,
+    bits 7/32) but for MAIN_SQUAD_FLAGS, offline, on MAIN_SQUAD_EXAMPLES of
+    the synthetic examples (`load_squad_examples` wrapped). Every kernel
+    counter reads 0 across each train step and each bit's evaluation.
+    Checks finite losses, EM/F1 at both bits within [0, 100], the per-bit
+    checkpoint reloading bit for bit; then the card-vs-CPU hold of one QA
+    step (`qa_step_hold`). Prints `main_squad_timings` (windows, ms per
+    train step, each bit's evaluation s and EM/F1, one profiled train step
+    and evaluation batch). Returns 0, or raises."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from llm_qat_tpu_torch.cli import main_squad
+    from llm_qat_tpu_torch.data.squad import synthetic_squad
+    from llm_qat_tpu_torch.deploy import load_checkpoint
+    from llm_qat_tpu_torch.deploy.elastic import tree_leaves
+
+    for var in ("HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE", "HF_DATASETS_OFFLINE"):
+        os.environ[var] = "1"
+    rec = {"step_ms": [], "losses": [], "eval": []}
+
+    class Dataset(main_squad.SQuADDataset):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["windows"] = len(self)
+            rec["tokenizer"] = type(self.tokenizer).__name__
+
+    make, evaluate_model = main_squad.make_squad_train_step, main_squad.evaluate_squad_model
+
+    def make_step(*a, **k):
+        init_state, step = make(*a, **k)
+
+        def train_step(state, batch, gen):
+            rec["step"] = (step, state, batch)
+            (state, m), ms = synced_ms(no_kernel, "main_squad train step", step, state, batch, gen)
+            rec["step_ms"].append(ms)
+            rec["losses"].append([float(m["loss"]), float(m["grad_norm"])])
+            rec["params"] = state.params
+            return state, m
+
+        return init_state, train_step
+
+    def evaluate(*a, **k):
+        rec["logits_fn"] = a[0]
+        res, ms = synced_ms(no_kernel, "main_squad evaluation", evaluate_model, *a, **k)
+        rec["eval"].append({"s": ms / 1e3, **res})
+        return res
+
+    root = tempfile.mkdtemp(prefix="main_squad_")
+    saved = _patched(main_squad, {
+        "load_squad_examples": lambda version, split, limit=None:
+            synthetic_squad(MAIN_SQUAD_EXAMPLES, unanswerable=version != "v1"),
+        "SQuADDataset": Dataset, "make_squad_train_step": make_step,
+        "evaluate_squad_model": evaluate})
+    try:
+        results = main_squad.main(MAIN_SQUAD_FLAGS + ["--output-dir", root])
+        check(len(rec["step_ms"]) == 4, f"main_squad took 4 steps: {len(rec['step_ms'])}")
+        check(all(math.isfinite(x) for pair in rec["losses"] for x in pair),
+              f"main_squad: finite losses {rec['losses']}")
+        check(sorted(results) == [7, 32] and all(
+            0.0 <= r[k] <= 100.0 for r in results.values() for k in ("exact_match", "f1")),
+            f"main_squad: EM/F1 at 7 and 32 bits: {results}")
+        params, meta = load_checkpoint(os.path.join(root, "squad_7bit.npz"), device=dev)
+        same = [torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                   tree_leaves(rec["params"]))]
+        check(meta["bit_width"] == 7 and len(same) == len(tree_leaves(rec["params"]))
+              and all(same), "main_squad: squad_7bit.npz reloads bit for bit")
+        check(not os.path.exists(os.path.join(root, "squad_32bit.npz")),
+              "main_squad: no file for the 32-bit teacher")
+        # one profiled call of a train step and of an evaluation batch
+        step, st, batch = rec.pop("step")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        rec["step_profile"] = call_profile(lambda: step(st, batch, gen))
+        ids, mask = batch["input_ids"][:8], batch["attention_mask"][:8]
+        with torch.no_grad():
+            rec["eval_profile"] = call_profile(lambda: rec["logits_fn"](ids, mask))
+    finally:
+        _patched(main_squad, saved)
+        shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    hold = qa_step_hold(failures)
+    check(not failures, "; ".join(failures))
+    out = {"card": card, "flags": MAIN_SQUAD_FLAGS, "examples": MAIN_SQUAD_EXAMPLES,
+           "tokenizer": rec["tokenizer"], "windows": rec["windows"], "B": 16, "T": 384,
+           "accum": 4, "step_ms": rec["step_ms"],
+           "median_step_ms_after_first": statistics.median(rec["step_ms"][1:]),
+           "losses_and_grad_norms": rec["losses"],
+           "eval": {str(b): e for b, e in zip(sorted(results), rec["eval"])},
+           "step_profile": rec["step_profile"], "eval_batch_profile_8x384": rec["eval_profile"],
+           "step_hold": hold}
+    print("main_squad_timings " + json.dumps(out), flush=True)
+    return 0
+
+
 def kernel_counters():
     """The sixteen kernels' wrappers (their `launches` counters), by name."""
     from llm_qat_tpu_torch.ops import attention as att
@@ -3786,6 +4268,12 @@ def main() -> int:
     ap.add_argument("--eval-sp", action="store_true",
                     help="only run the SP evaluation command at T = 1024 (may be combined "
                          "with --cached-generate)")
+    ap.add_argument("--main-cpt", action="store_true",
+                    help="only run the CPT command line and eval_cpt at GPT-2 124M (may be "
+                         "combined with --main-squad)")
+    ap.add_argument("--main-squad", action="store_true",
+                    help="only run the SQuAD command line at GPT-2 124M (may be combined "
+                         "with --main-cpt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3837,6 +4325,13 @@ def main() -> int:
         return fused_decode_phase(dev)
     if args.main_sp:
         return main_sp_phase(dev, card)
+    if args.main_cpt or args.main_squad:
+        if args.main_cpt:
+            main_cpt_phase(dev, card)
+            torch.cuda.empty_cache()
+        if args.main_squad:
+            main_squad_phase(dev, card)
+        return 0
     if args.cached_generate or args.eval_sp:
         if args.cached_generate:
             cfg, params, gen = serve_setup(dev)
@@ -3962,6 +4457,14 @@ def main() -> int:
     #     KV cache, the folded LoRA) and the SP evaluation command
     cg_launches = cached_generate_phase(params, cfg, dev, gen, card)
     eval_launches = eval_sp_phase(dev, card)
+
+    # 4c'. the CPT and SQuAD command lines (no kernel: every counter reads
+    #      0 across their steps and evaluations)
+    torch.cuda.empty_cache()
+    main_cpt_phase(dev, card)
+    torch.cuda.empty_cache()
+    main_squad_phase(dev, card)
+    torch.cuda.empty_cache()
 
     # 4d. training: kernels #14-#16 against their plain versions at the
     #     GPT-2 linear shapes, then the flat and the fused main paths from

@@ -1,4 +1,5 @@
-"""Data layer: LM datasets (WikiText with offline fallbacks), tokenizers."""
+"""Data layer: LM datasets (WikiText with offline fallbacks), tokenizers;
+SQuAD preprocessing in `data.squad`."""
 
 from .lm_datasets import (
     ByteTokenizer,

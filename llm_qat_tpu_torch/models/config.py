@@ -3,8 +3,8 @@
 Counterpart of `llm_qat_tpu/models/config.py`: the same frozen dataclasses and
 static precision tables. Every bank-indexed quantity (num_bits, quantizer
 kind, LoRA scaling) is precomputed into small numpy arrays, so the active
-precision is a single index into stacked parameter banks. `CPTConfig`
-comes with the CPT slice.
+precision is a single index into stacked parameter banks. `CPTConfig` is
+the cyclic-precision-training configuration.
 """
 
 from __future__ import annotations
@@ -160,6 +160,28 @@ class SPModelConfig:
 
     def replace(self, **kw) -> "SPModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class CPTConfig:
+    """Cyclic-precision-training configuration (the JAX package's
+    `CPTConfig`): one shared LoRA pair, log quantizers at every bit-width,
+    8-bit LoRA gradients."""
+
+    model: GPT2Config = field(default_factory=GPT2Config)
+    bit_widths: Tuple[int, ...] = tuple(range(2, 19)) + (32,)
+    lora_rank: int = 16
+    lora_alpha: int = 32
+    gradient_bits: int = 8
+    target_bits: int = 5
+    quantizer_kind: str = "log"
+    per_channel: bool = True
+    symmetric: bool = True
+    eps: float = 1e-5
+    schedule_type: str = "cosine"
+    total_epochs: int = 150
+    total_cycles: int = 15
+    compute_dtype: str = "float32"
 
 
 @dataclass(frozen=True)

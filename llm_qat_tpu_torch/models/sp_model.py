@@ -327,15 +327,19 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
                input_passthrough: bool = False,
                output_hidden_states: bool = False,
                hidden_states_grad: bool = False, remat: bool = False,
-               attention_fn=None):
+               attention_fn=None, _skip_head: bool = False):
     """Full SP LM forward. Returns a dict with `logits`, `trunk` (the live
     ln_f output), optional `hidden_states`, `stats` ({linear: {stat:
     (L, ch)}}) and `loss` (shifted CE ignoring -100 labels).
 
     `deterministic=False` applies the embedding dropout, its mask drawn from
-    `dropout_gen`. `hidden_states` is (L+1, B, T, d): each block's input,
-    then the final ln_f output, detached unless `hidden_states_grad`.
-    `remat` recomputes each block in the backward (`torch.utils.checkpoint`).
+    `dropout_gen`: a generator, or the (B, T, d) uniforms themselves (the
+    QA model's, which its own dropout reuses). `hidden_states` is (L+1, B,
+    T, d): each block's input, then the final ln_f output, detached unless
+    `hidden_states_grad`. `remat` recomputes each block in the backward
+    (`torch.utils.checkpoint`). `_skip_head` leaves out the tied LM head and
+    `logits` (the QA model reads only `trunk`; under `jit` JAX drops the
+    unread head the same way).
     """
     _no_ring_attention(attention_fn)
     dev = params["wte"].device
@@ -347,13 +351,11 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
         T = h.shape[1]
     else:
         T = input_ids.shape[1]
-        # ids past the vocabulary read its last row, as JAX's gather clamps
-        ids = input_ids.clamp(max=params["wte"].shape[0] - 1)
-        h = params["wte"][ids] + params["wpe"][:T][None]
+        h = embed_tokens(params["wte"], input_ids) + params["wpe"][:T][None]
 
     if not deterministic and cfg.model.embd_pdrop > 0.0:
         keep = 1.0 - cfg.model.embd_pdrop
-        drop = torch.rand(h.shape, generator=dropout_gen, device=h.device) < keep
+        drop = dropout_uniforms(dropout_gen, h.shape, h.device) < keep
         h = torch.where(drop, h / keep, torch.zeros_like(h))
 
     def block(x, bp):
@@ -376,8 +378,10 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
 
     h = switchable_layernorm(h, params["ln_f"], prec,
                              cfg.model.layer_norm_epsilon)
-    logits = matmul_bf16(h, params["wte"].T, torch_dtype(cfg.compute_dtype))
-    out = {"logits": logits, "trunk": h}
+    out = {}
+    if not _skip_head:
+        out["logits"] = matmul_bf16(h, params["wte"].T, torch_dtype(cfg.compute_dtype))
+    out["trunk"] = h
     if output_hidden_states:
         h_in.append(h if hidden_states_grad else h.detach())
         out["hidden_states"] = torch.stack(h_in)
@@ -388,8 +392,27 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
             for name in per_layer[0]
         }
     if labels is not None:
-        out["loss"] = lm_cross_entropy(logits, labels)
+        out["loss"] = lm_cross_entropy(out["logits"], labels)
     return out
+
+
+def embed_tokens(wte, ids):
+    """wte[ids], as JAX's gather: an id past the vocabulary reads the last
+    row, and its gradient is dropped (JAX's scatter-add drops an update out
+    of bounds)."""
+    V = wte.shape[0]
+    rows = wte[ids.clamp(max=V - 1)]
+    if not wte.requires_grad:
+        return rows
+    return torch.where((ids < V)[..., None], rows, rows.detach())
+
+
+def dropout_uniforms(source, shape, device):
+    """The uniforms of a dropout mask: drawn from `source` when it is a
+    generator, `source` itself when it is a tensor of them."""
+    if isinstance(source, torch.Tensor):
+        return source
+    return torch.rand(shape, generator=source, device=device)
 
 
 def lm_cross_entropy(logits, labels):

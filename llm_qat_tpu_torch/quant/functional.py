@@ -14,6 +14,8 @@ LoRA banks' `dynamic_scale_flat`) carry none back into it.
 
 `torch.round` rounds half to even, like `jnp.round`. `num_bits` and `kind`
 may be tensors, so one call serves every precision of a bank.
+`quantize_gradient` is the other way round: the identity forward, and a
+fake-quantized cotangent in the backward.
 """
 
 from __future__ import annotations
@@ -155,3 +157,25 @@ def fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric=True,
     cast to float32 at this boundary, as in the JAX package."""
     return _FlatSTE.apply(x, _f32(scale, x), _f32(zero_point, x),
                           _f32(num_bits, x), _f32(kind, x), symmetric, eps)
+
+
+class _QuantizeGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, zero_point, num_bits, kind):
+        ctx.save_for_backward(scale, zero_point, num_bits, kind)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, zero_point, num_bits, kind = ctx.saved_tensors
+        gq = _flat_fwd_math(g, scale, zero_point, num_bits, kind, True, 1e-5)
+        return gq, None, None, None, None
+
+
+def quantize_gradient(x, scale, zero_point, num_bits, kind):
+    """Identity forward; the backward fake-quantizes the cotangent
+    (`fake_quant(g, scale, zero_point, num_bits, kind, symmetric=True)`)
+    and gives the quantizer operands no gradient. The CPT model quantizes
+    its LoRA gradients to `gradient_bits` with it."""
+    return _QuantizeGradient.apply(x, _f32(scale, x), _f32(zero_point, x),
+                                   _f32(num_bits, x), _f32(kind, x))

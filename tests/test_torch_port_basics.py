@@ -28,9 +28,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module (the training slice's, the fused linear's, the
     decode attention's, the server's, the packed-weight product's, the
-    fused decode layer's and the command line's data, deploy, utils, cli
-    and HF-import modules among them) and chip_smoke.py import without JAX
-    or llm_qat_tpu."""
+    fused decode layer's, the command line's data, deploy, utils, cli
+    and HF-import modules, and the CPT and SQuAD modules among them) and
+    chip_smoke.py import without JAX or llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import llm_qat_tpu_torch as p\n"
@@ -48,6 +48,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "         ('data', 'data.lm_datasets', 'data.native', 'deploy',\n"
         "          'deploy.checkpoint', 'deploy.elastic', 'utils', 'utils.stats',\n"
         "          'cli', 'cli.main_sp', 'cli.check_init', 'models.hf_import')}\n"
+        "want |= {'llm_qat_tpu_torch.' + n for n in\n"
+        "         ('models.cpt_model', 'models.qa', 'train.cpt_trainer',\n"
+        "          'train.squad_trainer', 'data.squad', 'evals.squad_eval',\n"
+        "          'cli.main_cpt', 'cli.eval_cpt', 'cli.main_squad')}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -40,6 +40,11 @@ counters set to 0 just before it and read just after:
 - KV-cached generation with the serving parameters, as `--cached-generate`
   below runs it, and the SP evaluation command `python -m
   llm_qat_tpu_torch.cli.eval_sp` at T = 1024, as `--eval-sp` below runs it;
+- the CPT and SQuAD command lines, as `--main-cpt` and `--main-squad` below
+  run them, and the RPI command line `python -m
+  llm_qat_tpu_torch.cli.run_rpi` with its gradient importance, as
+  `--run-rpi` below runs them but the command on the first text only and
+  at GPT-2 width with RPI_DEFAULT_LAYERS layers (for the time limit);
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
@@ -69,7 +74,8 @@ of one wrapper call), profiles one iteration of each path, and prints:
   and without the LSE, SIMT by operand type and head_dim) and the wgmma
   kernels of #6;
 - one line per comparison, its error beside its tolerance;
-- `main_sp_timings`, `cached_generate_timings`, `eval_sp_timings`, `timings`,
+- `main_sp_timings`, `cached_generate_timings`, `eval_sp_timings`,
+  `main_cpt_timings`, `main_squad_timings`, `rpi_timings`, `timings`,
   `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
   `fused_train_profile`, `train_timings`, `flash_serve_timings`,
@@ -173,6 +179,21 @@ route; the 8-bit run again on #5's plain version: the perplexity within
 1e-4, the zero-shot choices the same but at ties. Prints `eval_sp_timings`
 and no result line. The two flags may be given together.
 
+    python3 chip_smoke.py --run-rpi
+
+runs only the RPI command line (`run_rpi.main`, GPT-2 124M, bits 4/8/32,
+float32, the command's random initialisation, offline: the byte
+tokenizer, the synthetic corpus, the static synonym table and MLM
+stand-in) on its first two texts (271 words at T = 1024, each forward
+through #5 on its SIMT route, 12 launches; 63 words at T = 355, dense),
+every forward counted and timed; checks the launches, the report's keys
+and finite accuracies, and each switched forward against a host replay
+of its `random.Random(seed)`. Then `make_gradient_importance_fn` on the
+first text (#5 and #6 on SIMT, 12 launches each), and at GPT-2 width with
+2 layers, T = 1024, `metrics_at` at 32 and 4 bits and the importance
+scores, card against CPU within 4x the CPU's jitter floor. Prints
+`rpi_timings`, then the result line.
+
     python3 chip_smoke.py --fused-decode
 
 does the same for the fused int8 decode layer #12/#13 (one launch a call
@@ -197,10 +218,13 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
-PEAK_INT8_OPS = 1979e12     # H100 SXM int8 tensor cores, dense
-PEAK_BF16_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
+# the card's peaks (H100 SXM, dense), from the port's single source
+from llm_qat_tpu_torch.utils.profiling import (  # noqa: E402
+    H100_HBM_BW as HBM_BYTES_PER_S,
+    H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS,
+    H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS,
+    H100_PEAK_INT8_OPS as PEAK_INT8_OPS,
+)
 
 # Kernel vs plain tolerances. Both kernels compute in float32, as the JAX
 # kernels do, and sum in another order than their plain versions, so the two
@@ -2983,15 +3007,22 @@ MAIN_SP_FLAGS = ["--max-seq-length", "1024", "--batch-size", "8", "--grad-accum"
                  "--bit-widths", "4", "8", "32", "--eval-interval", "2",
                  "--num-iterations", "5"]
 MAIN_SP_PREEMPT = 3   # iterations the first run takes before it is stopped
+# The default run cuts the command's corpus (80,000 train and 5,000
+# validation documents of the offline corpus, 855,013 and 53,863 windows,
+# about 13 s of build in each of the three runs) to these documents: its
+# 5 iterations read 320 windows. `--main-sp` keeps the whole corpus.
+MAIN_SP_DEFAULT_DOCS = (8000, 1000)
 
 
 class Preempted(Exception):
     """Stops a `main_sp` run between two iterations, as a preemption would."""
 
 
-def main_sp_phase(dev, card: str) -> int:
+def main_sp_phase(dev, card: str, docs=None) -> int:
     """`--main-sp` (and part of the default run): `python -m
-    llm_qat_tpu_torch.cli.main_sp` through `main_sp.main`, three times:
+    llm_qat_tpu_torch.cli.main_sp` through `main_sp.main`, three times, on
+    its whole corpus or, with `docs` = (train, validation), on that many
+    documents of it:
 
     A. the command with `--save-every 1 --auto-resume`, stopped before its
        fourth iteration once its third elastic save has landed;
@@ -3060,6 +3091,8 @@ def main_sp_phase(dev, card: str) -> int:
             return init_state, train_step
 
         def timed_dataloaders(tokenizer, *a, **k):
+            if docs is not None:
+                k = dict(k, train_limit=docs[0], val_limit=docs[1])
             t = time.perf_counter()
             out = make_dataloaders(tokenizer, *a, **k)
             rec["data_s"].append(time.perf_counter() - t)
@@ -3650,6 +3683,359 @@ def main_squad_phase(dev, card) -> int:
            "step_hold": hold}
     print("main_squad_timings " + json.dumps(out), flush=True)
     return 0
+
+
+# --run-rpi: the RPI command at GPT-2 124M, its texts (the offline corpus's
+# first RPI_SAMPLES of five words or more: 271 words, T = 1024 through #5;
+# 63 words, T = 355 dense). The default run takes RPI_DEFAULT_SAMPLES.
+RPI_SAMPLES = 2
+# The default run takes one text (--run-rpi's command took 485.5 s with 2,
+# over 300 s) and runs the command at GPT-2 width with RPI_DEFAULT_LAYERS
+# layers (its 1551 host-bound forwards took 339-500 s at 12 layers, on
+# hosts of different speed, and the default run 1041-1444 s; PERF.md).
+RPI_DEFAULT_SAMPLES = 1
+RPI_DEFAULT_LAYERS = 1
+RPI_BITS = (4, 8, 32)
+RPI_HOLD_LAYERS = 2   # depth of the card-vs-CPU holds (GPT-2 width, T = 1024)
+
+
+def replay_switch(bits, p, seed):
+    """The precision and statistics of one switched forward, replayed on
+    the host from `random.Random(seed)` (the reference's draw: with
+    probability p a uniform choice among the sorted widths, starting from
+    the largest)."""
+    import random
+
+    rng = random.Random(seed)
+    cur, count = max(bits), 0
+    if rng.random() < p:
+        new = rng.choice(sorted(bits))
+        count += new != cur
+        cur = new
+    return cur, {"total_forwards": 1, "switch_count": count, "switch_rate": float(count),
+                 "precision_distribution": {cur: 1.0}, "precision_counts": {cur: 1}}
+
+
+def rpi_weights(cfg):
+    """numpy-seeded weights at `cfg`'s shapes (GPT-2's init scales; the
+    quantizer banks and LN from the port's init), calibrated on the CPU at
+    every width on two (1, 256) batches of numpy-seeded ids: a numpy tree."""
+    import numpy as np
+    import torch
+
+    from llm_qat_tpu_torch import bridge
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+
+    rng = np.random.default_rng(0)
+    tree = bridge.params_to_numpy(init_sp_params(torch.Generator().manual_seed(0), cfg,
+                                                 device="cpu"))
+    draw = lambda shape, scale: rng.normal(0, scale, shape).astype(np.float32)
+    tree["wte"], tree["wpe"] = draw(tree["wte"].shape, 0.02), draw(tree["wpe"].shape, 0.01)
+    for lin in LINEARS:
+        b = tree["blocks"][lin]
+        bound = 1.0 / math.sqrt(b["w"].shape[1])
+        b["w"] = rng.uniform(-bound, bound, b["w"].shape).astype(np.float32)
+        b["lora_A"] = np.where(b["lora_A"] != 0, draw(b["lora_A"].shape, 0.05), 0).astype(
+            np.float32)
+        b["lora_B"] = draw(b["lora_B"].shape, 0.02)
+    ids = [torch.as_tensor(rng.integers(0, 256, (1, 256))) for _ in range(2)]
+    cal = CalibrationManager(cfg, 2).calibrate_all_precisions(
+        bridge.params_from_numpy(tree, "cpu"), ids)
+    return bridge.params_to_numpy(cal)
+
+
+def rpi_holds(dev, text, failures):
+    """At GPT-2 width with RPI_HOLD_LAYERS layers, T = 1024, on `rpi_weights`
+    (the same numpy tree on the card and on the CPU through bridge.py): the
+    command's `metrics_at` (loss, accuracy) at 32 and at 4 bits, and
+    `make_gradient_importance_fn`'s scores at its default slot (4 bits), on
+    the card against the CPU, each within TRAIN_FLOOR_FACTOR times the
+    floor the CPU sets against itself under 2^-22 jitter at every quantizer
+    input and product operand (`jittered_floor`, the largest of FLOOR_DRAWS
+    draws; the loss's floor at least one float32 ulp of its sum). On the
+    card each forward launches #5 once a layer, and the importance #6 too.
+    Returns {hold: {card_vs_cpu, floor}}."""
+    import numpy as np
+    import torch
+
+    from llm_qat_tpu_torch import bridge
+    from llm_qat_tpu_torch.cli import run_rpi
+    from llm_qat_tpu_torch.data import get_gpt2_tokenizer
+    from llm_qat_tpu_torch.models import sp_model
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.robustness.attacks import make_gradient_importance_fn
+
+    cfg = SPModelConfig(model=GPT2Config(n_layer=RPI_HOLD_LAYERS),
+                        quant=QuantConfig(bit_widths=RPI_BITS))
+    tree = rpi_weights(cfg)
+    card_dev = str(dev)
+    on = {d: bridge.params_from_numpy(tree, d) for d in (card_dev, "cpu")}
+    tok = get_gpt2_tokenizer()
+    words = text.split()
+    jitter = [(sp_model, "fake_quant_flat", "in"), (sp_model, "matmul_bf16", "in")]
+    out = {}
+
+    def hold(tag, run, diffs, want_launches, resolution=lambda cpu: {}):
+        zero_counters()
+        got_card = run(card_dev)
+        ran = read_counters()
+        check(ran == want_launches, f"rpi hold {tag}: launches {ran}, want {want_launches}")
+        cpu = run("cpu")
+        got = diffs(got_card, cpu)
+        each = [diffs(jittered_floor(jitter, lambda: run("cpu"), torch.device("cpu"), seed=s),
+                      cpu) for s in range(1, FLOOR_DRAWS + 1)]
+        res = resolution(cpu)
+        base = {k: max([d[k] for d in each] + [res.get(k, 0.0)]) for k in got}
+        print(f"rpi hold {tag} card vs CPU: "
+              + "; ".join(f"{k} {got[k]:.3e} (floor {base[k]:.3e}, draws "
+                          + " ".join(f"{d[k]:.2e}" for d in each)
+                          + f", resolution {res.get(k, 0.0):.2e}"
+                          + f", tol {TRAIN_FLOOR_FACTOR}x floor)" for k in got), flush=True)
+        for k in got:
+            if not got[k] <= TRAIN_FLOOR_FACTOR * base[k]:
+                failures.append(f"rpi hold {tag} {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
+        out[tag] = {"card_vs_cpu": got, "floor": base}
+        return got_card, cpu
+
+    # The loss is a float32 sum over the text's n tokens, which the card and
+    # the CPU add in different orders: its floor is at least one float32
+    # ulp of that sum (a jitter of 2^-22 may move no term of a near-uniform
+    # random model's sum across an ulp, and then measures 0)
+    n = min(len(tok(text)), cfg.model.n_positions) - 1
+
+    def loss_resolution(cpu):
+        total = np.float32(cpu[0] * n)
+        return {"loss": float(np.spacing(total) / total)}
+
+    L = RPI_HOLD_LAYERS
+    for bits in (32, 4):
+        def metrics(d, idx=cfg.quant.prec_index(bits)):
+            fns = run_rpi.rpi_functions(on[d], cfg, sp_model.prec_tables(cfg.quant, d), tok,
+                                        torch.device(d))
+            return fns.metrics_at(text, idx)
+
+        card, cpu = hold(f"metrics_{bits}bit", metrics,
+                         lambda x, c: {"loss": abs(x[0] - c[0]) / abs(c[0]),
+                                       "accuracy": abs(x[1] - c[1])},
+                         {"flash_fwd_lse": L}, loss_resolution)
+        check(all(math.isfinite(v) for v in card + cpu), f"rpi hold {bits}-bit: finite metrics")
+        out[f"metrics_{bits}bit"].update(card=card, cpu=cpu)
+
+    def importance(d):
+        return np.asarray(make_gradient_importance_fn(on[d], cfg, tok)(words))
+
+    card, cpu = hold("importance", importance,
+                     lambda x, c: {"rel_l2": float(np.linalg.norm(x - c) / np.linalg.norm(c))},
+                     {"flash_fwd_lse": L, "flash_bwd": L})
+    check(bool(np.isfinite(card).all()) and float(np.abs(cpu).max()) > 0,
+          "rpi hold importance: finite, nonzero scores")
+    return out
+
+
+def rpi_phase(dev, card, num_samples, n_layer=12) -> dict:
+    """`--run-rpi` (and part of the default run): `python -m
+    llm_qat_tpu_torch.cli.run_rpi` through `run_rpi.main` at GPT-2 124M
+    (bits 4/8/32, float32, the command's own random initialisation; with
+    `n_layer` below 12, GPT-2 width at that depth),
+    offline (the byte tokenizer, the synthetic corpus, the static synonym
+    table and MLM stand-in), `--num-samples num_samples`, every forward
+    counted, timed synchronised and its T recorded. #5 must launch once a
+    layer for each forward at T = 1024, all on its SIMT route, and no other
+    kernel; the report must have the JAX command's keys and finite
+    accuracies, and each switched forward the precision, index and
+    statistics of a host replay of its `random.Random(seed)`. Then
+    `make_gradient_importance_fn` at GPT-2 124M on the first text (T =
+    1024: #5 and #6 on their SIMT routes, 12 launches each, timed by
+    `utils.StepTimer`), one profiled call each of the victim function and
+    the importance (`call_profile`), one victim call traced by
+    `utils.trace` (its Chrome trace must hold #5's kernel), and the
+    card-vs-CPU holds of `rpi_holds`. Prints `rpi_timings`. Returns the
+    launches by path: {"run_rpi": #5's, "rpi_importance": {kernel: n}}."""
+    import functools
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from llm_qat_tpu_torch.cli import run_rpi
+    from llm_qat_tpu_torch.data import get_gpt2_tokenizer
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params, prec_tables
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.robustness.attacks import make_gradient_importance_fn
+    from llm_qat_tpu_torch.utils import StepTimer, trace
+
+    for var in ("HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE", "HF_DATASETS_OFFLINE"):
+        os.environ[var] = "1"
+    t_phase = time.perf_counter()
+    rec = {"forwards": [], "attacks": [], "switches": []}
+    names = ("sp_forward", "load_wikitext", "TextFoolerAttack", "BERTAttack",
+             "SimplifiedRandomSwitching")
+    saved = {n: getattr(run_rpi, n) for n in names}
+
+    def forward(params, ids, prec, cfg, **k):
+        out, ms = synced_ms(saved["sp_forward"], params, ids, prec, cfg, **k)
+        rec["forwards"].append((int(ids.shape[1]), int(prec), ms))
+        return out
+
+    def corpus(*a, **k):
+        rec["corpus"] = saved["load_wikitext"](*a, **k)
+        return rec["corpus"]
+
+    def timed(name):
+        class Timed(saved[name]):
+            def generate_adversarial(self, text, max_perturb_ratio=None):
+                n0 = len(rec["forwards"])
+                r, ms = synced_ms(super().generate_adversarial, text, max_perturb_ratio)
+                rec["attacks"].append({
+                    "attack": name, "words": len(text.split()), "s": ms / 1e3,
+                    "forwards": len(rec["forwards"]) - n0,
+                    "T": sorted({f[0] for f in rec["forwards"][n0:]}),
+                    "num_changes": r["num_changes"], "success": r["success"]})
+                return r
+        return Timed
+
+    class Switching(saved["SimplifiedRandomSwitching"]):
+        def __init__(self, forward_fn, bit_widths, bits_to_idx, switch_probability=0.3,
+                     seed=None, device=None):
+            super().__init__(forward_fn, bit_widths, bits_to_idx, switch_probability, seed,
+                             device=device)
+            self.replay = (list(bit_widths), dict(bits_to_idx), switch_probability, seed)
+
+        def forward_with_switching(self, input_ids, labels=None):
+            out, precision = super().forward_with_switching(input_ids, labels)
+            rec["switches"].append((self.replay, precision, self.get_statistics(),
+                                    rec["forwards"][-1][1]))
+            return out, precision
+
+    patches = {"sp_forward": forward, "load_wikitext": corpus,
+               "TextFoolerAttack": timed("TextFoolerAttack"),
+               "BERTAttack": timed("BERTAttack"), "SimplifiedRandomSwitching": Switching}
+    if n_layer != 12:
+        patches["GPT2Config"] = functools.partial(run_rpi.GPT2Config, n_layer=n_layer)
+    saved.update({n: getattr(run_rpi, n) for n in patches if n not in saved})
+    root = tempfile.mkdtemp(prefix="run_rpi_")
+    _patched(run_rpi, patches)
+    zero_counters()
+    try:
+        report, cmd_ms = synced_ms(run_rpi.main, ["--num-samples", str(num_samples),
+                                                  "--output-dir", root])
+        launches = read_counters()
+        routes = dict(att.flash_fwd_lse.route_launches)
+        with open(os.path.join(root, "rpi_report.json")) as f:
+            on_disk = json.load(f)
+    finally:
+        _patched(run_rpi, saved)
+        shutil.rmtree(root, ignore_errors=True)
+
+    texts = [t for t in rec["corpus"] if len(t.split()) >= 5][:num_samples]
+    fw = rec["forwards"]
+    n1024 = sum(1 for T, _, _ in fw if T == 1024)
+    L = n_layer
+    print(f"run_rpi ({L} layers): {len(texts)} texts of {[len(t.split()) for t in texts]} words; "
+          f"{len(fw)} forwards, {n1024} at T = 1024; launches {launches}; #5 by route "
+          f"{routes}; {cmd_ms / 1e3:.1f} s", flush=True)
+    check(n1024 > 0 and launches == {"flash_fwd_lse": L * n1024}
+          and routes == {"wgmma": 0, "simt": L * n1024},
+          f"run_rpi: #5 ran {L} times per forward at T = 1024, all on SIMT, and no other kernel")
+    check(num_samples < 2 or any(T < 1024 for T, _, _ in fw),
+          "run_rpi: the second text's forwards take the dense path")
+    check(on_disk == json.loads(json.dumps(report)), "run_rpi: rpi_report.json holds the report")
+    by_p = {str(p) for p in (0.0, 0.3, 0.5, 0.7)}
+    accs = [report["clean"]["accuracy"]]
+    check(set(report) == {"clean", "attacks", "defense"}
+          and set(report["attacks"]) == set(report["defense"]) == {"TextFooler", "BERT-Attack"},
+          f"run_rpi: the report's keys {sorted(report)}")
+    for name, a in report["attacks"].items():
+        d = report["defense"][name]
+        check(set(a) == {"attack_success_rate", "n_successful"}
+              and set(d) == {"by_probability", "optimal_p", "orig_accuracy", "adv_accuracy"}
+              and set(d["by_probability"]) == by_p
+              and all(set(v) == {"switched_accuracy", "recovery_ratio", "success"}
+                      for v in d["by_probability"].values()),
+              f"run_rpi {name}: the JAX command's keys")
+        accs += [d["orig_accuracy"], d["adv_accuracy"]] + [
+            v["switched_accuracy"] for v in d["by_probability"].values()]
+    check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in accs), f"run_rpi: accuracies {accs}")
+    check(len(rec["switches"]) == 2 * len(by_p) * len(texts),
+          f"run_rpi: {len(rec['switches'])} switched forwards")
+    for (bits, idx, p, seed), precision, stats, prec in rec["switches"]:
+        want, want_stats = replay_switch(bits, p, seed)
+        check(precision == want and stats == want_stats and prec == idx[want],
+              f"run_rpi: the switched forward at p {p}, seed {seed} ({precision}, {stats}, "
+              f"slot {prec}) replays as ({want}, {want_stats})")
+    cmd_s = cmd_ms / 1e3
+
+    # gradient importance on the first text at GPT-2 124M (12 layers in
+    # every run), the command's initialisation on the card
+    cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=RPI_BITS))
+    params = init_sp_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    words = texts[0].split()
+    imp = make_gradient_importance_fn(params, cfg, get_gpt2_tokenizer())
+    timer = StepTimer(warmup=0, device=dev)
+    zero_counters()
+    with timer:
+        scores = imp(words)
+    imp_launches = read_counters()
+    imp_routes = {n: dict(getattr(att, n).route_launches) for n in ("flash_fwd_lse", "flash_bwd")}
+    with timer:
+        imp(words)
+    imp_ms = [1e3 * t for t in timer.times]
+    print(f"rpi importance: {len(words)} words; launches {imp_launches}; routes {imp_routes}; "
+          f"{imp_ms[0]:.1f} ms, again {imp_ms[1]:.1f} ms", flush=True)
+    check(imp_launches == {"flash_fwd_lse": 12, "flash_bwd": 12}
+          and all(r == {"wgmma": 0, "simt": 12} for r in imp_routes.values()),
+          "rpi importance: #5 and #6 once a layer on SIMT")
+    ends = np.cumsum([len(get_gpt2_tokenizer()(w)) for w in words])
+    starts = ends - [len(get_gpt2_tokenizer()(w)) for w in words]
+    check(len(scores) == len(words) and all(math.isfinite(s) for s in scores)
+          and all((s > 0) == (a < 1024) for s, a in zip(scores, starts)),
+          "rpi importance: finite scores, 0 exactly for the words past 1024 tokens")
+    # where a forward's time goes: the command's victim function (forward
+    # and token metrics, 32 bits) and the importance, each profiled once;
+    # one victim call traced by utils/profiling.py's `trace`
+    victim = run_rpi.rpi_functions(params, cfg, prec_tables(cfg.quant, dev),
+                                   get_gpt2_tokenizer(), dev)
+    profiles = {"metrics_fn": call_profile(lambda: victim.metrics_fn(texts[0])),
+                "importance": call_profile(lambda: imp(words))}
+    with tempfile.TemporaryDirectory(prefix="rpi_trace_") as d:
+        with trace(d, device=dev):
+            victim.metrics_fn(texts[0])
+        (name,) = os.listdir(d)
+        with open(os.path.join(d, name)) as f:
+            events = json.load(f)["traceEvents"]
+    traced = sum(1 for e in events if e.get("cat") == "kernel" and "flash_fwd" in e.get("name", ""))
+    print(f"rpi profiles {json.dumps(profiles)}; trace: {len(events)} events, {traced} of "
+          f"#5's kernel", flush=True)
+    check(traced >= 1, "utils.profiling.trace recorded #5's kernel on the card")
+    del params, imp, victim
+    torch.cuda.empty_cache()
+
+    failures = []
+    holds = rpi_holds(dev, texts[0], failures)
+    check(not failures, "; ".join(failures))
+    phase_s = time.perf_counter() - t_phase
+    per_attack = {}
+    for a in rec["attacks"]:
+        per_attack.setdefault(a["attack"], []).append(a)
+    dense = [ms for T, _, ms in fw if T < 1024]
+    out = {"card": card, "num_samples": num_samples, "n_layer": n_layer,
+           "texts_words": [len(t.split()) for t in texts],
+           "forwards": len(fw), "forwards_T1024": n1024,
+           "forward_ms_median": statistics.median(ms for _, _, ms in fw),
+           "forward_ms_median_T1024": statistics.median(ms for T, _, ms in fw if T == 1024),
+           "forward_ms_median_dense": statistics.median(dense) if dense else None,
+           "forwards_s": sum(ms for _, _, ms in fw) / 1e3,
+           "attacks": per_attack, "command_s": cmd_s,
+           "launches": launches, "flash_fwd_lse_routes": routes,
+           "report": report, "importance_ms": imp_ms,
+           "importance_launches": imp_launches, "profiles": profiles,
+           "trace_flash_fwd_kernels": traced, "holds": holds, "phase_s": phase_s}
+    print("rpi_timings " + json.dumps(out), flush=True)
+    return {"run_rpi": launches["flash_fwd_lse"], "rpi_importance": imp_launches}
 
 
 def kernel_counters():
@@ -4274,6 +4660,9 @@ def main() -> int:
     ap.add_argument("--main-squad", action="store_true",
                     help="only run the SQuAD command line at GPT-2 124M (may be combined "
                          "with --main-cpt)")
+    ap.add_argument("--run-rpi", action="store_true",
+                    help="only run the RPI command line, its gradient importance and their "
+                         "holds at GPT-2 124M")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4332,6 +4721,10 @@ def main() -> int:
         if args.main_squad:
             main_squad_phase(dev, card)
         return 0
+    if args.run_rpi:
+        rpi_phase(dev, card, RPI_SAMPLES)
+        print_result()
+        return 0
     if args.cached_generate or args.eval_sp:
         if args.cached_generate:
             cfg, params, gen = serve_setup(dev)
@@ -4348,7 +4741,7 @@ def main() -> int:
 
     # the SP command line first: its dataset and states are freed before
     # the other paths start
-    main_sp_phase(dev, card)
+    main_sp_phase(dev, card, MAIN_SP_DEFAULT_DOCS)
 
     cfg, params, gen = serve_setup(dev)
     m = cfg.model
@@ -4464,6 +4857,11 @@ def main() -> int:
     main_cpt_phase(dev, card)
     torch.cuda.empty_cache()
     main_squad_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # 4c''. the RPI command line (#5 at T = 1024) and its gradient importance
+    #       (#5 and #6)
+    rpi_launches = rpi_phase(dev, card, RPI_DEFAULT_SAMPLES, RPI_DEFAULT_LAYERS)
     torch.cuda.empty_cache()
 
     # 4d. training: kernels #14-#16 against their plain versions at the
@@ -4601,7 +4999,8 @@ def main() -> int:
     itm = int8_kernel_timings(trees, cfg, gen, dev, B)
     accum = tcfg.gradient_accumulation_steps
     it_flat, tstate = iteration_timings(tstate, train_step, tbatches, accum, tgen)
-    iteration_profile(tstate, train_step, tbatches[0], tgen, it_flat["iter_ms"], "")
+    # one iteration profiled: the fused path's, which runs every training
+    # kernel (the flat path's profile, about 30 s, is left out for time)
     it_fused, fstate = iteration_timings(fstate, fstep, tbatches, accum, tgen)
     iteration_profile(fstate, fstep, tbatches[0], tgen, it_fused["iter_ms"], "fused_")
     print("train_timings " + json.dumps({"flat": it_flat, "fused": it_fused}), flush=True)
@@ -4653,10 +5052,13 @@ def main() -> int:
              ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"])):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
-        # #5 also runs in the evaluation command (float32, SIMT route)
+        # #5 also runs in the evaluation and RPI commands, and #5 and #6 in
+        # the RPI gradient importance (float32, SIMT route)
         by_path = {"train": tlaunch[name]}
         if name == "flash_fwd_lse":
             by_path["eval_sp"] = eval_launches
+            by_path["run_rpi"] = rpi_launches["run_rpi"]
+        by_path["rpi_importance"] = rpi_launches["rpi_importance"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
@@ -4736,10 +5138,17 @@ def main() -> int:
                                                **cg_launches}
     check(len(kernels) == 16, "the kernels line has a row for each of the 16 kernels")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print_result()
+    return 0
+
+
+def print_result():
+    """The result line, last on standard output."""
+    import torch
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

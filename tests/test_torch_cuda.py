@@ -1563,3 +1563,62 @@ def test_perplexity_batch_runs_flash_simt(cuda_device):
     finally:
         att.flash_fwd_lse = kernel
     assert math.isfinite(ppl) and abs(ppl - plain) <= 1e-5 * plain, (ppl, plain)
+
+
+def test_rpi_forward_and_importance_run_flash_simt(cuda_device):
+    """The RPI command's forward (`run_rpi.rpi_functions`' `metrics_at`) and
+    `make_gradient_importance_fn` at T = 1024 (the first offline text under
+    the byte tokenizer), float32, at the 32-bit slot: on the card #5 runs
+    once a layer and forward and #6 once a layer and backward, all on their
+    SIMT routes; the loss within 1e-5 relative of the CPU's (dense
+    attention) and the scores within 1e-4 in relative L2; at the 4-bit slot
+    (the importance's default) the same launches and finite scores."""
+    import numpy as np
+
+    from llm_qat_tpu_torch.cli import run_rpi
+    from llm_qat_tpu_torch.data import ByteTokenizer, synthetic_corpus
+    from llm_qat_tpu_torch.models.sp_model import prec_tables
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.robustness.attacks import make_gradient_importance_fn
+
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=1024, n_embd=128, n_layer=2,
+                            n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 8, 32)))
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    p = init_sp_params(g, cfg, device=cuda_device)
+    p = calibrate_weight_quantizers(p, cfg)
+    p = calibrate_input_quantizers(
+        p, cfg, [torch.randint(0, 256, (2, 64), generator=g, device=cuda_device)])
+    on = {"cuda": p, "cpu": torch.utils._pytree.tree_map(lambda t: t.cpu(), p)}
+    text = synthetic_corpus(8)[0]
+    while len(text.encode()) < 1100:
+        text += " " + text
+    words, tok = text.split(), ByteTokenizer()
+
+    def counted(fn):
+        for name in ("flash_fwd_lse", "flash_bwd"):
+            getattr(att, name).launches = 0
+            getattr(att, name).route_launches.update(wgmma=0, simt=0)
+        out = fn()
+        return out, {n: dict(getattr(att, n).route_launches)
+                     for n in ("flash_fwd_lse", "flash_bwd")}
+
+    got = {}
+    for d in ("cuda", "cpu"):
+        fns = run_rpi.rpi_functions(on[d], cfg, prec_tables(cfg.quant, d), tok,
+                                    torch.device(d))
+        got[d] = counted(lambda: fns.metrics_at(text, 2))
+    assert got["cuda"][1] == {"flash_fwd_lse": {"wgmma": 0, "simt": 2},
+                              "flash_bwd": {"wgmma": 0, "simt": 0}}
+    loss, cpu_loss = got["cuda"][0][0], got["cpu"][0][0]
+    assert math.isfinite(loss) and abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for slot in (2, 0):
+        scores = {d: counted(lambda: np.asarray(make_gradient_importance_fn(
+            on[d], cfg, tok, prec_idx=slot)(words))) for d in ("cuda", "cpu")}
+        assert scores["cuda"][1] == {"flash_fwd_lse": {"wgmma": 0, "simt": 2},
+                                     "flash_bwd": {"wgmma": 0, "simt": 2}}
+        s, c = scores["cuda"][0], scores["cpu"][0]
+        assert len(s) == len(words) and np.isfinite(s).all() and c.max() > 0
+        if slot == 2:
+            assert np.linalg.norm(s - c) <= 1e-4 * np.linalg.norm(c)

@@ -29,8 +29,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module (the training slice's, the fused linear's, the
     decode attention's, the server's, the packed-weight product's, the
     fused decode layer's, the command line's data, deploy, utils, cli
-    and HF-import modules, and the CPT and SQuAD modules among them) and
-    chip_smoke.py import without JAX or llm_qat_tpu."""
+    and HF-import modules, the CPT and SQuAD modules, and the robustness
+    modules, `run_rpi` and `utils.profiling` among them) and chip_smoke.py
+    import without JAX or llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import llm_qat_tpu_torch as p\n"
@@ -52,6 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "         ('models.cpt_model', 'models.qa', 'train.cpt_trainer',\n"
         "          'train.squad_trainer', 'data.squad', 'evals.squad_eval',\n"
         "          'cli.main_cpt', 'cli.eval_cpt', 'cli.main_squad')}\n"
+        "want |= {'llm_qat_tpu_torch.' + n for n in\n"
+        "         ('robustness', 'robustness.attacks', 'robustness.random_switching',\n"
+        "          'robustness.defense_eval', 'cli.run_rpi', 'utils.profiling')}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

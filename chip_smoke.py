@@ -45,6 +45,10 @@ counters set to 0 just before it and read just after:
   llm_qat_tpu_torch.cli.run_rpi` with its gradient importance, as
   `--run-rpi` below runs them but the command on the first text only and
   at GPT-2 width with RPI_DEFAULT_LAYERS layers (for the time limit);
+- the parallel layer on one NCCL group of world size 1, as `--parallel`
+  below runs it but at PARALLEL_DEFAULT_LAYERS layers: TP/DP, CP and PP
+  train steps and TP decode, each held against its single-device path,
+  with #2, #5 and #6 launched on DTensor-held or local operands;
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
@@ -194,6 +198,17 @@ first text (#5 and #6 on SIMT, 12 launches each), and at GPT-2 width with
 scores, card against CPU within 4x the CPU's jitter floor. Prints
 `rpi_timings`, then the result line.
 
+    python3 chip_smoke.py --parallel
+
+runs only the parallel layer (`parallel_phase`) at GPT-2 width with 12
+layers on one NCCL group of world size 1 (a FileStore): the TP/DP step on
+`shard_params` DTensors (#5/#6 on their local shards), the CP forward and
+step with `ring_attention`, the PP step (`make_pp_sp_train_step`, S = 1,
+M = 2) and TP decode on the sharded int8_xla tree (#2 in the prefill),
+each held against its single-device path (bit-equal, or within its
+jitter floor), each path's wall beside the single-device one. Prints
+`parallel_timings`, then the result line.
+
     python3 chip_smoke.py --fused-decode
 
 does the same for the fused int8 decode layer #12/#13 (one launch a call
@@ -211,6 +226,7 @@ profiler (they share sm90.cuh's grid barrier); and path B's
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -594,11 +610,11 @@ def flash_train_vs_plain(gen, dev, B, H, D, failures):
 LINEARS = ("c_attn", "attn_proj", "c_fc", "mlp_proj")
 
 
-def train_setup(dev):
+def train_setup(dev, n_layer=12):
     """GPT-2 124M training config (bits 4/8/32, default kinds, rank 64, bf16
-    compute), B = 8, T = 1024, accum 8; random weights from seed 0,
-    calibrated by CalibrationManager on 3 batches. Returns (cfg, tcfg,
-    params, batches, generator)."""
+    compute; `n_layer` blocks), B = 8, T = 1024, accum 8; random weights
+    from seed 0, calibrated by CalibrationManager on 3 batches. Returns
+    (cfg, tcfg, params, batches, generator)."""
     import torch
 
     from llm_qat_tpu_torch.models.config import (
@@ -610,8 +626,8 @@ def train_setup(dev):
     from llm_qat_tpu_torch.models.sp_model import init_sp_params
     from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
 
-    cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=(4, 8, 32)),
-                        compute_dtype="bfloat16")
+    cfg = SPModelConfig(model=GPT2Config(n_layer=n_layer),
+                        quant=QuantConfig(bit_widths=(4, 8, 32)), compute_dtype="bfloat16")
     tcfg = TrainConfig(batch_size=8, max_seq_length=1024, gradient_accumulation_steps=8)
     m = cfg.model
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2384,7 +2400,7 @@ def quant_matmul_vs_plain(tree, gen, dev, failures):
     each in this hold)."""
     import torch
 
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     errs = {"quant_matmul_int8": 0.0, "quant_matmul_int4": 0.0}
     before = {n: getattr(qm, n).launches for n in errs}
@@ -2502,7 +2518,7 @@ def int8_engine_path(params, cfg, dev, B, gen):
     from llm_qat_tpu_torch.models import inference
     from llm_qat_tpu_torch.models.inference import InferenceEngine, init_layer_caches
     from llm_qat_tpu_torch.ops import decode_attention as da
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
     from llm_qat_tpu_torch.ops.attention import flash_attention
 
     T0, NEW, L = INT8_T0, INT8_NEW, cfg.model.n_layer
@@ -2571,7 +2587,7 @@ def fused_decode_path(params, cfg, dev, B, gen, replay=True):
     )
     from llm_qat_tpu_torch.ops import decode_attention as da
     from llm_qat_tpu_torch.ops import fused_decode as fd
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
     from llm_qat_tpu_torch.ops.attention import flash_attention
 
     T0, NEW, L = FUSED_T0, FUSED_NEW, cfg.model.n_layer
@@ -2683,7 +2699,7 @@ def qmm_timings(tree, gen, dev, n_iter=50):
     of the bf16 input and the codes as bf16, float32 result)."""
     import torch
 
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     f32, bf = torch.float32, torch.bfloat16
     blocks = tree["blocks"]
@@ -4038,6 +4054,333 @@ def rpi_phase(dev, card, num_samples, n_layer=12) -> dict:
     return {"run_rpi": launches["flash_fwd_lse"], "rpi_importance": imp_launches}
 
 
+# --parallel: the parallel layer at GPT-2 width on one NCCL group of world
+# size 1. The default run takes it at PARALLEL_DEFAULT_LAYERS layers (for the
+# time limit); --parallel at 12.
+PARALLEL_DEFAULT_LAYERS = 2
+PARALLEL_DECODE = (8, 128, 8)   # B, prompt (through #2's prefill), greedy steps
+PP_MICROBATCHES = 2
+
+
+def _flash_jitter(patches, seed, fn):
+    """fn() with the first output of each (module, name, rel) of `patches`
+    moved by relative noise `rel` (the floor of a held path: the reference
+    path against itself under noise about the size of the differences a
+    changed summation order leaves)."""
+    import functools
+
+    import torch
+
+    noise = {}
+
+    def jitter(x, rel):
+        if x.device not in noise:
+            noise[x.device] = torch.Generator(device=x.device).manual_seed(seed)
+        e = rel * torch.randn(x.shape, generator=noise[x.device], device=x.device)
+        return (x.float() * (1 + e)).to(x.dtype)
+
+    def wrap(f, rel):
+        # the kernel wrapper counts its launches on the attribute of the
+        # name it is found by: the jittered function carries the counters
+        @functools.wraps(f)
+        def wrapped(*a, **k):
+            out = f(*a, **k)
+            if isinstance(out, torch.Tensor):
+                return jitter(out, rel)
+            return (jitter(out[0], rel),) + tuple(out[1:])
+        return wrapped
+
+    saved = [getattr(mod, nm) for mod, nm, _ in patches]
+    for (mod, nm, rel), f in zip(patches, saved):
+        setattr(mod, nm, wrap(f, rel))
+    try:
+        return fn()
+    finally:
+        for (mod, nm, _), f in zip(patches, saved):
+            setattr(mod, nm, f)
+
+
+def _local(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _step_diffs(x, ref, paths):
+    """Relative differences of a step's loss, teacher loss and grad_norm,
+    and the relative L2 of its update over the trainable leaves."""
+    import torch
+
+    out = {k: abs(float(_local(x[0][k])) - float(_local(ref[0][k])))
+           / abs(float(_local(ref[0][k]))) for k in ("loss", "teacher_loss", "grad_norm")}
+    num = torch.sqrt(sum(((_local(x[1][p]) - ref[1][p]) ** 2).sum() for p in paths))
+    den = torch.sqrt(sum((ref[1][p] ** 2).sum() for p in paths))
+    out["update"] = (num / den).item()
+    return out
+
+
+def _held(tag, got, floor_fn, failures, factor=TRAIN_FLOOR_FACTOR, margins=()):
+    """`got` (relative differences) bit-equal, or within `factor` times the
+    floor (the largest over FLOOR_DRAWS draws of `floor_fn(seed)`), the keys
+    in `margins` within the floor plus TOKEN_AGREE_MARGIN; prints the hold
+    and returns it."""
+    if all(v == 0.0 for v in got.values()):
+        print(f"{tag}: bit-equal {json.dumps(got)}", flush=True)
+        return {"diff": got, "floor": None}
+    each = [floor_fn(seed) for seed in range(1, FLOOR_DRAWS + 1)]
+    base = {k: max(d[k] for d in each) for k in got}
+    print(f"{tag} (relative): " + "; ".join(
+        f"{k} {got[k]:.3e} (floor {base[k]:.3e}, tol {factor}x floor)" for k in got),
+        flush=True)
+    for k in got:
+        limit = base[k] + TOKEN_AGREE_MARGIN if k in margins else factor * base[k]
+        if not got[k] <= limit:
+            failures.append(f"{tag} {k}: {got[k]:.3e} vs floor {base[k]:.3e}")
+    return {"diff": got, "floor": base}
+
+
+def parallel_phase(dev, card, n_layer) -> dict:
+    """The parallel layer (`llm_qat_tpu_torch.parallel`) at GPT-2 width
+    (d 768, 12 heads, vocab 50257; bits 4/8/32, per-channel, rank 64, bf16
+    compute) with `n_layer` layers, on one NCCL group of world size 1 (a
+    FileStore), through the same code as any world size:
+
+    1. TP/DP: `shard_params` on a (1, 1) (data, model) mesh, one SP
+       distillation step of train_setup's configuration (B = 8, T = 1024,
+       accum 8, flat linear) on the DTensor state with batch-sharded ids,
+       against the same step on plain tensors (same state and draws);
+    2. CP: `sp_forward_context_parallel` at B = 8, T = 1024 and one step
+       with `attention_fn=ring_attention`, against `sp_forward` and the
+       step with the dense reference as `attention_fn` (the same float32
+       heads, summed in another order), and beside the built-in path;
+    3. PP: `make_pp_sp_train_step` on a (1, 1) (data, pipe) mesh, S = 1,
+       M = 2, against the unsharded step;
+    4. TP decode: `shard_infer_params` on the int8_xla tree,
+       `kv_cache_sharding` caches, `infer_forward_unrolled` over a 128-token
+       initial prefill (#2) and 8 greedy steps, against the single-device
+       decode and its tokens;
+    5. `initialize_multihost()` reports one process.
+
+    Each hold is bit-equal or within TRAIN_FLOOR_FACTOR times its floor
+    (PERF.md §2). The counters of #2, #5 and #6 are set to 0 just before
+    each path and read just after: TP and PP launch #5 and #6 on their
+    DTensor-held (TP) or local (PP) operands, CP none (ring attention is
+    plain products), TP decode #2 once a layer. Each path's wall time
+    (synchronised, the second of two runs) is printed beside its
+    single-device time. Returns {path: launches}."""
+    import tempfile
+    from functools import partial
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from llm_qat_tpu_torch import parallel as P
+    from llm_qat_tpu_torch.models import inference
+    from llm_qat_tpu_torch.models.inference import (infer_forward_unrolled,
+                                                    init_layer_caches,
+                                                    quantize_for_inference)
+    from llm_qat_tpu_torch.models.sp_model import sp_forward
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_paths
+
+    t_phase = time.time()
+    store = tempfile.NamedTemporaryFile(prefix="parallel_store_", delete=False)
+    store.close()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store.name}", rank=0, world_size=1)
+    failures, holds, launches, walls = [], {}, {}, {}
+    try:
+        cfg, tcfg, params, batches, _ = train_setup(dev, n_layer)
+        L, ids = cfg.model.n_layer, batches[1]
+        accum = tcfg.gradient_accumulation_steps
+        n = accum - 1
+        draws = dict(precs=[i % 2 for i in range(n)],
+                     layers=[(3 * i) % (L + 1) for i in range(n)])
+        paths = trainable_paths(params)
+        flash = (att.flash_attention, att.flash_fwd_lse, att.flash_bwd)
+        # the dense reference as attention_fn, looked up at each call so
+        # that a floor's jitter reaches it
+        dense_fn = lambda q, k, v: att.causal_attention_reference(q, k, v)  # noqa: E731
+
+        def counted(tag, fn):
+            """fn() twice, synchronised; the counters of #2/#5/#6 over the
+            second run; (output, wall ms of the first and second run)."""
+            ms = []
+            for _ in range(2):
+                for f in flash:
+                    f.launches = 0
+                out, t = synced_ms(fn)
+                ms.append(t)
+            launches[tag] = {f.__name__: f.launches for f in flash}
+            return out, ms
+
+        def step(state, make, ids_):
+            """(metrics, {path: new leaf}) of one step from `state`."""
+            new, mt = make(state, ids_, torch.Generator(device=dev).manual_seed(7), **draws)
+            return mt, {p: optim.get_leaf(new.params, p) for p in paths}
+
+        def plain_step(patches=(), seed=1, attention_fn=None):
+            init_s, step_s = make_sp_train_step(cfg, tcfg, attention_fn=attention_fn)
+            return _flash_jitter(patches, seed, lambda: step(init_s(params), step_s, ids))
+
+        # floors: one bf16 ulp on the flash outputs (the AMP path's rounding
+        # point), 2^-22 on the float32 LSE
+        flash_rels = [(att, "flash_fwd_lse", 2.0 ** -8), (att, "flash_bwd", 2.0 ** -8)]
+        ref, walls["plain_step"] = counted("plain_step", plain_step)
+        ref_upd = {p: ref[1][p] - optim.get_leaf(params, p) for p in paths}
+        ref = (ref[0], ref_upd)
+
+        def upd(res):
+            return (res[0], {p: _local(res[1][p]) - optim.get_leaf(params, p) for p in paths})
+
+        def floor_step(seed, **kw):
+            return _step_diffs(upd(plain_step(flash_rels, seed, **kw)), ref, paths)
+
+        # 1. TP/DP
+        mesh = P.make_mesh(1, 1, device=dev)
+        sharded, _ = P.shard_params(params, mesh)
+        ids_sh = distribute_tensor(ids, mesh, P.batch_sharding(mesh))
+        init_s, step_s = make_sp_train_step(cfg, tcfg)
+        tp, walls["tp_step"] = counted("tp_step", lambda: step(init_s(sharded), step_s, ids_sh))
+        check(all(tp[1][p].placements == optim.get_leaf(sharded, p).placements
+                  for p in paths), "TP step: every updated leaf keeps its placements")
+        holds["tp_step"] = _held("parallel TP/DP step vs single device",
+                                 _step_diffs(upd(tp), ref, paths), floor_step, failures)
+        check(launches["tp_step"]["flash_fwd_lse"] == L * accum
+              and launches["tp_step"]["flash_bwd"] == L * accum,
+              f"TP step ran #5 and #6 once a layer and micro-step: {launches['tp_step']}")
+        del sharded, tp
+
+        # 2. CP: the ring against the dense reference as attention_fn (the
+        # same float32 heads); the floor jitters the reference's attention
+        # output by 2^-22
+        ring = partial(P.ring_attention, mesh=mesh, axis_name="data")
+        prec = cfg.quant.prec_index(4)
+        with torch.no_grad():
+            cp, walls["cp_forward"] = counted("cp_forward", lambda: P.sp_forward_context_parallel(
+                params, ids, prec, cfg, mesh, "data", labels=ids))
+            dense, walls["dense_forward"] = counted("dense_forward", lambda: sp_forward(
+                params, ids, prec, cfg, labels=ids, attention_fn=dense_fn))
+            builtin = sp_forward(params, ids, prec, cfg, labels=ids)
+
+            def fwd_diffs(x):
+                xl, dl = _local(x["logits"]).float(), dense["logits"].float()
+                return {"logits": ((xl - dl).abs().mean() / dl.std()).item(),
+                        "loss": abs(float(_local(x["loss"])) - float(dense["loss"]))
+                        / float(dense["loss"])}
+
+            def cp_floor(seed):
+                return fwd_diffs(_flash_jitter(
+                    [(att, "causal_attention_reference", 2.0 ** -22)], seed,
+                    lambda: sp_forward(params, ids, prec, cfg, labels=ids,
+                                       attention_fn=dense_fn)))
+
+            holds["cp_forward"] = _held("parallel CP forward vs dense attention_fn",
+                                        fwd_diffs(cp), cp_floor, failures)
+            holds["cp_forward"]["vs_builtin"] = fwd_diffs(builtin)
+            print(f"CP forward: the built-in (flash #5) path vs the dense attention_fn "
+                  f"{json.dumps(holds['cp_forward']['vs_builtin'])}", flush=True)
+        check(launches["cp_forward"]["flash_fwd_lse"] == 0,
+              f"CP forward: ring attention took every block's attention {launches}")
+        del cp, dense, builtin
+        cp_ref = plain_step(attention_fn=dense_fn)
+        cp_ref = (cp_ref[0], {p: cp_ref[1][p] - optim.get_leaf(params, p) for p in paths})
+        init_c, step_c = make_sp_train_step(cfg, tcfg, attention_fn=ring)
+        ids_seq = distribute_tensor(ids, mesh, (Shard(1), Replicate()))
+        cp_st, walls["cp_step"] = counted("cp_step", lambda: step(init_c(params), step_c, ids_seq))
+        holds["cp_step"] = _held(
+            "parallel CP step vs dense attention_fn step", _step_diffs(upd(cp_st), cp_ref, paths),
+            lambda seed: _step_diffs(upd(plain_step(
+                [(att, "causal_attention_reference", 2.0 ** -22)], seed,
+                attention_fn=dense_fn)), cp_ref, paths), failures)
+        check(launches["cp_step"]["flash_fwd_lse"] == 0 and launches["cp_step"]["flash_bwd"] == 0,
+              f"CP step: ring attention took every block's attention {launches['cp_step']}")
+        del cp_st, cp_ref
+
+        # 3. PP: S = 1, M = 2
+        pp_mesh = DeviceMesh(dev.type, torch.zeros((1, 1), dtype=torch.int64),
+                             mesh_dim_names=("data", "pipe"))
+        pp_params, _ = P.shard_params_pp(params, pp_mesh)
+        init_p, step_p = P.make_pp_sp_train_step(cfg, tcfg, pp_mesh,
+                                                 n_microbatches=PP_MICROBATCHES)
+        pp, walls["pp_step"] = counted("pp_step", lambda: step(init_p(pp_params), step_p, ids))
+        holds["pp_step"] = _held("parallel PP step vs single device",
+                                 _step_diffs(upd(pp), ref, paths), floor_step, failures)
+        want = L * accum * PP_MICROBATCHES
+        check(launches["pp_step"]["flash_fwd_lse"] == want
+              and launches["pp_step"]["flash_bwd"] == want,
+              f"PP step ran #5 and #6 once a layer, microbatch and micro-step: "
+              f"{launches['pp_step']}")
+        del pp, pp_params
+
+        # 4. TP decode on the int8_xla tree
+        B, T0, NEW = PARALLEL_DECODE
+        ip = quantize_for_inference(params, cfg, 8, weight_format="int8_xla")
+        static = ip.pop("_static")
+        prompt = torch.randint(0, cfg.model.vocab_size, (B, T0),
+                               generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+
+        def decode(tree, caches, put):
+            """Prefill and NEW greedy steps; (tokens, per-step logits)."""
+            logits, caches, n = infer_forward_unrolled(tree, put(prompt), cfg, caches, 0,
+                                                       static=static, initial_prefill=True)
+            steps = [_local(logits)[:, -1].float()]
+            toks = [steps[-1].argmax(-1)]
+            for _ in range(NEW - 1):
+                logits, caches, n = infer_forward_unrolled(tree, put(toks[-1][:, None]), cfg,
+                                                           caches, n, static=static)
+                steps.append(_local(logits)[:, -1].float())
+                toks.append(steps[-1].argmax(-1))
+            return torch.stack(toks, 1), torch.stack(steps, 1)
+
+        def single(patches=(), seed=1):
+            caches = init_layer_caches(cfg, B, T0 + NEW, device=dev)
+            return _flash_jitter(patches, seed, lambda: decode(ip, caches, lambda x: x))
+
+        with torch.no_grad():
+            want_dec, walls["decode"] = counted("decode", single)
+            ip_sh, _ = P.shard_infer_params(ip, mesh)
+            kv = P.kv_cache_sharding(mesh)
+            batch = P.batch_sharding(mesh)
+
+            def tp_decode():
+                caches = tuple(distribute_tensor(c, mesh, kv) for c in
+                               init_layer_caches(cfg, B, T0 + NEW, device=dev))
+                return decode(ip_sh, caches, lambda x: distribute_tensor(x, mesh, batch))
+
+            got_dec, walls["tp_decode"] = counted("tp_decode", tp_decode)
+
+            def dec_diffs(x):
+                return {"logits": ((x[1] - want_dec[1]).abs().mean()
+                                   / want_dec[1].std()).item(),
+                        "token_disagreement": (x[0] != want_dec[0]).float().mean().item()}
+
+            holds["tp_decode"] = _held(
+                "parallel TP decode vs single device", dec_diffs(got_dec),
+                lambda seed: dec_diffs(single([(inference, "flash_attention", 2.0 ** -22)],
+                                              seed)), failures, factor=LOGIT_FLOOR_FACTOR,
+                margins=("token_disagreement",))
+        check(launches["tp_decode"]["flash_attention"] == L,
+              f"TP decode ran #2 once a layer in the prefill: {launches['tp_decode']}")
+        check(bool(torch.isfinite(got_dec[1]).all()) and tuple(got_dec[0].shape) == (B, NEW),
+              "TP decode: finite logits, (B, NEW) tokens")
+
+        # 5. multihost
+        info = P.initialize_multihost(device=dev)
+        check(info["process_count"] == 1 and info["process_index"] == 0,
+              f"initialize_multihost reports one process: {info}")
+    finally:
+        dist.destroy_process_group()
+        os.unlink(store.name)
+    check(not failures, "; ".join(failures))
+    print("parallel_timings " + json.dumps({
+        "card": card, "n_layer": n_layer, "wall_ms_first_second": walls,
+        "launches": launches, "holds": holds,
+        "phase_s": time.time() - t_phase}), flush=True)
+    return launches
+
+
 def kernel_counters():
     """The sixteen kernels' wrappers (their `launches` counters), by name."""
     from llm_qat_tpu_torch.ops import attention as att
@@ -4045,7 +4388,7 @@ def kernel_counters():
     from llm_qat_tpu_torch.ops import fused_decode as fd
     from llm_qat_tpu_torch.ops import fused_linear as fl
     from llm_qat_tpu_torch.ops import mega_decode as md
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     fns = (md.mega_decode_step_kv8, md.mega_decode_step, md.mega_decode_step_cb,
            att.flash_attention, att.flash_fwd_lse, att.flash_bwd, da.decode_attention_hbm,
@@ -4663,6 +5006,9 @@ def main() -> int:
     ap.add_argument("--run-rpi", action="store_true",
                     help="only run the RPI command line, its gradient importance and their "
                          "holds at GPT-2 124M")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only run the parallel layer's paths (TP/DP, CP, PP, TP decode) at "
+                         "GPT-2 124M, 12 layers, on one NCCL group of world size 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4723,6 +5069,10 @@ def main() -> int:
         return 0
     if args.run_rpi:
         rpi_phase(dev, card, RPI_SAMPLES)
+        print_result()
+        return 0
+    if args.parallel:
+        parallel_phase(dev, card, 12)
         print_result()
         return 0
     if args.cached_generate or args.eval_sp:
@@ -4862,6 +5212,11 @@ def main() -> int:
     # 4c''. the RPI command line (#5 at T = 1024) and its gradient importance
     #       (#5 and #6)
     rpi_launches = rpi_phase(dev, card, RPI_DEFAULT_SAMPLES, RPI_DEFAULT_LAYERS)
+    torch.cuda.empty_cache()
+
+    # 4c, parallel. The parallel layer (TP/DP, CP, PP, TP decode) at GPT-2
+    #     width with PARALLEL_DEFAULT_LAYERS layers, one NCCL group of one
+    par_launches = parallel_phase(dev, card, PARALLEL_DEFAULT_LAYERS)
     torch.cuda.empty_cache()
 
     # 4d. training: kernels #14-#16 against their plain versions at the
@@ -5030,7 +5385,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
          "replaces": "llm_qat_tpu/ops/attention.py:117",
-         "launches": launches["flash_attention"],
+         "launches": launches["flash_attention"] + par_launches["tp_decode"]["flash_attention"],
+         "launches_by_path": {"serve": launches["flash_attention"],
+                              "tp_decode": par_launches["tp_decode"]["flash_attention"]},
          "max_abs_err": flash_errs["bfloat16" if fdt == "bf16" else "float32"],
          "ms": served[f"{fdt}_device_ms"], "events_ms": served[f"{fdt}_ms"],
          "plain_ms": served[f"{fdt}_plain_ms"], "bound_ms": 1e3 * flash_bound_s,
@@ -5059,6 +5416,8 @@ def main() -> int:
             by_path["eval_sp"] = eval_launches
             by_path["run_rpi"] = rpi_launches["run_rpi"]
         by_path["rpi_importance"] = rpi_launches["rpi_importance"][name]
+        by_path["tp_step"] = par_launches["tp_step"][name]
+        by_path["pp_step"] = par_launches["pp_step"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import flash_attention, flash_attention_plain
+from ..ops.sharded import local_call, replicating
 from ..ops.decode_attention import (
     decode_attention,
     decode_attention_hbm,
@@ -370,6 +371,7 @@ def _flash_prefill_attn(qh, kh, vh, use_kernels=True):
     return fn(qh.contiguous(), kh.contiguous(), vh.contiguous())
 
 
+@replicating
 def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
                            length, *, quantize_input: bool = True,
                            static: Optional[StaticMeta] = None,
@@ -394,7 +396,9 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
     scales (h then stays float32 between layers, as in JAX);
     `fused_attention` runs `decode_attention` on dense caches (packed
     caches keep `decode_attention_hbm`). `use_kernels=False` runs the
-    kernels' plain versions (the reference on the card).
+    kernels' plain versions (the reference on the card). A serving tree and
+    caches of DTensors (`parallel.shard_infer_params`, `kv_cache_sharding`)
+    run under `replication_scope` (TP decode).
     """
     m = cfg.model
     bits, kind = iparams["_bits"], iparams["_kind"]
@@ -448,7 +452,10 @@ def infer_forward_unrolled(iparams, input_ids, cfg: SPModelConfig, caches,
             _write_rows(kc, vc, kh, vh, start, P if packed else 1)
             if packed:
                 kc, vc = unpack_kv(kc, D), unpack_kv(vc, D)
-            attn = cached_attention(qh, kc, vc, start)
+            # batch and heads stay local for DTensor caches (TP decode):
+            # DTensor's einsum would flatten (B, H), which two shards forbid
+            attn = local_call(lambda q, k, v: cached_attention(q, k, v, start),
+                              (qh, kc, vc), local_dims=(0, 1))
         if use_fused:
             x_s = torch.stack([bp[n]["x_s"] for n in ("attn_proj", "c_fc", "mlp_proj")])
             h = post(attn.permute(0, 2, 1, 3).reshape(B, -1).to(f32), h2d,

@@ -30,6 +30,7 @@ from ..device import resolve_device
 from ..ops.attention import FLASH_MIN_T, causal_attention
 from ..ops.fused_linear import fused_linear_supported, sp_linear_fused
 from ..ops.matmul import matmul_bf16
+from ..ops.sharded import gather_dim, local_call, replicating
 from ..quant.calibration import dynamic_scale_flat
 from ..quant.functional import fake_quant_flat
 from .config import QuantConfig, SPModelConfig
@@ -175,7 +176,12 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
     stats = _input_stats(x, q.per_channel, q.eps) if collect_stats else None
     if (cfg.linear_impl == "fused" and not (input_passthrough or calibration_mode)
             and fused_linear_supported(x, p, q)):
-        return sp_linear_fused(x, p, prec, bits, kind, tables.scaling[prec], cfg), stats
+        keys = sorted(p)
+        run = lambda x, *leaves: sp_linear_fused(x, dict(zip(keys, leaves)), prec, bits,
+                                                 kind, tables.scaling[prec], cfg)
+        # the kernels take plain tensors: DTensor operands are replicated
+        # around them (`local_call`)
+        return local_call(run, (x, *(p[k] for k in keys))), stats
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.linear_impl == "cond":
         mm = lambda a, b: a.to(cdt).to(torch.float32) @ b.to(cdt).to(torch.float32)
@@ -265,21 +271,15 @@ def _unstack(tree, n):
     return per
 
 
-def _no_ring_attention(attention_fn):
-    if attention_fn is not None:
-        raise NotImplementedError(
-            "attention_fn (ring attention) comes with the parallel slice "
-            "(ROADMAP A.9)")
-
-
 def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
              calibration_mode=False, collect_stats=False,
              input_passthrough=False, attention_fn=None):
     """Pre-LN residual block. Attention follows `cfg.attention_impl`: "flash"
     forces the trainable flash path (where the shape allows it), "auto"
     takes it for CUDA tensors from T = FLASH_MIN_T on, and the dense path
-    runs elsewhere."""
-    _no_ring_attention(attention_fn)
+    runs elsewhere. `attention_fn(q, k, v)`, on (B, H, T, head_dim) heads
+    in the linears' dtype, replaces all of that (ring attention,
+    `parallel.ring_attention`), as in the JAX package."""
     m = cfg.model
     B, T, C = x.shape
     lin = lambda h, name: sp_linear(h, bp[name], prec, tables, cfg,
@@ -301,8 +301,11 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
     impl = cfg.attention_impl
     use_flash = impl == "flash" or (impl == "auto" and x.is_cuda
                                     and T >= FLASH_MIN_T)
-    attn = causal_attention(cast(heads(q)), cast(heads(k)), cast(heads(v)),
-                            mask=mask, use_flash=use_flash)
+    if attention_fn is not None:
+        attn = attention_fn(heads(q), heads(k), heads(v))
+    else:
+        attn = causal_attention(cast(heads(q)), cast(heads(k)), cast(heads(v)),
+                                mask=mask, use_flash=use_flash)
     attn = attn.to(x.dtype).permute(0, 2, 1, 3).reshape(B, T, C)
     attn_out, s2 = lin(attn, "attn_proj")
     x = x + attn_out
@@ -319,6 +322,7 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
     return x, stats
 
 
+@replicating
 def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
                tables: Optional[PrecTables] = None, inputs_embeds=None,
                mask=None, labels=None, deterministic: bool = True,
@@ -339,9 +343,10 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
     `hidden_states_grad`. `remat` recomputes each block in the backward
     (`torch.utils.checkpoint`). `_skip_head` leaves out the tied LM head and
     `logits` (the QA model reads only `trunk`; under `jit` JAX drops the
-    unread head the same way).
+    unread head the same way). `attention_fn` replaces every block's
+    attention (`sp_block`). DTensor parameters or ids (`parallel`) run
+    under `replication_scope`.
     """
-    _no_ring_attention(attention_fn)
     dev = params["wte"].device
     if tables is None:
         tables = prec_tables(cfg.quant, dev)
@@ -362,7 +367,8 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
         return sp_block(x, bp, prec, tables, cfg, mask=mask,
                         calibration_mode=calibration_mode,
                         collect_stats=collect_stats and not remat,
-                        input_passthrough=input_passthrough)
+                        input_passthrough=input_passthrough,
+                        attention_fn=attention_fn)
 
     per_layer, h_in = [], []
     for bp in _unstack(params["blocks"], cfg.model.n_layer):
@@ -380,7 +386,10 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
                              cfg.model.layer_norm_epsilon)
     out = {}
     if not _skip_head:
-        out["logits"] = matmul_bf16(h, params["wte"].T, torch_dtype(cfg.compute_dtype))
+        # a sequence shard (context parallelism) is gathered for the head:
+        # the shifted losses slice the sequence
+        out["logits"] = matmul_bf16(gather_dim(h, 1), params["wte"].T,
+                                    torch_dtype(cfg.compute_dtype))
     out["trunk"] = h
     if output_hidden_states:
         h_in.append(h if hidden_states_grad else h.detach())

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .sharded import local_call
 
 NEG_INF = -1e30
 
@@ -95,10 +96,14 @@ def jax_block_k(T: int) -> int:
 
 def causal_attention(q, k, v, *, mask=None, use_flash=False):
     """Dispatch: the trainable flash path when `use_flash` and the shape
-    allows it, the dense reference otherwise."""
+    allows it, the dense reference otherwise. Without a mask the dense path
+    keeps DTensor operands' batch and head shards local (`local_call`):
+    DTensor's einsum would flatten (B, H), which two shards forbid."""
     T, D = q.shape[2], q.shape[3]
     if use_flash and flash_supported(T, D, mask):
         return flash_attention_trainable(q, k, v)
+    if mask is None:
+        return local_call(causal_attention_reference, (q, k, v), local_dims=(0, 1))
     return causal_attention_reference(q, k, v, mask=mask)
 
 
@@ -151,8 +156,14 @@ def flash_attention(q, k, v):
     the SIMT forward, each without the log-sum-exp rows; each output row is
     written by one block, which masks the ragged tail itself) or raise.
     Counts its launches in `flash_attention.launches`, and by route in
-    `flash_attention.route_launches`.
+    `flash_attention.route_launches`. DTensor operands run on their local
+    shards (`sharded.local_call`: batch and heads stay sharded, the rest
+    is gathered first).
     """
+    return local_call(_flash_attention_local, (q, k, v), local_dims=(0, 1))
+
+
+def _flash_attention_local(q, k, v):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     o, route = _launch_fwd("flash_attention", q, k, v, None)
@@ -364,5 +375,6 @@ def flash_attention_trainable(q, k, v):
     in it too (the AMP cast's backward), as in the JAX package. The forward
     takes JAX's k-block for T (`jax_block_k`), as `causal_attention` does in
     JAX; it saves (q, k, v, o, lse), and the backward recomputes P from
-    lse."""
-    return _FlashTrainable.apply(q, k, v)
+    lse. DTensor operands run on their local shards, as in
+    `flash_attention`."""
+    return local_call(_FlashTrainable.apply, (q, k, v), local_dims=(0, 1))

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .sharded import rows_local, rows_split
+
 
 def _f32_product(a, b):
     """a @ b of two `compute_dtype` tensors, summed in float32. A bf16×bf16
@@ -44,6 +46,10 @@ def matmul_bf16(a, b, compute_dtype=torch.bfloat16):
     """a @ b with both operands rounded to `compute_dtype`, float32 result.
 
     a: (..., K), b: (K, N). Gradients: da = g @ bᵀ, db = aᵀ @ g over all
-    leading axes, with g rounded to `compute_dtype` first.
+    leading axes, with g rounded to `compute_dtype` first. A DTensor `a`
+    sharded on the sequence (context parallelism) with a replicated `b`
+    multiplies its local rows (`sharded.rows_local`).
     """
+    if rows_split(a, b):
+        return rows_local(lambda x, w: _MatmulBF16.apply(x, w, compute_dtype), a, b)
     return _MatmulBF16.apply(a, b, compute_dtype)

@@ -21,6 +21,8 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..ops.sharded import is_dtensor
+
 Path = Tuple[str, ...]
 
 
@@ -79,13 +81,24 @@ def adamw_init(params, paths: Sequence[Path]) -> AdamWState:
                       mu=zeros, nu={p: z.clone() for p, z in zeros.items()})
 
 
+def _layout_of(t, like):
+    """t with `like`'s placements when `like` is a DTensor (a gradient may
+    come back partial or otherwise placed); else t."""
+    if is_dtensor(like) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 @torch.no_grad()
 def clip_adamw_update(params, grads: Dict[Path, torch.Tensor],
                       state: AdamWState, lr, *, max_norm: float, b1: float,
                       b2: float, eps: float, weight_decay: float):
     """One optimizer step over the trainable leaves in `grads`; returns
-    (new params tree, new state)."""
+    (new params tree, new state). DTensor leaves (`parallel`) keep their
+    placements: the gradients are brought to them first, and the moments
+    and the updated leaves keep them."""
     paths = list(grads)
+    grads = {p: _layout_of(grads[p], get_leaf(params, p)) for p in paths}
     clipped = dict(zip(paths, clip_by_global_norm([grads[p] for p in paths],
                                                   max_norm)))
     count = state.count + 1
@@ -96,9 +109,9 @@ def clip_adamw_update(params, grads: Dict[Path, torch.Tensor],
     mu, nu, new = {}, {}, {}
     for p in paths:
         g, w = clipped[p], get_leaf(params, p)
-        mu[p] = (1 - b1) * g + b1 * state.mu[p]
-        nu[p] = (1 - b2) * g ** 2 + b2 * state.nu[p]
+        mu[p] = _layout_of((1 - b1) * g + b1 * state.mu[p], w)
+        nu[p] = _layout_of((1 - b2) * g ** 2 + b2 * state.nu[p], w)
         u = (mu[p] / bc1) / (torch.sqrt(nu[p] / bc2) + eps)
         u = u + weight_decay * w
-        new[p] = w + step * u
+        new[p] = _layout_of(w + step * u, w)
     return replace_leaves(params, new), AdamWState(count, mu, nu)

@@ -24,6 +24,7 @@ import torch
 
 from ..models.config import SPModelConfig, TrainConfig
 from ..models.sp_model import PrecTables, prec_tables, sp_forward, torch_dtype
+from ..ops.sharded import replicating
 from . import optim
 from .distillation import TeacherOutputs, distillation_loss, prepare_teacher
 
@@ -79,11 +80,19 @@ def make_sp_train_step(cfg: SPModelConfig, tcfg: TrainConfig,
     (state, metrics). The student slots and feature layers are drawn from
     `generator` (which also draws the embedding dropout) unless given, so
     one step can be replayed across packages.
+
+    `attention_fn` goes to `sp_forward` (`partial(ring_attention,
+    mesh=mesh, axis_name=...)` trains with context-parallel attention).
+    `forward_fn` replaces `sp_forward` wholesale and takes its keyword
+    subset (tables, labels, deterministic, dropout_gen,
+    output_hidden_states): `partial(pipeline_sp_forward, mesh=mesh)` runs
+    the same step through the GPipe schedule
+    (`parallel.make_pp_sp_train_step`). The two exclude each other. A
+    state of DTensors (`parallel.shard_params`) is stepped under
+    `replication_scope`, backwards included, and keeps its placements.
     """
-    if attention_fn is not None:
-        _unsupported("attention_fn (ring attention)", "A.9")
-    if forward_fn is not None:
-        _unsupported("forward_fn (the GPipe pipeline)", "A.9")
+    if forward_fn is not None and attention_fn is not None:
+        raise ValueError("forward_fn and attention_fn are mutually exclusive")
     mode = tcfg.student_mode or ("unroll" if tcfg.unroll_students else "scan")
     if mode == "vmap":
         _unsupported("student_mode='vmap'", "A.1b")
@@ -103,16 +112,22 @@ def make_sp_train_step(cfg: SPModelConfig, tcfg: TrainConfig,
                             step=0)
 
     def forward(params, ids, prec, gen, labels, tabs):
+        if forward_fn is not None:
+            return forward_fn(params, ids, prec, cfg, tables=tabs, labels=labels,
+                              deterministic=False, dropout_gen=gen,
+                              output_hidden_states=True)
         return sp_forward(params, ids, prec, cfg, tables=tabs, labels=labels,
                           deterministic=False, dropout_gen=gen,
                           output_hidden_states=True,
-                          hidden_states_grad=tcfg.distill_feature_grad)
+                          hidden_states_grad=tcfg.distill_feature_grad,
+                          attention_fn=attention_fn)
 
     def grads_of(loss, leaves):
         if not loss.requires_grad:  # every term skipped or detached
             return [torch.zeros_like(x) for x in leaves]
         return list(torch.autograd.grad(loss, leaves, materialize_grads=True))
 
+    @replicating
     def train_step(state: SPTrainState, ids, generator: torch.Generator, *,
                    precs=None, layers=None):
         dev = state.params["wte"].device

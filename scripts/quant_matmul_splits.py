@@ -17,6 +17,7 @@ line per shape and M, then one JSON line.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -34,7 +35,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from chip_smoke import graph_ms
     from llm_qat_tpu_torch.ops import _build
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

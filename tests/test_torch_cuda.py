@@ -11,6 +11,7 @@ need not have.)
 """
 
 import ctypes
+import importlib
 import math
 
 import pytest
@@ -1049,7 +1050,7 @@ def test_quant_matmul_kernels_match_plain(cuda_device, bits, M, K, N, per_channe
     per-tensor scale included: the codes are exact in bf16 and bf16 x bf16
     products exact in float32 in both, so they differ by the order of the
     float32 sums: within 1e-5 of max |plain|."""
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     g = torch.Generator(device=cuda_device).manual_seed(M + K + N + bits)
     x = torch.randn((M, K), generator=g, device=cuda_device)
@@ -1071,7 +1072,7 @@ def test_quant_matmul_kernels_match_plain(cuda_device, bits, M, K, N, per_channe
 
 
 def test_quant_matmul_wrappers_check_their_inputs(cuda_device):
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     x = torch.randn((4, 64), device=cuda_device)
     codes, s = qm.pack_int8(torch.randn((64, 32), device=cuda_device))
@@ -1086,7 +1087,7 @@ def test_quant_matmul_wrappers_check_their_inputs(cuda_device):
 
 
 def _qmm_operands(dev, bits, M, K, N, per_channel=True, seed=0):
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     g = torch.Generator(device=dev).manual_seed(seed + M + K + N + bits)
     x = torch.randn((M, K), generator=g, device=dev)
@@ -1129,7 +1130,7 @@ def test_quant_matmul_kernels_are_deterministic(cuda_device, bits, M, K, N):
 def test_quant_matmul_kernel_edges_match_plain(cuda_device, bits, M, K, N, per_channel):
     """#10 / #11 at the regime threshold, ragged M, N and K and a
     per-tensor scale: within 1e-5 of max |plain| (the sums' order only)."""
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     x, codes, s, kern, plain = _qmm_operands(cuda_device, bits, M, K, N, per_channel)
     plan = qm.launch_plan(M, K, N)
@@ -1430,7 +1431,7 @@ def test_int8_and_fused_decode_paths_run_their_kernels(cuda_device):
     from llm_qat_tpu_torch.models.inference import infer_forward_unrolled
     from llm_qat_tpu_torch.ops import decode_attention as da
     from llm_qat_tpu_torch.ops import fused_decode as fd
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     cfg, p, g = _small_setup(cuda_device)
     L = cfg.model.n_layer
@@ -1482,7 +1483,7 @@ def test_infer_forward_with_cache_runs_quant_matmul(cuda_device):
     row is within 2e-2 (the decode steps' rule, chip_smoke.py)."""
     from llm_qat_tpu_torch.models.generate import init_kv_cache
     from llm_qat_tpu_torch.models.inference import infer_forward_with_cache
-    from llm_qat_tpu_torch.ops import quant_matmul as qm
+    qm = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 
     cfg = tc.SPModelConfig(
         model=tc.GPT2Config(vocab_size=512, n_positions=64, n_embd=128, n_layer=12,
@@ -1622,3 +1623,68 @@ def test_rpi_forward_and_importance_run_flash_simt(cuda_device):
         assert len(s) == len(words) and np.isfinite(s).all() and c.max() > 0
         if slot == 2:
             assert np.linalg.norm(s - c) <= 1e-4 * np.linalg.norm(c)
+
+
+def test_parallel_world_size_one_matches_single_device(cuda_device, tmp_path):
+    """The parallel layer on one NCCL rank: the TP/DP distillation step on
+    DTensor parameters over a (1, 1) mesh runs #5 and #6 on the DTensors'
+    local shards, and TP decode on the sharded int8_xla tree runs #2 in its
+    prefill; at world size 1 each op sees the single-device operands, so
+    both equal the single-device path bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from llm_qat_tpu_torch import parallel as P
+    from llm_qat_tpu_torch.models.inference import infer_forward_unrolled
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_paths
+
+    dev = cuda_device
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        cfg = tc.SPModelConfig(
+            model=tc.GPT2Config(vocab_size=512, n_positions=256, n_embd=128, n_layer=2,
+                                n_head=2),
+            quant=tc.QuantConfig(bit_widths=(4, 8, 32)), compute_dtype="bfloat16",
+            attention_impl="flash")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_sp_params(gen, cfg, device=dev)
+        ids = torch.randint(0, 512, (4, 128), generator=gen, device=dev)
+        params = CalibrationManager(cfg, 1).calibrate_all_precisions(params, [ids])
+        mesh = P.make_mesh(1, 1)
+        sharded, _ = P.shard_params(params, mesh)
+        tcfg = tc.TrainConfig(gradient_accumulation_steps=3, num_iterations=4)
+        draws = {"precs": [0, 1], "layers": [0, 2]}
+        init, step = make_sp_train_step(cfg, tcfg)
+        s0, m0 = step(init(params), ids, torch.Generator(device=dev).manual_seed(7), **draws)
+        before = (flash_fwd_lse.launches, flash_bwd.launches)
+        s1, m1 = step(init(sharded), distribute_tensor(ids, mesh, P.batch_sharding(mesh)),
+                      torch.Generator(device=dev).manual_seed(7), **draws)
+        assert (flash_fwd_lse.launches - before[0], flash_bwd.launches - before[1]) == (6, 6)
+        full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+        for k in ("loss", "teacher_loss", "grad_norm"):
+            assert torch.equal(full(m1[k]), m0[k]), k
+        for p in trainable_paths(params):
+            new = optim.get_leaf(s1.params, p)
+            assert new.placements == optim.get_leaf(sharded, p).placements, p
+            assert torch.equal(full(new), optim.get_leaf(s0.params, p)), p
+
+        ip = quantize_for_inference(params, cfg, 8, weight_format="int8_xla")
+        static = ip.pop("_static")
+        prompt = torch.randint(0, 512, (2, 128), generator=gen, device=dev)
+        want, _, _ = infer_forward_unrolled(ip, prompt, cfg,
+                                            init_layer_caches(cfg, 2, 136, device=dev), 0,
+                                            static=static, initial_prefill=True)
+        ip_sh, _ = P.shard_infer_params(ip, mesh)
+        caches = tuple(distribute_tensor(c, mesh, P.kv_cache_sharding(mesh))
+                       for c in init_layer_caches(cfg, 2, 136, device=dev))
+        before = flash_attention.launches
+        got, _, _ = infer_forward_unrolled(
+            ip_sh, distribute_tensor(prompt, mesh, P.batch_sharding(mesh)), cfg, caches, 0,
+            static=static, initial_prefill=True)
+        assert flash_attention.launches - before == 2
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()

@@ -30,8 +30,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     decode attention's, the server's, the packed-weight product's, the
     fused decode layer's, the command line's data, deploy, utils, cli
     and HF-import modules, the CPT and SQuAD modules, and the robustness
-    modules, `run_rpi` and `utils.profiling` among them) and chip_smoke.py
-    import without JAX or llm_qat_tpu."""
+    modules, `run_rpi` and `utils.profiling` among them, and the six
+    `parallel` modules) and chip_smoke.py import without JAX or
+    llm_qat_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import llm_qat_tpu_torch as p\n"
@@ -56,11 +57,51 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "want |= {'llm_qat_tpu_torch.' + n for n in\n"
         "         ('robustness', 'robustness.attacks', 'robustness.random_switching',\n"
         "          'robustness.defense_eval', 'cli.run_rpi', 'utils.profiling')}\n"
+        "want |= {'llm_qat_tpu_torch.parallel' + n for n in\n"
+        "         ('', '.mesh', '.multihost', '._comm', '.ring_attention',\n"
+        "          '.cp_forward', '.pipeline')}\n"
         "assert want <= names, want - names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'llm_qat_tpu' or m.startswith('llm_qat_tpu.')]\n"
         "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+@pytest.mark.parametrize("package", ["ops", "quant", "train", "parallel"])
+def test_package_exports_match_jax(package):
+    """A.10: `ops`, `quant`, `train` and `parallel` export the JAX
+    package's names (9, 13, 3 and 18), each an attribute of the port's
+    package."""
+    import importlib
+
+    want = importlib.import_module(f"llm_qat_tpu.{package}").__all__
+    got = importlib.import_module(f"llm_qat_tpu_torch.{package}")
+    assert sorted(got.__all__) == sorted(want)
+    assert len(want) == {"ops": 9, "quant": 13, "train": 3, "parallel": 18}[package]
+    for name in want:
+        assert getattr(got, name) is not None, name
+
+
+def test_importing_ops_builds_nothing():
+    """Importing `llm_qat_tpu_torch.ops` (and the parallel layer above it)
+    compiles no kernel and loads no library: `_build` starts nvcc only at
+    a kernel's first launch."""
+    code = (
+        "import subprocess\n"
+        "started = []\n"
+        "real = subprocess.Popen\n"
+        "subprocess.Popen = lambda *a, **k: started.append(a) or real(*a, **k)\n"
+        "from llm_qat_tpu_torch.ops import _build\n"
+        "loads = []\n"
+        "_build.load = lambda name: loads.append(name)\n"
+        "import llm_qat_tpu_torch.ops, llm_qat_tpu_torch.parallel\n"
+        "assert not started and not loads, (started, loads)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT

@@ -23,10 +23,11 @@ from llm_qat_tpu_torch.models import config as tc
 from llm_qat_tpu_torch.models import inference as ti
 from llm_qat_tpu_torch.models.inference import InferenceEngine as TEngine
 from llm_qat_tpu_torch.ops import mega_decode as tm
-from llm_qat_tpu_torch.ops import quant_matmul as tq
 
 # the module (llm_qat_tpu.ops exports its function quant_matmul under that name)
 jq = importlib.import_module("llm_qat_tpu.ops.quant_matmul")
+# the port's `ops` exports JAX's names, `quant_matmul` the function among them
+tq = importlib.import_module("llm_qat_tpu_torch.ops.quant_matmul")
 V = 256
 
 

@@ -215,8 +215,9 @@ def test_fused_linear_and_ring_attention_raise(monkeypatch):
     """linear_impl="fused" runs: the fused linear (here its plain versions)
     where the JAX shape gate passes (M = 256, K = 128, rank 8), the flat
     linear elsewhere (M = 8, and calibration with the input quantizer in
-    pass-through), as in the JAX package. Ring attention, whose module is
-    not ported, raises instead of running something else."""
+    pass-through), as in the JAX package. The `attention_fn` hook (ring
+    attention's) runs the function it is given in place of the block's
+    attention."""
     from llm_qat_tpu_torch.ops import fused_linear as tfl
 
     calls = []
@@ -237,5 +238,46 @@ def test_fused_linear_and_ring_attention_raise(monkeypatch):
         x = ids[:1, :8] if short else ids
         out = tsp.sp_forward(params, x, 0, cfg, **kw)
         assert bool(torch.isfinite(out["logits"]).all()) and calls == []
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tsp.sp_forward(params, ids, 0, _tiny_cfg("auto"), attention_fn=lambda *a: a[0])
+    # an attention_fn replaces the block's attention, here with the dense
+    # path it would have taken
+    hooked = tsp.sp_forward(params, ids, 0, cfg.replace(linear_impl="flat"),
+                            attention_fn=ta.causal_attention_reference)
+    torch.testing.assert_close(hooked["logits"], flat["logits"], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_sp_forward_attention_fn_matches_jax(compute_dtype):
+    """`sp_forward(attention_fn=...)` against the JAX package's on the same
+    parameters: the hook replaces every block's attention and gets the
+    heads in the linears' dtype, without the AMP cast of the built-in path
+    (float32 here at either compute dtype), as in JAX. Tolerances relative
+    to the largest logit: float32 sums in another order, 1e-5; in bf16 an
+    operand one float32 ulp apart may round to the neighbouring bf16 value
+    (measured 3.0e-3, within one bf16 ulp of the largest logit), 2^-8."""
+    import llm_qat_tpu.models as J
+
+    m = dict(vocab_size=64, n_positions=32, n_embd=32, n_layer=2, n_head=2)
+    q = dict(bit_widths=(4, 32), lora_rank_per_bit={4: 4, 32: 0},
+             lora_alpha_per_bit={4: 8, 32: 0})
+    jcfg = J.SPModelConfig(model=J.GPT2Config(**m), quant=J.QuantConfig(**q),
+                           compute_dtype=compute_dtype)
+    tcfg = tc.SPModelConfig(model=tc.GPT2Config(**m), quant=tc.QuantConfig(**q),
+                            compute_dtype=compute_dtype)
+    jp = jax.tree.map(np.asarray, J.init_sp_params(jax.random.PRNGKey(0), jcfg))
+    ids = np.random.default_rng(0).integers(0, 64, (2, 16))
+    seen = []
+
+    def t_attn(q, k, v):
+        seen.append(q.dtype)
+        return 0.5 * ta.causal_attention_reference(q, k, v)
+
+    for prec in (0, 1):
+        want = J.sp_forward(jax.tree.map(jnp.asarray, jp), jnp.asarray(ids), prec, jcfg,
+                            attention_fn=lambda q, k, v: 0.5 * ja.causal_attention_reference(q, k, v))
+        got = tsp.sp_forward(bridge.params_from_numpy(jp, "cpu"), torch.tensor(ids), prec, tcfg,
+                             attention_fn=t_attn)
+        want = np.asarray(want["logits"])
+        tol = 1e-5 if compute_dtype == "float32" else 2.0 ** -8
+        np.testing.assert_allclose(got["logits"].numpy(), want, rtol=0,
+                                   atol=tol * np.abs(want).max())
+    assert seen == [torch.float32] * 2 * tcfg.model.n_layer

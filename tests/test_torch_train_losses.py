@@ -170,13 +170,73 @@ def test_clip_adamw_matches_optax(grad_scale):
 
 
 def test_unported_trainer_options_raise():
-    """The options whose modules are not ported raise, naming their ROADMAP
-    item, instead of running something else."""
+    """The option whose module is not ported raises, naming its ROADMAP
+    item, instead of running something else; an unknown student mode
+    raises; `forward_fn` and `attention_fn` together raise ValueError, as in
+    JAX."""
     _, tcfg = _tiny()
     for kw, item in ((dict(student_mode="vmap"), "A.1b"),
                      (dict(student_mode="nope"), "scan/unroll/vmap")):
         with pytest.raises((NotImplementedError, ValueError), match=item):
             tst.make_sp_train_step(tcfg, tc.TrainConfig(**kw))
-    for kw in (dict(attention_fn=lambda *a: a[0]), dict(forward_fn=lambda *a: a[0])):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            tst.make_sp_train_step(tcfg, tc.TrainConfig(), **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tst.make_sp_train_step(tcfg, tc.TrainConfig(), attention_fn=lambda *a: a[0],
+                               forward_fn=lambda *a, **k: None)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        jst.make_sp_train_step(_tiny()[0], J.TrainConfig(), attention_fn=lambda *a: a[0],
+                               forward_fn=lambda *a, **k: None)
+
+
+def _hooked_steps(**hook):
+    """One plain and one hooked train step of the port from the same state,
+    generator seed and batch (the students' draws from the generator)."""
+    jcfg, tcfg = _tiny()
+    jp = jax.tree.map(np.asarray, J.init_sp_params(jax.random.PRNGKey(1), jcfg))
+    ids = torch.tensor(np.random.default_rng(1).integers(0, 64, (2, 16)))
+    train = tc.TrainConfig(gradient_accumulation_steps=3, num_iterations=4)
+    out = []
+    for kw in ({}, hook):
+        init, step = tst.make_sp_train_step(tcfg, train, **kw)
+        out.append(step(init(bridge.params_from_numpy(jp, "cpu")), ids,
+                        torch.Generator().manual_seed(5)))
+    return out
+
+
+def test_train_step_forward_fn_replays_the_plain_step():
+    """`forward_fn` gets `sp_forward`'s keyword subset (tables, labels,
+    deterministic=False, the generator, output_hidden_states=True) and
+    replaces the forward of every micro-step; given `sp_forward` itself the
+    step is the plain one, bit for bit."""
+    calls = []
+
+    def fwd(*a, **kw):
+        calls.append(sorted(kw))
+        return tsp.sp_forward(*a, **kw)
+
+    (s0, m0), (s1, m1) = _hooked_steps(forward_fn=fwd)
+    assert calls == [["deterministic", "dropout_gen", "labels", "output_hidden_states",
+                      "tables"]] * 3
+    for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm"):
+        assert torch.equal(m1[k], m0[k]), k
+    for path, v in optim.leaves_with_paths(s0.params):
+        assert torch.equal(optim.get_leaf(s1.params, path), v), path
+
+
+def test_train_step_attention_fn_matches_the_plain_step():
+    """`attention_fn` reaches every block of every micro-step; the dense
+    reference given as the hook replays the plain step (which runs the
+    same dense path on the CPU) bit for bit."""
+    from llm_qat_tpu_torch.ops import attention as ta
+
+    calls = []
+
+    def attn(q, k, v):
+        calls.append(q.shape)
+        return ta.causal_attention_reference(q, k, v)
+
+    (s0, m0), (s1, m1) = _hooked_steps(attention_fn=attn)
+    assert len(calls) == 3 * 2
+    for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm"):
+        assert torch.equal(m1[k], m0[k]), k
+    for path, v in optim.leaves_with_paths(s0.params):
+        assert torch.equal(optim.get_leaf(s1.params, path), v), path

@@ -49,6 +49,8 @@ counters set to 0 just before it and read just after:
   below runs it but at PARALLEL_DEFAULT_LAYERS layers: TP/DP, CP and PP
   train steps and TP decode, each held against its single-device path,
   with #2, #5 and #6 launched on DTensor-held or local operands;
+- `student_mode="vmap"` training, as `--vmap` below runs it but at
+  VMAP_DEFAULT_LAYERS layers;
 - SP distillation training of GPT-2 124M at T = 1024 (CalibrationManager →
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
@@ -208,6 +210,19 @@ M = 2) and TP decode on the sharded int8_xla tree (#2 in the prefill),
 each held against its single-device path (bit-equal, or within its
 jitter floor), each path's wall beside the single-device one. Prints
 `parallel_timings`, then the result line.
+
+    python3 chip_smoke.py --vmap
+
+runs only `student_mode="vmap"` training (`vmap_phase`) at GPT-2 width
+with 12 layers, accum 4 (three students in one batched forward and
+backward): (a) bench.py's train configuration (B = 8, T = 256, flat,
+dense; no port kernel), 3 vmap and 3 scan steps from the same parameters
+and generator held against each other; (b) training's configuration (B =
+8, T = 1024) on the flat and the fused linear, the vmap run's launches
+(#5/#6 2·L an iteration on wgmma over the folded student batch; #14-#16
+4·L·accum on the fused path), vmap held against scan and against the
+same step on the kernels' plain versions. Prints each mode's wall, device
+ms, CUDA records and peak memory in `vmap_timings`, then the result line.
 
     python3 chip_smoke.py --fused-decode
 
@@ -4381,6 +4396,254 @@ def parallel_phase(dev, card, n_layer) -> dict:
     return launches
 
 
+VMAP_DEFAULT_LAYERS = 2
+VMAP_ACCUM = 4                 # bench.py's TRAIN_ACCUM: three students
+VMAP_STEPS = 3                 # steps a mode takes from the calibrated parameters
+VMAP_JITTER = 2.0 ** -22       # the floor's noise on each float32 product
+
+
+def bench_train_setup(dev, n_layer):
+    """bench.py's train configuration (`bench.py:66-88`): GPT-2 124M width
+    with `n_layer` blocks, bits 4/8/32, LoRA rank 64 with alpha 128, bf16
+    compute, the flat linear, dense attention; B = 8, T = 256, accum 4,
+    `student_mode="vmap"`, bf16 teacher cache; random weights from seed 0,
+    calibrated on batch[:2, :64] as bench.py calibrates. Returns (cfg,
+    tcfg, params, batches)."""
+    import torch
+
+    from llm_qat_tpu_torch.models.config import (
+        GPT2Config,
+        QuantConfig,
+        SPModelConfig,
+        TrainConfig,
+    )
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+
+    rank = 64
+    cfg = SPModelConfig(
+        model=GPT2Config(n_layer=n_layer),
+        quant=QuantConfig(bit_widths=(4, 8, 32),
+                          lora_rank_per_bit={b: rank for b in range(2, 17)} | {32: 0},
+                          lora_alpha_per_bit={b: 2 * rank for b in range(2, 17)} | {32: 0}),
+        compute_dtype="bfloat16", linear_impl="flat", attention_impl="dense")
+    tcfg = TrainConfig(batch_size=8, max_seq_length=256, gradient_accumulation_steps=VMAP_ACCUM,
+                       num_iterations=100, eval_interval=10_000, student_mode="vmap",
+                       distill_cache_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    batches = [torch.randint(0, cfg.model.vocab_size, (tcfg.batch_size, tcfg.max_seq_length),
+                             generator=gen, device=dev) for _ in range(VMAP_STEPS)]
+    params = CalibrationManager(cfg, 1).calibrate_all_precisions(params, [batches[0][:2, :64]])
+    return cfg, tcfg, params, batches
+
+
+def mode_run(cfg, tcfg, params, batches, dev, mode, patches=(), seed=1):
+    """VMAP_STEPS steps at `student_mode=mode` from `params` (the
+    generator seeded 7, batches in turn), with `patches`' outputs jittered
+    (`_flash_jitter`, noise seed `seed`). Returns (metrics of each step,
+    the final parameters)."""
+    import dataclasses
+
+    import torch
+
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step
+
+    init, step = make_sp_train_step(cfg, dataclasses.replace(tcfg, student_mode=mode))
+
+    def run():
+        state, gen, metrics = init(params), torch.Generator(device=dev).manual_seed(7), []
+        for i in range(VMAP_STEPS):
+            state, m = step(state, batches[i % len(batches)], gen)
+            metrics.append(m)
+        return metrics, state.params
+
+    return _flash_jitter(patches, seed, run)
+
+
+def vmap_vs_scan(tag, cfg, tcfg, params, batches, dev, patches, failures):
+    """VMAP_STEPS scan and vmap steps from the same parameters and
+    generator seed, which draw the same slots, layers and dropout masks:
+    the precisions equal at every step, the frozen leaves bit-identical,
+    and the vmap run's metrics (each the largest relative difference over
+    the steps) and update (relative L2 over the trainable leaves after the
+    last step) bit-equal to the scan run's or within TRAIN_FLOOR_FACTOR
+    times the floor: the scan run against itself with `patches`' outputs
+    moved by relative noise. Every kernel's counter (and the weight
+    prologue's) is set to 0 just before the vmap run and read just after.
+    Returns (hold, {"kernels": launches of those that ran, "flash_routes":
+    #5's by route, "fq_weight": the prologue's})."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.sp_trainer import trainable_mask
+
+    scan = mode_run(cfg, tcfg, params, batches, dev, "scan")
+    zero_counters()
+    fl.fq_weight.launches = 0
+    vm = mode_run(cfg, tcfg, params, batches, dev, "vmap")
+    torch.cuda.synchronize()
+    launches = {"kernels": read_counters(),
+                "flash_routes": dict(att.flash_fwd_lse.route_launches),
+                "fq_weight": fl.fq_weight.launches}
+    for i, (a, b) in enumerate(zip(vm[0], scan[0])):
+        check(torch.equal(a["precisions"], b["precisions"]),
+              f"{tag} step {i}: vmap precisions {a['precisions'].tolist()} equal scan's "
+              f"{b['precisions'].tolist()}")
+    mask = optim.leaves_with_paths(trainable_mask(params))
+    paths = [p for p, m in mask if m]
+    check(all(torch.equal(optim.get_leaf(vm[1], p), optim.get_leaf(params, p))
+              for p, m in mask if not m), f"{tag}: frozen leaves bit-identical after vmap steps")
+    check(all(math.isfinite(float(m[k])) for m in vm[0]
+              for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm")),
+          f"{tag}: finite vmap metrics")
+
+    def diffs(x, ref):
+        out = {k: max(abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+                      for a, b in zip(x[0], ref[0]))
+               for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm")}
+        num = torch.sqrt(sum(((optim.get_leaf(x[1], p) - optim.get_leaf(ref[1], p)) ** 2).sum()
+                             for p in paths))
+        den = torch.sqrt(sum(((optim.get_leaf(ref[1], p) - optim.get_leaf(params, p)) ** 2).sum()
+                             for p in paths))
+        out["update"] = (num / den).item()
+        return out
+
+    hold = _held(f"{tag} vmap vs scan ({VMAP_STEPS} steps)", diffs(vm, scan),
+                 lambda seed: diffs(mode_run(cfg, tcfg, params, batches, dev, "scan", patches,
+                                             seed), scan), failures)
+    hold["precisions"] = [m["precisions"].tolist() for m in vm[0]]
+    return hold, launches
+
+
+def mode_timings(cfg, tcfg, params, batches, dev, mode):
+    """One train iteration at `student_mode=mode`, after a warm-up step:
+    wall ms (host clock around synchronised steps, mean of 3), device ms
+    and CUDA records (torch.profiler over one more iteration: the busy time
+    of its CUDA records and their count, kernels and copies; the profiler
+    may drop records over tens of thousands of launches), peak memory (GB,
+    `max_memory_allocated` over the timed steps) and tokens/s."""
+    import dataclasses
+
+    import torch
+
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step
+
+    init, step = make_sp_train_step(cfg, dataclasses.replace(tcfg, student_mode=mode))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    state, _ = step(init(params), batches[0], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(3):
+        (state, _), ms = synced_ms(step, state, batches[i % len(batches)], gen)
+        walls.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(state, batches[0], gen)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count]
+    it = sum(walls) / len(walls)
+    return {"iter_ms": it, "iter_ms_each": walls,
+            "device_ms": sum(ev.self_device_time_total for ev in evs) / 1e3,
+            "cuda_records": sum(ev.count for ev in evs), "peak_mem_gb": peak,
+            "tokens_per_s": 1e3 * batches[0].numel() / it}
+
+
+def vmap_phase(dev, card, n_layer) -> dict:
+    """`student_mode="vmap"`: the students of a train step in one batched
+    forward and backward, at GPT-2 width with `n_layer` layers.
+
+    (a) bench.py's train configuration (`bench_train_setup`: B = 8, T =
+        256, accum 4, flat linear, dense attention, bf16 teacher cache),
+        which launches no port kernel (every counter 0 over its runs, as
+        JAX's Pallas kernels do not run there): VMAP_STEPS vmap and scan
+        steps from the same parameters and generator, held with
+        `vmap_vs_scan`, the floor moving each float32 product
+        (`ops.matmul._f32_product`) by 2^-22;
+    (b) training's configuration on the kernels (`train_setup`: B = 8, T =
+        1024, bf16, #5/#6 on wgmma) at accum 4, on the flat and the fused
+        linear: the vmap run's launches (#5 and #6 2·L an iteration, the
+        teacher's and the batched students' pass, all on wgmma; #14-#16
+        4·L·accum on the fused path, each student its own call, 0 on the
+        flat one; the weight prologue twice that), `vmap_vs_scan` (the
+        floor also moving #14-#16's outputs by FUSED_JITTER on the fused
+        path), and `step_vs_plain` with the vmap step.
+
+    Prints each mode's `mode_timings` (vmap beside scan), the holds, the
+    launches and the phase's wall in one `vmap_timings` line. Returns the
+    (b) vmap runs' launches by path."""
+    import dataclasses
+
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+    from llm_qat_tpu_torch.ops import matmul as mm
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step
+
+    t_phase = time.time()
+    failures, holds, timings, launches = [], {}, {}, {}
+    products = [(mm, "_f32_product", VMAP_JITTER)]
+
+    # (a) bench.py's configuration: no port kernel
+    cfg, tcfg, params, batches = bench_train_setup(dev, n_layer)
+    holds["bench"], ran = vmap_vs_scan("bench", cfg, tcfg, params, batches, dev, products,
+                                       failures)
+    check(not ran["kernels"], f"bench configuration launched {ran}; it runs no port kernel")
+    zero_counters()
+    timings["bench"] = {mode: mode_timings(cfg, tcfg, params, batches, dev, mode)
+                        for mode in ("vmap", "scan")}
+    check(not read_counters(), "bench configuration timings launched a port kernel")
+    print(f"vmap (a) bench.py's train configuration (L = {n_layer}, B = 8, T = 256, accum "
+          f"{VMAP_ACCUM}, flat, dense; no port kernel launched, as in JAX): "
+          + json.dumps(timings["bench"]), flush=True)
+    del params, batches
+    torch.cuda.empty_cache()
+
+    # (b) training's configuration on the kernels
+    cfg, tcfg, params, batches, _ = train_setup(dev, n_layer)
+    tcfg = dataclasses.replace(tcfg, gradient_accumulation_steps=VMAP_ACCUM, student_mode="vmap")
+    L = cfg.model.n_layer
+    for impl in ("flat", "fused"):
+        c = cfg.replace(linear_impl=impl)
+        fused = impl == "fused"
+        kernels = ("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw")
+        patches = products + ([(fl, n, FUSED_JITTER) for n in kernels] if fused else [])
+        holds[impl], ran = vmap_vs_scan(impl, c, tcfg, params, batches, dev, patches, failures)
+        launches[impl] = ran
+        n_lin = 4 * L * VMAP_ACCUM * VMAP_STEPS if fused else 0
+        want = {"flash_fwd_lse": 2 * L * VMAP_STEPS, "flash_bwd": 2 * L * VMAP_STEPS}
+        want.update({n: n_lin for n in kernels if n_lin})
+        check(ran["kernels"] == want, f"{impl} vmap ran #5/#6 2·L and #14-#16 "
+              f"{n_lin // VMAP_STEPS} times each an iteration: {ran}")
+        check(ran["flash_routes"]["wgmma"] == want["flash_fwd_lse"],
+              f"{impl} vmap ran #5 on wgmma: {ran}")
+        check(ran["fq_weight"] == 2 * n_lin,
+              f"{impl} vmap ran the weight prologue {2 * n_lin} times: {ran}")
+        state = make_sp_train_step(c, tcfg)[0](params)
+        if fused:
+            step_vs_plain(c, tcfg, state, batches, dev, failures, fl, kernels,
+                          ((FUSED_JITTER,), (FUSED_JITTER,) * 2, (FUSED_JITTER,)), "vmap fused")
+        else:
+            step_vs_plain(c, tcfg, state, batches, dev, failures, att,
+                          ("flash_fwd_lse", "flash_bwd"),
+                          ((2.0 ** -8, 2.0 ** -22), (2.0 ** -8,) * 3), "vmap flat")
+        del state
+        timings[impl] = {mode: mode_timings(c, tcfg, params, batches, dev, mode)
+                         for mode in ("vmap", "scan")}
+        print(f"vmap (b) {impl} (L = {L}, B = 8, T = 1024, accum {VMAP_ACCUM}): "
+              + json.dumps(timings[impl]), flush=True)
+    check(not failures, "; ".join(failures))
+    print("vmap_timings " + json.dumps({
+        "card": card, "n_layer": n_layer, "accum": VMAP_ACCUM, "timings": timings,
+        "holds": holds, "launches": launches, "phase_s": time.time() - t_phase}), flush=True)
+    return launches
+
+
 def kernel_counters():
     """The sixteen kernels' wrappers (their `launches` counters), by name."""
     from llm_qat_tpu_torch.ops import attention as att
@@ -5009,6 +5272,10 @@ def main() -> int:
     ap.add_argument("--parallel", action="store_true",
                     help="only run the parallel layer's paths (TP/DP, CP, PP, TP decode) at "
                          "GPT-2 124M, 12 layers, on one NCCL group of world size 1")
+    ap.add_argument("--vmap", action="store_true",
+                    help="only run student_mode='vmap' training (bench.py's train "
+                         "configuration, and #5/#6 and #14-#16 at T = 1024) at GPT-2 124M, "
+                         "12 layers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5073,6 +5340,10 @@ def main() -> int:
         return 0
     if args.parallel:
         parallel_phase(dev, card, 12)
+        print_result()
+        return 0
+    if args.vmap:
+        vmap_phase(dev, card, 12)
         print_result()
         return 0
     if args.cached_generate or args.eval_sp:
@@ -5217,6 +5488,12 @@ def main() -> int:
     # 4c, parallel. The parallel layer (TP/DP, CP, PP, TP decode) at GPT-2
     #     width with PARALLEL_DEFAULT_LAYERS layers, one NCCL group of one
     par_launches = parallel_phase(dev, card, PARALLEL_DEFAULT_LAYERS)
+    torch.cuda.empty_cache()
+
+    # 4c, vmap. student_mode="vmap" training at GPT-2 width with
+    #     VMAP_DEFAULT_LAYERS layers: bench.py's train configuration, then
+    #     #5/#6 and #14-#16 over the batched students
+    vmap_launches = vmap_phase(dev, card, VMAP_DEFAULT_LAYERS)
     torch.cuda.empty_cache()
 
     # 4d. training: kernels #14-#16 against their plain versions at the
@@ -5418,6 +5695,7 @@ def main() -> int:
         by_path["rpi_importance"] = rpi_launches["rpi_importance"][name]
         by_path["tp_step"] = par_launches["tp_step"][name]
         by_path["pp_step"] = par_launches["pp_step"][name]
+        by_path["vmap_train"] = sum(v["kernels"][name] for v in vmap_launches.values())
         kernels.append({
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
@@ -5446,7 +5724,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/fused_linear.cu",
             "replaces": f"llm_qat_tpu/ops/fused_linear.py:{line}",
-            "launches": flaunch[name], "max_abs_err": errs[name],
+            "launches": flaunch[name] + vmap_launches["fused"]["kernels"][name],
+            "launches_by_path": {"train": flaunch[name],
+                                 "vmap_train": vmap_launches["fused"]["kernels"][name]},
+            "max_abs_err": errs[name],
             "ms": sum(x["ms"] for x in row), "plain_ms": sum(x["plain_ms"] for x in row),
             "bound_ms": 1e3 * sum(max(a, b) for a, b in zip(t_bytes, t_ops)),
             "bound_by": "operations" if sum(t_ops) >= sum(t_bytes) else "bytes",

@@ -211,7 +211,8 @@ class TrainConfig:
     distill_cache_dtype: str = "float32"
     unroll_students: bool = False
     # "scan" and "unroll" run the same Python loop over the students;
-    # "vmap" is not ported. None -> "unroll" if unroll_students else "scan".
+    # "vmap" runs all students in one batched forward and one backward.
+    # None -> "unroll" if unroll_students else "scan".
     student_mode: Optional[str] = None
     calibration_batches: int = 10
 

@@ -10,6 +10,11 @@ Per quantized linear: `w` (in, out), `b` (out,), `wq_scale`/`wq_zp` (P, out)
 or (P, 1), `iq_scale`/`iq_zp` (P, in) or (P, 1), `lora_A` (P, in, r),
 `lora_B` (P, r, out). The switchable LayerNorm holds gamma/beta banks (P, d).
 
+`prec` is one slot (an int) or, for `student_mode="vmap"`, a 1-D tensor of
+S slots: every activation then carries a student axis in front (S, B, T,
+d), each bank gather a student axis (`per_student`), and attention runs on
+the S·B folded rows. The embeddings are shared and computed once.
+
 Gradients are autograd's, through the STEs of `quant.functional`, the
 bf16-both-directions `matmul_bf16` (or the fused linear kernels of
 `ops.fused_linear` at `linear_impl="fused"`), the LayerNorm's hand-written
@@ -29,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.attention import FLASH_MIN_T, causal_attention
 from ..ops.fused_linear import fused_linear_supported, sp_linear_fused
-from ..ops.matmul import matmul_bf16
+from ..ops.matmul import matmul_bf16, student_rows
 from ..ops.sharded import gather_dim, local_call, replicating
 from ..quant.calibration import dynamic_scale_flat
 from ..quant.functional import fake_quant_flat
@@ -133,6 +138,24 @@ def init_sp_params(gen: torch.Generator, cfg: SPModelConfig,
 # ---------------------------------------------------------------------------
 
 
+def is_slots(prec) -> bool:
+    """True for a vector of S student slots (a 1-D tensor), False for one
+    slot."""
+    return isinstance(prec, torch.Tensor) and prec.ndim == 1
+
+
+def as_prec(prec, device):
+    """One slot as an int, or a vector of slots as a long tensor on
+    `device`."""
+    return prec.to(device, torch.long) if is_slots(prec) else int(prec)
+
+
+def per_student(v, ndim: int):
+    """A per-student gather (S, *rest) reshaped to (S, 1, ..., 1, *rest) of
+    `ndim` dims, so that it broadcasts against (S, ...) activations."""
+    return v.reshape(v.shape[0], *([1] * (ndim - v.ndim)), *v.shape[1:])
+
+
 def dynamic_scale(x, bits, kind, channel_dim: Optional[int],
                   symmetric: bool = True, eps: float = 1e-5):
     """(scale, zero_point) computed from `x` with bits/kind given as
@@ -169,13 +192,22 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
     through and scaling==0 zeroes the LoRA branch. `input_passthrough=True`
     is the input-calibration phase: the input quantizer is off while the
     weight quantizer stays active.
+
+    With a vector of S slots, x is (S, ..., K) and student s quantizes at
+    slot prec[s]: each product is a batched one over per-student quantized
+    weights, the shared `w` taking the sum of the students' STE
+    cotangents. The fused gate is evaluated on one student's rows, as
+    `jax.vmap` sees them.
     """
     q = cfg.quant
+    if is_slots(prec) and (calibration_mode or collect_stats or input_passthrough):
+        raise ValueError("calibration_mode, collect_stats and input_passthrough take one "
+                         "precision slot, not a vector of slots")
     bits = tables.bits[prec]
     kind = tables.kind[prec]
     stats = _input_stats(x, q.per_channel, q.eps) if collect_stats else None
     if (cfg.linear_impl == "fused" and not (input_passthrough or calibration_mode)
-            and fused_linear_supported(x, p, q)):
+            and fused_linear_supported(x[0] if is_slots(prec) else x, p, q)):
         keys = sorted(p)
         run = lambda x, *leaves: sp_linear_fused(x, dict(zip(keys, leaves)), prec, bits,
                                                  kind, tables.scaling[prec], cfg)
@@ -183,31 +215,37 @@ def sp_linear(x, p, prec, tables: PrecTables, cfg: SPModelConfig,
         # around them (`local_call`)
         return local_call(run, (x, *(p[k] for k in keys))), stats
     cdt = torch_dtype(cfg.compute_dtype)
+    # a per-student operand broadcast against x (n = x.ndim) or a bank (3)
+    at = (lambda v, n: per_student(v, n)) if is_slots(prec) else (lambda v, n: v)
     if cfg.linear_impl == "cond":
-        mm = lambda a, b: a.to(cdt).to(torch.float32) @ b.to(cdt).to(torch.float32)
+        mm = lambda a, b: student_rows(
+            lambda u, v: u.to(cdt).to(torch.float32) @ v.to(cdt).to(torch.float32), a, b)
     else:
         mm = lambda a, b: matmul_bf16(a, b, cdt)
 
     if input_passthrough:
         xq = x
     else:
-        xq = fake_quant_flat(x, p["iq_scale"][prec], p["iq_zp"][prec], bits,
-                             kind, q.symmetric, q.eps)
-    wq = fake_quant_flat(p["w"], p["wq_scale"][prec][None, :],
-                         p["wq_zp"][prec][None, :], bits, kind, q.symmetric,
-                         q.eps)
+        xq = fake_quant_flat(x, at(p["iq_scale"][prec], x.ndim),
+                             at(p["iq_zp"][prec], x.ndim), at(bits, x.ndim),
+                             at(kind, x.ndim), q.symmetric, q.eps)
+    wq = fake_quant_flat(p["w"], p["wq_scale"][prec].unsqueeze(-2),
+                         p["wq_zp"][prec].unsqueeze(-2), at(bits, 3), at(kind, 3),
+                         q.symmetric, q.eps)
     base = mm(xq, wq) + p["b"]
 
     if not calibration_mode and q.max_rank > 0:
         A = p["lora_A"][prec]
         B = p["lora_B"][prec]
         ch = 1 if q.per_channel else None
-        a_s, a_z = dynamic_scale_flat(A, bits, kind, ch, q.symmetric, q.eps)
-        b_s, b_z = dynamic_scale_flat(B, bits, kind, ch, q.symmetric, q.eps)
-        Aq = fake_quant_flat(A, a_s, a_z, bits, kind, q.symmetric, q.eps)
-        Bq = fake_quant_flat(B, b_s, b_z, bits, kind, q.symmetric, q.eps)
+        bk = (at(bits, 3), at(kind, 3))
+        n_batch = 1 if is_slots(prec) else 0
+        a_s, a_z = dynamic_scale_flat(A, *bk, ch, q.symmetric, q.eps, n_batch)
+        b_s, b_z = dynamic_scale_flat(B, *bk, ch, q.symmetric, q.eps, n_batch)
+        Aq = fake_quant_flat(A, a_s, a_z, *bk, q.symmetric, q.eps)
+        Bq = fake_quant_flat(B, b_s, b_z, *bk, q.symmetric, q.eps)
         # the LoRA branch sees the *raw* input
-        base = base + tables.scaling[prec] * mm(mm(x, Aq), Bq)
+        base = base + at(tables.scaling[prec], x.ndim) * mm(mm(x, Aq), Bq)
     return base, stats
 
 
@@ -220,11 +258,15 @@ def _ln_stats(x, eps):
 
 class _LayerNormCVJP(torch.autograd.Function):
     """LayerNorm with the hand-written single-pass backward (the standard
-    identity); it saves x and the two row statistics, not xn."""
+    identity); it saves x and the two row statistics, not xn. Per-student
+    gamma/beta (S, d) scale x (S, ..., d) student by student, and their
+    gradients are (S, d), each summed over its student's rows only."""
 
     @staticmethod
     def forward(ctx, x, g, b, eps):
         xf, mean, rstd = _ln_stats(x, eps)
+        if g.ndim == 2:
+            g, b = per_student(g, x.ndim), per_student(b, x.ndim)
         ctx.save_for_backward(x, mean, rstd, g)
         return (g * ((xf - mean) * rstd) + b).to(x.dtype)
 
@@ -233,7 +275,8 @@ class _LayerNormCVJP(torch.autograd.Function):
         x, mean, rstd, g = ctx.saved_tensors
         dyf = dy.to(torch.float32)
         xn = (x.to(torch.float32) - mean) * rstd
-        lead = tuple(range(dyf.ndim - 1))
+        # every axis but the feature one and a student axis in front
+        lead = tuple(range(1 if g.ndim > 1 else 0, dyf.ndim - 1))
         dg = torch.sum(dyf * xn, dim=lead) if ctx.needs_input_grad[1] else None
         db = torch.sum(dyf, dim=lead) if ctx.needs_input_grad[2] else None
         t = dyf * g
@@ -247,12 +290,16 @@ LN_IMPL = "cvjp"  # "cvjp" (hand-written backward) | "autodiff" (A/B switch)
 
 def switchable_layernorm(x, ln, prec, eps: float):
     """Per-precision-affine LayerNorm: biased variance over the feature dim,
-    gamma/beta gathered from the (P, d) bank by `prec`. The backward is
+    gamma/beta gathered from the (P, d) bank by `prec` (one slot, or a
+    vector of S slots for x of shape (S, ..., d)). The backward is
     `_LayerNormCVJP`'s unless `LN_IMPL` is "autodiff"."""
+    g, b = ln["g"][prec], ln["b"][prec]
     if LN_IMPL == "cvjp":
-        return _LayerNormCVJP.apply(x, ln["g"][prec], ln["b"][prec], eps)
+        return _LayerNormCVJP.apply(x, g, b, eps)
+    if is_slots(prec):
+        g, b = per_student(g, x.ndim), per_student(b, x.ndim)
     xf, mean, rstd = _ln_stats(x, eps)
-    return (ln["g"][prec] * ((xf - mean) * rstd) + ln["b"][prec]).to(x.dtype)
+    return (g * ((xf - mean) * rstd) + b).to(x.dtype)
 
 
 def _layer(tree, li):
@@ -279,9 +326,15 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
     takes it for CUDA tensors from T = FLASH_MIN_T on, and the dense path
     runs elsewhere. `attention_fn(q, k, v)`, on (B, H, T, head_dim) heads
     in the linears' dtype, replaces all of that (ring attention,
-    `parallel.ring_attention`), as in the JAX package."""
+    `parallel.ring_attention`), as in the JAX package.
+
+    With a vector of S slots x is (S, B, T, C), and attention, which has
+    no per-student weights, runs on the S·B folded rows: (S·B, H, T,
+    head_dim) heads, for the flash kernels, the dense path and
+    `attention_fn` alike (a (B, T) `mask` is repeated per student)."""
     m = cfg.model
-    B, T, C = x.shape
+    T, C = x.shape[-2:]
+    B = x.shape[0] if x.ndim == 3 else -1  # -1: the S·B folded rows
     lin = lambda h, name: sp_linear(h, bp[name], prec, tables, cfg,
                                     calibration_mode, collect_stats,
                                     input_passthrough)
@@ -301,12 +354,14 @@ def sp_block(x, bp, prec, tables, cfg: SPModelConfig, *, mask=None,
     impl = cfg.attention_impl
     use_flash = impl == "flash" or (impl == "auto" and x.is_cuda
                                     and T >= FLASH_MIN_T)
+    if mask is not None and x.ndim == 4:
+        mask = mask.repeat(x.shape[0], 1)
     if attention_fn is not None:
         attn = attention_fn(heads(q), heads(k), heads(v))
     else:
         attn = causal_attention(cast(heads(q)), cast(heads(k)), cast(heads(v)),
                                 mask=mask, use_flash=use_flash)
-    attn = attn.to(x.dtype).permute(0, 2, 1, 3).reshape(B, T, C)
+    attn = attn.to(x.dtype).permute(0, 2, 1, 3).reshape(x.shape)
     attn_out, s2 = lin(attn, "attn_proj")
     x = x + attn_out
 
@@ -340,7 +395,15 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
     `dropout_gen`: a generator, or the (B, T, d) uniforms themselves (the
     QA model's, which its own dropout reuses). `hidden_states` is (L+1, B,
     T, d): each block's input, then the final ln_f output, detached unless
-    `hidden_states_grad`. `remat` recomputes each block in the backward
+    `hidden_states_grad`.
+
+    `prec` may be a vector of S slots (`student_mode="vmap"`): `logits`,
+    `trunk` and `hidden_states` then carry a student axis in front ((S, B,
+    T, V), (S, L+1, B, T, d)), `loss` is one per student, and each student
+    draws its own dropout mask (`embedding_dropout`). Calibration, stats
+    collection and input pass-through take one slot (a ValueError).
+
+    `remat` recomputes each block in the backward
     (`torch.utils.checkpoint`). `_skip_head` leaves out the tied LM head and
     `logits` (the QA model reads only `trunk`; under `jit` JAX drops the
     unread head the same way). `attention_fn` replaces every block's
@@ -350,18 +413,15 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
     dev = params["wte"].device
     if tables is None:
         tables = prec_tables(cfg.quant, dev)
-    prec = int(prec)
+    prec = as_prec(prec, dev)
+    S = prec.shape[0] if is_slots(prec) else None
     if inputs_embeds is not None:
         h = inputs_embeds
         T = h.shape[1]
     else:
         T = input_ids.shape[1]
         h = embed_tokens(params["wte"], input_ids) + params["wpe"][:T][None]
-
-    if not deterministic and cfg.model.embd_pdrop > 0.0:
-        keep = 1.0 - cfg.model.embd_pdrop
-        drop = dropout_uniforms(dropout_gen, h.shape, h.device) < keep
-        h = torch.where(drop, h / keep, torch.zeros_like(h))
+    h = embedding_dropout(h, cfg, deterministic, dropout_gen, S)
 
     def block(x, bp):
         return sp_block(x, bp, prec, tables, cfg, mask=mask,
@@ -388,12 +448,12 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
     if not _skip_head:
         # a sequence shard (context parallelism) is gathered for the head:
         # the shifted losses slice the sequence
-        out["logits"] = matmul_bf16(gather_dim(h, 1), params["wte"].T,
+        out["logits"] = matmul_bf16(gather_dim(h, h.ndim - 2), params["wte"].T,
                                     torch_dtype(cfg.compute_dtype))
     out["trunk"] = h
     if output_hidden_states:
         h_in.append(h if hidden_states_grad else h.detach())
-        out["hidden_states"] = torch.stack(h_in)
+        out["hidden_states"] = torch.stack(h_in, dim=0 if S is None else 1)
     if collect_stats and not remat:
         out["stats"] = {
             name: {k: torch.stack([s[name][k] for s in per_layer])
@@ -401,8 +461,26 @@ def sp_forward(params, input_ids, prec, cfg: SPModelConfig, *,
             for name in per_layer[0]
         }
     if labels is not None:
-        out["loss"] = lm_cross_entropy(out["logits"], labels)
+        out["loss"] = (lm_cross_entropy(out["logits"], labels) if S is None else
+                       torch.stack([lm_cross_entropy(lg, labels) for lg in out["logits"]]))
     return out
+
+
+def embedding_dropout(h, cfg: SPModelConfig, deterministic: bool, dropout_gen,
+                      n_students=None):
+    """The embedding dropout of `sp_forward` on h (B, T, d): none when
+    `deterministic` or `embd_pdrop` is 0, else keep rate 1 - p with
+    survivors scaled by 1/keep, the mask drawn from `dropout_gen`
+    (`dropout_uniforms`). With `n_students` the result is (S, B, T, d): h
+    broadcast to every student, each with its own (B, T, d) mask drawn in
+    student order, so a batched step draws what S single steps draw."""
+    p = cfg.model.embd_pdrop
+    if deterministic or p <= 0.0:
+        return h if n_students is None else h.expand(n_students, *h.shape)
+    keep = 1.0 - p
+    draw = lambda: dropout_uniforms(dropout_gen, h.shape, h.device)
+    u = draw() if n_students is None else torch.stack([draw() for _ in range(n_students)])
+    return torch.where(u < keep, h / keep, torch.zeros_like(h))
 
 
 def embed_tokens(wte, ids):

@@ -467,6 +467,9 @@ class _FusedCore(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+BANKS = ("iq_scale", "iq_zp", "wq_scale", "wq_zp", "lora_A", "lora_B")
+
+
 def sp_linear_fused(x, p, prec, bits, kind, scaling, cfg):
     """Quantized linear with per-bit LoRA through kernels #14-#16 (the JAX
     `sp_linear_fused`). x (..., K) float32; returns (..., N) float32.
@@ -475,19 +478,38 @@ def sp_linear_fused(x, p, prec, bits, kind, scaling, cfg):
     (their STEs give the reference backward); xa = x·Aq is a product of
     operand-dtype values rounded to the operand dtype, so its cotangent
     goes through that rounding; the weight fake-quant, the GEMM and the
-    LoRA epilogue run in the kernels."""
+    LoRA epilogue run in the kernels.
+
+    With a vector of S slots (`prec`, and `bits`, `kind`, `scaling`
+    gathered by it), x is (S, ..., K): the kernels run once per student,
+    each with that student's scalars, weight scales and LoRA banks, in one
+    autograd graph, and the shared `w` takes the sum of the students' dW.
+    """
+    if isinstance(prec, torch.Tensor) and prec.ndim == 1:
+        banks = {k: p[k][prec] for k in BANKS if k in p}
+        return torch.stack([
+            _linear_fused(x[s], p["w"], p["b"], {k: v[s] for k, v in banks.items()},
+                          bits[s], kind[s], scaling[s], cfg)
+            for s in range(prec.shape[0])])
+    return _linear_fused(x, p["w"], p["b"], {k: p[k][prec] for k in BANKS if k in p},
+                         bits, kind, scaling, cfg)
+
+
+def _linear_fused(x, w, bias, banks, bits, kind, scaling, cfg):
+    """One slot's fused linear; `banks` holds its rows of the quantizer and
+    LoRA banks."""
     from ..models.sp_model import torch_dtype
 
     q = cfg.quant
     cdt = torch_dtype(cfg.compute_dtype)
     lead, K = x.shape[:-1], x.shape[-1]
-    N = p["w"].shape[1]
+    N = w.shape[1]
     x2d = x.reshape(-1, K)
-    xq = fake_quant_flat(x2d, p["iq_scale"][prec], p["iq_zp"][prec], bits, kind,
+    xq = fake_quant_flat(x2d, banks["iq_scale"], banks["iq_zp"], bits, kind,
                          q.symmetric, q.eps).to(cdt)
     r = q.max_rank
     if r > 0:
-        A, B = p["lora_A"][prec], p["lora_B"][prec]
+        A, B = banks["lora_A"], banks["lora_B"]
         ch = 1 if q.per_channel else None
         a_s, a_z = dynamic_scale_flat(A, bits, kind, ch, q.symmetric, q.eps)
         b_s, b_z = dynamic_scale_flat(B, bits, kind, ch, q.symmetric, q.eps)
@@ -499,11 +521,10 @@ def sp_linear_fused(x, p, prec, bits, kind, scaling, cfg):
     else:
         xa = x2d.new_zeros((x2d.shape[0], 0), dtype=cdt)
         bq = x2d.new_zeros((0, N), dtype=cdt)
-    ws = p["wq_scale"][prec].to(torch.float32).expand(N).contiguous()
-    wz = p["wq_zp"][prec].to(torch.float32).expand(N).contiguous()
-    bias = p["b"].to(torch.float32)
+    ws = banks["wq_scale"].to(torch.float32).expand(N).contiguous()
+    wz = banks["wq_zp"].to(torch.float32).expand(N).contiguous()
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=x.device)
     scalars = torch.stack([f32(bits), f32(kind), f32(scaling), f32(0.0)])
-    out = _FusedCore.apply(xq, xa.contiguous(), bq.contiguous(), bias, p["w"], ws,
-                           wz, scalars, q.symmetric, q.eps)
+    out = _FusedCore.apply(xq, xa.contiguous(), bq.contiguous(), bias.to(torch.float32),
+                           w, ws, wz, scalars, q.symmetric, q.eps)
     return out.reshape(*lead, N)

@@ -4,6 +4,10 @@ Operands are cast to `compute_dtype` (bf16 under AMP), the product is
 accumulated and returned in float32. The backward casts the cotangent to
 `compute_dtype` too, before both transpose products, as an autocast backward
 does; autograd through the forward alone would multiply a float32 `g`.
+
+A batched `b` of shape (S, K, N) multiplies `a` of shape (S, ..., K)
+student by student (`student_mode="vmap"`: one quantized weight per
+student), as `jax.vmap` over the leading axis of both would.
 """
 
 from __future__ import annotations
@@ -35,11 +39,23 @@ class _MatmulBF16(torch.autograd.Function):
         da = db = None
         # a frozen operand (the tied LM head's wte) takes no gradient work
         if ctx.needs_input_grad[0]:
-            da = _f32_product(gb, bb.T)
-        if ctx.needs_input_grad[1]:  # sums over every leading axis of a
+            da = _f32_product(gb, bb.transpose(-1, -2))
+        if ctx.needs_input_grad[1] and bb.ndim == 3:  # one db per student
+            db = _f32_product(ab.transpose(1, 2), gb)
+        elif ctx.needs_input_grad[1]:  # sums over every leading axis of a
             db = _f32_product(ab.reshape(-1, ab.shape[-1]).T,
                               gb.reshape(-1, gb.shape[-1]))
         return da, db, None
+
+
+def student_rows(mm, a, b):
+    """mm(a, b); for a per-student b (S, K, N), mm of a (S, ..., K) as (S,
+    M, K) rows against b, so that student s's rows meet b[s] in one
+    batched product, summed as S separate products would be."""
+    if b.ndim == 2:
+        return mm(a, b)
+    S, K = b.shape[0], b.shape[1]
+    return mm(a.reshape(S, -1, K), b).reshape(*a.shape[:-1], b.shape[-1])
 
 
 def matmul_bf16(a, b, compute_dtype=torch.bfloat16):
@@ -49,7 +65,12 @@ def matmul_bf16(a, b, compute_dtype=torch.bfloat16):
     leading axes, with g rounded to `compute_dtype` first. A DTensor `a`
     sharded on the sequence (context parallelism) with a replicated `b`
     multiplies its local rows (`sharded.rows_local`).
+
+    a: (S, ..., K), b: (S, K, N): student s's rows times its own b[s]; db
+    is (S, K, N), each summed over its student's leading axes only.
     """
+    if b.ndim == 3:
+        return student_rows(lambda x, w: _MatmulBF16.apply(x, w, compute_dtype), a, b)
     if rows_split(a, b):
         return rows_local(lambda x, w: _MatmulBF16.apply(x, w, compute_dtype), a, b)
     return _MatmulBF16.apply(a, b, compute_dtype)

@@ -19,6 +19,11 @@ gets no cotangent). The block banks' gradients come back with their
 placements (sharded over "pipe"); the embeddings' gradient, which only
 stage 0 computes, is summed over the stages, as JAX's transpose of a
 replicated `shard_map` input sums it.
+
+With a vector of S student slots (`student_mode="vmap"`) every microbatch
+is (S, B/M, T, d): the microbatches are still cut from the batch rows,
+and the student axis rides in front of them through the stages' blocks
+and the P2P sends.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ import warnings
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
-from ..models.sp_model import (PrecTables, _unstack, dropout_uniforms, embed_tokens,
-                               lm_cross_entropy, prec_tables, sp_block,
-                               switchable_layernorm, torch_dtype)
+from ..models.sp_model import (PrecTables, _unstack, as_prec, embed_tokens,
+                               embedding_dropout, is_slots, lm_cross_entropy,
+                               prec_tables, sp_block, switchable_layernorm,
+                               torch_dtype)
 from ..ops.matmul import matmul_bf16
 from ..ops.sharded import is_dtensor, replicating
 from ..train import optim
@@ -57,7 +63,7 @@ class _Schedule(NamedTuple):
     """What `_GPipe` needs besides tensors."""
     keys: list          # the block leaves' paths, in `leaves` order
     n_local: int        # blocks a stage
-    prec: int
+    prec: Any           # one slot, or a vector of student slots
     tables: Any
     cfg: Any
     calibration_mode: bool
@@ -102,7 +108,8 @@ class _GPipe(torch.autograd.Function):
         live = [l.detach().requires_grad_(l.requires_grad) for l in leaves]
         blocks = _tree(sch.keys, live)
         n_ticks = M + S - 1
-        x_mb = x_mb[:, sch.rows]  # this rank's rows of each microbatch (DP)
+        # this rank's rows of each microbatch (DP); (M, [S,] rows, T, d)
+        x_mb = x_mb[..., sch.rows, :, :]
         state = torch.zeros_like(x_mb[0])
         outputs = torch.zeros_like(x_mb)
         hidden = (x_mb.new_zeros((M, sch.n_local) + x_mb.shape[1:])
@@ -128,7 +135,7 @@ class _GPipe(torch.autograd.Function):
         if sch.collect_hidden:
             hidden = _comm.all_gather_cat(hidden, sch.group, 1)
             if sch.data_group is not None:
-                hidden = _comm.all_gather_cat(hidden, sch.data_group, 2)
+                hidden = _comm.all_gather_cat(hidden, sch.data_group, hidden.ndim - 3)
         ctx.sch, ctx.ticks, ctx.live, ctx.rows_total = sch, ticks, live, rows_total
         ctx.mark_non_differentiable(hidden)
         return outputs, hidden
@@ -139,8 +146,8 @@ class _GPipe(torch.autograd.Function):
         S, stage, M = sch.S, sch.stage, sch.M
         need = [i for i, l in enumerate(live) if l.requires_grad]
         grads = [None] * len(live)
-        g_x_mb = (g_out.new_zeros((M, ctx.rows_total) + g_out.shape[2:])
-                  if ctx.needs_input_grad[0] else None)
+        full = g_out.shape[:-3] + (ctx.rows_total,) + g_out.shape[-2:]
+        g_x_mb = g_out.new_zeros(full) if ctx.needs_input_grad[0] else None
         n_ticks = M + S - 1
         g_state = torch.zeros_like(g_out[0])  # cotangent of the next tick's x
         for t in reversed(range(n_ticks)):
@@ -161,7 +168,7 @@ class _GPipe(torch.autograd.Function):
             g_x = got[0] if got[0] is not None else torch.zeros_like(g_state)
             if stage == 0:
                 if g_x_mb is not None:
-                    g_x_mb[mb, sch.rows] = g_x
+                    g_x_mb[mb][..., sch.rows, :, :] = g_x
             else:
                 g_state = g_x
         if g_x_mb is not None:  # every rank's copy gets stage 0's rows
@@ -210,8 +217,11 @@ def pipeline_sp_forward(params, input_ids, prec, cfg, mesh, *,
     pipelined blocks, ln_f, the tied head, and the shifted CE when `labels`
     are given. `output_hidden_states` returns `sp_forward`'s detached (L+1,
     B, T, d) stack, gathered from the stages, which is what the
-    distillation step reads (`make_pp_sp_train_step`). Masks, `remat`,
-    `collect_stats` and `attention_fn` are not taken (a TypeError).
+    distillation step reads (`make_pp_sp_train_step`). `prec` may be a
+    vector of S slots, as in `sp_forward`: the outputs then carry the
+    student axis in front, and each student draws its own dropout mask.
+    Masks, `remat`, `collect_stats` and `attention_fn` are not taken (a
+    TypeError).
 
     n_layer must divide into the stages and the batch into
     `n_microbatches` (default: one per stage). `batch_axis_name` also
@@ -243,16 +253,17 @@ def pipeline_sp_forward(params, input_ids, prec, cfg, mesh, *,
         tables = prec_tables(cfg.quant, mesh.device_type)
     if is_dtensor(labels):
         labels = labels.full_tensor()
-    prec = int(prec)
     n_local = L // S
     p = _local_params(params, mesh, axis_name, stage, n_local)
+    prec = as_prec(prec, p["wte"].device)
+    n_st = prec.shape[0] if is_slots(prec) else None
 
     h = embed_tokens(p["wte"], input_ids) + p["wpe"][:T][None]
-    if not deterministic and m.embd_pdrop > 0.0:
-        keep = 1.0 - m.embd_pdrop
-        drop = dropout_uniforms(dropout_gen, h.shape, h.device) < keep
-        h = torch.where(drop, h / keep, torch.zeros_like(h))
-    h_mb = h.reshape(M, B // M, T, m.n_embd)
+    h = embedding_dropout(h, cfg, deterministic, dropout_gen, n_st)
+    if n_st is None:
+        h_mb = h.reshape(M, B // M, T, m.n_embd)
+    else:  # (M, S, B/M, T, d)
+        h_mb = h.reshape(n_st, M, B // M, T, m.n_embd).transpose(0, 1).contiguous()
 
     data_group, rows = None, slice(None)
     if batch_axis_name is not None:
@@ -274,19 +285,26 @@ def pipeline_sp_forward(params, input_ids, prec, cfg, mesh, *,
     out_mb, hid = _GPipe.apply(h_mb, sch, *leaves)
     out_mb = _comm.sum_to_replicated(out_mb, group)
     if data_group is not None:
-        out_mb = _comm.gather_to_replicated(out_mb, data_group, 1)
+        out_mb = _comm.gather_to_replicated(out_mb, data_group, out_mb.ndim - 3)
 
-    h = out_mb.reshape(B, T, m.n_embd)
+    if n_st is None:
+        h = out_mb.reshape(B, T, m.n_embd)
+    else:
+        h = out_mb.transpose(0, 1).reshape(n_st, B, T, m.n_embd)
     h = switchable_layernorm(h, p["ln_f"], prec, m.layer_norm_epsilon)
     # the head as `sp_forward` computes it (operands in compute_dtype), so
     # the pipelined step replays the unsharded one at every compute dtype
     logits = matmul_bf16(h, p["wte"].T, torch_dtype(cfg.compute_dtype))
     out = {"logits": logits, "trunk": h}
-    if output_hidden_states:
+    if output_hidden_states and n_st is None:
         hid = hid.permute(1, 0, 2, 3, 4).reshape(L, B, T, m.n_embd)
         out["hidden_states"] = torch.cat([hid, h.detach()[None]], dim=0)
+    elif output_hidden_states:  # (M, L, S, B/M, T, d) -> (S, L+1, B, T, d)
+        hid = hid.permute(2, 1, 0, 3, 4, 5).reshape(n_st, L, B, T, m.n_embd)
+        out["hidden_states"] = torch.cat([hid, h.detach()[:, None]], dim=1)
     if labels is not None:
-        out["loss"] = lm_cross_entropy(logits, labels)
+        out["loss"] = (lm_cross_entropy(logits, labels) if n_st is None else
+                       torch.stack([lm_cross_entropy(lg, labels) for lg in logits]))
     return out
 
 

@@ -138,6 +138,7 @@ class _FlatSTE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, zero_point, num_bits, kind, symmetric, eps):
         ctx.save_for_backward(num_bits, kind)
+        ctx.x_shape = x.shape
         return _flat_fwd_math(x, scale, zero_point, num_bits, kind, symmetric,
                               eps)
 
@@ -146,6 +147,8 @@ class _FlatSTE(torch.autograd.Function):
         num_bits, kind = ctx.saved_tensors
         clamp = (kind.to(torch.int32) == KIND_LOG) & (num_bits < 32.0)
         gx = torch.where(clamp, torch.clamp(g, -10.0, 10.0), g)
+        if gx.shape != ctx.x_shape:  # x broadcast over a student axis
+            gx = gx.sum_to_size(ctx.x_shape)
         return gx, None, None, None, None, None, None
 
 
@@ -154,7 +157,12 @@ def fake_quant_flat(x, scale, zero_point, num_bits, kind, symmetric=True,
     """Conditional-free fake quantization with one STE: the identity for
     minmax and pass-through, the ±10 clamp for the log kind below 32 bits,
     selected by the same `kind`/`num_bits` operands. Quantizer operands are
-    cast to float32 at this boundary, as in the JAX package."""
+    cast to float32 at this boundary, as in the JAX package.
+
+    Operands of shape (S, 1, ...) quantize with one slot per student
+    (`student_mode="vmap"`); a shared `x` (a weight) then comes out with
+    the student axis, and its gradient is the sum over the students of
+    each one's STE, as under `jax.vmap`."""
     return _FlatSTE.apply(x, _f32(scale, x), _f32(zero_point, x),
                           _f32(num_bits, x), _f32(kind, x), symmetric, eps)
 

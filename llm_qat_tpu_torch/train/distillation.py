@@ -16,6 +16,8 @@ micro-step of an iteration reads the same cache.
   gradient.
 - total = alpha_kl · kl + alpha_feature · feature; a zero alpha skips its
   term entirely.
+- `students_distillation_loss`: the sum of the students' totals over the
+  student axis of one batched forward (`student_mode="vmap"`).
 """
 
 from __future__ import annotations
@@ -118,4 +120,16 @@ def distillation_loss(student_logits, student_hidden, teacher: TeacherOutputs,
     if alpha_feature:
         total = total + alpha_feature * feature_distillation_loss(
             student_hidden, teacher.hidden_states, layer_idx, accumulative)
+    return total
+
+
+def students_distillation_loss(student_logits, student_hidden, teacher: TeacherOutputs,
+                               layer_idxs, **kw):
+    """Sum over the students of `distillation_loss`, student s taking its
+    slice of the batched logits (S, B, T, V) and hidden states (S, L+1, B,
+    T, d) and its own feature layer `layer_idxs[s]` (`kw`: the
+    `distillation_loss` options). `jax.vmap` of the loss, summed."""
+    total = torch.zeros((), device=student_logits.device)
+    for logits, hidden, layer in zip(student_logits, student_hidden, layer_idxs):
+        total = total + distillation_loss(logits, hidden, teacher, int(layer), **kw)
     return total

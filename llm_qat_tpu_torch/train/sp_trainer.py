@@ -9,6 +9,11 @@ the same batch:
 - the summed gradients, clipped to `max_grad_norm`, then AdamW over the
   trainable leaves (`train.optim`), at lr = cosine(step · accum).
 
+`student_mode` "scan" and "unroll" run the students one forward and
+backward at a time; "vmap" runs them all in one forward over the vector of
+their slots (a student axis in front of every activation, `sp_forward`)
+and one backward of the summed losses, as JAX's `jax.vmap` does.
+
 Frozen leaves (wte/wpe and the quantizer scale banks) never require grad,
 so no gradient work is done for them (the (vocab, d) tied-head gradient is
 never formed) and they come out of a step as the same tensors. The LoRA
@@ -23,10 +28,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..models.config import SPModelConfig, TrainConfig
-from ..models.sp_model import PrecTables, prec_tables, sp_forward, torch_dtype
+from ..models.sp_model import PrecTables, is_slots, prec_tables, sp_forward, torch_dtype
 from ..ops.sharded import replicating
 from . import optim
-from .distillation import TeacherOutputs, distillation_loss, prepare_teacher
+from .distillation import (TeacherOutputs, distillation_loss, prepare_teacher,
+                           students_distillation_loss)
 
 FROZEN_NAMES = {"wq_scale", "wq_zp", "iq_scale", "iq_zp"}
 
@@ -67,10 +73,6 @@ class SPTrainState(NamedTuple):
     step: int
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def make_sp_train_step(cfg: SPModelConfig, tcfg: TrainConfig,
                        tables: Optional[PrecTables] = None,
                        attention_fn=None, forward_fn=None):
@@ -87,16 +89,16 @@ def make_sp_train_step(cfg: SPModelConfig, tcfg: TrainConfig,
     subset (tables, labels, deterministic, dropout_gen,
     output_hidden_states): `partial(pipeline_sp_forward, mesh=mesh)` runs
     the same step through the GPipe schedule
-    (`parallel.make_pp_sp_train_step`). The two exclude each other. A
-    state of DTensors (`parallel.shard_params`) is stepped under
-    `replication_scope`, backwards included, and keeps its placements.
+    (`parallel.make_pp_sp_train_step`). The two exclude each other; under
+    `student_mode="vmap"` `forward_fn` gets the vector of the student slots
+    as `prec`. A state of DTensors (`parallel.shard_params`) is stepped
+    under `replication_scope`, backwards included, and keeps its
+    placements.
     """
     if forward_fn is not None and attention_fn is not None:
         raise ValueError("forward_fn and attention_fn are mutually exclusive")
     mode = tcfg.student_mode or ("unroll" if tcfg.unroll_students else "scan")
-    if mode == "vmap":
-        _unsupported("student_mode='vmap'", "A.1b")
-    if mode not in ("scan", "unroll"):
+    if mode not in ("scan", "unroll", "vmap"):
         raise ValueError(f"student_mode must be scan/unroll/vmap; got {mode!r}")
     q = cfg.quant
     teacher_slot = q.prec_index(q.teacher_bits)
@@ -160,16 +162,25 @@ def make_sp_train_step(cfg: SPModelConfig, tcfg: TrainConfig,
             layers = torch.randint(n_feature_layers, (n_students,),
                                    generator=generator, device=gdev)
         precs = torch.as_tensor(precs, dtype=torch.int32)
-        s_sum = torch.zeros((), device=dev)
-        for prec, layer in zip(precs.tolist(), torch.as_tensor(layers).tolist()):
+        layers = torch.as_tensor(layers).tolist()
+        loss_kw = dict(alpha_kl=tcfg.distill_alpha_kl,
+                       alpha_feature=tcfg.distill_alpha_feature,
+                       temperature=tcfg.distill_temperature,
+                       accumulative=tcfg.distill_accumulative)
+
+        def student_loss(prec, layer):
             out = forward(live, ids, prec, generator, None, tabs)
-            loss = distillation_loss(
-                out["logits"], out["hidden_states"], teacher, layer,
-                alpha_kl=tcfg.distill_alpha_kl,
-                alpha_feature=tcfg.distill_alpha_feature,
-                temperature=tcfg.distill_temperature,
-                accumulative=tcfg.distill_accumulative) / accum
-            del out
+            loss_fn = students_distillation_loss if is_slots(prec) else distillation_loss
+            return loss_fn(out["logits"], out["hidden_states"], teacher, layer,
+                           **loss_kw) / accum
+
+        if mode == "vmap":  # one forward over the (S,) slots, one backward of the sum
+            runs = [(precs, layers)] if n_students else []
+        else:
+            runs = zip(precs.tolist(), layers)
+        s_sum = torch.zeros((), device=dev)
+        for prec, layer in runs:
+            loss = student_loss(prec, layer)
             for acc, g in zip(grads, grads_of(loss, leaves)):
                 acc.add_(g)
             s_sum = s_sum + loss.detach()

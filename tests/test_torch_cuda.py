@@ -1688,3 +1688,92 @@ def test_parallel_world_size_one_matches_single_device(cuda_device, tmp_path):
         assert torch.equal(got.full_tensor(), want)
     finally:
         dist.destroy_process_group()
+
+
+# One vmap step with the kernels against the same step on their plain
+# versions (same slots, layers and generator): relative differences of the
+# metrics and relative L2 of the update over the trainable leaves. Adam's
+# epsilon is 1, so the update is about lr·g, linear in the gradient (with
+# the default 1e-8 every element moves by about ±lr whatever its gradient).
+# Set at about 8x the first two cases' differences on an H100 80GB HBM3 at
+# 700 W; measured (flat / cond / fused with flash / fused with dense): loss
+# 9.1e-7 / 0 / 4.4e-6 / 5.1e-6, teacher loss 9.1e-7 / 0 / 3.7e-6 / 3.8e-6,
+# grad_norm 5.4e-6 / 6.7e-8 / 6.2e-5 / 1.4e-4, update 7.2e-4 / 8.7e-5 /
+# 1.3e-3 / 1.4e-3.
+VMAP_STEP_REL = {"loss": 4e-5, "teacher_loss": 4e-5, "grad_norm": 5e-4, "update": 1e-2}
+
+
+@pytest.mark.parametrize("impl,attention", [("flat", "flash"), ("cond", "flash"),
+                                            ("fused", "flash"), ("fused", "dense")])
+def test_vmap_step_runs_the_kernels_and_matches_plain(cuda_device, impl, attention):
+    """student_mode="vmap" on the card (d 128, 2 layers, head_dim 64, rank
+    8, bf16; B = 2, T = 128, accum 3: two students in one batched forward
+    and backward): with flash attention #5 and #6 launch 2·L times, the
+    teacher's pass and the students' folded one, on their wgmma routes
+    (SIMT on the cond path, whose q, k, v stay float32, as on its scan
+    path); on the fused path #14-#16 launch 4·L·accum times, each student
+    its own call. The step with the kernels against the same step on their plain
+    versions (the fused kernels' on the fused path, else #5/#6's) within
+    VMAP_STEP_REL; frozen leaves unchanged."""
+    from llm_qat_tpu_torch.ops import attention as att
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+    from llm_qat_tpu_torch.train import optim
+    from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
+    from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step, trainable_mask
+
+    dev = cuda_device
+    cfg = tc.SPModelConfig(
+        model=tc.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2),
+        quant=tc.QuantConfig(bit_widths=(4, 8, 32),
+                             lora_rank_per_bit={b: 8 for b in range(2, 17)} | {32: 0}),
+        compute_dtype="bfloat16", attention_impl=attention, linear_impl=impl)
+    tcfg = tc.TrainConfig(gradient_accumulation_steps=3, num_iterations=4, student_mode="vmap",
+                          learning_rate=1e-2, adam_epsilon=1.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_sp_params(gen, cfg, device=dev)
+    ids = torch.randint(0, 512, (2, 128), generator=gen, device=dev)
+    params = CalibrationManager(cfg, 1).calibrate_all_precisions(params, [ids])
+    L = cfg.model.n_layer
+    draws = {"precs": [0, 1], "layers": [1, 2]}
+    flash = (att, ("flash_fwd_lse", "flash_bwd"))
+    fused = (fl, ("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw"))
+    counters = [getattr(att, n) for n in flash[1]] + [getattr(fl, n) for n in fused[1]]
+
+    def step():
+        init, run = make_sp_train_step(cfg, tcfg)
+        return run(init(params), ids, torch.Generator(device=dev).manual_seed(7), **draws)
+
+    for fn in counters:
+        fn.launches = 0
+    att.flash_fwd_lse.route_launches.update(wgmma=0, simt=0)
+    new, mk = step()
+    torch.cuda.synchronize()
+    n_lin = 4 * L * tcfg.gradient_accumulation_steps if impl == "fused" else 0
+    n_att = 2 * L if attention == "flash" else 0
+    assert [fn.launches for fn in counters] == [n_att, n_att, n_lin, n_lin, n_lin]
+    route = "simt" if impl == "cond" else "wgmma"
+    assert att.flash_fwd_lse.route_launches == {"wgmma": 0, "simt": 0} | {route: n_att}
+    module, names = fused if impl == "fused" else flash
+    saved = {n: getattr(module, n) for n in names}
+    try:
+        for n in names:
+            setattr(module, n, getattr(module, n + "_plain"))
+        plain, mp = step()
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+    got = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
+           for k in ("loss", "teacher_loss", "grad_norm")}
+    num = den = 0.0
+    for path, trainable in optim.leaves_with_paths(trainable_mask(params)):
+        old = optim.get_leaf(params, path)
+        a, b = optim.get_leaf(new.params, path), optim.get_leaf(plain.params, path)
+        if not trainable:
+            assert torch.equal(a, old) and torch.equal(b, old), path
+            continue
+        num += float(((a - b) ** 2).sum())
+        den += float(((b - old) ** 2).sum())
+    got["update"] = math.sqrt(num / den)
+    print(f"vmap {impl} step kernels vs plain: {got}")
+    for k, tol in VMAP_STEP_REL.items():
+        assert got[k] <= tol, (k, got)

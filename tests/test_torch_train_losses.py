@@ -170,15 +170,13 @@ def test_clip_adamw_matches_optax(grad_scale):
 
 
 def test_unported_trainer_options_raise():
-    """The option whose module is not ported raises, naming its ROADMAP
-    item, instead of running something else; an unknown student mode
-    raises; `forward_fn` and `attention_fn` together raise ValueError, as in
+    """An unknown student mode raises ValueError with JAX's text (every
+    mode of JAX's, "vmap" included, is ported: tests/test_torch_train_vmap.py);
+    `forward_fn` and `attention_fn` together raise ValueError, as in
     JAX."""
     _, tcfg = _tiny()
-    for kw, item in ((dict(student_mode="vmap"), "A.1b"),
-                     (dict(student_mode="nope"), "scan/unroll/vmap")):
-        with pytest.raises((NotImplementedError, ValueError), match=item):
-            tst.make_sp_train_step(tcfg, tc.TrainConfig(**kw))
+    with pytest.raises(ValueError, match="scan/unroll/vmap"):
+        tst.make_sp_train_step(tcfg, tc.TrainConfig(student_mode="nope"))
     with pytest.raises(ValueError, match="mutually exclusive"):
         tst.make_sp_train_step(tcfg, tc.TrainConfig(), attention_fn=lambda *a: a[0],
                                forward_fn=lambda *a, **k: None)

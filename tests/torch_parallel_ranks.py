@@ -1,7 +1,8 @@
 """The rank processes of the port's multi-rank CPU tests.
 
-`tests/test_torch_parallel.py` and `tests/test_torch_parallel_pp.py` start
-one process per rank of a gloo group:
+`tests/test_torch_parallel.py`, `tests/test_torch_parallel_pp.py` and
+`tests/test_torch_train_vmap.py` start one process per rank of a gloo
+group:
 
     python tests/torch_parallel_ranks.py SUITE IN_FILE OUT_DIR STORE RANK WORLD
 
@@ -405,6 +406,28 @@ def pp_train_step(data):
             "c_fc_w": _np(p["blocks"]["c_fc"]["w"])}
 
 
+def pp_vmap_step(data):
+    """The pipelined vmap step (a "pipe" mesh of every rank, 2
+    microbatches) and the plain vmap step, from the same state and
+    generator seed: both draw the teacher's mask, the slots, the layers,
+    then one mask per student."""
+    cfg, tcfg = data["vmap_cfg"], data["vmap_tcfg"]
+    params = _params(data, "vmap_params")
+    mesh = _mesh((dist.get_world_size(),), ("pipe",))
+    sharded, _ = P.shard_params_pp(params, mesh)
+    ids = torch.as_tensor(data["vmap_ids"])
+    init_s, step_s = make_sp_train_step(cfg, tcfg)
+    init_p, step_p = P.make_pp_sp_train_step(cfg, tcfg, mesh, n_microbatches=2)
+    s_s, want = step_s(init_s(params), ids, torch.Generator().manual_seed(4))
+    s_p, got = step_p(init_p(sharded), ids, torch.Generator().manual_seed(4))
+    out = {k: (_np(got[k]), _np(want[k]))
+           for k in ("loss", "teacher_loss", "student_loss_mean", "grad_norm", "precisions")}
+    out["params"] = {"/".join(k): (_np(optim.get_leaf(s_p.params, k)), _np(v))
+                     for k, v in optim.leaves_with_paths(s_s.params)}
+    out["placements"] = tuple(str(p) for p in s_p.params["blocks"]["c_fc"]["w"].placements)
+    return out
+
+
 def multihost(data):
     info = P.initialize_multihost()  # already initialised: reports the group
     full = np.arange(8 * 4, dtype=np.float32).reshape(8, 4)
@@ -420,6 +443,7 @@ SUITES = {
     "pp": [ring, ring_grads, cp_forward, cp_step, pp_forward, pp_replicated, pp_grads,
            pp_distill_step, pp_train_step],
     "multihost": [multihost],
+    "vmap_pp": [pp_vmap_step],
 }
 
 

@@ -220,9 +220,13 @@ dense; no port kernel), 3 vmap and 3 scan steps from the same parameters
 and generator held against each other; (b) training's configuration (B =
 8, T = 1024) on the flat and the fused linear, the vmap run's launches
 (#5/#6 2·L an iteration on wgmma over the folded student batch; #14-#16
-4·L·accum on the fused path), vmap held against scan and against the
-same step on the kernels' plain versions. Prints each mode's wall, device
-ms, CUDA records and peak memory in `vmap_timings`, then the result line.
+4·L·2 on the fused path, the teacher's pass and one batched call for all
+students), vmap held against scan and against the same step on the
+kernels' plain versions; on the fused path #14-#16 with the student axis
+(S = 3, one student a slot) held against their batched plain versions at
+the GPT-2 linear shapes and timed beside one unbatched call a student
+(`fused_student_timings`). Prints each mode's wall, device ms, CUDA
+records and peak memory in `vmap_timings`, then the result line.
 
     python3 chip_smoke.py --fused-decode
 
@@ -4553,7 +4557,133 @@ def mode_timings(cfg, tcfg, params, batches, dev, mode):
             "tokens_per_s": 1e3 * batches[0].numel() / it}
 
 
-def vmap_phase(dev, card, n_layer) -> dict:
+STUDENT_SLOTS = (0, 1, 2)      # the students of the batched #14-#16 holds and timings
+
+
+def fused_student_operands(cfg, params, lin, M, gen, dev):
+    """The batched operands of #14-#16 for linear `lin` of layer 0, one
+    student at each of STUDENT_SLOTS (`fused_operands` at each slot, M rows
+    a student, stacked on a leading axis; w and the bias shared). Returns
+    the argument tuples of the three wrappers with the student axis."""
+    import torch
+
+    per = [fused_operands(cfg, params, slot, lin, M, gen, dev) for slot in STUDENT_SLOTS]
+    st = lambda part, i: torch.stack([q[part][i] for q in per]).contiguous()
+    f0 = per[0][0]
+    fwd = (st(0, 0), st(0, 1), f0[2], st(0, 3), st(0, 4), st(0, 5), f0[6], st(0, 7),
+           f0[8], f0[9])
+    dx = (st(1, 0), f0[2], fwd[3], fwd[4], fwd[5], fwd[7], f0[8], f0[9])
+    return fwd, dx, (fwd[0], dx[0], fwd[7])
+
+
+def fused_students_vs_plain(cfg, params, dev, M, failures):
+    """#14, #15, #16 and the weight prologue with a student axis (S =
+    len(STUDENT_SLOTS), one student at each slot, M rows a student) against
+    their batched plain versions at the four GPT-2 linear shapes: each
+    wrapper one launch a call; each student's out, dxq and dxa within
+    FUSED_REL of its max |plain|; each student's clamped dW (the kernel's
+    (S, K, N) output) within FUSED_REL of its max |plain|, and the
+    wrapper's sum over the students within FUSED_REL of the sum of those
+    maxima; the prologue's bf16 weights bit-equal in both layouts. Returns
+    the largest absolute error of each kernel."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    names = ("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw")
+    errs = dict.fromkeys(names, 0.0)
+    S = len(STUDENT_SLOTS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for lin in LINEARS:
+        fwd, dx, dw = fused_student_operands(cfg, params, lin, M, gen, dev)
+        K, N = fwd[2].shape
+        counters = [getattr(fl, n) for n in names] + [fl.fq_weight]
+        before = [fn.launches for fn in counters]
+        got = {"out": fl.fused_linear_fwd(*fwd)}
+        got["dxq"], got["dxa"] = fl.fused_linear_bwd_dx(*dx)
+        got["dw"] = fl.fused_linear_bwd_dw(*dw)
+        torch.cuda.synchronize()
+        made = [fn.launches - b for fn, b in zip(counters, before)]
+        if made != [1, 1, 1, 2]:
+            failures.append(f"fused students {lin}: launches {made}, want one of each kernel "
+                            "and two prologues")
+        want = {"out": fl.fused_linear_fwd_plain(*fwd)}
+        want["dxq"], want["dxa"] = fl.fused_linear_bwd_dx_plain(*dx)
+        per = torch.empty((S, K, N), dtype=torch.float32, device=dev)
+        fl.launch_dw_wgmma(*dw, per, fl.dw_splits(M, K, N, sms, S))
+        per_want = [fl.fused_linear_bwd_dw_plain(dw[0][s], dw[1][s], dw[2][s]) for s in range(S)]
+        torch.cuda.synchronize()
+        parts = []
+        for o, name in (("out", names[0]), ("dxq", names[1]), ("dxa", names[1])):
+            for s in range(S):
+                err = (got[o][s] - want[o][s]).abs().max().item()
+                rel = err / max(want[o][s].abs().max().item(), 1e-30)
+                errs[name] = max(errs[name], err)
+                parts.append(f"{o}[{s}] {rel:.2e}")
+                if not rel <= FUSED_REL:
+                    failures.append(f"fused students {lin} {o}[{s}]: {rel:.3e} of max")
+        tops = [w_.abs().max().item() for w_ in per_want]
+        for s in range(S):
+            rel = (per[s] - per_want[s]).abs().max().item() / max(tops[s], 1e-30)
+            parts.append(f"dw[{s}] {rel:.2e}")
+            if not rel <= FUSED_REL:
+                failures.append(f"fused students {lin} dw[{s}]: {rel:.3e} of max")
+        err = (got["dw"] - sum(per_want)).abs().max().item()
+        errs[names[2]] = max(errs[names[2]], err)
+        rel = err / max(sum(tops), 1e-30)
+        parts.append(f"dw summed {rel:.2e}")
+        if not rel <= FUSED_REL:
+            failures.append(f"fused students {lin} dw summed: {rel:.3e} of the maxima's sum")
+        wargs = fwd[2:5] + fwd[7:]
+        for tr in (False, True):
+            if not torch.equal(fl.fq_weight(*wargs, tr), fl.fq_weight_plain(*wargs, tr)):
+                failures.append(f"fused students {lin}: prologue weights (transpose {tr}) "
+                                "differ from fq_weight_plain")
+        print(f"fused kernels with {S} students vs batched plain {lin} (M={M} a student, "
+              f"K={K}, N={N}, slots {list(STUDENT_SLOTS)}), error / max |plain| (tol "
+              f"{FUSED_REL:g}): " + "; ".join(parts) + "; one launch of each kernel a call "
+              "and the prologue bf16 weights bit-equal (held)", flush=True)
+    return errs
+
+
+def fused_students_timings(cfg, params, dev, M):
+    """#14, #15 and #16 with the student axis (S = len(STUDENT_SLOTS)) at the
+    four GPT-2 linear shapes, M rows a student: `ms` (CUDA events around
+    back-to-back calls, `cuda_ms`) and `device_ms` (graph replay,
+    `graph_ms`) of one batched call, beside `unbatched_ms` and
+    `unbatched_device_ms` of S unbatched calls, one a student (the
+    per-student launches they replace). Returns {linear: {kernel: {...}}}
+    and the sums over the four linears of one layer."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    S = len(STUDENT_SLOTS)
+    out, tot = {}, {}
+    for lin in LINEARS:
+        args = dict(zip(("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw"),
+                        fused_student_operands(cfg, params, lin, M, gen, dev)))
+        row = {}
+        for name, a in args.items():
+            kern = getattr(fl, name)
+            shared = {2, 6, 8, 9} if name == "fused_linear_fwd" else (
+                {1, 6, 7} if name == "fused_linear_bwd_dx" else set())
+            one = [tuple(x if i in shared else x[s] for i, x in enumerate(a)) for s in range(S)]
+            batched = lambda: kern(*a)
+            unbatched = lambda: [kern(*u) for u in one]
+            row[name] = {"ms": cuda_ms(batched, 10), "device_ms": graph_ms(batched, 10),
+                         "unbatched_ms": cuda_ms(unbatched, 10),
+                         "unbatched_device_ms": graph_ms(unbatched, 10)}
+            for k, v in row[name].items():
+                tot.setdefault(name, {}).setdefault(k, 0.0)
+                tot[name][k] += v
+        out[lin] = row
+    return out, tot
+
+
+def vmap_phase(dev, card, n_layer):
     """`student_mode="vmap"`: the students of a train step in one batched
     forward and backward, at GPT-2 width with `n_layer` layers.
 
@@ -4566,16 +4696,20 @@ def vmap_phase(dev, card, n_layer) -> dict:
         (`ops.matmul._f32_product`) by 2^-22;
     (b) training's configuration on the kernels (`train_setup`: B = 8, T =
         1024, bf16, #5/#6 on wgmma) at accum 4, on the flat and the fused
-        linear: the vmap run's launches (#5 and #6 2·L an iteration, the
-        teacher's and the batched students' pass, all on wgmma; #14-#16
-        4·L·accum on the fused path, each student its own call, 0 on the
-        flat one; the weight prologue twice that), `vmap_vs_scan` (the
-        floor also moving #14-#16's outputs by FUSED_JITTER on the fused
-        path), and `step_vs_plain` with the vmap step.
+        linear: the vmap run's launches (#5, #6 and, on the fused path,
+        #14-#16 2·L and 4·L·2 an iteration: the teacher's pass and one
+        batched pass for all students, #5/#6 all on wgmma; #14-#16 none on
+        the flat one; the weight prologue twice #14's), `vmap_vs_scan`
+        (the floor also moving #14-#16's outputs by FUSED_JITTER on the
+        fused path), and `step_vs_plain` with the vmap step; on the fused
+        path also #14-#16 with the student axis held directly against
+        their batched plain versions (`fused_students_vs_plain`) and timed
+        beside one unbatched call a student (`fused_students_timings`).
 
     Prints each mode's `mode_timings` (vmap beside scan), the holds, the
     launches and the phase's wall in one `vmap_timings` line. Returns the
-    (b) vmap runs' launches by path."""
+    (b) vmap runs' launches by path, and the batched kernels' errors and
+    timings."""
     import dataclasses
 
     import torch
@@ -4586,7 +4720,7 @@ def vmap_phase(dev, card, n_layer) -> dict:
     from llm_qat_tpu_torch.train.sp_trainer import make_sp_train_step
 
     t_phase = time.time()
-    failures, holds, timings, launches = [], {}, {}, {}
+    failures, holds, timings, launches, students = [], {}, {}, {}, {}
     products = [(mm, "_f32_product", VMAP_JITTER)]
 
     # (a) bench.py's configuration: no port kernel
@@ -4615,11 +4749,12 @@ def vmap_phase(dev, card, n_layer) -> dict:
         patches = products + ([(fl, n, FUSED_JITTER) for n in kernels] if fused else [])
         holds[impl], ran = vmap_vs_scan(impl, c, tcfg, params, batches, dev, patches, failures)
         launches[impl] = ran
-        n_lin = 4 * L * VMAP_ACCUM * VMAP_STEPS if fused else 0
+        n_lin = 4 * L * 2 * VMAP_STEPS if fused else 0
         want = {"flash_fwd_lse": 2 * L * VMAP_STEPS, "flash_bwd": 2 * L * VMAP_STEPS}
         want.update({n: n_lin for n in kernels if n_lin})
         check(ran["kernels"] == want, f"{impl} vmap ran #5/#6 2·L and #14-#16 "
-              f"{n_lin // VMAP_STEPS} times each an iteration: {ran}")
+              f"{n_lin // VMAP_STEPS} times each an iteration (one batched call for all "
+              f"students): {ran}")
         check(ran["flash_routes"]["wgmma"] == want["flash_fwd_lse"],
               f"{impl} vmap ran #5 on wgmma: {ran}")
         check(ran["fq_weight"] == 2 * n_lin,
@@ -4628,6 +4763,12 @@ def vmap_phase(dev, card, n_layer) -> dict:
         if fused:
             step_vs_plain(c, tcfg, state, batches, dev, failures, fl, kernels,
                           ((FUSED_JITTER,), (FUSED_JITTER,) * 2, (FUSED_JITTER,)), "vmap fused")
+            M = tcfg.batch_size * tcfg.max_seq_length
+            students = {"slots": list(STUDENT_SLOTS), "M": M,
+                        "errs": fused_students_vs_plain(c, params, dev, M, failures)}
+            students["timings"], students["per_layer"] = fused_students_timings(
+                c, params, dev, M)
+            print("fused_student_timings " + json.dumps(students), flush=True)
         else:
             step_vs_plain(c, tcfg, state, batches, dev, failures, att,
                           ("flash_fwd_lse", "flash_bwd"),
@@ -4641,7 +4782,7 @@ def vmap_phase(dev, card, n_layer) -> dict:
     print("vmap_timings " + json.dumps({
         "card": card, "n_layer": n_layer, "accum": VMAP_ACCUM, "timings": timings,
         "holds": holds, "launches": launches, "phase_s": time.time() - t_phase}), flush=True)
-    return launches
+    return launches, students
 
 
 def kernel_counters():
@@ -5493,7 +5634,7 @@ def main() -> int:
     # 4c, vmap. student_mode="vmap" training at GPT-2 width with
     #     VMAP_DEFAULT_LAYERS layers: bench.py's train configuration, then
     #     #5/#6 and #14-#16 over the batched students
-    vmap_launches = vmap_phase(dev, card, VMAP_DEFAULT_LAYERS)
+    vmap_launches, vmap_students = vmap_phase(dev, card, VMAP_DEFAULT_LAYERS)
     torch.cuda.empty_cache()
 
     # 4d. training: kernels #14-#16 against their plain versions at the
@@ -5727,7 +5868,11 @@ def main() -> int:
             "launches": flaunch[name] + vmap_launches["fused"]["kernels"][name],
             "launches_by_path": {"train": flaunch[name],
                                  "vmap_train": vmap_launches["fused"]["kernels"][name]},
-            "max_abs_err": errs[name],
+            "max_abs_err": max(errs[name], vmap_students["errs"][name]),
+            # one layer's four linears with the student axis (S = 3, M = 8192 a
+            # student), one batched call beside one unbatched call a student
+            "students": {"slots": vmap_students["slots"],
+                         **vmap_students["per_layer"][name]},
             "ms": sum(x["ms"] for x in row), "plain_ms": sum(x["plain_ms"] for x in row),
             "bound_ms": 1e3 * sum(max(a, b) for a, b in zip(t_bytes, t_ops)),
             "bound_by": "operations" if sum(t_ops) >= sum(t_bytes) else "bytes",

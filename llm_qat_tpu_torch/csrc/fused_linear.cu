@@ -13,6 +13,18 @@
 // the weight prologue of the first two, ::fq_weight; the `*_plain`
 // functions beside them compute the same functions in plain PyTorch.
 //
+// Every kernel takes a student axis, as JAX's batched pallas_call does
+// under `jax.vmap` over the students (student_mode="vmap"), which prepends
+// the vmapped axis to the kernel's grid: S students in one launch, the
+// student index a grid dimension. Per student: xq, xa, g, bq, the weight's
+// scale and zero-point vectors, the scalars and every output, each the
+// next of S equal blocks in memory; shared: w and the bias. #16 writes each
+// student's dW, clamped by that student's STE, to its own (K, N) block of
+// an (S, K, N) output, which the wrapper sums (JAX's batched #16 and the
+// sum over the vmapped axis that follows it); a sum of the students' rows
+// in one GEMM with one clamp would be wrong wherever a student clamps. S =
+// 1 is the unbatched call.
+//
 // xq, xa, bq and g are in the operand type (bf16, or float when
 // compute_dtype is float32); w, its per-column scale/zero-point vectors, the
 // bias and every output are float32. bits, kind and the LoRA scaling s are
@@ -90,6 +102,11 @@
 //   so the blocks in flight at once read the same slices of xq and g.
 // - Epilogue: float32 stores straight from the accumulators, masked at the
 //   ragged edges (#16 with a split: from the summed shared-memory tiles).
+// - Students: every bf16 operand is read through a 3-D tensor map (inner,
+//   rows, student), so a box past one student's rows is filled with zeros
+//   and never reads the next student's (#16 sums over M, where that would
+//   matter); the grid's z dimension (#14/#15, the prologue) or the outer
+//   part of it (#16) is the student.
 //
 // float operands (compute_dtype float32, off the main path) keep the plain
 // tiled design: one block of 256 threads per 128 x 128 output tile, the
@@ -303,6 +320,9 @@ fl_fwd(const float* __restrict__ xq, const float* __restrict__ xa, const float* 
   __shared__ __align__(16) float As[TILE * LDS];
   __shared__ __align__(16) float Bs[TILE * LDS];
   const int n0 = blockIdx.x * TILE, m0 = blockIdx.y * TILE;
+  const size_t stu = blockIdx.z;  // the student
+  xq += stu * M * K, xa += stu * M * r, ws += stu * N, wz += stu * N, bq += stu * r * N;
+  scal += 4 * stu, out += stu * M * N;
   const WeightFQ wfq{{scal[0], scal[1], symmetric, eps}, ws, wz};
   float acc[64];
 #pragma unroll
@@ -347,6 +367,9 @@ fl_bwd_dx(const float* __restrict__ g, const float* __restrict__ w, const float*
   __shared__ __align__(16) float Bs[TILE * LDS];
   const bool lora = (int)blockIdx.x >= nk;
   const int c0 = (lora ? blockIdx.x - nk : blockIdx.x) * TILE, m0 = blockIdx.y * TILE;
+  const size_t stu = blockIdx.z;  // the student
+  g += stu * M * N, ws += stu * N, wz += stu * N, bq += stu * r * N, scal += 4 * stu;
+  dxq += stu * M * K, dxa += stu * M * r;
   const WeightFQ wfq{{scal[0], scal[1], symmetric, eps}, ws, wz};
   float acc[64];
 #pragma unroll
@@ -374,14 +397,17 @@ fl_bwd_dx(const float* __restrict__ g, const float* __restrict__ w, const float*
   }
 }
 
-// #16 for float operands: block (x, y) is the dw tile of rows y*TILE of K
-// and columns x*TILE of N, summed over all of M, through the STE.
+// #16 for float operands: block (x, y, s) is student s's dw tile of rows
+// y*TILE of K and columns x*TILE of N, summed over all of its M rows,
+// through its STE.
 __global__ void __launch_bounds__(NT, 2)
 fl_bwd_dw(const float* __restrict__ xq, const float* __restrict__ g,
           const float* __restrict__ scal, float* __restrict__ dw, int M, int K, int N) {
   __shared__ __align__(16) float As[TILE * LDS];
   __shared__ __align__(16) float Bs[TILE * LDS];
   const int n0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
+  const size_t stu = blockIdx.z;  // the student
+  xq += stu * M * K, g += stu * M * N, scal += 4 * stu, dw += stu * K * N;
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
@@ -411,7 +437,8 @@ fl_bwd_dw(const float* __restrict__ xq, const float* __restrict__ g,
 // layout (trans = 0) or WqT (N, K) (trans = 1). With trans, the blocks of y
 // >= ceil(K/32) copy bq (r, N) to bqT (N, r). 32 x 8 threads per 32 x 32
 // tile; the transposes go through shared memory so that both the loads
-// and the stores are coalesced.
+// and the stores are coalesced. Block z is student z: its scales, scalars,
+// bq, and its own K x N (and N x r) block of dst (bqt); w is shared.
 __global__ void __launch_bounds__(256)
 fl_fq_weight(const float* __restrict__ w, const float* __restrict__ ws,
              const float* __restrict__ wz, const float* __restrict__ scal,
@@ -419,6 +446,9 @@ fl_fq_weight(const float* __restrict__ w, const float* __restrict__ ws,
              int N, int r, int trans, bool symmetric, float eps) {
   __shared__ float tile[32][33];
   const int tx = threadIdx.x, ty = threadIdx.y, n0 = blockIdx.x * 32;
+  const size_t stu = blockIdx.z;  // the student
+  ws += stu * N, wz += stu * N, scal += 4 * stu, dst += stu * K * N;
+  if (r > 0) bq += stu * r * N, bqt += stu * N * r;
   const int kt = (K + 31) / 32;
   if ((int)blockIdx.y >= kt) {  // bq^T
     const int r0 = (blockIdx.y - kt) * 32;
@@ -497,7 +527,8 @@ static_assert(BOX_BYTES == SW128_BOX, "sdesc's default LBO is one MN-major box")
 // #14/#15) are tensor maps of (rows, reduction) matrices read in GK x 128
 // (or BN) boxes, C = A . B^T; MN-major ones (MN = true, #16) maps of
 // (reduction, rows) matrices read in 64 x GK boxes, 128 / 64 per A tile
-// and BN / 64 per B tile, C = A^T . B. A ring of S stages. Called by all
+// and BN / 64 per B tile, C = A^T . B. Every map is 3-D (`bf16_map_s`): the
+// matrices of student `stu` are read. A ring of S stages. Called by all
 // GEMM_THREADS threads of a block launched with gemm_smem(S, BN) bytes of
 // dynamic shared memory: warpgroups 0 and 1 are the consumers, and each
 // returns true with its 64 rows of C in acc (BN / 2 floats, the layout of
@@ -506,8 +537,8 @@ static_assert(BOX_BYTES == SW128_BOX, "sdesc's default LBO is one MN-major box")
 template <int BN, bool MN, int S>
 __device__ __forceinline__ bool gemm_tile(const CUtensorMap* a0, const CUtensorMap* b0, int n0,
                                           const CUtensorMap* a1, const CUtensorMap* b1, int n1,
-                                          int k1, int m0, int c0, const float* __restrict__ scal,
-                                          float* acc) {
+                                          int k1, int m0, int c0, int stu,
+                                          const float* __restrict__ scal, float* acc) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   constexpr int SB = stage_bytes(BN), NA = BN / 2;
@@ -534,14 +565,14 @@ __device__ __forceinline__ bool gemm_tile(const CUtensorMap* a0, const CUtensorM
         const uint32_t dst = base + s * SB;
         mbar_expect_tx(full + 8 * s, SB);
         if (MN) {
-          tma_load(dst, a, m0, k, full + 8 * s);
-          tma_load(dst + BOX_BYTES, a, m0 + 64, k, full + 8 * s);
+          tma_load3(dst, a, m0, k, stu, full + 8 * s);
+          tma_load3(dst + BOX_BYTES, a, m0 + 64, k, stu, full + 8 * s);
 #pragma unroll
           for (int h = 0; h < BN / 64; ++h)
-            tma_load(dst + A_BYTES + h * BOX_BYTES, b, c0 + 64 * h, k, full + 8 * s);
+            tma_load3(dst + A_BYTES + h * BOX_BYTES, b, c0 + 64 * h, k, stu, full + 8 * s);
         } else {
-          tma_load(dst, a, k, m0, full + 8 * s);
-          tma_load(dst + A_BYTES, b, k, c0, full + 8 * s);
+          tma_load3(dst, a, k, m0, stu, full + 8 * s);
+          tma_load3(dst + A_BYTES, b, k, c0, stu, full + 8 * s);
         }
       }
     }
@@ -612,51 +643,60 @@ __device__ __forceinline__ void store_tile(const float* acc, float* __restrict__
 }
 
 // #14: out = s * (xa . bq) + xq . WqT^T + bias, one block per output tile
-// (x over N, y over M). nr LoRA steps (xa against bq^T), nk K steps.
+// (x over N, y over M, z the student). nr LoRA steps (xa against bq^T), nk
+// K steps.
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 fl_fwd_wgmma(const __grid_constant__ CUtensorMap xa, const __grid_constant__ CUtensorMap bqt,
              const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap wqt,
              int nr, int nk, const float* __restrict__ scal, const float* __restrict__ bias,
              float* __restrict__ out, int M, int N) {
-  const int m0 = blockIdx.y * GM, c0 = blockIdx.x * GN;
+  const int m0 = blockIdx.y * GM, c0 = blockIdx.x * GN, stu = blockIdx.z;
   float acc[64];
-  if (gemm_tile<GN, false, STAGES>(&xa, &bqt, nr, &xq, &wqt, nk, 0, m0, c0, scal, acc))
-    store_tile<GN>(acc, out, N, m0, c0, M, N, AddBias{bias});
+  if (gemm_tile<GN, false, STAGES>(&xa, &bqt, nr, &xq, &wqt, nk, 0, m0, c0, stu,
+                                   scal + 4 * stu, acc))
+    store_tile<GN>(acc, out + (size_t)stu * M * N, N, m0, c0, M, N, AddBias{bias});
 }
 
 // #15: blocks x < nkt are dxq tiles (g against Wq, n steps over N), the
-// rest dxa tiles (g against bq, scaled by s).
+// rest dxa tiles (g against bq, scaled by s); z is the student.
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 fl_bwd_dx_wgmma(const __grid_constant__ CUtensorMap g, const __grid_constant__ CUtensorMap wq,
                 const __grid_constant__ CUtensorMap bq, int n, int nkt,
                 const float* __restrict__ scal, float* __restrict__ dxq, float* __restrict__ dxa,
                 int M, int K, int r) {
-  const int m0 = blockIdx.y * GM;
+  const int m0 = blockIdx.y * GM, stu = blockIdx.z;
+  scal += 4 * stu;
   float acc[64];
   if ((int)blockIdx.x < nkt) {
     const int c0 = blockIdx.x * GN;
-    if (gemm_tile<GN, false, STAGES>(&g, &wq, 0, &g, &wq, n, 0, m0, c0, scal, acc))
-      store_tile<GN>(acc, dxq, K, m0, c0, M, K, Identity());
+    if (gemm_tile<GN, false, STAGES>(&g, &wq, 0, &g, &wq, n, 0, m0, c0, stu, scal, acc))
+      store_tile<GN>(acc, dxq + (size_t)stu * M * K, K, m0, c0, M, K, Identity());
   } else {
     const int c0 = (blockIdx.x - nkt) * GN;
-    if (gemm_tile<GN, false, STAGES>(&g, &bq, n, &g, &bq, 0, 0, m0, c0, scal, acc))
-      store_tile<GN>(acc, dxa, r, m0, c0, M, r, Identity());
+    if (gemm_tile<GN, false, STAGES>(&g, &bq, n, &g, &bq, 0, 0, m0, c0, stu, scal, acc))
+      store_tile<GN>(acc, dxa + (size_t)stu * M * r, r, m0, c0, M, r, Identity());
   }
 }
 
-// #16: the dw tile of rows k0 of K and columns n0 of N over the z-th of
-// `split` chunks of M (`chunks`; z = blockIdx.x, the block's rank in a
-// cluster of split = gridDim.x blocks). The grid's y and z dimensions
-// walk the tiles of K and N, the smaller count on y (kfast: y over K).
-// Unsplit, the block stores dw through the STE; split, the cluster's
-// blocks sum their partial tiles through distributed shared memory.
+// #16: student stu's dw tile of rows k0 of K and columns n0 of N over the
+// z-th of `split` chunks of its M rows (`chunks`; z = blockIdx.x, the
+// block's rank in a cluster of split = gridDim.x blocks). The grid's y
+// dimension and z modulo nz walk the tiles of K and N, the smaller count on
+// y (kfast: y over K); z / nz is the student, outermost, so that the blocks
+// in flight at once read one student's operands. Unsplit, the block stores
+// dw through the student's STE; split, the cluster's blocks sum their
+// partial tiles through distributed shared memory, then clamp. Student
+// stu's tile goes to its own (K, N) block of dw.
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 fl_bwd_dw_wgmma(const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap g,
                 const float* __restrict__ scal, float* __restrict__ dw, int K, int N,
-                DwChunks chunks, int kfast) {
+                DwChunks chunks, int kfast, int nz) {
   const int split = gridDim.x, z = blockIdx.x;
-  const int k0 = (kfast ? blockIdx.y : blockIdx.z) * GM;
-  const int n0 = (kfast ? blockIdx.z : blockIdx.y) * DW_BN;
+  const int stu = blockIdx.z / nz, tz = blockIdx.z - stu * nz;
+  const int k0 = (kfast ? blockIdx.y : tz) * GM;
+  const int n0 = (kfast ? tz : blockIdx.y) * DW_BN;
+  scal += 4 * stu;
+  dw += (size_t)stu * K * N;
   int r0 = 0, r1 = 0;  // selected, not indexed: no copy of chunks in local memory
 #pragma unroll
   for (int q = 0; q < MAX_SPLIT; ++q)
@@ -664,7 +704,7 @@ fl_bwd_dw_wgmma(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
   const int steps = (r1 - r0 + GK - 1) / GK;
   float acc[DW_BN / 2];
   const bool consumer = gemm_tile<DW_BN, true, DW_STAGES>(&xq, &g, 0, &xq, &g, steps, r0, k0,
-                                                          n0, scal, acc);
+                                                          n0, stu, scal, acc);
   if (split == 1) {
     if (consumer) store_tile<DW_BN>(acc, dw, N, k0, n0, K, N, SteClamp{ste_clamps(scal)});
     return;
@@ -720,6 +760,11 @@ fl_bwd_dw_wgmma(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
 // ---------------------------------------------------------------------------
 // Host entry points (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
+//
+// Each takes S >= 1 students: every per-student operand and output holds S
+// equal blocks one after the other (xq (S, M, K), ws (S, N), scal (S, 4),
+// ...), w and the bias one block shared by all. One call launches each
+// kernel once for all S.
 
 static inline int tiles(int n) { return (n + TILE - 1) / TILE; }
 static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -732,129 +777,162 @@ static bool tma_ok(int K, int N, int r, std::initializer_list<const void*> ptrs)
   return true;
 }
 
-// #14 with float operands: out (M, N) float32 from float xq (M, K),
-// xa (M, r), bq (r, N), and float32 w (K, N), ws, wz, bias (N), scal (4).
+// The map of S bf16 matrices (rows, inner), row-major, one after the other
+// (one per student), read in boxes of 64 inner values (128 bytes, the
+// 128-byte swizzle) x box_rows rows x one student: GM rows for the K-major
+// operands of #14/#15, GK for the MN-major ones of #16. A box is laid out
+// in shared memory as the 2-D map's box of `bf16_map` is. Boxes past a
+// matrix's edge are filled with zeros: a box never reads the next
+// student's rows.
+static int bf16_map_s(CUtensorMap* map, const void* ptr, int inner, int rows, int S,
+                      int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)S};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)inner * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// #14 with float operands: out (S, M, N) float32 from float xq (S, M, K),
+// xa (S, M, r), bq (S, r, N), float32 ws, wz (S, N), scal (S, 4), and the
+// shared float32 w (K, N) and bias (N).
 extern "C" int fused_linear_fwd_f32(const float* xq, const float* xa, const float* w,
                                     const float* ws, const float* wz, const float* bq,
                                     const float* bias, const float* scal, float* out, int M,
-                                    int K, int N, int r, int symmetric, float eps,
+                                    int K, int N, int r, int S, int symmetric, float eps,
                                     cudaStream_t stream) {
-  if ((K | N | r) & 1) return (int)cudaErrorInvalidValue;
-  fl_fwd<<<dim3(tiles(N), tiles(M)), NT, 0, stream>>>(xq, xa, w, ws, wz, bq, bias, scal, out,
-                                                      M, K, N, r, symmetric, eps);
+  if (((K | N | r) & 1) || S < 1) return (int)cudaErrorInvalidValue;
+  fl_fwd<<<dim3(tiles(N), tiles(M), S), NT, 0, stream>>>(xq, xa, w, ws, wz, bq, bias, scal, out,
+                                                         M, K, N, r, symmetric, eps);
   return (int)cudaGetLastError();
 }
 
-// #15 with float operands: dxq (M, K) and dxa (M, r) float32 from float
-// g (M, N) and bq (r, N), float32 w (K, N), ws, wz (N), scal (4).
+// #15 with float operands: dxq (S, M, K) and dxa (S, M, r) float32 from
+// float g (S, M, N) and bq (S, r, N), float32 ws, wz (S, N), scal (S, 4)
+// and the shared w (K, N).
 extern "C" int fused_linear_bwd_dx_f32(const float* g, const float* w, const float* ws,
                                        const float* wz, const float* bq, const float* scal,
-                                       float* dxq, float* dxa, int M, int K, int N, int r,
+                                       float* dxq, float* dxa, int M, int K, int N, int r, int S,
                                        int symmetric, float eps, cudaStream_t stream) {
-  if ((K | N | r) & 1) return (int)cudaErrorInvalidValue;
+  if (((K | N | r) & 1) || S < 1) return (int)cudaErrorInvalidValue;
   const int nk = tiles(K), nr = r > 0 ? tiles(r) : 0;
-  fl_bwd_dx<<<dim3(nk + nr, tiles(M)), NT, 0, stream>>>(g, w, ws, wz, bq, scal, dxq, dxa, M, K,
-                                                        N, r, nk, symmetric, eps);
+  fl_bwd_dx<<<dim3(nk + nr, tiles(M), S), NT, 0, stream>>>(g, w, ws, wz, bq, scal, dxq, dxa, M,
+                                                           K, N, r, nk, symmetric, eps);
   return (int)cudaGetLastError();
 }
 
 static int fq_launch(const float* w, const float* ws, const float* wz, const float* scal,
-                     const void* bq, void* dst, void* bqt, int K, int N, int r, int trans,
+                     const void* bq, void* dst, void* bqt, int K, int N, int r, int S, int trans,
                      int symmetric, float eps, cudaStream_t stream) {
   const int rt = trans && r > 0 ? cdiv(r, 32) : 0;
-  fl_fq_weight<<<dim3(cdiv(N, 32), cdiv(K, 32) + rt), dim3(32, 8), 0, stream>>>(
+  fl_fq_weight<<<dim3(cdiv(N, 32), cdiv(K, 32) + rt, S), dim3(32, 8), 0, stream>>>(
       w, ws, wz, scal, static_cast<const bf16*>(bq), static_cast<bf16*>(dst),
       static_cast<bf16*>(bqt), K, N, r, trans, symmetric, eps);
   return (int)cudaGetLastError();
 }
 
-// The weight prologue of #14/#15 alone: dst = bf16(FQ(w)) from float32
-// w (K, N), ws, wz (N), scal (4); (K, N) with trans = 0, (N, K) with
-// trans = 1, when bq (r, N) bf16 is also copied to bqt (N, r).
+// The weight prologue of #14/#15 alone: dst = bf16(FQ(w)) of each of S
+// students from the shared float32 w (K, N) and its ws, wz (S, N), scal
+// (S, 4); (S, K, N) with trans = 0, (S, N, K) with trans = 1, when bq
+// (S, r, N) bf16 is also copied to bqt (S, N, r).
 extern "C" int fused_linear_fq_weight(const float* w, const float* ws, const float* wz,
                                       const float* scal, const void* bq, void* dst, void* bqt,
-                                      int K, int N, int r, int trans, int symmetric, float eps,
-                                      cudaStream_t stream) {
-  return fq_launch(w, ws, wz, scal, bq, dst, bqt, K, N, r, trans, symmetric, eps, stream);
+                                      int K, int N, int r, int S, int trans, int symmetric,
+                                      float eps, cudaStream_t stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  return fq_launch(w, ws, wz, scal, bq, dst, bqt, K, N, r, S, trans, symmetric, eps, stream);
 }
 
-// #14 with bf16 operands: out (M, N) float32 from xq (M, K), xa (M, r),
-// bq (r, N), float32 w (K, N), ws, wz, bias (N), scal (4). The prologue
-// writes WqT (N, K) and then bqT (N, r) into the bf16 workspace `work` of
-// N * (K + r) elements; then the GEMM reads them. One call, two launches.
+// #14 with bf16 operands: out (S, M, N) float32 from xq (S, M, K),
+// xa (S, M, r), bq (S, r, N), float32 ws, wz (S, N), scal (S, 4), and the
+// shared float32 w (K, N) and bias (N). The prologue writes WqT (S, N, K)
+// and then bqT (S, N, r) into the bf16 workspace `work` of S * N * (K + r)
+// elements; then the GEMM reads them. One call, two launches.
 extern "C" int fused_linear_fwd_wgmma(const void* xq, const void* xa, const float* w,
                                       const float* ws, const float* wz, const void* bq,
                                       const float* bias, const float* scal, void* work,
-                                      float* out, int M, int K, int N, int r, int symmetric,
-                                      float eps, cudaStream_t stream) {
+                                      float* out, int M, int K, int N, int r, int S,
+                                      int symmetric, float eps, cudaStream_t stream) {
   bf16* wqt = static_cast<bf16*>(work);
-  bf16* bqt = wqt + (size_t)N * K;
-  if (!tma_ok(K, N, r, {xq, wqt}) || (r > 0 && !tma_ok(0, 0, 0, {xa, bqt})))
+  bf16* bqt = wqt + (size_t)S * N * K;
+  if (S < 1 || !tma_ok(K, N, r, {xq, wqt}) || (r > 0 && !tma_ok(0, 0, 0, {xa, bqt})))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mxq, mwqt, mxa, mbqt;
-  int rc = bf16_map(&mxq, xq, K, M, K, GM);
-  if (!rc) rc = bf16_map(&mwqt, wqt, K, N, K, GM);
-  if (!rc && r > 0) rc = bf16_map(&mxa, xa, r, M, r, GM);
-  if (!rc && r > 0) rc = bf16_map(&mbqt, bqt, r, N, r, GM);
+  int rc = bf16_map_s(&mxq, xq, K, M, S, GM);
+  if (!rc) rc = bf16_map_s(&mwqt, wqt, K, N, S, GM);
+  if (!rc && r > 0) rc = bf16_map_s(&mxa, xa, r, M, S, GM);
+  if (!rc && r > 0) rc = bf16_map_s(&mbqt, bqt, r, N, S, GM);
   if (rc) return rc;
   if (r == 0) mxa = mxq, mbqt = mwqt;  // never loaded
   static const cudaError_t e = cudaFuncSetAttribute(
       fl_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(STAGES, GN));
   if (e != cudaSuccess) return (int)e;
-  rc = fq_launch(w, ws, wz, scal, bq, wqt, bqt, K, N, r, 1, symmetric, eps, stream);
+  rc = fq_launch(w, ws, wz, scal, bq, wqt, bqt, K, N, r, S, 1, symmetric, eps, stream);
   if (rc) return rc;
-  fl_fwd_wgmma<<<dim3(cdiv(N, GN), cdiv(M, GM)), GEMM_THREADS, gemm_smem(STAGES, GN),
+  fl_fwd_wgmma<<<dim3(cdiv(N, GN), cdiv(M, GM), S), GEMM_THREADS, gemm_smem(STAGES, GN),
                  stream>>>(
       mxa, mbqt, mxq, mwqt, r > 0 ? cdiv(r, GK) : 0, cdiv(K, GK), scal, bias, out, M, N);
   return (int)cudaGetLastError();
 }
 
-// #15 with bf16 operands: dxq (M, K) and dxa (M, r) float32 from g (M, N),
-// bq (r, N), float32 w (K, N), ws, wz (N), scal (4). The prologue writes Wq
-// (K, N) into the bf16 workspace `work` of K * N elements; then the GEMM
-// reads it. One call, two launches.
+// #15 with bf16 operands: dxq (S, M, K) and dxa (S, M, r) float32 from
+// g (S, M, N), bq (S, r, N), float32 ws, wz (S, N), scal (S, 4) and the
+// shared w (K, N). The prologue writes Wq (S, K, N) into the bf16
+// workspace `work` of S * K * N elements; then the GEMM reads it. One call,
+// two launches.
 extern "C" int fused_linear_bwd_dx_wgmma(const void* g, const float* w, const float* ws,
                                          const float* wz, const void* bq, const float* scal,
                                          void* work, float* dxq, float* dxa, int M, int K, int N,
-                                         int r, int symmetric, float eps, cudaStream_t stream) {
-  if (!tma_ok(K, N, r, {g, work}) || (r > 0 && !tma_ok(0, 0, 0, {bq})))
+                                         int r, int S, int symmetric, float eps,
+                                         cudaStream_t stream) {
+  if (S < 1 || !tma_ok(K, N, r, {g, work}) || (r > 0 && !tma_ok(0, 0, 0, {bq})))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mg, mwq, mbq;
-  int rc = bf16_map(&mg, g, N, M, N, GM);
-  if (!rc) rc = bf16_map(&mwq, work, N, K, N, GM);
-  if (!rc && r > 0) rc = bf16_map(&mbq, bq, N, r, N, GM);
+  int rc = bf16_map_s(&mg, g, N, M, S, GM);
+  if (!rc) rc = bf16_map_s(&mwq, work, N, K, S, GM);
+  if (!rc && r > 0) rc = bf16_map_s(&mbq, bq, N, r, S, GM);
   if (rc) return rc;
   if (r == 0) mbq = mwq;  // never loaded
   static const cudaError_t e = cudaFuncSetAttribute(
       fl_bwd_dx_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(STAGES, GN));
   if (e != cudaSuccess) return (int)e;
-  rc = fq_launch(w, ws, wz, scal, nullptr, work, nullptr, K, N, 0, 0, symmetric, eps, stream);
+  rc = fq_launch(w, ws, wz, scal, nullptr, work, nullptr, K, N, 0, S, 0, symmetric, eps, stream);
   if (rc) return rc;
   const int nkt = cdiv(K, GN), nrt = r > 0 ? cdiv(r, GN) : 0;
-  fl_bwd_dx_wgmma<<<dim3(nkt + nrt, cdiv(M, GM)), GEMM_THREADS, gemm_smem(STAGES, GN),
+  fl_bwd_dx_wgmma<<<dim3(nkt + nrt, cdiv(M, GM), S), GEMM_THREADS, gemm_smem(STAGES, GN),
                     stream>>>(
       mg, mwq, mbq, cdiv(N, GK), nkt, scal, dxq, dxa, M, K, r);
   return (int)cudaGetLastError();
 }
 
-// #16 with float operands: dw (K, N) float32 from float xq (M, K) and
-// g (M, N), scal (4); one block per 128 x 128 tile of dw over all of M.
+// #16 with float operands: dw (S, K, N) float32, each student's own sum
+// through its STE, from float xq (S, M, K) and g (S, M, N), scal (S, 4);
+// one block per 128 x 128 tile of a student's dw over all of its M rows.
 extern "C" int fused_linear_bwd_dw_f32(const float* xq, const float* g, const float* scal,
-                                       float* dw, int M, int K, int N, cudaStream_t stream) {
-  fl_bwd_dw<<<dim3(tiles(N), tiles(K)), NT, 0, stream>>>(xq, g, scal, dw, M, K, N);
+                                       float* dw, int M, int K, int N, int S,
+                                       cudaStream_t stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  fl_bwd_dw<<<dim3(tiles(N), tiles(K), S), NT, 0, stream>>>(xq, g, scal, dw, M, K, N);
   return (int)cudaGetLastError();
 }
 
-// #16 with bf16 operands: dw (K, N) float32 from xq (M, K) and g (M, N),
-// scal (4); M in `split` (1-8) chunks, one per block of a cluster: chunk z
-// is rows [rows[z], rows[z + 1]) (host memory, split + 1 bounds from 0 to
-// M, each but the last on a GK step, rising; the plan comes from
+// #16 with bf16 operands: dw (S, K, N) float32, each student's own sum
+// through its STE, from xq (S, M, K) and g (S, M, N), scal (S, 4); each
+// student's M rows in `split` (1-8) chunks, one per block of a cluster:
+// chunk z is rows [rows[z], rows[z + 1]) (host memory, split + 1 bounds
+// from 0 to M, each but the last on a GK step, rising; the plan comes from
 // ops/fused_linear.py::dw_splits and dw_chunks). One call: the two
 // MN-major tensor maps, one launch.
 extern "C" int fused_linear_bwd_dw_wgmma(const void* xq, const void* g, const float* scal,
-                                         float* dw, int M, int K, int N, int split,
+                                         float* dw, int M, int K, int N, int S, int split,
                                          const int* rows, cudaStream_t stream) {
-  if (split < 1 || split > MAX_SPLIT || !tma_ok(K, N, 0, {xq, g}) || rows[0] != 0 ||
+  if (S < 1 || split < 1 || split > MAX_SPLIT || !tma_ok(K, N, 0, {xq, g}) || rows[0] != 0 ||
       rows[split] != M)
     return (int)cudaErrorInvalidValue;
   DwChunks chunks = {};
@@ -864,16 +942,16 @@ extern "C" int fused_linear_bwd_dw_wgmma(const void* xq, const void* g, const fl
     chunks.row[z] = rows[z];
   }
   CUtensorMap mxq, mg;
-  int rc = bf16_map(&mxq, xq, K, M, K, GK);
-  if (!rc) rc = bf16_map(&mg, g, N, M, N, GK);
+  int rc = bf16_map_s(&mxq, xq, K, M, S, GK);
+  if (!rc) rc = bf16_map_s(&mg, g, N, M, S, GK);
   if (rc) return rc;
   static const cudaError_t e = cudaFuncSetAttribute(
       fl_bwd_dw_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gemm_smem(DW_STAGES, DW_BN));
   if (e != cudaSuccess) return (int)e;
-  int kt = cdiv(K, GM), nt = cdiv(N, DW_BN), kfast = kt <= nt;
+  int kt = cdiv(K, GM), nt = cdiv(N, DW_BN), kfast = kt <= nt, nz = kfast ? nt : kt;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, kfast ? kt : nt, kfast ? nt : kt);
+  cfg.gridDim = dim3(split, kfast ? kt : nt, nz * S);
   cfg.blockDim = dim3(GEMM_THREADS);
   cfg.dynamicSmemBytes = gemm_smem(DW_STAGES, DW_BN);
   cfg.stream = stream;
@@ -884,6 +962,6 @@ extern "C" int fused_linear_bwd_dw_wgmma(const void* xq, const void* g, const fl
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&mxq, &mg, &scal, &dw, &K, &N, &chunks, &kfast};
+  void* args[] = {&mxq, &mg, &scal, &dw, &K, &N, &chunks, &kfast, &nz};
   return (int)cudaLaunchKernelExC(&cfg, (const void*)fl_bwd_dw_wgmma, args);
 }

@@ -52,13 +52,13 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "decode_attention_hbm": [_P] * 7 + [_I] * 8 + [_F, _P],
         "decode_attention_dense": [_P] * 7 + [_I] * 6 + [_F, _P]},
     "fused_linear": {
-        "fused_linear_fq_weight": [_P] * 7 + [_I] * 5 + [_F, _P],
-        "fused_linear_fwd_wgmma": [_P] * 10 + [_I] * 5 + [_F, _P],
-        "fused_linear_bwd_dx_wgmma": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "fused_linear_fwd_f32": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "fused_linear_bwd_dx_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
-        "fused_linear_bwd_dw_f32": [_P] * 4 + [_I] * 3 + [_P],
-        "fused_linear_bwd_dw_wgmma": [_P] * 4 + [_I] * 4 + [_P, _P]},
+        "fused_linear_fq_weight": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "fused_linear_fwd_wgmma": [_P] * 10 + [_I] * 6 + [_F, _P],
+        "fused_linear_bwd_dx_wgmma": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "fused_linear_fwd_f32": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "fused_linear_bwd_dx_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "fused_linear_bwd_dw_f32": [_P] * 4 + [_I] * 4 + [_P],
+        "fused_linear_bwd_dw_wgmma": [_P] * 4 + [_I] * 5 + [_P, _P]},
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_decode": {

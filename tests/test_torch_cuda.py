@@ -636,7 +636,7 @@ def test_fused_dw_kernel_refuses_bad_chunks(cuda_device, rows):
     lib = _build.load("fused_linear")
     rc = lib.fused_linear_bwd_dw_wgmma(
         a["xq"].data_ptr(), a["g"].data_ptr(), a["scalars"].data_ptr(), dw.data_ptr(), M, K, N,
-        len(rows) - 1, (ctypes.c_int * len(rows))(*rows), _build.stream(dw))
+        1, len(rows) - 1, (ctypes.c_int * len(rows))(*rows), _build.stream(dw))
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(lib, rc, "fused_linear_bwd_dw")
 
@@ -730,6 +730,120 @@ def test_fused_sp_linear_runs_the_kernels(cuda_device):
         assert (fl.fused_linear_fwd.launches, fl.fused_linear_bwd_dx.launches,
                 fl.fused_linear_bwd_dw.launches) == tuple(b + n for b in before)
     assert bool(torch.isfinite(p["blocks"]["c_fc"]["w"].grad).all())
+
+
+def _fused_students(dev, M, K, N, r, dtype, seed):
+    """Operands of #14-#16 with the student axis: three students at the
+    slots 4-bit minmax, 8-bit log and 32 bits (each with the weight's
+    scales calibrated at its slot), one shared weight and bias; the 8-bit
+    log student's cotangent scaled by 8 so that some of its dW clamps."""
+    from llm_qat_tpu_torch.quant.calibration import calibrate_tensor
+
+    parts = [_fused_inputs(dev, M, K, N, r, slot, dtype, seed=seed + slot) for slot in range(3)]
+    w, bias = parts[0]["w"], parts[0]["bias"]
+    st = {k: torch.stack([q[k] for q in parts]).contiguous()
+          for k in ("xq", "xa", "ws", "wz", "bq", "scalars", "g")}
+    for slot, (bits, kind) in enumerate(((4.0, 0), (8.0, 1), (32.0, 0))):
+        ws, wz = calibrate_tensor(w, min(bits, 8.0), kind, channel_dim=1)  # the shared weight's
+        st["ws"][slot], st["wz"][slot] = ws.reshape(-1), wz.reshape(-1)
+    st["g"][1] = (8.0 * st["g"][1].float()).to(dtype)
+    return st | {"w": w, "bias": bias}
+
+
+# #14-#16 with the student axis against their batched plain versions: each
+# student's output is held as the unbatched kernels' are (FUSED_TOL of its
+# max |plain|; #14-#16 run the same tiles with the student a grid
+# dimension). dW: each student's clamped dW (the kernel's (S, K, N) output)
+# within FUSED_TOL of that student's largest unclamped sum; the wrapper's
+# sum over the students within FUSED_TOL of the sum of those largest sums
+# (an error of a sum is at most the sum of its terms' errors).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", [(256, 256, 384, 16), (200, 96, 136, 8),
+                                     (8192, 768, 3072, 64), (8192, 3072, 768, 64)])
+def test_fused_linear_student_kernels_match_plain(cuda_device, dtype, M, K, N, r):
+    """#14, #15, #16 and the weight prologue with S = 3 students (the
+    three slots) against their batched plain versions, at small, ragged (M
+    = 200 a student: boxes past a student's rows read zeros, not the next
+    student's) and GPT-2 shapes (M = 8192 a student, K/N 768/3072 and
+    3072/768, rank 64); one launch of each wrapper per call, whatever S
+    is; the prologue's bf16 weights bit-equal in both layouts."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_students(cuda_device, M, K, N, r, dtype, seed=M + K + r)
+    fwd_args = (a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
+                a["scalars"], True, 1e-5)
+    dx_args = (a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True, 1e-5)
+    counters = (fl.fused_linear_fwd, fl.fused_linear_bwd_dx, fl.fused_linear_bwd_dw,
+                fl.fq_weight)
+    before = [fn.launches for fn in counters]
+    out = fl.fused_linear_fwd(*fwd_args)
+    dxq, dxa = fl.fused_linear_bwd_dx(*dx_args)
+    dw = fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"])
+    torch.cuda.synchronize()
+    bf = dtype == torch.bfloat16
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1, 2 if bf else 0]
+    pout = fl.fused_linear_fwd_plain(*fwd_args)
+    pdxq, pdxa = fl.fused_linear_bwd_dx_plain(*dx_args)
+    assert out.shape == (3, M, N) and dxq.shape == (3, M, K) and dxa.shape == (3, M, r)
+    for name, got, want in (("out", out, pout), ("dxq", dxq, pdxq), ("dxa", dxa, pdxa)):
+        for s in range(3):
+            top = want[s].abs().max().item()
+            err = (got[s] - want[s]).abs().max().item() / max(top, 1e-30)
+            print(name, s, "error / max |plain|", err)
+            assert err <= FUSED_TOL, (name, s, err)
+    tops = [(a["xq"][s].float().T @ a["g"][s].float()).abs().max().item() for s in range(3)]
+    pdw = fl.fused_linear_bwd_dw_plain(a["xq"], a["g"], a["scalars"])
+    err = (dw - pdw).abs().max().item() / sum(tops)
+    print("dw error / sum of max |unclamped|", err)
+    assert dw.shape == (K, N) and err <= FUSED_TOL
+    if bf:
+        per = torch.empty((3, K, N), dtype=torch.float32, device=cuda_device)
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        fl.launch_dw_wgmma(a["xq"], a["g"], a["scalars"], per, fl.dw_splits(M, K, N, sms, 3))
+        for tr in (False, True):
+            wargs = (a["w"], a["ws"], a["wz"], a["scalars"], True, 1e-5, tr)
+            assert torch.equal(fl.fq_weight(*wargs), fl.fq_weight_plain(*wargs)), tr
+    else:
+        per = torch.empty((3, K, N), dtype=torch.float32, device=cuda_device)
+        lib = fl._build.load("fused_linear")
+        fl._build.check(lib, lib.fused_linear_bwd_dw_f32(
+            a["xq"].data_ptr(), a["g"].data_ptr(), a["scalars"].data_ptr(), per.data_ptr(),
+            M, K, N, 3, fl._build.stream(per)), "fused_linear_bwd_dw")
+    torch.cuda.synchronize()
+    assert (per[1].abs().max().item() == 10.0) == (tops[1] > 10.0)  # the log student clamps
+    for s in range(3):
+        want = fl.fused_linear_bwd_dw_plain(a["xq"][s], a["g"][s], a["scalars"][s])
+        err = (per[s] - want).abs().max().item() / tops[s]
+        print("dw student", s, "error / max |unclamped|", err)
+        assert err <= FUSED_TOL, (s, err)
+
+
+def test_fused_linear_students_are_one_launch_each(cuda_device):
+    """With S = 3 students each wrapper call is one launch of its kernel
+    (bf16: #14 and #15 one `fl_fq_weight` and one GEMM each, #16 one
+    `fl_bwd_dw_wgmma`; profiled), and #16's sum over the students is one
+    reduction beside it: no launch per student."""
+    from llm_qat_tpu_torch.ops import fused_linear as fl
+
+    a = _fused_students(cuda_device, 1024, 768, 768, 64, torch.bfloat16, seed=1)
+    fwd_args = (a["xq"], a["xa"], a["w"], a["ws"], a["wz"], a["bq"], a["bias"],
+                a["scalars"], True, 1e-5)
+    dx_args = (a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True, 1e-5)
+    calls = lambda: (fl.fused_linear_fwd(*fwd_args), fl.fused_linear_bwd_dx(*dx_args),
+                     fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"]))
+    calls()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    names = {e.key.split("(")[0].split("<")[0].replace("void ", "").strip(): e.count
+             for e in evs}
+    ours = {n: c for n, c in names.items() if n.startswith("fl_")}
+    assert ours == {"fl_fq_weight": 2, "fl_fwd_wgmma": 1, "fl_bwd_dx_wgmma": 1,
+                    "fl_bwd_dw_wgmma": 1}, names
+    assert sum(names.values()) - sum(ours.values()) == 1, names  # the sum over S
 
 
 def _hold_packed(ok, op, dtype, what):
@@ -1711,8 +1825,8 @@ def test_vmap_step_runs_the_kernels_and_matches_plain(cuda_device, impl, attenti
     and backward): with flash attention #5 and #6 launch 2·L times, the
     teacher's pass and the students' folded one, on their wgmma routes
     (SIMT on the cond path, whose q, k, v stay float32, as on its scan
-    path); on the fused path #14-#16 launch 4·L·accum times, each student
-    its own call. The step with the kernels against the same step on their plain
+    path); on the fused path #14-#16 launch 4·L·2 times, the teacher's
+    pass and one call for all students. The step with the kernels against the same step on their plain
     versions (the fused kernels' on the fused path, else #5/#6's) within
     VMAP_STEP_REL; frozen leaves unchanged."""
     from llm_qat_tpu_torch.ops import attention as att
@@ -1748,7 +1862,7 @@ def test_vmap_step_runs_the_kernels_and_matches_plain(cuda_device, impl, attenti
     att.flash_fwd_lse.route_launches.update(wgmma=0, simt=0)
     new, mk = step()
     torch.cuda.synchronize()
-    n_lin = 4 * L * tcfg.gradient_accumulation_steps if impl == "fused" else 0
+    n_lin = 4 * L * 2 if impl == "fused" else 0
     n_att = 2 * L if attention == "flash" else 0
     assert [fn.launches for fn in counters] == [n_att, n_att, n_lin, n_lin, n_lin]
     route = "simt" if impl == "cond" else "wgmma"

@@ -176,9 +176,9 @@ def test_vmap_step_matches_scan_on_every_path(monkeypatch, impl, attention):
     """The vmap step against the scan step, as above (dropout on, the
     step's own draws, JAX's limits), on each linear path and attention:
     LoRA rank 8 so that the fused gate takes B·T = 256; on the fused path
-    both modes ran the plain #14 once per linear, layer and micro-step,
-    and on the flash path the plain #5 once a layer and pass (2·L under
-    vmap, accum·L under scan)."""
+    the plain #14 ran once per linear, layer and pass, and on the flash
+    path the plain #5 once a layer and pass (2 passes under vmap, the
+    teacher's and the batched students', accum under scan)."""
     from llm_qat_tpu_torch.ops import attention as tatt
 
     q = dict(bit_widths=(4, 8, 32), lora_rank_per_bit={b: 8 for b in range(2, 17)} | {32: 0},
@@ -211,7 +211,7 @@ def test_vmap_step_matches_scan_on_every_path(monkeypatch, impl, attention):
         seen[mode] = dict(calls)
     L = m["n_layer"]
     for mode, passes in (("scan", accum), ("vmap", 2)):
-        assert seen[mode] == {"fused": 4 * L * accum if impl == "fused" else 0,
+        assert seen[mode] == {"fused": 4 * L * passes if impl == "fused" else 0,
                               "flash": passes * L if attention == "flash" else 0}, seen
     (s_scan, m_scan), (s_vmap, m_vmap) = runs["scan"], runs["vmap"]
     np.testing.assert_array_equal(m_vmap["precisions"].numpy(), m_scan["precisions"].numpy())
@@ -234,9 +234,9 @@ def test_fused_vmap_step_matches_jax(monkeypatch):
     accum 3: two students), JAX's draws replayed: the limits of
     test_torch_train_step.py. One student's rows (B·T = 256) pass the
     fused gate, and both packages take the fused path: the port's plain
-    #14 runs once per linear, layer and micro-step (4·L·accum), each
-    student its own call. Measured: loss 3.4e-6, student loss 3.4e-4,
-    grad_norm equal, updates 4.0e-4."""
+    #14 runs once per linear, layer and pass (4·L·2: the teacher's, then
+    one call for all students, as JAX's batched kernel). Measured: loss
+    3.4e-6, student loss 3.4e-4, grad_norm equal, updates 4.0e-4."""
     q = dict(bit_widths=(4, 8, 32),
              lora_rank_per_bit={b: 8 for b in range(2, 17)} | {32: 0},
              lora_alpha_per_bit={b: 8 for b in range(2, 17)} | {32: 0})
@@ -268,7 +268,7 @@ def test_fused_vmap_step_matches_jax(monkeypatch):
     j_new, jm = jax.jit(j_step)(j_init(jax.tree.map(jnp.asarray, jp)), jnp.asarray(ids), rng)
     t_new, tm = t_step(t_init(bridge.params_from_numpy(jp, "cpu")), torch.tensor(ids),
                        torch.Generator().manual_seed(0), precs=precs, layers=layers)
-    assert counts["port"] == 4 * m["n_layer"] * ttc.gradient_accumulation_steps
+    assert counts["port"] == 4 * m["n_layer"] * 2
     assert counts["jax"] > 0
     np.testing.assert_array_equal(tm["precisions"].numpy(), np.asarray(jm["precisions"]))
     for key, rtol in RTOL.items():

@@ -77,8 +77,9 @@ of one wrapper call), profiles one iteration of each path, and prints:
   `csrc/mega_decode.cu` and `csrc/fused_decode.cu`, and a
   `ptxas_flash_wgmma` JSON line with the
   registers, stack frame and spills of each forward of #2/#5 (wgmma with
-  and without the LSE, SIMT by operand type and head_dim) and the wgmma
-  kernels of #6;
+  and without the LSE, the float32 `flash_fwd_f32` by head_dim, q tile and
+  LSE, which must have no stack frame and no spill, and the bf16 SIMT
+  forward) and the wgmma kernels of #6;
 - one line per comparison, its error beside its tolerance;
 - `main_sp_timings`, `cached_generate_timings`, `eval_sp_timings`,
   `main_cpt_timings`, `main_squad_timings`, `rpi_timings`, `timings`,
@@ -115,7 +116,12 @@ bf16 and float32, T = 200 in bf16), the ptxas lines,
 T = 512, by events and by graph replay, beside SDPA's forward on the same
 operands) and
 `flash_timings` (#5/#6: events, graph replay, each wgmma kernel's device
-time, SDPA's forward and backward).
+time, SDPA's forward and backward), `flash_f32_timings` (#5's float32
+route at (16, 12, 1024, 64) and (1, 12, 1024, 64), #6's at the latter, by
+events and graph replay beside SDPA's float32 forward and backward) and
+`flash_f32_tile_sweep` (the float32 forward's q tiles, each held and timed
+beside the plan's choice); the float32 forward must build with no stack
+frame and no spill, as in the full run.
 
     python3 chip_smoke.py --decode-attention
 
@@ -199,6 +205,15 @@ first text (#5 and #6 on SIMT, 12 launches each), and at GPT-2 width with
 2 layers, T = 1024, `metrics_at` at 32 and 4 bits and the importance
 scores, card against CPU within 4x the CPU's jitter floor. Prints
 `rpi_timings`, then the result line.
+
+    python3 chip_smoke.py --rpi-forward
+
+times only the RPI command's forward (`sp_forward` in float32, inference
+mode, GPT-2 124M with its 12 layers, on a 1024-token sequence: #5 12
+times, on its float32 route) at the widest and the narrowest width: host
+ms of RPI_FORWARD_CALLS synchronised calls and one profiled call. Prints
+`rpi_forward_timings` and no result line (for A/B runs of two trees on one
+card).
 
     python3 chip_smoke.py --parallel
 
@@ -490,11 +505,11 @@ def bf16_hold(got, want):
     return ulps, (got != want).float().mean().item()
 
 
-# Kernel #2's holds: float32 at the served prompt length and at 512; bf16 at
-# the served shapes (the InferenceEngine prefill at B = 8 and the server's
-# bucketed prefill at B = 1, 128 tokens), a ragged 200, and 384 and 512
-# (JAX k-blocks of 128 and 256 keys)
-FLASH_SERVE_F32_T = (128, 512)
+# Kernel #2's holds: float32 at the served shapes (the InferenceEngine
+# prefill at B = 8, 64-row q tiles, and the server's bucketed prefill at
+# B = 1, 128 tokens, 32-row tiles) and at 512; bf16 at the served shapes, a
+# ragged 200, and 384 and 512 (JAX k-blocks of 128 and 256 keys)
+FLASH_SERVE_F32 = ((8, 128), (1, 128), (8, 512))
 FLASH_SERVE_BF16 = ((8, 128), (1, 128), (8, 200), (8, 384), (8, 512))
 
 
@@ -508,7 +523,7 @@ def flash_serve_vs_plain(gen, dev, H, D, failures):
     from llm_qat_tpu_torch.ops import attention as att
 
     served = {}
-    cases = [(8, T, torch.float32) for T in FLASH_SERVE_F32_T]
+    cases = [(B, T, torch.float32) for B, T in FLASH_SERVE_F32]
     cases += [(B, T, torch.bfloat16) for B, T in FLASH_SERVE_BF16]
     for B, T, dt in cases:
         q, k, v = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
@@ -576,28 +591,158 @@ def print_flash_serve_timings(st):
               f"({r['sdpa_f32_ms']:.5f})", flush=True)
 
 
+# #5's float32 route at the evaluation batch's and the RPI forward's
+# attention shapes; #6's at the RPI gradient importance's
+FLASH_F32_SHAPES = ((16, 12, 1024, 64), (1, 12, 1024, 64))
+FLASH_F32_BWD_SHAPE = (1, 12, 1024, 64)
+
+
+def flash_f32_timings(dev):
+    """#5 on its float32 route (`flash_fwd_f32` with the LSE) at each of
+    FLASH_F32_SHAPES: CUDA-event ms (`ms`) and graph-replay device ms
+    (`device_ms`) beside SDPA's causal float32 forward on the same operands
+    (`library_ms`, `library_device_ms`), the plain version's events ms, the
+    plan's q tile and the bound (q, k, v, o and the LSE moved once; Q·Kᵀ and
+    P·V over the causal pairs at the float32 peak outside the tensor
+    cores). #6 on its float32 route (`flash_bwd`: `flash_bwd_rowdot`,
+    `_dkdv`, `_dq`) at FLASH_F32_BWD_SHAPE by events and graph replay,
+    beside SDPA's float32 backward by graph replay (its forward and
+    backward replayed, less its forward) and the bound (q, k, v, o, dO, the
+    LSE read and dq, dk, dv written once; five causal products). Keys
+    `flash_fwd_lse_simt_BxHxTxD` and `flash_bwd_simt_BxHxTxD`."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+
+    def bound(nbytes, flops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        return {"bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    for B, H, T, D in FLASH_F32_SHAPES:
+        q, k, v = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(3))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        pairs = B * H * T * (T + 1) // 2
+        out[f"flash_fwd_lse_simt_{B}x{H}x{T}x{D}"] = {
+            "block_q": att.flash_fwd_plan(T, B * H, D, _build.sm_count(dev)),
+            "ms": cuda_ms(lambda: att.flash_fwd_lse(q, k, v), 20),
+            "device_ms": graph_ms(lambda: att.flash_fwd_lse(q, k, v), 20),
+            "plain_ms": cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 3, warmup=1),
+            "library_ms": cuda_ms(sdpa, 20), "library_device_ms": graph_ms(sdpa, 20),
+            **bound((4 * B * H * T * D + B * H * T) * 4, 2 * 2 * D * pairs)}
+    B, H, T, D = FLASH_F32_BWD_SHAPE
+    q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(4))
+    o, lse = att.flash_fwd_lse(q, k, v)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        # gradients at views made here (see flash_timings)
+        qn, kn, vn = (t.view_as(t) for t in (qr, kr, vr))
+        return torch.autograd.grad(
+            F.scaled_dot_product_attention(qn, kn, vn, is_causal=True), (qn, kn, vn), do)
+
+    pairs = B * H * T * (T + 1) // 2
+    out[f"flash_bwd_simt_{B}x{H}x{T}x{D}"] = {
+        "ms": cuda_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 20),
+        "device_ms": graph_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 20),
+        "plain_ms": cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3, warmup=1),
+        "library_device_ms": graph_ms(sdpa_fwd_bwd, 20) - graph_ms(
+            lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), 20),
+        **bound((8 * B * H * T * D + B * H * T) * 4, 5 * 2 * D * pairs)}
+    return out
+
+
+def print_flash_f32_timings(ft):
+    print("flash_f32_timings " + json.dumps(ft), flush=True)
+    for key, r in ft.items():
+        lib = (f"SDPA float32 {r['library_device_ms']:.5f}"
+               + (f" ({r['library_ms']:.5f} by events)" if "library_ms" in r else ""))
+        print(f"{key}: {r['device_ms']:.5f} ms by graph replay ({r['ms']:.5f} by events), "
+              f"{lib}; bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+
+
+# the float32 forward's q tiles, swept at shapes about the plan's boundary
+# and at the main paths' shapes: (BH heads, T rows, with the LSE) at head_dim
+# 64
+FLASH_F32_SWEEP = tuple((bh, t, True) for bh, t in (
+    (6, 200), (12, 128), (12, 512), (12, 768), (12, 1024), (96, 128), (96, 512), (192, 1024)))
+
+
+def flash_f32_tile_sweep(dev, failures, shapes=FLASH_F32_SWEEP, tiles=None):
+    """`flash_fwd_f32` in each q tile of `tiles` (default F32_TILES[64]),
+    forced through `flash_forward_f32`, at each (BH, T, lse) of `shapes`:
+    each held against #5's plain version (O within FLASH_TRAIN_F32 of max
+    |plain|, and with the LSE, LSE within FLASH_TRAIN_LSE_ABS) and timed by
+    graph replay, beside the tile `flash_fwd_plan` picks. A tile outside
+    F32_TILES[64] that the C entry refuses is left out; one inside it is a
+    failure. Returns {"BHxT": {"plan": rows, "lse": with_lse, rows: ms,
+    ...}}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+
+    lib, sms, D = _build.load("flash_attention"), _build.sm_count(dev), 64
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for BH, T, with_lse in shapes:
+        q, k, v = (torch.randn((1, BH, T, D), generator=g, device=dev) for _ in range(3))
+        po, plse = att.flash_fwd_lse_plain(q, k, v)
+        row = {"plan": att.flash_fwd_plan(T, BH, D, sms), "lse": with_lse}
+        for rows in tiles or att.F32_TILES[D]:
+            o, lse = torch.empty_like(q), torch.empty_like(plse)
+
+            def call():
+                return lib.flash_forward_f32(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr() if with_lse else None, BH, T, D, rows,
+                    1.0 / math.sqrt(D), _build.stream(q))
+
+            rc = call()
+            if rc and rows not in att.F32_TILES[D]:
+                continue
+            _build.check(lib, rc, "flash_forward_f32")
+            torch.cuda.synchronize()
+            err = (o - po).abs().max().item() / po.abs().max().item()
+            lerr = (lse - plse).abs().max().item() if with_lse else 0.0
+            if not (err <= FLASH_TRAIN_F32 and lerr <= FLASH_TRAIN_LSE_ABS):
+                failures.append(f"flash_fwd_f32 tile {rows} at ({BH}, {T}): o {err:.2e} of "
+                                f"max, lse {lerr:.2e}")
+            row[rows] = graph_ms(call, 20 if T >= 1024 else 50)
+        out[f"{BH}x{T}"] = row
+    print("flash_f32_tile_sweep " + json.dumps(out), flush=True)
+    return out
+
+
 def flash_train_vs_plain(gen, dev, B, H, D, failures):
-    """Kernels #5 and #6 against their plain versions at T = 1024 and 256,
-    bf16 and float32, and at the ragged T = 200 in bf16 (the wgmma
-    kernels' masked tail). Returns the largest absolute errors at the
-    main path's shape (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd":
-    ..}. With bf16 at head_dim 64 both run their wgmma kernels."""
+    """Kernels #5 and #6 against their plain versions at (B, H, T, D) for T
+    = 1024 and 256, bf16 and float32, at the ragged T = 200 in bf16 (the
+    wgmma kernels' masked tail), and in float32 at the RPI command's (1, H,
+    1024, D). Returns the largest absolute errors at the main path's shape
+    (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd": ..}. With bf16 at
+    head_dim 64 both run their wgmma kernels."""
     import torch
 
     from llm_qat_tpu_torch.ops import attention as att
 
     errs = {}
-    for T, dts in ((1024, (torch.bfloat16, torch.float32)),
-                   (256, (torch.bfloat16, torch.float32)), (200, (torch.bfloat16,))):
+    for Bc, T, dts in ((B, 1024, (torch.bfloat16, torch.float32)),
+                       (B, 256, (torch.bfloat16, torch.float32)),
+                       (B, 200, (torch.bfloat16,)), (1, 1024, (torch.float32,))):
         for dt in dts:
-            q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
+            q, k, v, do = (torch.randn((Bc, H, T, D), generator=gen, device=dev).to(dt)
                            for _ in range(4))
             o, lse = att.flash_fwd_lse(q, k, v)
             grads = att.flash_bwd(q, k, v, o, lse, do)
             po, plse = att.flash_fwd_lse_plain(q, k, v)
             pgrads = att.flash_bwd_plain(q, k, v, o, lse, do)
             torch.cuda.synchronize()
-            tag = f"({B},{H},{T},{D}) {str(dt)[6:]}"
+            tag = f"({Bc},{H},{T},{D}) {str(dt)[6:]}"
             lse_err = (lse - plse).abs().max().item()
             parts = [f"lse {lse_err:.2e} (tol {FLASH_TRAIN_LSE_ABS:g})"]
             if not lse_err <= FLASH_TRAIN_LSE_ABS:
@@ -620,7 +765,7 @@ def flash_train_vs_plain(gen, dev, B, H, D, failures):
                 if not ok:
                     failures.append(f"flash train {tag} {name}: err {err:.3e}")
             print(f"flash train kernels vs plain {tag}: " + "; ".join(parts), flush=True)
-            if T == 1024 and dt == torch.bfloat16:
+            if (Bc, T, dt) == (B, 1024, torch.bfloat16):
                 errs = {"flash_fwd_lse": max(abs_errs["o"], lse_err),
                         "flash_bwd": max(abs_errs[n] for n in ("dq", "dk", "dv"))}
     return errs
@@ -1173,13 +1318,16 @@ def fused_linear_phase(dev) -> int:
 
 # mangled-name pieces of the kernels of flash_attention.cu that the
 # `ptxas_flash_wgmma` line reports: the forwards of #2 and #5 (the wgmma
-# forward without and with the LSE, and the SIMT forward by operand type and
-# head_dim) and #6's wgmma kernels
+# forward without and with the LSE; the float32 forward by head_dim, rows a
+# thread and LSE; the bf16 SIMT forward at head_dim 128) and #6's wgmma
+# kernels
+FLASH_F32_PTXAS = {
+    f"flash_fwd_f32ILi{D}ELi{rm}ELb{lse}E": f"flash_fwd_f32<{D}, {rm}, {('no lse', 'lse')[lse]}>"
+    for D, rm in ((64, 4), (64, 2), (128, 4)) for lse in (0, 1)}
 FLASH_PTXAS_KERNELS = {
     "flash_fwd_wgmmaILb0E": "flash_fwd_wgmma<no lse> (#2)",
     "flash_fwd_wgmmaILb1E": "flash_fwd_wgmma<lse> (#5)",
-    "flash_fwdIfLi64E": "flash_fwd<float, 64>", "flash_fwdIfLi128E": "flash_fwd<float, 128>",
-    "flash_fwdI13__nv_bfloat16Li64E": "flash_fwd<bf16, 64>",
+    **FLASH_F32_PTXAS,
     "flash_fwdI13__nv_bfloat16Li128E": "flash_fwd<bf16, 128>",
     "flash_bwd_dkdv_wgmma": "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma": "flash_bwd_dq_wgmma"}
 
@@ -1198,6 +1346,19 @@ def print_ptxas_wgmma_flash(_build):
         elif name and "Used" in line and "registers" in line:
             out.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
     print("ptxas_flash_wgmma " + json.dumps(out), flush=True)
+    return out
+
+
+def ptxas_f32_failures(report):
+    """The float32 forward's instantiations that are missing from the
+    `ptxas_flash_wgmma` report or have a stack frame or spill."""
+    bad = []
+    for name in FLASH_F32_PTXAS.values():
+        r = report.get(name, {})
+        if not r or any(r.get(key, 1) for key in ("stack_bytes", "spill_store_bytes",
+                                                  "spill_load_bytes")):
+            bad.append(f"ptxas {name}: {r or 'not built'}")
+    return bad
 
 
 def flash_phase(dev) -> int:
@@ -1205,21 +1366,25 @@ def flash_phase(dev) -> int:
     versions as in the full run (`flash_serve_vs_plain`,
     `flash_train_vs_plain`) and timed (#2 at the served shapes,
     `flash_serve_timings`; #5/#6 at the training path's shape,
-    `flash_timings`), with flash_attention.cu's ptxas report (for A/B runs
-    of two trees on one card). Prints no result line; returns 1 if a hold
-    failed."""
+    `flash_timings`; their float32 routes at the evaluation and RPI shapes,
+    `flash_f32_timings`), the float32 forward's q tiles swept
+    (`flash_f32_tile_sweep`), with flash_attention.cu's ptxas report, in
+    which the float32 forward must have no stack frame and no spill. Prints
+    no result line; returns 1 if a hold failed."""
     import torch
 
     from llm_qat_tpu_torch.ops import _build
 
     print("ptxas, csrc/flash_attention.cu:\n" + _build.ptxas_report("flash_attention"),
           flush=True)
-    print_ptxas_wgmma_flash(_build)
+    report = print_ptxas_wgmma_flash(_build)
     gen = torch.Generator(device=dev).manual_seed(0)
-    failures = []
+    failures = ptxas_f32_failures(report)
     flash_serve_vs_plain(gen, dev, 12, 64, failures)
     flash_train_vs_plain(gen, dev, 8, 12, 64, failures)
     print_flash_serve_timings(flash_serve_timings(dev, 12, 64))
+    print_flash_f32_timings(flash_f32_timings(dev))
+    flash_f32_tile_sweep(dev, failures)
     tt = flash_timings(dev, 8, 12, 1024, 64)
     print("flash_timings " + json.dumps(tt), flush=True)
     print(f"flash_fwd_lse {tt['flash_fwd_lse_ms']:.4f} ms by events, SDPA forward "
@@ -1769,6 +1934,7 @@ def serve_path(params, cfg, dev, name, prompts, replay=True):
     counters = (flash_attention, da.decode_attention_hbm_multi, md.mega_decode_step_cb)
     for c in counters:
         c.launches = 0
+    flash_attention.route_launches.update(wgmma=0, simt=0)
     steps0 = eng.decode_steps
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1798,7 +1964,7 @@ def serve_path(params, cfg, dev, name, prompts, replay=True):
               and launches["decode_attention_hbm_multi"] == 0,
               f"{name}: #4 ran once per decode step")
     tm = {"e2e_tok_s": total / wall, "e2e_wall_s": wall, "requests": len(ids),
-          "decode_steps": steps}
+          "decode_steps": steps, "flash_routes": dict(flash_attention.route_launches)}
     for p in prompts[:CB_SLOTS]:
         eng.submit(p, max_new_tokens=CB_MAXLEN)
     eng.step_chunk(8)
@@ -3732,6 +3898,58 @@ RPI_DEFAULT_SAMPLES = 1
 RPI_DEFAULT_LAYERS = 1
 RPI_BITS = (4, 8, 32)
 RPI_HOLD_LAYERS = 2   # depth of the card-vs-CPU holds (GPT-2 width, T = 1024)
+RPI_FORWARD_CALLS = 15
+
+
+def rpi_forward_phase(dev, card) -> int:
+    """`--rpi-forward`: the RPI command's forward alone, as `run_rpi`'s
+    victim functions call it (`sp_forward`, float32, inference mode, the
+    command's tables; GPT-2 124M, RPI_BITS, random weights from seed 0) on
+    one 1024-token sequence, at the widest and the narrowest width: the
+    host ms of RPI_FORWARD_CALLS synchronised calls after three warm-up
+    calls (median and least), #5's launches by route (12 a call, on its
+    float32 route), and one call under `call_profile` (device ms, idle
+    share). Prints `rpi_forward_timings`; returns 0."""
+    import statistics
+
+    import torch
+
+    from llm_qat_tpu_torch.models.config import GPT2Config, QuantConfig, SPModelConfig
+    from llm_qat_tpu_torch.models.sp_model import init_sp_params, prec_tables, sp_forward
+    from llm_qat_tpu_torch.ops import attention as att
+
+    cfg = SPModelConfig(model=GPT2Config(), quant=QuantConfig(bit_widths=RPI_BITS))
+    params = init_sp_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tables = prec_tables(cfg.quant, dev)
+    ids = torch.randint(0, cfg.model.vocab_size, (1, cfg.model.n_positions),
+                        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    out = {"card": card}
+    for bits in (max(RPI_BITS), min(RPI_BITS)):
+        prec = cfg.quant.prec_index(bits)
+
+        @torch.inference_mode()
+        def forward():
+            return sp_forward(params, ids, prec, cfg, tables=tables)["logits"]
+
+        for _ in range(3):
+            forward()
+        torch.cuda.synchronize()
+        att.flash_fwd_lse.launches = 0
+        att.flash_fwd_lse.route_launches.update(wgmma=0, simt=0)
+        ms = []
+        for _ in range(RPI_FORWARD_CALLS):
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        routes = dict(att.flash_fwd_lse.route_launches)
+        check(routes == {"wgmma": 0, "simt": cfg.model.n_layer * RPI_FORWARD_CALLS},
+              f"rpi forward: #5 once a layer on its float32 route: {routes}")
+        out[f"{bits}bit"] = {"forward_ms_median": statistics.median(ms),
+                             "forward_ms_min": min(ms), "flash_fwd_lse_routes": routes,
+                             "profile": call_profile(forward)}
+    print("rpi_forward_timings " + json.dumps(out), flush=True)
+    return 0
 
 
 def replay_switch(bits, p, seed):
@@ -5166,39 +5384,23 @@ def eval_setup(dev):
 def eval_forward_profiles(params, cfg, dev):
     """The evaluation forward at its two shapes, (16, 1024) (a perplexity
     batch) and (4, 1024) (a four-choice zero-shot example), each profiled
-    by `call_profile`; and #5 on its float32 SIMT route at the batch's
-    attention shape (16, 12, 1024, 64): CUDA-event ms beside its plain
-    version's, SDPA's causal float32 forward on the same operands and the
-    bound (q, k, v, o and the LSE moved once; Q·Kᵀ and P·V over the causal
-    pairs at the float32 peak outside the tensor cores)."""
+    by `call_profile`; and `flash_f32_timings`: #5 on its float32 route at
+    the batch's attention shape (16, 12, 1024, 64) and the RPI forward's
+    (1, 12, 1024, 64), #6's at the RPI importance's."""
     import torch
-    import torch.nn.functional as F
 
     from llm_qat_tpu_torch.models.sp_model import sp_forward
-    from llm_qat_tpu_torch.ops import attention as att
 
     prec = cfg.quant.prec_index(8)
     g = torch.Generator(device=dev).manual_seed(5)
-    H, D, T = cfg.model.n_head, cfg.model.head_dim, cfg.model.n_positions
+    T = cfg.model.n_positions
     out = {}
     with torch.no_grad():
         for B in (16, 4):
             ids = torch.randint(0, cfg.model.vocab_size, (B, T), generator=g, device=dev)
             out[f"forward_profile_{B}x{T}"] = call_profile(
                 lambda: sp_forward(params, ids, prec, cfg)["logits"])
-    B = 16
-    q, k, v = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(3))
-    nbytes = (4 * B * H * T * D + B * H * T) * 4
-    flops = 2 * 2 * D * B * H * T * (T + 1) // 2
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS)
-    out[f"flash_fwd_lse_simt_{B}x{H}x{T}x{D}"] = {
-        "ms": cuda_ms(lambda: att.flash_fwd_lse(q, k, v), 20),
-        "plain_ms": cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 3, warmup=1),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                              20),
-        "bound_ms": 1e3 * bound,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS
-        else "operations"}
+    out.update(flash_f32_timings(dev))
     for key, val in out.items():
         print(f"eval {key}: {json.dumps(val)}", flush=True)
     return out
@@ -5209,7 +5411,7 @@ EVAL_PPL_REL = 1e-4      # perplexity, kernels against plain versions, relative
 EVAL_TIE = 1e-4          # zero-shot: a choice may differ where the plain top two are this close
 
 
-def eval_sp_phase(dev, card) -> int:
+def eval_sp_phase(dev, card) -> tuple:
     """`--eval-sp` (and part of the default run): the calibrated GPT-2 124M
     saved with the port's `save_per_bit_checkpoints` (sp_4bit.npz,
     sp_8bit.npz), then `python -m llm_qat_tpu_torch.cli.eval_sp` through
@@ -5223,7 +5425,8 @@ def eval_sp_phase(dev, card) -> int:
     version patched in (as `step_vs_plain` patches): the perplexity within
     EVAL_PPL_REL, the same zero-shot choices except where the plain run's
     two best scores are within EVAL_TIE. Prints `eval_sp_timings`. Returns
-    #5's launches in the kernel runs."""
+    #5's launches in the kernel runs and the `flash_f32_timings` of
+    `eval_forward_profiles`."""
     import shutil
     import tempfile
 
@@ -5372,7 +5575,8 @@ def eval_sp_phase(dev, card) -> int:
     out["perplexity_rel_diff_kernel_vs_plain"] = ppl_rel
     out.update(prof)
     print("eval_sp_timings " + json.dumps(out), flush=True)
-    return sum(runs[b]["launches"].get("flash_fwd_lse", 0) for b in (8, 4))
+    return (sum(runs[b]["launches"].get("flash_fwd_lse", 0) for b in (8, 4)),
+            {key: val for key, val in prof.items() if key.startswith("flash_")})
 
 
 def main() -> int:
@@ -5410,6 +5614,8 @@ def main() -> int:
     ap.add_argument("--run-rpi", action="store_true",
                     help="only run the RPI command line, its gradient importance and their "
                          "holds at GPT-2 124M")
+    ap.add_argument("--rpi-forward", action="store_true",
+                    help="only time the RPI command's forward at GPT-2 124M, T = 1024")
     ap.add_argument("--parallel", action="store_true",
                     help="only run the parallel layer's paths (TP/DP, CP, PP, TP decode) at "
                          "GPT-2 124M, 12 layers, on one NCCL group of world size 1")
@@ -5479,6 +5685,8 @@ def main() -> int:
         rpi_phase(dev, card, RPI_SAMPLES)
         print_result()
         return 0
+    if args.rpi_forward:
+        return rpi_forward_phase(dev, card)
     if args.parallel:
         parallel_phase(dev, card, 12)
         print_result()
@@ -5499,7 +5707,8 @@ def main() -> int:
     for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention",
                 "mega_decode", "fused_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
-    print_ptxas_wgmma_flash(_build)
+    bad = ptxas_f32_failures(print_ptxas_wgmma_flash(_build))
+    check(not bad, "; ".join(bad))
 
     # the SP command line first: its dataset and states are freed before
     # the other paths start
@@ -5611,7 +5820,7 @@ def main() -> int:
     # 4c. KV-cached generation (generate, infer_forward_with_cache, the int8
     #     KV cache, the folded LoRA) and the SP evaluation command
     cg_launches = cached_generate_phase(params, cfg, dev, gen, card)
-    eval_launches = eval_sp_phase(dev, card)
+    eval_launches, f32_timings = eval_sp_phase(dev, card)
 
     # 4c'. the CPT and SQuAD command lines (no kernel: every counter reads
     #      0 across their steps and evaluations)
@@ -5791,6 +6000,20 @@ def main() -> int:
     flash_flops = 2 * B * H * (d // H) * T0 * (T0 + 1)
     flash_bound_s = max(flash_bytes / HBM_BYTES_PER_S, flash_flops / fpeak)
     served = st[f"{B}x{T0}"]
+    # #2's kernels by route on its paths: the engine's prefill (B, T0), the
+    # server's one-sequence prefills (1, T0; shorter prompts stay off #2)
+    # and the TP decode's (B, T0, as the engine's); on the SIMT route, the
+    # float32 forward in the q tile `flash_fwd_plan` picks for each
+    cb_launches = sum(serve[n][1]["flash_attention"] for n in serve)
+    cb_routes = {r: sum(serve[n][0]["flash_routes"][r] for n in serve)
+                 for r in ("wgmma", "simt")}
+    flash_kernels = []
+    for b, routes in ((B, flash_routes), (1, cb_routes)):
+        rows = att.flash_fwd_plan(T0, b * H, d // H, _build.sm_count(dev))
+        for route, name in (("wgmma", "flash_fwd_wgmma<false>"),
+                            ("simt", f"flash_fwd_f32<{d // H}, {rows // 16}, false>")):
+            if routes[route] and name not in flash_kernels:
+                flash_kernels.append(name)
     kernels = [
         {"name": "mega_decode_step_kv8", "route": "cuda",
          "source": "llm_qat_tpu_torch/csrc/mega_decode.cu",
@@ -5803,8 +6026,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
          "replaces": "llm_qat_tpu/ops/attention.py:117",
-         "launches": launches["flash_attention"] + par_launches["tp_decode"]["flash_attention"],
-         "launches_by_path": {"serve": launches["flash_attention"],
+         "launches": (launches["flash_attention"] + cb_launches
+                      + par_launches["tp_decode"]["flash_attention"]),
+         "launches_by_path": {"serve": launches["flash_attention"], "cb_serve": cb_launches,
                               "tp_decode": par_launches["tp_decode"]["flash_attention"]},
          "max_abs_err": flash_errs["bfloat16" if fdt == "bf16" else "float32"],
          "ms": served[f"{fdt}_device_ms"], "events_ms": served[f"{fdt}_ms"],
@@ -5813,18 +6037,24 @@ def main() -> int:
                       >= flash_flops / fpeak else "operations"),
          "library_ms": served[f"sdpa_{fdt}_device_ms"],
          "library_events_ms": served[f"sdpa_{fdt}_ms"],
-         "cuda_kernels": [{"wgmma": "flash_fwd_wgmma<false>",
-                           "simt": "flash_fwd"}[flash_route]]},
+         "cuda_kernels": flash_kernels},
     ]
     # kernels #5/#6 at the training path's shape: (B, H, T, D) bf16
     Tt, Dh = tbatches[0].shape[1], d // H
     pairs = B * H * Tt * (Tt + 1) // 2            # causal (q, k) pairs
     op_bytes = B * H * Tt * Dh * 2                # one bf16 operand
     lse_bytes = B * H * Tt * 4
-    for name, line, n_tensors, n_products, lib, launched in (
-            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"], ["flash_fwd_wgmma"]),
+    # their float32 routes (the evaluation and RPI commands, the RPI
+    # importance) at those commands' shapes, from `flash_f32_timings`
+    f32_fwd = {key: {**val, "cuda_kernels": [f"flash_fwd_f32<64, {val['block_q'] // 16}, true>"]}
+               for key, val in f32_timings.items() if key.startswith("flash_fwd_lse_simt_")}
+    f32_bwd = {key: {**val, "cuda_kernels": ["flash_bwd_rowdot", "flash_bwd_dkdv",
+                                             "flash_bwd_dq"]}
+               for key, val in f32_timings.items() if key.startswith("flash_bwd_simt_")}
+    for name, line, n_tensors, n_products, lib, launched, f32 in (
+            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"], ["flash_fwd_wgmma"], f32_fwd),
             ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_device_ms"],
-             ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"])):
+             ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"], f32_bwd)):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
         # #5 also runs in the evaluation and RPI commands, and #5 and #6 in
@@ -5847,7 +6077,7 @@ def main() -> int:
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
                          else "operations"),
-            "library_ms": lib, "cuda_kernels": launched})
+            "library_ms": lib, "cuda_kernels": launched, "float32": f32})
     # kernels #14-#16 summed over the four linears of one layer at the
     # training path's shapes, at the 8-bit log slot (the dearest fake-quant);
     # ms by CUDA events around back-to-back wrapper calls (#14/#15: the

@@ -4,8 +4,9 @@
 // Replaces three Pallas kernels of llm_qat_tpu/ops/attention.py:
 // - `_flash_kernel` (serving prefill, #2) and `_flash_fwd_kernel` (called by
 //   `_flash_fwd_call`, #5) with `flash_forward_wgmma` (bf16 operands at
-//   head_dim 64) or `flash_forward`, the one forward without or with the
-//   log-sum-exp rows;
+//   head_dim 64), `flash_forward_f32` (float32 operands) or `flash_forward`
+//   (bf16 at head_dim 128), the one forward without or with the log-sum-exp
+//   rows;
 // - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with
 //   `flash_bwd_wgmma` (bf16 operands at head_dim 64) or `flash_bwd`, each
 //   three CUDA kernels that together compute what the one TPU kernel does.
@@ -34,11 +35,34 @@
 // maxima are taken over all its tiles before any of its P is formed, and O
 // and l are rescaled by exp(m_prev - m) once per block.
 //
-// Forward (SIMT, `flash_fwd`): one block per (b*h, 64-row q tile): K/V
-// tiles up to the causal limit stream through shared memory, each of 256
-// threads owns a 4x4 patch of the score tile and 4 x D/16 output columns.
-// With bf16 operands a k-block of several tiles is walked twice: the K
-// tiles for the row maxima, then the K/V tiles for P, l and O. With bf16
+// Forward, float32 operands (`flash_fwd_f32<D, RM, LSE>`; the served
+// prefill's q, k, v and the evaluation and RPI forwards): float32 has no
+// exact product on the tensor cores, so both products are float32 FMA on
+// the CUDA cores, fed from shared memory. One block of 128 threads per
+// (b*h, 16*RM-row q tile; RM = 4, or 2 for a call too narrow to fill the
+// card, from `ops/attention.py::flash_fwd_plan`), the longest causal walks
+// launched first. Each thread owns RM rows x 4 keys of S and RM rows x D/8
+// columns of O in registers: at RM = 4, per 4 of d Q.K^T takes one 128-bit
+// shared read per 8 FMAs, and per key P.V one per 10.7 (12.8 at D = 128).
+// Shared memory delivers 32 floats a clock an SM, broadcast or not, against
+// 128 FMAs issued, so the products wait on shared memory at about its
+// rate; three blocks an SM (two at D = 128) hide the reads' latency. (8
+// rows a thread, 224 registers and two blocks an SM, reads less but hid
+// less, and was no faster at any shape.) RM = 2 halves a thread's work a
+// tile for calls with fewer blocks than SMs, where the walk's latency
+// counts and shared memory is not busy. P goes to shared memory once, laid
+// out so that a thread's RM rows at one key are one float4 (float2). Q is
+// loaded once and the 32-key K/V tiles stream through a two-stage ring by
+// 16-byte cp.async copies, the next tile's issued before the current one
+// is used (zero-filled past T), row-major at pitch D + 4: every shared
+// read and copy is free of bank conflicts. With float32
+// operands P is exact, so each 32-key tile is its own block of the running
+// max (the JAX k-block's rounding point changes nothing). With bf16
+// operands at head_dim 128 the
+// forward is `flash_fwd` (no model path runs it): one block per (b*h,
+// 64-row q tile), each of 256 threads a 4x4 patch of the score tile and
+// 4 x D/16 output columns, a k-block of several tiles walked twice (the K
+// tiles for the row maxima, then the K/V tiles for P, l and O). With bf16
 // operands at head_dim 64 (every GPT-2 size) the forward is
 // `flash_fwd_wgmma`, on the tensor cores, in the wgmma backward's block
 // layout (below): one block per (b*h, 128-row q tile), Q loaded once, the
@@ -99,8 +123,15 @@
 // v read once and o written once (8 * T * D bytes per (b, h), 6.29 MB,
 // 1.9 us at 3.35 TB/s) and 2*T*(T+1)*D flops per (b, h) for QK^T and PV
 // over the causal half (0.2 GFLOP, 0.2 us at the bf16 tensor-core peak):
-// bound by bytes. In float32 the bytes double and the products run on the
-// CUDA cores; from T = 512 on that route is bound by operations. Training, at (B, H, T, D) = (8, 12, 1024, 64) in bf16.
+// bound by bytes. In float32 the bytes double (12.6 MB, 3.8 us) and the
+// products run on the CUDA cores (67 TFLOP/s: 3.0 us), still bound by
+// bytes; from T = 512 on that route is bound by operations: at the
+// evaluation's (16, 12, 1024, 64) with the LSE, 25.8 GFLOP, 0.385 ms,
+// beside 202 MB, 0.060 ms. `flash_fwd_f32` spends about 10 more operations
+// a causal score than the 128 FMAs of its two products (the scale, the
+// mask on edge tiles, the max, an expf, the row sum) and computes the
+// diagonal tiles whole (6-12 % more pairs than the causal half at T =
+// 1024). Training, at (B, H, T, D) = (8, 12, 1024, 64) in bf16.
 // Forward: q, k, v and o once (4 x 12.58 MB) plus LSE (0.39 MB), 50.7 MB,
 // 15 us at 3.35 TB/s; Q.K^T and P.V over the causal half,
 // 2 * 2 * D * T(T+1)/2 per (b, h), 12.9 GFLOP, 13 us at the bf16
@@ -123,7 +154,6 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -207,11 +237,11 @@ __device__ __forceinline__ void load_cols(float* dst, const T* __restrict__ x, i
 }
 
 // lse may be null (the serving forward writes none). nb: 64-key tiles per
-// k-block of the JAX kernel, whose running max P is rounded at. With bf16
-// operands and nb > 1 each k-block is walked twice: once for its row maxima
-// (S only), then for P, l and O (S again), so that O and l are rescaled
-// only where the JAX kernel's m changes, at block boundaries. Rounding P to
-// float is exact, so with float operands each tile is its own block.
+// k-block of the JAX kernel, whose running max P is rounded at. With nb > 1
+// each k-block is walked twice: once for its row maxima (S only), then for
+// P, l and O (S again), so that O and l are rescaled only where the JAX
+// kernel's m changes, at block boundaries. Instantiated for bf16 at
+// head_dim 128 only (float32 operands run `flash_fwd_f32`).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -223,7 +253,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   float* Vs = Kt + D * PADQ;    // [BK][D]
   float* Ps = Vs + BK * D;      // [BQ][BK]  P rounded to the operand type
   constexpr int DC = D / 16;    // output columns per thread
-  constexpr bool exact_p = std::is_same<T, float>::value;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const size_t off = (size_t)bh * seq * D;
@@ -245,11 +274,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   const int kmax = min(seq, q0 + BQ);
   const int nkb = (kmax + BK - 1) / BK;
-  const int blk = exact_p ? 1 : nb;
-  for (int b0 = 0; b0 < nkb; b0 += blk) {
-    const int b1 = min(nkb, b0 + blk);
+  for (int b0 = 0; b0 < nkb; b0 += nb) {
+    const int b1 = min(nkb, b0 + nb);
     float s[4][4], mx[4];
-    if (blk > 1) {  // the k-block's row maxima, then O and l rescaled once
+    if (nb > 1) {  // the k-block's row maxima, then O and l rescaled once
       float mb[4] = {m[0], m[1], m[2], m[3]};
       for (int kt = b0; kt < b1; ++kt) {
         __syncthreads();  // the previous tile's Kt fully consumed
@@ -282,7 +310,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (blk == 1) {  // the tile is the block: the running max moves here
+        if (nb == 1) {  // the tile is the block: the running max moves here
           const float m_new = fmaxf(m[i], mx[i]);
           const float corr = expf(m[i] - m_new);
           l[i] *= corr;
@@ -336,6 +364,249 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         for (int j = 0; j < 4; ++j)
           ob[(size_t)qi * D + cc * 64 + tx * 4 + j] = from_f<T>(acc[i][cc * 4 + j] / den);
       if (lse != nullptr && tx == 0) lse[(size_t)bh * seq + qi] = m[i] + logf(den);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward with float32 operands (#2's served route, #5's float32 route)
+// ---------------------------------------------------------------------------
+
+#define F32_THREADS 128  // 16 x 8 threads (ty, tx)
+#define F32_BK 32        // keys a tile
+
+// A 16-byte asynchronous copy into shared memory; with in == false it reads
+// nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of one head's (seq, D) float32 rows into dst, row-major at
+// pitch D + 4, by 16-byte asynchronous copies (consecutive threads take
+// consecutive 16 bytes of a row); rows past seq are zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void f32_rows_async(float* dst, const float* __restrict__ src, int r0,
+                                               int seq, int tid) {
+  constexpr int CH = D / 4;
+  static_assert(R * CH % F32_THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int n = 0; n < R * CH / F32_THREADS; ++n) {
+    const int i = tid + n * F32_THREADS, r = i / CH, c = i % CH, gr = r0 + r;
+    const bool in = gr < seq;
+    cp_async16(dst + r * (D + 4) + 4 * c, src + (size_t)(in ? gr : 0) * D + 4 * c, in);
+  }
+}
+
+// The block's tile: ROWS = 16 * RM query rows, the K/V ring's depth, the
+// blocks an SM holds (BLOCKS: shared memory and registers allow them) and
+// the shared-memory layout of `flash_fwd_f32`. RM = 4: 60 KB and 150
+// registers at D = 64, three blocks an SM; 108 KB and about 200 registers
+// at D = 128, two. RM = 2 (D = 64): 48 KB, four.
+template <int D, int RM>
+struct F32Tile {
+  static_assert(RM == 2 || RM == 4, "a thread's rows at one key are one float2 or float4");
+  static constexpr int ROWS = 16 * RM, DP = D + 4, PP = ROWS + 4;
+  static constexpr int STAGES = 2;
+  static constexpr int BLOCKS = RM == 2 ? 4 : (D == 64 ? 3 : 2);
+  static constexpr size_t SMEM =
+      sizeof(float) * (ROWS * DP + 2 * STAGES * F32_BK * DP + F32_BK * PP);
+};
+
+// One block per (b*h, ROWS-row q tile), the last q tile (the longest causal
+// walk) first. Thread (ty, tx) owns rows 4 RM w + ty % 4 + 4 i (i < RM, w =
+// ty / 4 its warp), keys tx + 8 j of each tile (j < 4) and O's columns
+// 32 c + 4 tx .. + 3 (c < D / 32). A warp's rows are contiguous, so on the
+// diagonal a warp whose rows all lie above a tile's keys skips the tile
+// (its P would be 0 and its m, l and O unchanged: the same bits). Q is
+// loaded once and the K/V tiles up to the causal limit stream through the
+// ring, each by asynchronous copies issued STAGES - 1 tiles ahead. Per tile:
+// S = Q.K^T as float32 FMA over d ascending, times sm_scale, -1e30 above the
+// diagonal and past seq; the row max over the 8 threads of the row; m, O and
+// the thread's share of l rescaled by expf(m_old - m); P = expf(S - m) into
+// Pt (a thread's RM rows at one key are adjacent: one float4 or float2 is
+// read back; a row's P is written and read within its warp, so the warp
+// alone waits for it); then O += P.V over the tile's keys ascending.
+// One block barrier a tile, for the ring. At the end the shares of l are
+// added in a fixed order, o = O / max(l, 1e-30) and, with LSE, lse = m +
+// log(max(l, 1e-30)). Each output row is written by one block in a fixed
+// order, so repeat calls are bit-equal.
+template <int D, int RM, bool LSE>
+__global__ void __launch_bounds__(F32_THREADS, (F32Tile<D, RM>::BLOCKS))
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int seq, float sm_scale) {
+  using Tile = F32Tile<D, RM>;
+  constexpr int ROWS = Tile::ROWS, DP = Tile::DP, PP = Tile::PP, ST = Tile::STAGES;
+  constexpr int NC = D / 32;  // float4 groups of O's columns a thread owns
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [ROWS][DP]
+  float* Ks = Qs + ROWS * DP;                   // [ST][F32_BK][DP]
+  float* Vs = Ks + ST * F32_BK * DP;            // [ST][F32_BK][DP]
+  float* Pt = Vs + ST * F32_BK * DP;            // [F32_BK][PP], P[r0 + 4 i][c] at [c][RM ty + i]
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const size_t off = (size_t)bh * seq * D;
+  const float* kb = k + off;
+  const float* vb = v + off;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int r0 = 4 * RM * (ty >> 2) + (ty & 3);  // the thread's first row in the tile
+  const int w_end = q0 + 4 * RM * ((ty >> 2) + 1);  // past the warp's last row
+  const int nt = (min(seq, q0 + ROWS) + F32_BK - 1) / F32_BK;  // key tiles to the causal limit
+
+  // Q with the first ST - 1 tiles (one copy group each, empty past nt)
+  f32_rows_async<D, ROWS>(Qs, q + off, q0, seq, tid);
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < nt) {
+      f32_rows_async<D, F32_BK>(Ks + t * F32_BK * DP, kb, t * F32_BK, seq, tid);
+      f32_rows_async<D, F32_BK>(Vs + t * F32_BK * DP, vb, t * F32_BK, seq, tid);
+    }
+    cp_async_commit();
+  }
+
+  float acc[RM][4 * NC], m[RM], l[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ST - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();          // everyone's; and tile t - 1's stage and Pt are consumed
+    const int tn = t + ST - 1;
+    if (tn < nt) {
+      f32_rows_async<D, F32_BK>(Ks + tn % ST * F32_BK * DP, kb, tn * F32_BK, seq, tid);
+      f32_rows_async<D, F32_BK>(Vs + tn % ST * F32_BK * DP, vb, tn * F32_BK, seq, tid);
+    }
+    cp_async_commit();
+    const float* Kt = Ks + t % ST * F32_BK * DP;
+    const float* Vt = Vs + t % ST * F32_BK * DP;
+    const int k0 = t * F32_BK;
+    const bool live = k0 < w_end;  // the warp has a row at or below a key of the tile
+
+    if (live) {
+      float s[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 kf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(Kt + (tx + 8 * j) * DP + d);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float4 qf = *reinterpret_cast<const float4*>(Qs + (r0 + 4 * i) * DP + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+          }
+        }
+      }
+
+      // a tile with a key past the block's first row or past seq is masked
+      const bool edge = k0 + F32_BK - 1 > q0 || k0 + F32_BK > seq;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int qi = q0 + r0 + 4 * i;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kj = k0 + tx + 8 * j;
+          float x = s[i][j] * sm_scale;
+          if (edge && (kj > qi || kj >= seq)) x = NEG_INF;
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+#pragma unroll
+        for (int w = 1; w < 8; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+        const float m_new = fmaxf(m[i], mx);
+        const float corr = expf(m[i] - m_new);
+        m[i] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = expf(s[i][j] - m_new);
+          rs += s[i][j];
+        }
+        l[i] = l[i] * corr + rs;
+#pragma unroll
+        for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= corr;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* dst = Pt + (tx + 8 * j) * PP + ty * RM;
+        if constexpr (RM == 4)
+          *reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        else
+          *reinterpret_cast<float2*>(dst) = make_float2(s[0][j], s[1][j]);
+      }
+      __syncwarp();  // P complete: a row's P is written and read by the 8 threads of its row
+#pragma unroll 8
+      for (int kk = 0; kk < F32_BK; ++kk) {
+        float p[RM];
+        if constexpr (RM == 4) {
+          const float4 pf = *reinterpret_cast<const float4*>(Pt + kk * PP + ty * RM);
+          p[0] = pf.x;
+          p[1] = pf.y;
+          p[2] = pf.z;
+          p[3] = pf.w;
+        } else {
+          const float2 pf = *reinterpret_cast<const float2*>(Pt + kk * PP + ty * RM);
+          p[0] = pf.x;
+          p[1] = pf.y;
+        }
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const float4 vf = *reinterpret_cast<const float4*>(Vt + kk * DP + 32 * cc + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            acc[i][4 * cc] = fmaf(p[i], vf.x, acc[i][4 * cc]);
+            acc[i][4 * cc + 1] = fmaf(p[i], vf.y, acc[i][4 * cc + 1]);
+            acc[i][4 * cc + 2] = fmaf(p[i], vf.z, acc[i][4 * cc + 2]);
+            acc[i][4 * cc + 3] = fmaf(p[i], vf.w, acc[i][4 * cc + 3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the trailing groups are empty; none is left in flight
+
+  float* ob = o + off;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int w = 1; w < 8; w <<= 1) li += __shfl_xor_sync(0xffffffffu, li, w);
+    const float den = fmaxf(li, 1e-30f);
+    const int qi = q0 + r0 + 4 * i;
+    if (qi < seq) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+        *reinterpret_cast<float4*>(ob + (size_t)qi * D + 32 * cc + 4 * tx) =
+            make_float4(acc[i][4 * cc] / den, acc[i][4 * cc + 1] / den,
+                        acc[i][4 * cc + 2] / den, acc[i][4 * cc + 3] / den);
+      if (LSE && tx == 0) lse[(size_t)bh * seq + qi] = m[i] + logf(den);
     }
   }
 }
@@ -1176,22 +1447,55 @@ static int bwd_launch(const void* q, const void* k, const void* v, const void* o
   return (int)cudaGetLastError();
 }
 
-// #2 and #5 on the SIMT kernel: o and, when lse is not null, lse from q, k,
-// v (BH, seq, D) in float (is_bf16 = 0) or bf16, P rounded at the running
-// max of k-blocks of block_k keys (bf16 at head_dim 64 is
-// flash_forward_wgmma's).
+// #2 and #5 with bf16 operands at head_dim 128 (the SIMT `flash_fwd`): o
+// and, when lse is not null, lse from q, k, v (BH, seq, 128) bf16, P rounded
+// at the running max of k-blocks of block_k keys. bf16 at head_dim 64 is
+// flash_forward_wgmma's, float32 flash_forward_f32's.
 extern "C" int flash_forward(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int BH, int seq, int D, int is_bf16, int block_k, float sm_scale,
+                             int BH, int seq, int D, int block_k, float sm_scale,
                              cudaStream_t stream) {
   const int nb = tiles_per_block(block_k);
-  if (seq < 1 || nb == 0) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (D == 64) return fwd_launch<bf16, 64>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
-    if (D == 128) return fwd_launch<bf16, 128>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
-  } else {
-    if (D == 64) return fwd_launch<float, 64>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
-    if (D == 128) return fwd_launch<float, 128>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
-  }
+  if (seq < 1 || nb == 0 || D != 128) return (int)cudaErrorInvalidValue;
+  return fwd_launch<bf16, 128>(q, k, v, o, lse, BH, seq, nb, sm_scale, stream);
+}
+
+template <int D, int RM>
+static int f32_launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                      int seq, float sm_scale, cudaStream_t stream) {
+  using Tile = F32Tile<D, RM>;
+  static const cudaError_t e_lse = set_smem(flash_fwd_f32<D, RM, true>, Tile::SMEM);
+  static const cudaError_t e_o = set_smem(flash_fwd_f32<D, RM, false>, Tile::SMEM);
+  if (e_lse != cudaSuccess) return (int)e_lse;
+  if (e_o != cudaSuccess) return (int)e_o;
+  const dim3 grid(BH, (seq + Tile::ROWS - 1) / Tile::ROWS);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  if (lse != nullptr)
+    flash_fwd_f32<D, RM, true><<<grid, F32_THREADS, Tile::SMEM, stream>>>(
+        qf, kf, vf, static_cast<float*>(o), lse, seq, sm_scale);
+  else
+    flash_fwd_f32<D, RM, false><<<grid, F32_THREADS, Tile::SMEM, stream>>>(
+        qf, kf, vf, static_cast<float*>(o), nullptr, seq, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// #2 and #5 with float32 operands: o and, when lse is not null, lse (BH *
+// seq) float32 from q, k, v (BH, seq, D) float32, each 16-byte aligned, in
+// q tiles of block_q rows (ops/attention.py::flash_fwd_plan): 64 or 32 at
+// head_dim 64, 64 at 128; any other value is refused. One launch.
+extern "C" int flash_forward_f32(const void* q, const void* k, const void* v, void* o,
+                                 float* lse, int BH, int seq, int D, int block_q,
+                                 float sm_scale, cudaStream_t stream) {
+  if (seq < 1 || BH < 1) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, (const void*)o})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  if (D == 64 && block_q == 64)
+    return f32_launch<64, 4>(q, k, v, o, lse, BH, seq, sm_scale, stream);
+  if (D == 64 && block_q == 32)
+    return f32_launch<64, 2>(q, k, v, o, lse, BH, seq, sm_scale, stream);
+  if (D == 128 && block_q == 64)
+    return f32_launch<128, 4>(q, k, v, o, lse, BH, seq, sm_scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

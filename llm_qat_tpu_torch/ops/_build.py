@@ -19,6 +19,7 @@ memory and spills per kernel) is kept beside it (`ptxas_report`). Nothing is bui
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,7 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # code (0 on success)
 KERNELS: Dict[str, Dict[str, list]] = {
     "flash_attention": {
-        "flash_forward": [_P] * 5 + [_I] * 5 + [_F, _P],
+        "flash_forward": [_P] * 5 + [_I] * 4 + [_F, _P],
+        "flash_forward_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
         "flash_forward_wgmma": [_P] * 5 + [_I] * 3 + [_F, _P],
         "flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
         "flash_bwd_wgmma": [_P] * 10 + [_I] * 3 + [_F, _P]},
@@ -151,6 +153,13 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (an index or a torch.device), by which the
+    kernels' plans size their grids."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(t: torch.Tensor) -> int:

@@ -9,12 +9,13 @@ with its plain PyTorch version beside it:
   replaces `_flash_fwd_kernel`; plain version `flash_fwd_lse_plain`;
 - `flash_bwd` (training backward) replaces `_flash_bwd_kernel`; plain
   version `flash_bwd_plain`.
-Both forwards are one kernel each route: with bf16 operands at head_dim 64
-the TMA-fed wgmma forward, otherwise the tiled float32 SIMT forward
-(`flash_route` picks, for the backward too); `flash_attention` runs it
-without the log-sum-exp rows. Both round P to v's dtype at the running
-maximum of the JAX kernel's k-blocks (`flash_blocks`, `jax_block_k`), as
-the JAX kernels do. `flash_attention_trainable` joins the last two in an
+Both forwards are one kernel each route (`flash_route` picks, for the
+backward too): with bf16 operands at head_dim 64 the TMA-fed wgmma forward,
+otherwise a SIMT forward on the CUDA cores, for float32 operands the
+register-tiled `flash_fwd_f32` in the q tile of `flash_fwd_plan`;
+`flash_attention` runs it without the log-sum-exp rows. Both round P to
+v's dtype at the running maximum of the JAX kernel's k-blocks
+(`flash_blocks`, `jax_block_k`), as the JAX kernels do. `flash_attention_trainable` joins the last two in an
 `autograd.Function`, and `causal_attention` dispatches between it and the
 dense reference.
 
@@ -241,32 +242,62 @@ def flash_route(dtype, D: int) -> str:
     """The kernels #2, #5 and #6 run on the card for operands of `dtype` at
     head_dim D: "wgmma" (bf16 at head_dim 64, every GPT-2 size: the TMA-fed
     tensor-core kernels) or "simt" (float32 operands, which wgmma has no
-    exact product for, and bf16 at head_dim 128: the tiled float32
-    kernels). One rule for all three, so that the forwards and the backward
-    change route together."""
+    exact product for, and bf16 at head_dim 128: float32 FMA on the CUDA
+    cores; the forward of float32 operands is `flash_fwd_f32`). One rule
+    for all three, so that the forwards and the backward change route
+    together."""
     return "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
 
 
+# The float32 forward `flash_fwd_f32`: the q-tile rows it takes by head_dim,
+# largest first (16 threads down the rows, 4 or 2 rows a thread)
+F32_TILES = {64: (64, 32), 128: (64,)}
+
+
+def flash_fwd_plan(T: int, BH: int, D: int, sms: int = 132) -> int:
+    """The q-tile rows of the float32 forward for BH heads of T rows at
+    head_dim D on a card of `sms` SMs: the largest tile of F32_TILES[D]
+    whose blocks, BH·ceil(T / rows), fill one wave of the card, else the
+    smallest. The 64-row tile reads shared memory least per FMA, which
+    bounds a call that fills the card (the served prefill's (8, 12, 128,
+    64), the RPI forward's (1, 12, 1024, 64), the evaluation's (16, 12,
+    1024, 64)); in a narrower call (the server's one-sequence prefill,
+    (1, 12, 128, 64)) the longest block's walk sets the time, and 32 rows
+    halve a thread's work a tile (chip_smoke.py's `flash_f32_tile_sweep`
+    times both)."""
+    if D not in F32_TILES:
+        raise ValueError(f"flash_fwd_plan: head_dim must be 64 or 128; got {D}")
+    tiles = F32_TILES[D]
+    for rows in tiles:
+        if BH * -(-T // rows) >= sms:
+            return rows
+    return tiles[-1]
+
+
 def _launch_fwd(what, q, k, v, lse):
-    """(o, route) from one launch of the forward kernel `flash_route` names,
-    over the JAX k-blocks for T (`jax_block_k`), after checking the
-    operands; raises on a CUDA error. lse: a (B, H, T, 1) float32 tensor to
-    write, or None."""
+    """(o, route) from one launch of the forward kernel `flash_route` names
+    (float32: `flash_forward_f32` in `flash_fwd_plan`'s q tile; bf16: over
+    the JAX k-blocks for T, `jax_block_k`), after checking the operands;
+    raises on a CUDA error. lse: a (B, H, T, 1) float32 tensor to write, or
+    None."""
     _check_operands(what, (("q", q), ("k", k), ("v", v)), q)
     B, H, T, D = q.shape
     o = torch.empty_like(q)
     lse_ptr = None if lse is None else lse.data_ptr()
     lib = _build.load("flash_attention")
-    scale, block_k, route = 1.0 / math.sqrt(D), jax_block_k(T), flash_route(q.dtype, D)
+    scale, route = 1.0 / math.sqrt(D), flash_route(q.dtype, D)
+    # TMA and cp.async read rows from 16-byte aligned addresses
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if route == "wgmma":
-        # TMA reads rows from 16-byte aligned addresses
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
         rc = lib.flash_forward_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                     lse_ptr, B * H, T, block_k, scale, _build.stream(q))
+                                     lse_ptr, B * H, T, jax_block_k(T), scale, _build.stream(q))
+    elif q.dtype == torch.float32:
+        rows = flash_fwd_plan(T, B * H, D, _build.sm_count(q.device.index))
+        rc = lib.flash_forward_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   lse_ptr, B * H, T, D, rows, scale, _build.stream(q))
     else:
         rc = lib.flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse_ptr, B * H, T, D, int(q.dtype == torch.bfloat16),
-                               block_k, scale, _build.stream(q))
+                               lse_ptr, B * H, T, D, jax_block_k(T), scale, _build.stream(q))
     _build.check(lib, rc, what)
     return o, route
 

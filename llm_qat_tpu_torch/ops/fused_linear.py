@@ -416,16 +416,11 @@ def dw_chunks(M: int, splits: int):
     return [(bound(z), bound(z + 1)) for z in range(splits)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # The plan and the chunk bounds are cached: at attn_proj's shape the kernel
 # runs for about as long as a call takes on the host.
 @functools.lru_cache(maxsize=None)
 def _dw_plan(M: int, K: int, N: int, students: int, index: int) -> int:
-    return dw_splits(M, K, N, _sm_count(index), students)
+    return dw_splits(M, K, N, _build.sm_count(index), students)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,7 +29,6 @@ version differ by the order of the float32 sums only.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -156,11 +155,6 @@ def launch_plan(M: int, K: int, N: int, sms: int = 132) -> LaunchPlan:
     return LaunchPlan(regime, rows, cols, split, steps, grid, why)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(x, w, scale, bits, what):
     """Check the operands and launch the GEMM; returns (M, N) float32."""
     if x.dim() != 2 or w.dim() != 2:
@@ -186,7 +180,7 @@ def _launch(x, w, scale, bits, what):
         xb = xb.clone()
     s = scale.to(torch.float32).reshape(-1).expand(N).contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    plan = launch_plan(M, K, N, _sm_count(x.device.index))
+    plan = launch_plan(M, K, N, _build.sm_count(x.device.index))
     lib = _build.load("quant_matmul")
     rc = lib.quant_matmul(xb.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
                           M, K, N, bits, plan.rows, plan.split, _build.stream(x))

@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 scripts/flash_rounding_mutants.py
     python3 scripts/flash_rounding_mutants.py --decode-attention
     python3 scripts/flash_rounding_mutants.py --ablations
+    python3 scripts/flash_rounding_mutants.py --f32-ablations
 
 Each mutant or ablation is a copy of the checkout under `build/mutants/` in
 which lines of `llm_qat_tpu_torch/csrc/flash_attention.cu` (or, for the
@@ -16,9 +17,9 @@ tables below say (an edit whose line is not found once stops the script).
 The copies are removed at the end.
 
 Mutants remove or move one rounding to the operand type: P before P.V in
-the SIMT forward, P before dV, or dS before dQ and dK, in the SIMT
-backward (float32 operands, and bf16 at head_dim 128: caught by the bf16
-cases at head_dim 128); in the wgmma kernels (bf16 at head_dim 64, whose
+the SIMT forward (bf16 at head_dim 128), P before dV, or dS before dQ and
+dK, in the SIMT backward (float32 operands, and bf16 at head_dim 128):
+caught by the bf16 cases at head_dim 128; in the wgmma kernels (bf16 at head_dim 64, whose
 products take bf16 operands, so a rounding cannot be removed, only
 changed) P or dS rounded toward zero instead of to nearest, dS taken from
 the rounded P instead of the float32 one, or the forward's row sum taken
@@ -68,7 +69,26 @@ or of the wgmma backward:
 - "light first": the forward's and both backward kernels' blocks launch in
   the reverse order, the shortest walks first (right results): the cost
   of the order.
-It prints how many kernels ptxas serializes wgmma in (warning C7515) for
+With --f32-ablations each copy changes one part of the float32 forward
+`flash_fwd_f32`:
+- "f32 fast exp": expf becomes __expf (right to float32 rounding);
+- "f32 no Q.K^T", "f32 no P.V": S is not computed, or O not accumulated
+  (wrong results): the share of each product;
+- "f32 no diagonal skip": every warp takes every key tile, also those
+  wholly above its rows (the same bits): the worth of the skip;
+- "f32 light first": the blocks launch shortest walk first (the same
+  bits): the cost of the order;
+- "f32 8 rows a thread": the q tile of 128 rows (8 rows a thread, three
+  stages, two blocks an SM) beside the 64- and 32-row ones.
+It prints ptxas's registers and spills of the forward with the LSE in
+each tree, then, through chip_smoke.py's `flash_f32_tile_sweep`, holds
+each q tile a tree takes against #5's plain version and times it by
+CUDA-graph replay at (B·H, T) = (192, 1024) and (12, 1024) with the LSE
+and (96, 128) and (12, 128) without (the evaluation's, the RPI forward's
+and the two served prefills' shapes), in turns as above, one JSON line per
+run.
+
+With --ablations it prints how many kernels ptxas serializes wgmma in (warning C7515) for
 each tree, then times `flash_fwd_lse` and `flash_bwd` at (B, H, T, D) =
 (8, 12, 1024, 64) bf16 in the checkout and in each copy, in turns (the
 checkout, each ablation, then the same in reverse), by CUDA-graph replay
@@ -127,7 +147,8 @@ MUTANTS = {
         ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
          "(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, 1, sm_scale);")],
     "SIMT forward P at the 64-key tile's running max": [
-        ("const int blk = exact_p ? 1 : nb;", "const int blk = 1;")],
+        ("static_cast<T*>(o), lse, seq, sm_scale, nb);",
+         "static_cast<T*>(o), lse, seq, sm_scale, 1);")],
 }
 SELECT = ("test_flash_train_kernels_match_plain and (64-128-dtype1 or 64-1024-dtype1 "
           "or 128-128-dtype1 or 128-1024-dtype1)")
@@ -173,6 +194,58 @@ ABLATIONS = {
         ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
          "blockIdx.y * W_TILE, seq, nb, sm_scale);")],
 }
+# --f32-ablations: copies that change one part of the float32 forward
+# `flash_fwd_f32` (#2's served route, #5's float32 route)
+F32_RM4_STORE = "*reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);"
+F32_RM4_LOAD = """          const float4 pf = *reinterpret_cast<const float4*>(Pt + kk * PP + ty * RM);
+          p[0] = pf.x;
+          p[1] = pf.y;
+          p[2] = pf.z;
+          p[3] = pf.w;
+"""
+F32_ABLATIONS = {
+    "f32 fast exp": [("const float corr = expf(m[i] - m_new);\n        m[i] = m_new;",
+                      "const float corr = __expf(m[i] - m_new);\n        m[i] = m_new;"),
+                     ("s[i][j] = expf(s[i][j] - m_new);", "s[i][j] = __expf(s[i][j] - m_new);")],
+    "f32 no Q.K^T": [("for (int d = 0; d < D; d += 4) {", "for (int d = 0; d < 0; d += 4) {")],
+    "f32 no P.V": [("for (int kk = 0; kk < F32_BK; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")],
+    "f32 no diagonal skip": [("const bool live = k0 < w_end;", "const bool live = true;")],
+    "f32 light first": [("q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;", "q0 = blockIdx.y * ROWS;")],
+    "f32 8 rows a thread": [
+        ("static_assert(RM == 2 || RM == 4,", "static_assert(RM == 2 || RM % 4 == 0,"),
+        ("static constexpr int STAGES = 2;", "static constexpr int STAGES = RM == 8 ? 3 : 2;"),
+        ("BLOCKS = RM == 2 ? 4 : (D == 64 ? 3 : 2);", "BLOCKS = RM == 2 ? 4 : (D == 64 && RM == 4 ? 3 : 2);"),
+        ("if constexpr (RM == 4)\n          " + F32_RM4_STORE,
+         "if constexpr (RM % 4 == 0)\n          for (int h = 0; h < RM / 4; ++h) "
+         + F32_RM4_STORE.replace("(dst)", "(dst + 4 * h)").replace("s[0]", "s[4 * h]")
+         .replace("s[1]", "s[4 * h + 1]").replace("s[2]", "s[4 * h + 2]")
+         .replace("s[3]", "s[4 * h + 3]")),
+        ("if constexpr (RM == 4) {\n" + F32_RM4_LOAD,
+         "if constexpr (RM % 4 == 0) {\n        for (int h = 0; h < RM / 4; ++h) {\n"
+         + F32_RM4_LOAD.replace("ty * RM)", "ty * RM + 4 * h)").replace("p[0]", "p[4 * h]")
+         .replace("p[1]", "p[4 * h + 1]").replace("p[2]", "p[4 * h + 2]")
+         .replace("p[3]", "p[4 * h + 3]") + "        }\n"),
+        ("  if (D == 64 && block_q == 64)\n",
+         "  if (D == 64 && block_q == 128)\n"
+         "    return f32_launch<64, 8>(q, k, v, o, lse, BH, seq, sm_scale, stream);\n"
+         "  if (D == 64 && block_q == 64)\n")],
+}
+# each q tile the tree's `flash_forward_f32` takes (128 rows only in the
+# copy with 8 rows a thread), forced by chip_smoke.py's
+# `flash_f32_tile_sweep`: held against #5's plain version and timed by graph
+# replay at the evaluation's and the RPI forward's shapes with the LSE and
+# at the two served prefills' without, one JSON line
+TIME_F32 = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+from chip_smoke import flash_f32_tile_sweep
+failures = []
+out = flash_f32_tile_sweep(torch.device("cuda"), failures,
+                           shapes=((192, 1024, True), (12, 1024, True), (96, 128, False),
+                                   (12, 128, False)), tiles=(128, 64, 32))
+print(json.dumps({"sweep": out, "failures": failures}))
+"""
 HOLD = "test_flash_train_kernels_match_plain and (64-1024-dtype1 or 64-200-dtype1)"
 TIME = """
 import json, sys
@@ -260,8 +333,39 @@ def ablations() -> int:
     return 0
 
 
+def f32_ablations() -> int:
+    """The checkout and each copy of F32_ABLATIONS: ptxas's registers and
+    spills of `flash_fwd_f32` with the LSE, then TIME_F32 in each tree in
+    turns (the checkout, each copy, then the same in reverse)."""
+    trees = {"checkout": ROOT}
+    trees.update({name: copy_with(i, name, edits)
+                  for i, (name, edits) in enumerate(F32_ABLATIONS.items())})
+    for name, tree in trees.items():
+        rep = subprocess.run(
+            [sys.executable, "-c", "from llm_qat_tpu_torch.ops import _build; "
+             "print(_build.ptxas_report('flash_attention'))"],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        lines = rep.stdout.splitlines()
+        for i, line in enumerate(lines):
+            if "flash_fwd_f32" in line and "Lb1E" in line and i + 2 < len(lines):
+                kernel = line.split("'")[1]
+                print(f"{name}: {kernel}: {lines[i + 1].strip()}; {lines[i + 2].strip()}",
+                      flush=True)
+    order = list(trees)
+    for name in order + order[::-1]:
+        t = subprocess.run([sys.executable, "-c", TIME_F32], cwd=trees[name],
+                           capture_output=True, text=True, timeout=900)
+        if t.returncode:
+            print(t.stderr[-2000:], flush=True)
+            return 1
+        print(f"{name}: {t.stdout.strip().splitlines()[-1]}", flush=True)
+    return 0
+
+
 def main() -> int:
     try:
+        if "--f32-ablations" in sys.argv[1:]:
+            return f32_ablations()
         if "--ablations" in sys.argv[1:]:
             return ablations()
         return mutants("--decode-attention" in sys.argv[1:])

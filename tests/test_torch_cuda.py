@@ -362,19 +362,150 @@ def test_flash_train_wrappers_check_their_inputs(cuda_device):
     for fn in (flash_attention, flash_fwd_lse):
         with pytest.raises(ValueError, match="float32 CUDA"):
             fn(q, q.to(torch.bfloat16), q)
-    # the C entries take k-blocks of 64, 128 or 256 keys only
+    # the bf16 C entries take k-blocks of 64, 128 or 256 keys only (the SIMT
+    # one head_dim 128 only), the float32 one the q tiles it has kernels for
     from llm_qat_tpu_torch.ops import _build
 
     lib, qb = _build.load("flash_attention"), q.to(torch.bfloat16)
+    qb128 = torch.randn((1, 2, 128, 128), device=cuda_device).to(torch.bfloat16)
     stream = _build.stream(q)
     for bk in (96, 512):
         assert lib.flash_forward_wgmma(*(qb.data_ptr(),) * 4, None, 2, 128, bk, 0.125,
                                        stream) != 0
-        assert lib.flash_forward(*(q.data_ptr(),) * 4, None, 2, 128, 64, 0, bk, 0.125,
+        assert lib.flash_forward(*(qb128.data_ptr(),) * 4, None, 2, 128, 128, bk, 0.125,
                                  stream) != 0
+    assert lib.flash_forward(*(qb.data_ptr(),) * 4, None, 2, 128, 64, 128, 0.125, stream) != 0
     assert lib.flash_forward_wgmma(qb.data_ptr(), qb.data_ptr(), qb.data_ptr(),
                                    torch.empty_like(qb).data_ptr(), None, 2, 128, 64, 0.125,
                                    stream) == 0
+    assert lib.flash_forward(qb128.data_ptr(), qb128.data_ptr(), qb128.data_ptr(),
+                             torch.empty_like(qb128).data_ptr(), None, 2, 128, 128, 128,
+                             0.125, stream) == 0
+    out = torch.empty_like(q)
+    for D, rows in ((64, 128), (64, 16), (128, 32), (96, 64)):
+        assert lib.flash_forward_f32(*(q.data_ptr(),) * 3, out.data_ptr(), None, 2, 128, D,
+                                     rows, 0.125, stream) != 0
+    assert lib.flash_forward_f32(*(q.data_ptr(),) * 3, out.data_ptr() + 4, None, 2, 128, 64,
+                                 64, 0.125, stream) != 0  # unaligned
+    for rows in (64, 32):
+        assert lib.flash_forward_f32(*(q.data_ptr(),) * 3, out.data_ptr(), None, 2, 128, 64,
+                                     rows, 0.125, stream) == 0
+    torch.cuda.synchronize()
+
+
+def _f32_inputs(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 64), (8, 12, 1024, 64), (2, 3, 200, 64),
+                                   (2, 3, 200, 128)])
+def test_flash_fwd_float32_is_deterministic(cuda_device, shape):
+    """Repeat calls of the float32 forward (`flash_fwd_f32`), #2 and #5,
+    give bit-equal o and lse, in both q tiles ((8, 12, 1024, 64) and
+    (2, 3, 200, 128) take 64 rows, (2, 3, 1024, 64) and (2, 3, 200, 64) 32)
+    and at the ragged T = 200: each output row is
+    written by one block in a fixed order, and the threads' shares of the
+    row sum are added in a fixed order, with no atomics."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    q, k, v = _f32_inputs(cuda_device, shape, seed=shape[2] + shape[3])
+    assert att.flash_route(torch.float32, shape[3]) == "simt"
+    first_o, first = flash_attention(q, k, v), flash_fwd_lse(q, k, v)
+    for _ in range(2):
+        assert torch.equal(flash_attention(q, k, v), first_o)
+        for a, b in zip(flash_fwd_lse(q, k, v), first):
+            assert torch.equal(a, b)
+
+
+def test_flash_fwd_float32_takes_unaligned_views(cuda_device):
+    """float32 q, k, v that start 4 bytes past a 16-byte boundary
+    (contiguous views into a larger buffer) give the same o, and lse, as
+    aligned copies, through #2 and #5: the wrapper copies what the 16-byte
+    asynchronous copies cannot read."""
+    args = _f32_inputs(cuda_device, (2, 3, 200, 64), seed=7)
+    views = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        views.append(view)
+    assert torch.equal(flash_attention(*views), flash_attention(*args))
+    for a, b in zip(flash_fwd_lse(*views), flash_fwd_lse(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,rows", [((2, 3, 200, 64), 32), ((8, 12, 1024, 64), 64),
+                                        ((2, 3, 128, 128), 64)])
+def test_flash_fwd_float32_launches_flash_fwd_f32(cuda_device, shape, rows):
+    """A float32 call of #2 and one of #5 each launch `flash_fwd_f32` once,
+    in `flash_fwd_plan`'s q tile (4 or 2 rows a thread), without and with
+    the LSE, and nothing else: never the old `flash_fwd<float, ...>`."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    B, H, T, D = shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert att.flash_fwd_plan(T, B * H, D, sms) == rows
+    q, k, v = _f32_inputs(cuda_device, shape, seed=3)
+    flash_attention(q, k, v), flash_fwd_lse(q, k, v)  # warm: built and loaded
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v)
+        flash_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    names = {e.key.split("(")[0].replace("void ", "").strip(): e.count for e in evs}
+    want = {f"flash_fwd_f32<{D}, {rows // 16}, {lse}>": 1 for lse in ("false", "true")}
+    assert names == want, names
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("T", [1, 65, 129, 256, 1024])
+def test_flash_fwd_float32_every_tile_matches_plain(cuda_device, rows, T):
+    """Each q tile of the float32 forward, forced through its C entry
+    whatever the plan would pick (32 rows at head_dim 64 only), against
+    #5's plain version at #5's float32 limits: O within 1e-5 of max |plain|,
+    LSE within 1e-5 absolute; and #2's O (the same kernel without the LSE)
+    within 1e-5 absolute."""
+    from llm_qat_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    for D in (64, 128):
+        if (D, rows) == (128, 32):
+            continue
+        q, k, v = _f32_inputs(cuda_device, (2, 3, T, D), seed=T + rows + D)
+        po, plse = flash_fwd_lse_plain(q, k, v)
+        o, o2 = torch.empty_like(q), torch.empty_like(q)
+        lse = torch.empty_like(plse)
+        for out, lse_ptr in ((o, lse.data_ptr()), (o2, None)):
+            rc = lib.flash_forward_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                       lse_ptr, 6, T, D, rows, 1.0 / math.sqrt(D),
+                                       _build.stream(q))
+            assert rc == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=0)
+        assert (o - po).abs().max().item() <= 1e-5 * po.abs().max().item()
+        torch.testing.assert_close(o2, flash_attention_plain(q, k, v), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_fwd_lse"])
+def test_flash_fwd_float32_rpi_shape_matches_plain(cuda_device, fn):
+    """The RPI forward's shape (1, 12, 1024, 64) in float32, through the
+    wrapper (the plan's 64-row tile): #2 within 1e-5 absolute, #5's O
+    within 1e-5 of max |plain| and its LSE within 1e-5 absolute, the
+    limits of `test_flash_kernel_matches_plain` and
+    `test_flash_train_kernels_match_plain`."""
+    q, k, v = _f32_inputs(cuda_device, (1, 12, 1024, 64), seed=11)
+    if fn == "flash_attention":
+        torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                                   atol=1e-5, rtol=0)
+        return
+    o, lse = flash_fwd_lse(q, k, v)
+    po, plse = flash_fwd_lse_plain(q, k, v)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=0)
+    assert (o - po).abs().max().item() <= 1e-5 * po.abs().max().item()
 
 
 @pytest.mark.parametrize("T,flash", [(512, False), (1024, True)])

@@ -1,7 +1,8 @@
 """PyTorch port, training slice: the trainable flash path's plain versions
 against the JAX Pallas kernels #5 and #6 (interpret mode) on the CPU, the
-route of #5's and #6's kernels on the card (one rule for both) and the
-plan of #6's (padding), and the `attention_impl` dispatch."""
+route of #5's and #6's kernels on the card (one rule for both), the plan
+of #6's (padding) and of #2/#5's float32 forward (its q tile, and the C
+entry it reaches), and the `attention_impl` dispatch."""
 
 import jax
 import jax.numpy as jnp
@@ -281,3 +282,89 @@ def test_sp_forward_attention_fn_matches_jax(compute_dtype):
         np.testing.assert_allclose(got["logits"].numpy(), want, rtol=0,
                                    atol=tol * np.abs(want).max())
     assert seen == [torch.float32] * 2 * tcfg.model.n_layer
+
+
+@pytest.mark.parametrize("T,BH,D,rows", [
+    (128, 96, 64, 64),      # the served prefill, (8, 12, 128, 64)
+    (1024, 12, 64, 64),     # the RPI forward, (1, 12, 1024, 64)
+    (1024, 192, 64, 64),    # the evaluation batch, (16, 12, 1024, 64)
+    (128, 12, 64, 32),      # the server's one-sequence prefill, (1, 12, 128, 64)
+    (512, 12, 64, 32), (704, 12, 64, 64), (1, 1, 64, 32),
+    (1024, 192, 128, 64), (128, 12, 128, 64), (1, 1, 128, 64)])
+def test_flash_fwd_plan_picks_the_tile(T, BH, D, rows):
+    """The float32 forward takes 64-row q tiles where they fill one wave of
+    an H100's 132 SMs, 32-row ones in a narrower call, and 64 rows at
+    head_dim 128 always."""
+    assert ta.flash_fwd_plan(T, BH, D) == rows
+    assert ta.flash_fwd_plan(T, BH, D, sms=132) == rows
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("T,BH", [(128, 96), (1024, 12)])
+def test_flash_fwd_plan_fills_the_card(sms, T, BH):
+    """The served prefill and the RPI forward launch at least one block per
+    SM (a full wave), on an H100 SXM (132 SMs) and on smaller cards."""
+    rows = ta.flash_fwd_plan(T, BH, 64, sms=sms)
+    assert rows in ta.F32_TILES[64]
+    assert BH * -(-T // rows) >= sms
+
+
+@pytest.mark.parametrize("D", [32, 80, 96, 256])
+def test_flash_fwd_plan_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.flash_fwd_plan(1024, 96, D)
+
+
+class _RecordingLib:
+    """A stand-in for the loaded flash library: records each entry's name
+    and arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("dtype,shape,sms,entry,tile", [
+    (torch.float32, (1, 4, 256, 64), 4, "flash_forward_f32", 64),
+    (torch.float32, (1, 4, 256, 64), 132, "flash_forward_f32", 32),
+    (torch.float32, (2, 2, 200, 128), 4, "flash_forward_f32", 64),
+    (torch.bfloat16, (1, 4, 256, 64), 4, "flash_forward_wgmma", 128),
+    (torch.bfloat16, (1, 4, 512, 128), 4, "flash_forward", 256)])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_launch_fwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, tile, with_lse):
+    """`_launch_fwd` (behind `flash_attention` and `flash_fwd_lse` on the
+    card) calls one C entry, on 16-byte aligned copies of unaligned views:
+    float32 operands `flash_forward_f32` with `flash_fwd_plan`'s q tile for
+    the card's SM count; bf16 the wgmma or SIMT entry with JAX's k-block
+    for T. No kernel runs here: the library is a recording stand-in."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(ta._build, "load", lambda name: lib)
+    monkeypatch.setattr(ta._build, "stream", lambda t: 0)
+    monkeypatch.setattr(ta, "_check_operands", lambda *a: None)
+    monkeypatch.setattr(ta._build, "sm_count", lambda index: sms)
+    B, H, T, D = shape
+    rng = np.random.default_rng(0)
+    views = []
+    for _ in range(3):
+        buf = torch.tensor(rng.normal(size=B * H * T * D + 1)).to(dtype)
+        views.append(buf[1:].view(shape))
+    assert all(t.data_ptr() % 16 for t in views)
+    lse = torch.empty((B, H, T, 1)) if with_lse else None
+    o, route = ta._launch_fwd("test", *views, lse)
+    assert o.shape == shape and o.dtype == dtype
+    assert route == ta.flash_route(dtype, D)
+    ((name, args),) = lib.calls
+    assert name == entry
+    q, k, v, out, lse_ptr = args[:5]
+    assert out == o.data_ptr() and lse_ptr == (None if lse is None else lse.data_ptr())
+    if entry == "flash_forward_wgmma":
+        assert args[5:8] == (B * H, T, tile)
+    else:
+        assert args[5:9] == (B * H, T, D, tile)
+    assert all(p % 16 == 0 for p in (q, k, v))
+    if dtype == torch.float32:
+        assert tile == ta.flash_fwd_plan(T, B * H, D, sms)
+    else:
+        assert tile == ta.jax_block_k(T)

@@ -117,11 +117,14 @@ T = 512, by events and by graph replay, beside SDPA's forward on the same
 operands) and
 `flash_timings` (#5/#6: events, graph replay, each wgmma kernel's device
 time, SDPA's forward and backward), `flash_f32_timings` (#5's float32
-route at (16, 12, 1024, 64) and (1, 12, 1024, 64), #6's at the latter, by
-events and graph replay beside SDPA's float32 forward and backward) and
-`flash_f32_tile_sweep` (the float32 forward's q tiles, each held and timed
-beside the plan's choice); the float32 forward must build with no stack
-frame and no spill, as in the full run.
+route at (16, 12, 1024, 64) and (1, 12, 1024, 64), #6's at the latter and
+at (8, 12, 1024, 64), by events, graph replay and each kernel's profiler
+time beside SDPA's float32 forward and backward), `flash_f32_tile_sweep`
+(the float32 forward's q tiles, each held and timed beside the plan's
+choice) and `flash_f32_bwd_tile_sweep` (the float32 backward's tiles and
+orders, each held, repeated, and timed beside the plan's choice); the
+float32 forward and backward must build with no stack frame and no
+spill, as in the full run.
 
     python3 chip_smoke.py --decode-attention
 
@@ -487,6 +490,16 @@ def launch_ms(fn, iters: int, name: str):
     return sum(ev.self_device_time_total for ev in evs) / count / 1e3 if count else None
 
 
+def kernel_launch_ms(fn, iters: int):
+    """Mean device ms per launch of each CUDA kernel that fn() launches, by
+    its name with template arguments ("void flash_bwd_f32_pair<64, 4>(...)"
+    -> "flash_bwd_f32_pair<64, 4>"), over the launches the profiler
+    recorded, in the order of their total time."""
+    evs = sorted(_kernel_events(fn, iters), key=lambda ev: -ev.self_device_time_total)
+    return {ev.key.split("(")[0].replace("void ", "").strip():
+            ev.self_device_time_total / ev.count / 1e3 for ev in evs}
+
+
 def bf16_row_ulps(got, want, atol):
     """(|got - want| - atol) per element, in bf16 ulps at the max |want| of
     the element's row (the last axis): 2^(floor(log2 rowmax) - 7)."""
@@ -592,9 +605,10 @@ def print_flash_serve_timings(st):
 
 
 # #5's float32 route at the evaluation batch's and the RPI forward's
-# attention shapes; #6's at the RPI gradient importance's
+# attention shapes; #6's at the RPI gradient importance's and at the SP
+# trainer's with compute_dtype "float32" (B = 8, T = 1024)
 FLASH_F32_SHAPES = ((16, 12, 1024, 64), (1, 12, 1024, 64))
-FLASH_F32_BWD_SHAPE = (1, 12, 1024, 64)
+FLASH_F32_BWD_SHAPES = ((1, 12, 1024, 64), (8, 12, 1024, 64))
 
 
 def flash_f32_timings(dev):
@@ -604,12 +618,15 @@ def flash_f32_timings(dev):
     (`library_ms`, `library_device_ms`), the plain version's events ms, the
     plan's q tile and the bound (q, k, v, o and the LSE moved once; Q·Kᵀ and
     P·V over the causal pairs at the float32 peak outside the tensor
-    cores). #6 on its float32 route (`flash_bwd`: `flash_bwd_rowdot`,
-    `_dkdv`, `_dq`) at FLASH_F32_BWD_SHAPE by events and graph replay,
-    beside SDPA's float32 backward by graph replay (its forward and
-    backward replayed, less its forward) and the bound (q, k, v, o, dO, the
-    LSE read and dq, dk, dv written once; five causal products). Keys
-    `flash_fwd_lse_simt_BxHxTxD` and `flash_bwd_simt_BxHxTxD`."""
+    cores). #6 on its float32 route (`flash_bwd`: the kernels of
+    `flash_bwd_plan`'s tile and order) at each of FLASH_F32_BWD_SHAPES by
+    events and graph replay, each kernel's device ms a launch by the
+    profiler (`kernels_device_ms`, which names them), beside SDPA's float32
+    backward by graph replay (its forward and backward replayed, less its
+    forward) and the bound (q, k, v, o, dO, the LSE read and dq, dk, dv
+    written once; five causal products). Keys `flash_fwd_lse_simt_BxHxTxD`
+    and `flash_bwd_simt_BxHxTxD`. Runs in older trees too (A/B calls): the
+    plan's tile and order are recorded where the tree has them."""
     import torch
     import torch.nn.functional as F
 
@@ -635,25 +652,32 @@ def flash_f32_timings(dev):
             "plain_ms": cuda_ms(lambda: att.flash_fwd_lse_plain(q, k, v), 3, warmup=1),
             "library_ms": cuda_ms(sdpa, 20), "library_device_ms": graph_ms(sdpa, 20),
             **bound((4 * B * H * T * D + B * H * T) * 4, 2 * 2 * D * pairs)}
-    B, H, T, D = FLASH_F32_BWD_SHAPE
-    q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(4))
-    o, lse = att.flash_fwd_lse(q, k, v)
-    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    for B, H, T, D in FLASH_F32_BWD_SHAPES:
+        q, k, v, do = (torch.randn((B, H, T, D), generator=g, device=dev) for _ in range(4))
+        o, lse = att.flash_fwd_lse(q, k, v)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
 
-    def sdpa_fwd_bwd():
-        # gradients at views made here (see flash_timings)
-        qn, kn, vn = (t.view_as(t) for t in (qr, kr, vr))
-        return torch.autograd.grad(
-            F.scaled_dot_product_attention(qn, kn, vn, is_causal=True), (qn, kn, vn), do)
+        def sdpa_fwd_bwd():
+            # gradients at views made here (see flash_timings)
+            qn, kn, vn = (t.view_as(t) for t in (qr, kr, vr))
+            return torch.autograd.grad(
+                F.scaled_dot_product_attention(qn, kn, vn, is_causal=True), (qn, kn, vn), do)
 
-    pairs = B * H * T * (T + 1) // 2
-    out[f"flash_bwd_simt_{B}x{H}x{T}x{D}"] = {
-        "ms": cuda_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 20),
-        "device_ms": graph_ms(lambda: att.flash_bwd(q, k, v, o, lse, do), 20),
-        "plain_ms": cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3, warmup=1),
-        "library_device_ms": graph_ms(sdpa_fwd_bwd, 20) - graph_ms(
-            lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), 20),
-        **bound((8 * B * H * T * D + B * H * T) * 4, 5 * 2 * D * pairs)}
+        def run():
+            return att.flash_bwd(q, k, v, o, lse, do)
+
+        pairs = B * H * T * (T + 1) // 2
+        rec = {"ms": cuda_ms(run, 20), "device_ms": graph_ms(run, 20),
+               "kernels_device_ms": kernel_launch_ms(run, 10),
+               "plain_ms": cuda_ms(lambda: att.flash_bwd_plain(q, k, v, o, lse, do), 3,
+                                   warmup=1),
+               "library_device_ms": graph_ms(sdpa_fwd_bwd, 20) - graph_ms(
+                   lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), 20),
+               **bound((8 * B * H * T * D + B * H * T) * 4, 5 * 2 * D * pairs)}
+        if hasattr(att, "F32_BWD_ORDERS"):  # the plan's tile and order (absent in older trees)
+            plan = att.flash_bwd_plan(torch.float32, T, D, B * H, _build.sm_count(dev))
+            rec.update(block=plan.block, order=plan.order)
+        out[f"flash_bwd_simt_{B}x{H}x{T}x{D}"] = rec
     return out
 
 
@@ -662,8 +686,9 @@ def print_flash_f32_timings(ft):
     for key, r in ft.items():
         lib = (f"SDPA float32 {r['library_device_ms']:.5f}"
                + (f" ({r['library_ms']:.5f} by events)" if "library_ms" in r else ""))
+        kernels = "".join(f"; {n} {ms:.5f}" for n, ms in r.get("kernels_device_ms", {}).items())
         print(f"{key}: {r['device_ms']:.5f} ms by graph replay ({r['ms']:.5f} by events), "
-              f"{lib}; bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+              f"{lib}; bound {r['bound_ms']:.5f} ({r['bound_by']}){kernels}", flush=True)
 
 
 # the float32 forward's q tiles, swept at shapes about the plan's boundary
@@ -716,6 +741,65 @@ def flash_f32_tile_sweep(dev, failures, shapes=FLASH_F32_SWEEP, tiles=None):
             row[rows] = graph_ms(call, 20 if T >= 1024 else 50)
         out[f"{BH}x{T}"] = row
     print("flash_f32_tile_sweep " + json.dumps(out), flush=True)
+    return out
+
+
+# the float32 backward's tiles and orders, swept at the main paths' shapes
+# (the RPI importance's BH = 12 and the float32 trainer's 96 heads of T =
+# 1024) and about the plan's boundaries: (BH heads, T rows, head_dim)
+FLASH_F32_BWD_SWEEP = ((6, 200, 64), (12, 256, 64), (6, 512, 64), (12, 512, 64),
+                       (12, 1024, 64), (24, 1024, 64), (48, 1024, 64), (96, 1024, 64),
+                       (12, 1024, 128))
+
+
+def flash_f32_bwd_tile_sweep(dev, failures, shapes=FLASH_F32_BWD_SWEEP):
+    """#6's float32 kernels in each tile of F32_BWD_TILES[D] and each order
+    of F32_BWD_ORDERS, forced through `flash_bwd_f32`, at each (BH, T, D)
+    of `shapes`: held against `flash_bwd_plain` (dq, dk, dv within
+    FLASH_TRAIN_F32 of max |plain|, the dS scratch filled with NaN first,
+    so an entry the dQ pass reads unwritten would show), a repeat call
+    bit-equal, and timed by graph replay, beside the plan's (block,
+    order). Returns {"BHxTxD": {"plan": [block, order], "64 paired": ms,
+    ...}}."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+
+    lib, sms = _build.load("flash_attention"), _build.sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for BH, T, D in shapes:
+        q, k, v, do = (torch.randn((1, BH, T, D), generator=g, device=dev) for _ in range(4))
+        o, lse = att.flash_fwd_lse(q, k, v)
+        want = att.flash_bwd_plain(q, k, v, o, lse, do)
+        grads = tuple(torch.empty_like(q) for _ in range(3))
+        dvec = torch.empty((BH * T,), device=dev)
+        row = {"plan": list(att.flash_bwd_f32_plan(T, BH, D, sms))}
+        for rows in att.F32_BWD_TILES[D]:
+            ds = torch.full((att.f32_ds_floats(BH, T, rows),), float("nan"), device=dev)
+            for mode, order in enumerate(att.F32_BWD_ORDERS):
+
+                def call():
+                    return lib.flash_bwd_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), dvec.data_ptr(), ds.data_ptr(),
+                        *(t.data_ptr() for t in grads), BH, T, D, rows, mode,
+                        1.0 / math.sqrt(D), _build.stream(q))
+
+                _build.check(lib, call(), "flash_bwd_f32")
+                torch.cuda.synchronize()
+                first = [t.clone() for t in grads]
+                _build.check(lib, call(), "flash_bwd_f32")
+                torch.cuda.synchronize()
+                errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(first, want)]
+                same = all(torch.equal(a, b) for a, b in zip(first, grads))
+                if not (max(errs) <= FLASH_TRAIN_F32 and same):
+                    failures.append(f"flash_bwd_f32 tile {rows} {order} at ({BH}, {T}, {D}): "
+                                    f"dq/dk/dv {errs} of max, repeat bit-equal {same}")
+                row[f"{rows} {order}"] = graph_ms(call, 20 if T >= 1024 else 50)
+        out[f"{BH}x{T}x{D}"] = row
+    print("flash_f32_bwd_tile_sweep " + json.dumps(out), flush=True)
     return out
 
 
@@ -1319,11 +1403,15 @@ def fused_linear_phase(dev) -> int:
 # mangled-name pieces of the kernels of flash_attention.cu that the
 # `ptxas_flash_wgmma` line reports: the forwards of #2 and #5 (the wgmma
 # forward without and with the LSE; the float32 forward by head_dim, rows a
-# thread and LSE; the bf16 SIMT forward at head_dim 128) and #6's wgmma
-# kernels
+# thread and LSE; the bf16 SIMT forward at head_dim 128), #6's float32
+# kernels (by head_dim and rows a thread: the paired kernel, the dK/dV pass
+# writing dS and the dQ pass from it) and #6's wgmma kernels
 FLASH_F32_PTXAS = {
-    f"flash_fwd_f32ILi{D}ELi{rm}ELb{lse}E": f"flash_fwd_f32<{D}, {rm}, {('no lse', 'lse')[lse]}>"
-    for D, rm in ((64, 4), (64, 2), (128, 4)) for lse in (0, 1)}
+    **{f"flash_fwd_f32ILi{D}ELi{rm}ELb{lse}E":
+       f"flash_fwd_f32<{D}, {rm}, {('no lse', 'lse')[lse]}>"
+       for D, rm in ((64, 4), (64, 2), (128, 4)) for lse in (0, 1)},
+    **{f"flash_bwd_f32_{kind}ILi{D}ELi{rm}EE": f"flash_bwd_f32_{kind}<{D}, {rm}>"
+       for D, rm in ((64, 4), (64, 2), (128, 2)) for kind in ("pair", "dkdv", "dq_ds")}}
 FLASH_PTXAS_KERNELS = {
     "flash_fwd_wgmmaILb0E": "flash_fwd_wgmma<no lse> (#2)",
     "flash_fwd_wgmmaILb1E": "flash_fwd_wgmma<lse> (#5)",
@@ -1350,8 +1438,8 @@ def print_ptxas_wgmma_flash(_build):
 
 
 def ptxas_f32_failures(report):
-    """The float32 forward's instantiations that are missing from the
-    `ptxas_flash_wgmma` report or have a stack frame or spill."""
+    """The float32 forward's and backward's instantiations that are missing
+    from the `ptxas_flash_wgmma` report or have a stack frame or spill."""
     bad = []
     for name in FLASH_F32_PTXAS.values():
         r = report.get(name, {})
@@ -1366,11 +1454,13 @@ def flash_phase(dev) -> int:
     versions as in the full run (`flash_serve_vs_plain`,
     `flash_train_vs_plain`) and timed (#2 at the served shapes,
     `flash_serve_timings`; #5/#6 at the training path's shape,
-    `flash_timings`; their float32 routes at the evaluation and RPI shapes,
-    `flash_f32_timings`), the float32 forward's q tiles swept
-    (`flash_f32_tile_sweep`), with flash_attention.cu's ptxas report, in
-    which the float32 forward must have no stack frame and no spill. Prints
-    no result line; returns 1 if a hold failed."""
+    `flash_timings`; their float32 routes at the evaluation, RPI and
+    float32 trainer's shapes, `flash_f32_timings`), the float32 forward's
+    q tiles and the float32 backward's tiles and orders swept
+    (`flash_f32_tile_sweep`, `flash_f32_bwd_tile_sweep`), with
+    flash_attention.cu's ptxas report, in which the float32 kernels must
+    have no stack frame and no spill. Prints no result line; returns 1 if a
+    hold failed."""
     import torch
 
     from llm_qat_tpu_torch.ops import _build
@@ -1385,6 +1475,7 @@ def flash_phase(dev) -> int:
     print_flash_serve_timings(flash_serve_timings(dev, 12, 64))
     print_flash_f32_timings(flash_f32_timings(dev))
     flash_f32_tile_sweep(dev, failures)
+    flash_f32_bwd_tile_sweep(dev, failures)
     tt = flash_timings(dev, 8, 12, 1024, 64)
     print("flash_timings " + json.dumps(tt), flush=True)
     print(f"flash_fwd_lse {tt['flash_fwd_lse_ms']:.4f} ms by events, SDPA forward "
@@ -6048,8 +6139,7 @@ def main() -> int:
     # importance) at those commands' shapes, from `flash_f32_timings`
     f32_fwd = {key: {**val, "cuda_kernels": [f"flash_fwd_f32<64, {val['block_q'] // 16}, true>"]}
                for key, val in f32_timings.items() if key.startswith("flash_fwd_lse_simt_")}
-    f32_bwd = {key: {**val, "cuda_kernels": ["flash_bwd_rowdot", "flash_bwd_dkdv",
-                                             "flash_bwd_dq"]}
+    f32_bwd = {key: {**val, "cuda_kernels": list(val["kernels_device_ms"])}
                for key, val in f32_timings.items() if key.startswith("flash_bwd_simt_")}
     for name, line, n_tensors, n_products, lib, launched, f32 in (
             ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"], ["flash_fwd_wgmma"], f32_fwd),

@@ -8,7 +8,8 @@
 //   (bf16 at head_dim 128), the one forward without or with the log-sum-exp
 //   rows;
 // - `_flash_bwd_kernel` (called by `_flash_train_bwd`) with
-//   `flash_bwd_wgmma` (bf16 operands at head_dim 64) or `flash_bwd`, each
+//   `flash_bwd_wgmma` (bf16 operands at head_dim 64), `flash_bwd_f32`
+//   (float32 operands) or `flash_bwd` (bf16 at head_dim 128), each two or
 //   three CUDA kernels that together compute what the one TPU kernel does.
 // The Python wrappers are llm_qat_tpu_torch/ops/attention.py::
 // flash_attention, ::flash_fwd_lse and ::flash_bwd; `flash_attention_plain`,
@@ -115,9 +116,41 @@
 // - `flash_bwd_prep` pads each head's LSE and D to t_pad rows (a multiple
 //   of 128) with zeros, so that the bulk copies of the vectors stay within
 //   the head; it reads O and dO in 16-byte loads, eight threads a row.
-// Other operands (float32, or bf16 at head_dim 128) run `flash_bwd_rowdot`,
-// `flash_bwd_dkdv` and `flash_bwd_dq` (64-row tiles, float32 FMA on the
-// CUDA cores, each thread a 4x4 patch of S and dP).
+// Float32 operands (`flash_bwd_f32`: the RPI gradient importance, and SP
+// training at compute_dtype "float32") run `flash_bwd_rowdot` and then the
+// kernels of `ops/attention.py::flash_bwd_plan`'s order, on the float32
+// forward's template: exact float32 FMA on the CUDA cores, 128 threads a
+// block, each thread RM rows x 4 streamed indices of S and dP and RM rows x
+// D / 8 columns of its accumulators, the block's own tile (16 RM rows:
+// K and V for dK/dV; Q, dO and their LSE and D rows for dQ) loaded once,
+// the streamed 32-row tiles (Q, dO, LSE, D; or K, V) through a two-stage
+// ring of cp.async copies issued a tile ahead, zero-filled past T, at pitch
+// D + 4; P and dS through shared memory once each (a thread's RM rows at one
+// index are one float4 or float2, within its warp); a warp whose rows all
+// lie on the far side of a tile's diagonal skips it (the same bits). The
+// bound at the RPI importance's (1, 12, 1024, 64): five causal products,
+// 4.03 GFLOP, 0.060 ms at the 67 TFLOP/s float32 peak, beside 25 MB of
+// operands and outputs (7.5 us): operations. Both products of a step wait
+// on shared memory (8 FMAs a 128-bit read at RM = 4, 5.3 at RM = 2), so the
+// orders trade products against balance:
+// - "paired" (`flash_bwd_f32_pair`, one launch): block (bh, j) walks the dK/dV
+//   pass of tile j (the q tiles from j * 16 RM to T) and then the dQ pass of
+//   tile j (the k tiles up to (j + 1) * 16 RM), so every block walks about
+//   T + 16 RM rows: seven products (the dQ pass recomputes S and dP), but a
+//   call whose blocks fit in one wave is balanced. At (1, 12, 1024, 64) the
+//   two-launch order leaves the card to the dK/dV pass's tile 0, whose 32
+//   q tiles a lone block on its SM walks at about half the SM's rate;
+// - "scratch" (`flash_bwd_f32_dkdv` then `flash_bwd_f32_dq_ds`): the dK/dV
+//   pass also writes dS (float32, the causal tiles and the zeros of
+//   skipped ones) to a scratch in the dQ pass's shared layout, and the dQ
+//   pass is one product, dS.K: five products, 4 MB a head at T = 1024
+//   written and read again (mostly from L2); taken where the call spans
+//   several waves.
+// The two passes of seven products as two launches lost to one of these at
+// every shape measured. Each kernel launches its longest walks first. bf16 operands at head_dim 128
+// (no model path) run `flash_bwd_rowdot`, `flash_bwd_dkdv` and
+// `flash_bwd_dq` (64-row tiles, float32 FMA on the CUDA cores, each thread
+// a 4x4 patch of S and dP, 256 threads, synchronous loads).
 //
 // Bounds. Serving forward at the prefill's (8, 12, 128, 64) in bf16: q, k,
 // v read once and o written once (8 * T * D bytes per (b, h), 6.29 MB,
@@ -869,6 +902,472 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 // ---------------------------------------------------------------------------
+// Backward with float32 operands (#6's float32 route)
+// ---------------------------------------------------------------------------
+
+// A 4-byte asynchronous copy into shared memory (zero-filled with in ==
+// false): the row vectors (LSE and D) of a streamed tile, whose first row
+// need not be 16-byte aligned.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// The float32 backward's block: ROWS = 16 * RM own rows (k rows for dK/dV,
+// q rows for dQ), F32_BK-row tiles streamed through a two-stage ring, the
+// blocks an SM holds and the dynamic shared memory, the larger of the two
+// passes' layouts (a paired block runs one after the other in it). D = 64:
+// RM = 4, 77 KB, two blocks an SM; RM = 2, 56 KB, three. D = 128, RM = 2:
+// 104 KB, two.
+template <int D, int RM>
+struct F32Bwd {
+  static_assert(RM == 4 || RM == 2, "a thread's rows at one index are one float4 or float2");
+  static constexpr int ROWS = 16 * RM, DP = D + 4, PP = ROWS + 4, ST = 2;
+  static constexpr int BLOCKS = (D == 64 && RM == 2) ? 3 : 2;
+  // dK/dV: own K and V; per stage Q, dO and their LSE and D rows; P, then dS
+  static constexpr int KV_STAGE = 2 * F32_BK * DP + 2 * F32_BK;
+  static constexpr int KV = 2 * ROWS * DP + ST * KV_STAGE + F32_BK * PP;
+  // dQ: own Q, dO, LSE and D rows; per stage K and V; dS
+  static constexpr int Q_STAGE = 2 * F32_BK * DP;
+  static constexpr int QF = 2 * ROWS * DP + 2 * ROWS + ST * Q_STAGE + F32_BK * PP;
+  static constexpr size_t SMEM = sizeof(float) * (KV > QF ? KV : QF);
+};
+
+// acc[i][j] = sum over d ascending of A[r0 + 4 i][d] * B[tx + 8 j][d]: the
+// thread's RM x 4 scores of a (ROWS own rows) x (F32_BK streamed rows) tile,
+// both row-major at pitch D + 4, float32 FMA.
+template <int D, int RM>
+__device__ __forceinline__ void f32_dots(const float* A, const float* B, int r0, int tx,
+                                         float acc[RM][4]) {
+  constexpr int DP = D + 4;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 bf[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bf[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * DP + c);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float4 af = *reinterpret_cast<const float4*>(A + (r0 + 4 * i) * DP + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(af.x, bf[j].x, acc[i][j]);
+        acc[i][j] = fmaf(af.y, bf[j].y, acc[i][j]);
+        acc[i][j] = fmaf(af.z, bf[j].z, acc[i][j]);
+        acc[i][j] = fmaf(af.w, bf[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// The thread's RM x 4 values x[i][j] (own row r0 + 4 i, streamed index tx +
+// 8 j) into Xt[tx + 8 j][ty * RM + i]: a thread's RM rows at one index are
+// one float4 (float2). A row's values are written and read by the 8 threads
+// of its row, within one warp.
+template <int RM>
+__device__ __forceinline__ void f32_put(float* Xt, int ty, int tx, const float x[RM][4]) {
+  constexpr int PP = 16 * RM + 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float* dst = Xt + (tx + 8 * j) * PP + ty * RM;
+    if constexpr (RM == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(x[0][j], x[1][j]);
+  }
+}
+
+// acc[i][32 c + 4 tx + e] += sum over r ascending of Xt[r][ty * RM + i] *
+// Y[r][32 c + 4 tx + e]: the thread's RM rows x D / 8 columns of a second
+// product over the tile's F32_BK streamed rows (Y row-major at pitch D + 4).
+template <int D, int RM>
+__device__ __forceinline__ void f32_accumulate(const float* Xt, const float* Y, int ty, int tx,
+                                               float acc[RM][D / 8]) {
+  constexpr int DP = D + 4, PP = 16 * RM + 4;
+#pragma unroll 8
+  for (int r = 0; r < F32_BK; ++r) {
+    float x[RM];
+    if constexpr (RM == 4) {
+      const float4 xf = *reinterpret_cast<const float4*>(Xt + r * PP + ty * RM);
+      x[0] = xf.x;
+      x[1] = xf.y;
+      x[2] = xf.z;
+      x[3] = xf.w;
+    } else {
+      const float2 xf = *reinterpret_cast<const float2*>(Xt + r * PP + ty * RM);
+      x[0] = xf.x;
+      x[1] = xf.y;
+    }
+#pragma unroll
+    for (int cc = 0; cc < D / 32; ++cc) {
+      const float4 yf = *reinterpret_cast<const float4*>(Y + r * DP + 32 * cc + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        acc[i][4 * cc] = fmaf(x[i], yf.x, acc[i][4 * cc]);
+        acc[i][4 * cc + 1] = fmaf(x[i], yf.y, acc[i][4 * cc + 1]);
+        acc[i][4 * cc + 2] = fmaf(x[i], yf.z, acc[i][4 * cc + 2]);
+        acc[i][4 * cc + 3] = fmaf(x[i], yf.w, acc[i][4 * cc + 3]);
+      }
+    }
+  }
+}
+
+// The thread's RM rows x D / 8 columns of acc * scale into one head's (seq,
+// D) rows: its row r0 + 4 i at row0 + r0 + 4 i, those past seq left out.
+template <int D, int RM>
+__device__ __forceinline__ void f32_store_rows(float* dst, const float acc[RM][D / 8],
+                                               int row0, int r0, int tx, int seq, float scale) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = row0 + r0 + 4 * i;
+    if (r < seq) {
+#pragma unroll
+      for (int cc = 0; cc < D / 32; ++cc)
+        *reinterpret_cast<float4*>(dst + (size_t)r * D + 32 * cc + 4 * tx) =
+            make_float4(acc[i][4 * cc] * scale, acc[i][4 * cc + 1] * scale,
+                        acc[i][4 * cc + 2] * scale, acc[i][4 * cc + 3] * scale);
+    }
+  }
+}
+
+// The index in the dS scratch of (q, k) of head bh: per head, per q tile of
+// ROWS rows and per key tile of F32_BK keys, a [F32_BK][ROWS] block in the
+// dQ pass's shared layout (row q0 + r0 + 4 i of thread (ty, tx) at slot
+// ty * RM + i), so that the dQ pass copies it as it stands.
+template <int RM>
+__device__ __forceinline__ size_t f32_ds_index(int bh, int seq, int q, int k) {
+  constexpr int ROWS = 16 * RM;
+  const int nqt = (seq + ROWS - 1) / ROWS, nkt = (seq + F32_BK - 1) / F32_BK;
+  const int r = q % ROWS, w = r / (4 * RM), rr = r % (4 * RM);
+  const int slot = (4 * w + rr % 4) * RM + rr / 4;
+  return (((size_t)bh * nqt + q / ROWS) * nkt + k / F32_BK) * (F32_BK * ROWS) +
+         (k % F32_BK) * ROWS + slot;
+}
+
+// x as dS of (q, k) into the scratch, for keys in the tiles the dQ pass
+// reads (those past seq included: zeros); the last k tile's rows past them
+// have no place.
+template <int RM>
+__device__ __forceinline__ void f32_ds_put(float* ds, int bh, int seq, int q, int k, float x) {
+  if (k < (seq + F32_BK - 1) / F32_BK * F32_BK) ds[f32_ds_index<RM>(bh, seq, q, k)] = x;
+}
+
+// dK and dV of the k tile [k0, k0 + ROWS) of head bh. Thread (ty, tx) owns
+// k rows r0 + 4 i (i < RM; a warp's 4 RM rows are contiguous), q index
+// tx + 8 j (j < 4) of each streamed tile, and dK's and dV's columns 32 c +
+// 4 tx .. + 3. K and V are loaded once; the q tiles from the causal start
+// (k0 / F32_BK) to seq stream through the ring with their LSE and D rows,
+// each issued a tile ahead by asynchronous copies (zero-filled past seq).
+// Per q tile: S^T = K.Q^T and dP^T = V.dO^T (d ascending), P^T = exp(S^T *
+// scale - LSE) (0 where q < k or q >= seq), dS^T = P^T * (dP^T - D); P^T to
+// shared memory, dV += P^T.dO; then dS^T in its place, dK += dS^T.Q (q
+// ascending). A warp whose rows all lie past the tile's last q skips the
+// tile (its P^T would be 0: the same bits). Written: dk = dK * scale, dv;
+// with DS also dS^T, the zeros of skipped tiles included, to the scratch
+// `ds` at `f32_ds_index` (as float32, exactly what dK used).
+template <int D, int RM, bool DS>
+__device__ __forceinline__ void f32_dkdv_block(float* sm, const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ dout,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ dvec,
+                                               float* __restrict__ dk, float* __restrict__ dv,
+                                               float* __restrict__ ds, int bh, int k0, int seq,
+                                               float sm_scale) {
+  using Tile = F32Bwd<D, RM>;
+  constexpr int ROWS = Tile::ROWS, DP = Tile::DP, ST = Tile::ST, STAGE = Tile::KV_STAGE;
+  float* Ks = sm;                  // [ROWS][DP]
+  float* Vs = Ks + ROWS * DP;      // [ROWS][DP]
+  float* ring = Vs + ROWS * DP;    // [ST] x (Q [F32_BK][DP], dO [F32_BK][DP], LSE, D)
+  float* Xt = ring + ST * STAGE;   // [F32_BK][PP]: P^T, then dS^T
+  const size_t off = (size_t)bh * seq * D;
+  const float* qb = q + off;
+  const float* dob = dout + off;
+  const float* lb = lse + (size_t)bh * seq;
+  const float* db = dvec + (size_t)bh * seq;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int r0 = 4 * RM * (ty >> 2) + (ty & 3);
+  const int w0 = k0 + 4 * RM * (ty >> 2);  // the warp's first k row
+  const int t0 = k0 / F32_BK, nt = (seq + F32_BK - 1) / F32_BK;
+
+  auto issue = [&](int t) {
+    float* st = ring + t % ST * STAGE;
+    f32_rows_async<D, F32_BK>(st, qb, t * F32_BK, seq, tid);
+    f32_rows_async<D, F32_BK>(st + F32_BK * DP, dob, t * F32_BK, seq, tid);
+    if (tid < 2 * F32_BK) {
+      const int gr = t * F32_BK + (tid & (F32_BK - 1));
+      const bool in = gr < seq;
+      cp_async4(st + 2 * F32_BK * DP + tid, (tid < F32_BK ? lb : db) + (in ? gr : 0), in);
+    }
+  };
+  f32_rows_async<D, ROWS>(Ks, k + off, k0, seq, tid);
+  f32_rows_async<D, ROWS>(Vs, v + off, k0, seq, tid);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (t0 + s < nt) issue(t0 + s);
+    cp_async_commit();
+  }
+
+  float adk[RM][D / 8], adv[RM][D / 8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  for (int t = t0; t < nt; ++t) {
+    cp_async_wait<ST - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();          // everyone's; and tile t - 1's stage and Xt are consumed
+    if (t + ST - 1 < nt) issue(t + ST - 1);
+    cp_async_commit();
+    const int q0 = t * F32_BK;
+    if (q0 + F32_BK - 1 < w0) {  // every q of the tile lies before the warp's k rows
+      if constexpr (DS) {
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            f32_ds_put<RM>(ds, bh, seq, q0 + tx + 8 * j, k0 + r0 + 4 * i, 0.f);
+      }
+      continue;
+    }
+    const float* Qt = ring + t % ST * STAGE;
+    const float* dOt = Qt + F32_BK * DP;
+    const float* Lt = dOt + F32_BK * DP;
+    const float* Dt = Lt + F32_BK;
+
+    float s[RM][4], dp[RM][4];
+    f32_dots<D, RM>(Ks, Qt, r0, tx, s);
+    f32_dots<D, RM>(Vs, dOt, r0, tx, dp);
+    const bool edge = q0 < k0 + ROWS || q0 + F32_BK > seq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 8 * j, qi = q0 + c;
+      const float lq = Lt[c], dr = Dt[c];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        float p = expf(s[i][j] * sm_scale - lq);
+        if (edge && (qi < k0 + r0 + 4 * i || qi >= seq)) p = 0.f;
+        s[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - dr);
+        if constexpr (DS) f32_ds_put<RM>(ds, bh, seq, qi, k0 + r0 + 4 * i, dp[i][j]);
+      }
+    }
+    f32_put<RM>(Xt, ty, tx, s);
+    __syncwarp();
+    f32_accumulate<D, RM>(Xt, dOt, ty, tx, adv);
+    __syncwarp();  // the warp's P^T is read before its dS^T replaces it
+    f32_put<RM>(Xt, ty, tx, dp);
+    __syncwarp();
+    f32_accumulate<D, RM>(Xt, Qt, ty, tx, adk);
+  }
+  cp_async_wait<0>();  // the trailing groups are empty; none is left in flight
+
+  f32_store_rows<D, RM>(dk + off, adk, k0, r0, tx, seq, sm_scale);
+  f32_store_rows<D, RM>(dv + off, adv, k0, r0, tx, seq, 1.f);
+}
+
+// dQ of the q tile [q0, q0 + ROWS) of head bh. Thread (ty, tx) owns q rows
+// r0 + 4 i, key index tx + 8 j of each streamed tile and dQ's columns 32 c
+// + 4 tx .. + 3. Q, dO and their LSE and D rows are loaded once; the K/V
+// tiles up to the causal limit stream through the ring. Per k tile: S =
+// Q.K^T and dP = dO.V^T, P = exp(S * scale - LSE) (0 above the diagonal
+// and past seq), dS = P * (dP - D) to shared memory, dQ += dS.K (keys
+// ascending); a warp whose rows all lie above the tile's keys skips it.
+// Written: dq = dQ * scale.
+template <int D, int RM>
+__device__ __forceinline__ void f32_dq_block(float* sm, const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ dvec,
+                                             float* __restrict__ dq, int bh, int q0, int seq,
+                                             float sm_scale) {
+  using Tile = F32Bwd<D, RM>;
+  constexpr int ROWS = Tile::ROWS, DP = Tile::DP, ST = Tile::ST, STAGE = Tile::Q_STAGE;
+  float* Qs = sm;                   // [ROWS][DP]
+  float* dOs = Qs + ROWS * DP;      // [ROWS][DP]
+  float* Ls = dOs + ROWS * DP;      // [ROWS]
+  float* Ds = Ls + ROWS;            // [ROWS]
+  float* ring = Ds + ROWS;          // [ST] x (K [F32_BK][DP], V [F32_BK][DP])
+  float* Xt = ring + ST * STAGE;    // [F32_BK][PP]: dS
+  const size_t off = (size_t)bh * seq * D;
+  const float* kb = k + off;
+  const float* vb = v + off;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int r0 = 4 * RM * (ty >> 2) + (ty & 3);
+  const int w_end = q0 + 4 * RM * ((ty >> 2) + 1);  // past the warp's last row
+  const int nt = (min(seq, q0 + ROWS) + F32_BK - 1) / F32_BK;  // key tiles to the causal limit
+
+  f32_rows_async<D, ROWS>(Qs, q + off, q0, seq, tid);
+  f32_rows_async<D, ROWS>(dOs, dout + off, q0, seq, tid);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nt) {
+      f32_rows_async<D, F32_BK>(ring + s * STAGE, kb, s * F32_BK, seq, tid);
+      f32_rows_async<D, F32_BK>(ring + s * STAGE + F32_BK * DP, vb, s * F32_BK, seq, tid);
+    }
+    cp_async_commit();
+  }
+  if (tid < ROWS) {
+    const bool in = q0 + tid < seq;
+    Ls[tid] = in ? lse[(size_t)bh * seq + q0 + tid] : 0.f;
+    Ds[tid] = in ? dvec[(size_t)bh * seq + q0 + tid] : 0.f;
+  }
+
+  float adq[RM][D / 8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) adq[i][c] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    const int tn = t + ST - 1;
+    if (tn < nt) {
+      f32_rows_async<D, F32_BK>(ring + tn % ST * STAGE, kb, tn * F32_BK, seq, tid);
+      f32_rows_async<D, F32_BK>(ring + tn % ST * STAGE + F32_BK * DP, vb, tn * F32_BK, seq, tid);
+    }
+    cp_async_commit();
+    const int k0 = t * F32_BK;
+    if (k0 >= w_end) continue;  // every key of the tile lies past the warp's rows
+    const float* Kt = ring + t % ST * STAGE;
+    const float* Vt = Kt + F32_BK * DP;
+
+    float s[RM][4], dp[RM][4];
+    f32_dots<D, RM>(Qs, Kt, r0, tx, s);
+    f32_dots<D, RM>(dOs, Vt, r0, tx, dp);
+    const bool edge = k0 + F32_BK - 1 > q0 || k0 + F32_BK > seq;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + r0 + 4 * i;
+      const float lq = Ls[r0 + 4 * i], dr = Ds[r0 + 4 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 8 * j;
+        float p = expf(s[i][j] * sm_scale - lq);
+        if (edge && (kj > qi || kj >= seq)) p = 0.f;
+        s[i][j] = p * (dp[i][j] - dr);
+      }
+    }
+    f32_put<RM>(Xt, ty, tx, s);
+    __syncwarp();
+    f32_accumulate<D, RM>(Xt, Kt, ty, tx, adq);
+  }
+  cp_async_wait<0>();
+
+  f32_store_rows<D, RM>(dq + off, adq, q0, r0, tx, seq, sm_scale);
+}
+
+// dQ of the q tile [q0, q0 + ROWS) of head bh from the dS scratch (written
+// by the dK/dV pass with DS): per key tile up to the causal limit, the K
+// tile and the tile's dS block stream through a two-stage ring (the block
+// copied as it stands into the [F32_BK][PP] layout), then dQ += dS.K (keys
+// ascending); a warp whose rows all lie above the tile's keys skips it.
+template <int D, int RM>
+__device__ __forceinline__ void f32_dq_ds_block(float* sm, const float* __restrict__ k,
+                                                const float* __restrict__ ds,
+                                                float* __restrict__ dq, int bh, int q0, int seq,
+                                                float sm_scale) {
+  constexpr int ROWS = 16 * RM, DP = D + 4, PP = ROWS + 4, ST = 2;
+  constexpr int STAGE = F32_BK * DP + F32_BK * PP;  // K, dS
+  const size_t off = (size_t)bh * seq * D;
+  const float* kb = k + off;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int r0 = 4 * RM * (ty >> 2) + (ty & 3);
+  const int w_end = q0 + 4 * RM * ((ty >> 2) + 1);
+  const int nt = (min(seq, q0 + ROWS) + F32_BK - 1) / F32_BK;
+  const float* dsb = ds + f32_ds_index<RM>(bh, seq, q0, 0);  // the q tile's first block
+
+  auto issue = [&](int t) {
+    float* st = sm + t % ST * STAGE;
+    f32_rows_async<D, F32_BK>(st, kb, t * F32_BK, seq, tid);
+    constexpr int CH = ROWS / 4;  // 16-byte chunks of a dS row
+#pragma unroll
+    for (int n = 0; n < F32_BK * CH / F32_THREADS; ++n) {
+      const int i = tid + n * F32_THREADS, r = i / CH, c = i % CH;
+      cp_async16(st + F32_BK * DP + r * PP + 4 * c,
+                 dsb + (size_t)t * F32_BK * ROWS + r * ROWS + 4 * c, true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nt) issue(s);
+    cp_async_commit();
+  }
+  float adq[RM][D / 8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) adq[i][c] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (t + ST - 1 < nt) issue(t + ST - 1);
+    cp_async_commit();
+    if (t * F32_BK >= w_end) continue;
+    const float* Kt = sm + t % ST * STAGE;
+    f32_accumulate<D, RM>(Kt + F32_BK * DP, Kt, ty, tx, adq);
+  }
+  cp_async_wait<0>();
+  f32_store_rows<D, RM>(dq + off, adq, q0, r0, tx, seq, sm_scale);
+}
+
+// Blocks (bh, y): the k tile y, so the longest walk over the q tiles comes
+// first; dK and dV, and dS to the scratch for `flash_bwd_f32_dq_ds`.
+template <int D, int RM>
+__global__ void __launch_bounds__(F32_THREADS, (F32Bwd<D, RM>::BLOCKS))
+flash_bwd_f32_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ dvec,
+                   float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ ds,
+                   int seq, float sm_scale) {
+  extern __shared__ float4 smem4[];
+  f32_dkdv_block<D, RM, true>(reinterpret_cast<float*>(smem4), q, k, v, dout, lse, dvec, dk,
+                              dv, ds, blockIdx.x, blockIdx.y * F32Bwd<D, RM>::ROWS, seq,
+                              sm_scale);
+}
+
+// Blocks (bh, y): the q tile gridDim.y - 1 - y, the longest walk first; dQ
+// from the dS scratch, one product. Three blocks an SM at D = 64 (39 KB).
+template <int D, int RM>
+__global__ void __launch_bounds__(F32_THREADS, 3)
+flash_bwd_f32_dq_ds(const float* __restrict__ k, const float* __restrict__ ds,
+                    float* __restrict__ dq, int seq, float sm_scale) {
+  extern __shared__ float4 smem4[];
+  f32_dq_ds_block<D, RM>(reinterpret_cast<float*>(smem4), k, ds, dq, blockIdx.x,
+                         (gridDim.y - 1 - blockIdx.y) * F32Bwd<D, RM>::ROWS, seq, sm_scale);
+}
+
+// Blocks (bh, y): dK and dV of tile y, then dQ of tile y. The dK/dV walk of
+// tile j covers the q tiles from j * ROWS to seq and the dQ walk the k tiles
+// up to (j + 1) * ROWS, so every block walks about seq / F32_BK + ROWS /
+// F32_BK tiles, and a call whose blocks fit in one wave is balanced; y = 0,
+// whose walk has the most dK/dV tiles (four products against three), comes
+// first.
+template <int D, int RM>
+__global__ void __launch_bounds__(F32_THREADS, (F32Bwd<D, RM>::BLOCKS))
+flash_bwd_f32_pair(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ dvec,
+                   float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                   int seq, float sm_scale) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int r = blockIdx.y * F32Bwd<D, RM>::ROWS;
+  f32_dkdv_block<D, RM, false>(sm, q, k, v, dout, lse, dvec, dk, dv, nullptr, blockIdx.x, r,
+                               seq, sm_scale);
+  __syncthreads();  // the dK/dV pass's shared memory is consumed
+  f32_dq_block<D, RM>(sm, q, k, v, dout, lse, dvec, dq, blockIdx.x, r, seq, sm_scale);
+}
+
+// ---------------------------------------------------------------------------
 // Forward and backward, bf16 operands at head_dim 64: TMA-fed wgmma kernels
 // ---------------------------------------------------------------------------
 
@@ -1530,24 +2029,86 @@ extern "C" int flash_forward_wgmma(const void* q, const void* k, const void* v, 
 }
 
 // dq, dk, dv from q, k, v, o, dout, lse; dvec is (BH * T) float32 scratch.
-// float operands at head_dim 64 or 128, bf16 at 128 (bf16 at 64 is
-// flash_bwd_wgmma's).
+// bf16 operands at head_dim 128 only (the SIMT `flash_bwd_dkdv` and
+// `flash_bwd_dq`; no model path runs them): bf16 at 64 is
+// flash_bwd_wgmma's, float32 flash_bwd_f32's.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* dvec, void* dq,
                          void* dk, void* dv, int BH, int seq, int D, int is_bf16,
                          float sm_scale, cudaStream_t stream) {
-  if (is_bf16) {
-    if (D == 128)
-      return bwd_launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq,
-                                            sm_scale, stream);
-  } else {
-    if (D == 64)
-      return bwd_launch<float, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq, sm_scale,
-                                   stream);
-    if (D == 128)
-      return bwd_launch<float, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq, sm_scale,
-                                    stream);
+  if (!is_bf16 || D != 128) return (int)cudaErrorInvalidValue;
+  return bwd_launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, BH, seq,
+                                        sm_scale, stream);
+}
+
+// The float32 backward's orders (`mode` of flash_bwd_f32)
+#define F32_BWD_PAIRED 0  // one launch, each block dK/dV of tile j, then its dQ
+#define F32_BWD_DS 1      // the dK/dV pass writes dS; the dQ pass is dS.K: five products
+
+template <int D, int RM>
+static int bwd_f32_launch(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* dvec, float* ds, void* dq,
+                          void* dk, void* dv, int BH, int seq, int mode, float sm_scale,
+                          cudaStream_t stream) {
+  using Tile = F32Bwd<D, RM>;
+  constexpr size_t SMEM_DS = sizeof(float) * 2 * F32_BK * (Tile::DP + Tile::PP);
+  static const cudaError_t e_kv = set_smem(flash_bwd_f32_dkdv<D, RM>, Tile::SMEM);
+  static const cudaError_t e_q = set_smem(flash_bwd_f32_dq_ds<D, RM>, SMEM_DS);
+  static const cudaError_t e_pair = set_smem(flash_bwd_f32_pair<D, RM>, Tile::SMEM);
+  for (cudaError_t e : {e_kv, e_q, e_pair})
+    if (e != cudaSuccess) return (int)e;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* dof = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  const int rows = BH * seq;
+  flash_bwd_rowdot<float, D><<<(rows + 7) / 8, 256, 0, stream>>>(static_cast<const float*>(o),
+                                                                 dof, dvec, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(BH, (seq + Tile::ROWS - 1) / Tile::ROWS);
+  if (mode == F32_BWD_PAIRED) {
+    flash_bwd_f32_pair<D, RM><<<grid, F32_THREADS, Tile::SMEM, stream>>>(
+        qf, kf, vf, dof, lse, dvec, dqf, dkf, dvf, seq, sm_scale);
+    return (int)cudaGetLastError();
   }
+  flash_bwd_f32_dkdv<D, RM><<<grid, F32_THREADS, Tile::SMEM, stream>>>(
+      qf, kf, vf, dof, lse, dvec, dkf, dvf, ds, seq, sm_scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  flash_bwd_f32_dq_ds<D, RM><<<grid, F32_THREADS, SMEM_DS, stream>>>(kf, ds, dqf, seq, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// #6 with float32 operands: dq, dk, dv from q, k, v, o, dout (BH, seq, D)
+// float32, each 16-byte aligned, and lse (BH * seq) float32; dvec is (BH *
+// seq) float32 scratch for D = rowsum(dO * O), ds (mode F32_BWD_DS only,
+// else unused) float32 scratch of BH * ceil(seq / block) * block *
+// ceil(seq / 32) * 32 floats, 16-byte aligned. Own tiles of block rows
+// (ops/attention.py::flash_bwd_plan): 64 or 32 at head_dim 64, 32 at 128;
+// any other value, or another mode, is refused. The row dots, then one
+// launch (F32_BWD_PAIRED) or two (F32_BWD_DS).
+extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* dvec, float* ds, void* dq,
+                             void* dk, void* dv, int BH, int seq, int D, int block, int mode,
+                             float sm_scale, cudaStream_t stream) {
+  if (seq < 1 || BH < 1 || (mode != F32_BWD_PAIRED && mode != F32_BWD_DS))
+    return (int)cudaErrorInvalidValue;
+  if (mode == F32_BWD_DS && (ds == nullptr || reinterpret_cast<uintptr_t>(ds) & 15))
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, o, dout, (const void*)dq, (const void*)dk, (const void*)dv})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  if (D == 64 && block == 64)
+    return bwd_f32_launch<64, 4>(q, k, v, o, dout, lse, dvec, ds, dq, dk, dv, BH, seq, mode,
+                                 sm_scale, stream);
+  if (D == 64 && block == 32)
+    return bwd_f32_launch<64, 2>(q, k, v, o, dout, lse, dvec, ds, dq, dk, dv, BH, seq, mode,
+                                 sm_scale, stream);
+  if (D == 128 && block == 32)
+    return bwd_f32_launch<128, 2>(q, k, v, o, dout, lse, dvec, ds, dq, dk, dv, BH, seq, mode,
+                                  sm_scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

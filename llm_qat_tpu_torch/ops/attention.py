@@ -15,9 +15,12 @@ otherwise a SIMT forward on the CUDA cores, for float32 operands the
 register-tiled `flash_fwd_f32` in the q tile of `flash_fwd_plan`;
 `flash_attention` runs it without the log-sum-exp rows. Both round P to
 v's dtype at the running maximum of the JAX kernel's k-blocks
-(`flash_blocks`, `jax_block_k`), as the JAX kernels do. `flash_attention_trainable` joins the last two in an
-`autograd.Function`, and `causal_attention` dispatches between it and the
-dense reference.
+(`flash_blocks`, `jax_block_k`), as the JAX kernels do. The backward takes
+the wgmma kernels for bf16 at head_dim 64 and, for float32 operands, the
+register-tiled `flash_bwd_f32_*` kernels in the tile and order of
+`flash_bwd_plan` (`flash_bwd_f32_plan`). `flash_attention_trainable` joins
+the last two in an `autograd.Function`, and `causal_attention` dispatches
+between it and the dense reference.
 
 A wrapper takes its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in `<fn>.launches`.
@@ -329,26 +332,113 @@ flash_fwd_lse.route_launches = {"wgmma": 0, "simt": 0}
 # 64) and streams tiles of 64 rows.
 BWD_TILE = 128
 
+# Kernel #6's float32 kernels (`flash_bwd_f32_*`): the own-tile rows they
+# take by head_dim, largest first (16 threads down the rows, 4 or 2 rows a
+# thread), and their orders, by the C entry's `mode`: "paired" (one launch,
+# each block the dK/dV walk of its tile and then its dQ walk, which
+# recomputes S and dP: seven products) and "scratch" (the dK/dV pass also
+# writes dS, then the dQ pass is dS·K: five products, two launches)
+F32_BWD_TILES = {64: (64, 32), 128: (32,)}
+F32_BWD_ORDERS = ("paired", "scratch")
+# blocks of the float32 backward an SM holds, by (head_dim, tile rows): the
+# kernels' shared memory (`F32Bwd<D, RM>::BLOCKS` in csrc/flash_attention.cu)
+F32_BWD_BLOCKS_PER_SM = {(64, 64): 2, (64, 32): 3, (128, 32): 2}
+
 
 class FlashBwdPlan(NamedTuple):
     """How `flash_bwd` runs kernel #6 on the card. route: `flash_route`'s.
-    t_pad: rows of each head's padded LSE and D rows (wgmma)."""
+    t_pad: rows of each head's padded LSE and D rows (wgmma). block and
+    order: the float32 kernels' own-tile rows and order
+    (`flash_bwd_f32_plan`; 0 and "" on the other routes)."""
     route: str
     t_pad: int
+    block: int = 0
+    order: str = ""
 
 
-def flash_bwd_plan(dtype, T: int, D: int) -> FlashBwdPlan:
-    """The plan of kernel #6 for operands of `dtype`, T rows, head_dim D."""
-    return FlashBwdPlan(flash_route(dtype, D), -(-T // BWD_TILE) * BWD_TILE)
+def flash_bwd_f32_plan(T: int, BH: int, D: int, sms: int = 132) -> tuple:
+    """(block, order) of the float32 backward for BH heads of T rows at
+    head_dim D on a card of `sms` SMs. The tile: the largest of
+    F32_BWD_TILES[D] whose blocks, BH·ceil(T / block), cover at least half
+    of the card's SMs, else the smallest (4 rows a thread read shared
+    memory least per FMA, which bounds these kernels: 96 blocks of 64 rows
+    beat 192 of 32 at (12, 512), 42 of 32 rows beat 24 of 64 at (6, 200)).
+    The order: "paired" where those blocks fit in one wave
+    (F32_BWD_BLOCKS_PER_SM a SM), else "scratch".
+    In one wave the longest walk sets the time: the dK/dV walk of tile 0
+    covers all T rows, and pairing each tile's dK/dV walk with its dQ walk
+    gives every block about T + block rows (the RPI importance's (1, 12,
+    1024, 64): 192 blocks, at most two on an SM). Over several waves the
+    walks even out, and "scratch" computes five products where the others
+    compute seven (the float32 trainer's (8, 12, 1024, 64)).
+    chip_smoke.py's `flash_f32_bwd_tile_sweep` times every tile and
+    order."""
+    if D not in F32_BWD_TILES:
+        raise ValueError(f"flash_bwd_f32_plan: head_dim must be 64 or 128; got {D}")
+    tiles = F32_BWD_TILES[D]
+    rows = next((r for r in tiles if 2 * BH * -(-T // r) >= sms), tiles[-1])
+    one_wave = BH * -(-T // rows) <= F32_BWD_BLOCKS_PER_SM[D, rows] * sms
+    return rows, "paired" if one_wave else "scratch"
+
+
+def f32_ds_floats(BH: int, T: int, block: int) -> int:
+    """Floats of the float32 backward's dS scratch (order "scratch"): per
+    head, a [32][block] block for every (q tile of `block` rows, key tile of
+    32), the causal ones written and read."""
+    return BH * -(-T // block) * block * -(-T // 32) * 32
+
+
+def flash_bwd_plan(dtype, T: int, D: int, BH: int = 1, sms: int = 132) -> FlashBwdPlan:
+    """The plan of kernel #6 for BH heads of operands of `dtype`, T rows,
+    head_dim D, on a card of `sms` SMs."""
+    route = flash_route(dtype, D)
+    block, order = (flash_bwd_f32_plan(T, BH, D, sms)
+                    if dtype == torch.float32 and D in F32_BWD_TILES else (0, ""))
+    return FlashBwdPlan(route, -(-T // BWD_TILE) * BWD_TILE, block, order)
+
+
+def _launch_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) from one call of the C entry of `flash_bwd_plan`'s
+    route: `flash_bwd_wgmma` (bf16 at head_dim 64), `flash_bwd_f32` (float32,
+    in the plan's tile and order) or `flash_bwd` (bf16 at head_dim 128), on
+    16-byte aligned copies of unaligned operands (TMA and cp.async
+    read rows from 16-byte aligned addresses); raises on a CUDA error. The
+    operands are checked by the caller."""
+    B, H, T, D = q.shape
+    plan = flash_bwd_plan(q.dtype, T, D, B * H, _build.sm_count(q.device.index))
+    lib = _build.load("flash_attention")
+    out = tuple(torch.empty_like(q) for _ in range(3))
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, do))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr())
+    if plan.route == "wgmma":
+        aux = torch.empty((2, B * H, plan.t_pad), dtype=torch.float32, device=q.device)
+        rc = lib.flash_bwd_wgmma(*ptrs, aux.data_ptr(), *(t.data_ptr() for t in out),
+                                 B * H, T, plan.t_pad, scale, _build.stream(q))
+    else:
+        dvec = torch.empty((B * H * T,), dtype=torch.float32, device=q.device)
+        if q.dtype == torch.float32:
+            ds = (torch.empty((f32_ds_floats(B * H, T, plan.block),), dtype=torch.float32,
+                              device=q.device) if plan.order == "scratch" else None)
+            rc = lib.flash_bwd_f32(*ptrs, dvec.data_ptr(), None if ds is None else ds.data_ptr(),
+                                   *(t.data_ptr() for t in out), B * H, T, D, plan.block,
+                                   F32_BWD_ORDERS.index(plan.order), scale, _build.stream(q))
+        else:
+            rc = lib.flash_bwd(*ptrs, dvec.data_ptr(), *(t.data_ptr() for t in out),
+                               B * H, T, D, 1, scale, _build.stream(q))
+    _build.check(lib, rc, "flash_bwd")
+    return out, plan.route
 
 
 def flash_bwd(q, k, v, o, lse, do):
     """Causal flash backward (kernel #6): (dq, dk, dv) in q's dtype from the
     forward's q, k, v, o, lse and the output cotangent do. CPU tensors take
     `flash_bwd_plain`; CUDA tensors launch the kernels `flash_bwd_plan`
-    names (three CUDA kernels: D = rowsum(dO∘O), then dK/dV per k tile,
-    then dQ per q tile; no atomics, so repeat calls are bit-equal) or
-    raise. Counts its launches, and by route, as `flash_fwd_lse` does."""
+    names (`_launch_bwd`: D = rowsum(dO∘O), then dK/dV per k tile and dQ
+    per q tile, with float32 operands in one paired launch where the plan
+    says so; no atomics, so repeat calls are bit-equal) or raise. Counts its
+    launches, and by route, as `flash_fwd_lse` does."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do)
     _check_operands("flash_bwd", (("q", q), ("k", k), ("v", v), ("o", o),
@@ -358,28 +448,9 @@ def flash_bwd(q, k, v, o, lse, do):
             or lse.shape != (B, H, T, 1) or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd: lse must be a contiguous float32 CUDA "
                          f"tensor of shape {(B, H, T, 1)}")
-    plan = flash_bwd_plan(q.dtype, T, D)
-    lib = _build.load("flash_attention")
-    out = tuple(torch.empty_like(q) for _ in range(3))
-    if plan.route == "wgmma":
-        # TMA reads rows from 16-byte aligned addresses
-        q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
-                          for t in (q, k, v, o, do))
-        aux = torch.empty((2, B * H, plan.t_pad), dtype=torch.float32, device=q.device)
-        rc = lib.flash_bwd_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), aux.data_ptr(), *(t.data_ptr() for t in out),
-            B * H, T, plan.t_pad, 1.0 / math.sqrt(D), _build.stream(q))
-    else:
-        dvec = torch.empty((B * H * T,), dtype=torch.float32, device=q.device)
-        rc = lib.flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr(), *(t.data_ptr() for t in out),
-            B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-            _build.stream(q))
-    _build.check(lib, rc, "flash_bwd")
+    out, route = _launch_bwd(q, k, v, o, lse, do)
     flash_bwd.launches += 1
-    flash_bwd.route_launches[plan.route] += 1
+    flash_bwd.route_launches[route] += 1
     return out
 
 

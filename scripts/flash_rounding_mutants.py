@@ -79,14 +79,29 @@ With --f32-ablations each copy changes one part of the float32 forward
 - "f32 light first": the blocks launch shortest walk first (the same
   bits): the cost of the order;
 - "f32 8 rows a thread": the q tile of 128 rows (8 rows a thread, three
-  stages, two blocks an SM) beside the 64- and 32-row ones.
-It prints ptxas's registers and spills of the forward with the LSE in
+  stages, two blocks an SM) beside the 64- and 32-row ones;
+or of the float32 backward (`flash_bwd_f32_*`):
+- "f32 bwd fast exp": expf becomes __expf in both passes;
+- "f32 bwd no diagonal skip": every warp takes every tile of its walk (the
+  same bits): the worth of the skip;
+- "f32 bwd light first": every kernel launches its shortest walks first
+  (the same bits): the cost of the order;
+- "f32 bwd unroll 2": the score products' loop over d unrolled twice,
+  not four times (fewer registers).
+The dS scratch and the tiles against pairing need no copy: the checkout's
+`flash_bwd_f32` takes each tile and order.
+It builds every tree at once, prints ptxas's registers and spills of the
+forward with the LSE and of the backward's paired and dK/dV kernels in
 each tree, then, through chip_smoke.py's `flash_f32_tile_sweep`, holds
 each q tile a tree takes against #5's plain version and times it by
 CUDA-graph replay at (B·H, T) = (192, 1024) and (12, 1024) with the LSE
 and (96, 128) and (12, 128) without (the evaluation's, the RPI forward's
-and the two served prefills' shapes), in turns as above, one JSON line per
-run.
+and the two served prefills' shapes), and through
+`flash_f32_bwd_tile_sweep` holds each tile and order of the backward
+against its plain version and times it at (B·H, T) = (12, 1024) and (96,
+1024) (the RPI importance's and the float32 trainer's shapes), the
+forward in the forward's copies, the backward in the backward's, both in
+the checkout, in turns as above, one JSON line per run.
 
 With --ablations it prints how many kernels ptxas serializes wgmma in (warning C7515) for
 each tree, then times `flash_fwd_lse` and `flash_bwd` at (B, H, T, D) =
@@ -246,6 +261,40 @@ out = flash_f32_tile_sweep(torch.device("cuda"), failures,
                                    (12, 128, False)), tiles=(128, 64, 32))
 print(json.dumps({"sweep": out, "failures": failures}))
 """
+# --f32-ablations: copies that change one part of the float32 backward
+F32_BWD_EXP = "float p = expf(s[i][j] * sm_scale - lq);\n        if (edge && "
+F32_BWD_ABLATIONS = {
+    "f32 bwd fast exp": [
+        (F32_BWD_EXP + "(qi < k0", F32_BWD_EXP.replace("expf", "__expf") + "(qi < k0"),
+        (F32_BWD_EXP + "(kj > qi", F32_BWD_EXP.replace("expf", "__expf") + "(kj > qi")],
+    "f32 bwd no diagonal skip": [
+        ("if (q0 + F32_BK - 1 < w0) {", "if (false) {"),
+        ("if (k0 >= w_end) continue;", "if (false) continue;"),
+        ("if (t * F32_BK >= w_end) continue;", "if (false) continue;")],
+    "f32 bwd light first": [
+        ("const int r = blockIdx.y * F32Bwd<D, RM>::ROWS;",
+         "const int r = (gridDim.y - 1 - blockIdx.y) * F32Bwd<D, RM>::ROWS;"),
+        ("dv, ds, blockIdx.x, blockIdx.y * F32Bwd<D, RM>::ROWS, seq,",
+         "dv, ds, blockIdx.x, (gridDim.y - 1 - blockIdx.y) * F32Bwd<D, RM>::ROWS, seq,"),
+        ("k, ds, dq, blockIdx.x,\n                         (gridDim.y - 1 - blockIdx.y)",
+         "k, ds, dq, blockIdx.x,\n                         (blockIdx.y)")],
+    "f32 bwd unroll 2": [("#pragma unroll 4\n  for (int c = 0; c < D; c += 4) {",
+                          "#pragma unroll 2\n  for (int c = 0; c < D; c += 4) {")],
+}
+# every tile and order of the tree's `flash_bwd_f32`, forced by
+# chip_smoke.py's `flash_f32_bwd_tile_sweep`: held against #6's plain
+# version and timed by graph replay at the RPI importance's and the float32
+# trainer's shapes, one JSON line
+TIME_F32_BWD = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+from chip_smoke import flash_f32_bwd_tile_sweep
+failures = []
+out = flash_f32_bwd_tile_sweep(torch.device("cuda"), failures,
+                               shapes=((12, 1024, 64), (96, 1024, 64)))
+print(json.dumps({"bwd_sweep": out, "failures": failures}))
+"""
 HOLD = "test_flash_train_kernels_match_plain and (64-1024-dtype1 or 64-200-dtype1)"
 TIME = """
 import json, sys
@@ -334,31 +383,39 @@ def ablations() -> int:
 
 
 def f32_ablations() -> int:
-    """The checkout and each copy of F32_ABLATIONS: ptxas's registers and
-    spills of `flash_fwd_f32` with the LSE, then TIME_F32 in each tree in
-    turns (the checkout, each copy, then the same in reverse)."""
+    """The checkout and each copy of F32_ABLATIONS and F32_BWD_ABLATIONS,
+    all built at once: ptxas's registers and spills of `flash_fwd_f32` with
+    the LSE and of the backward's paired and dK/dV kernels at head_dim 64,
+    then TIME_F32 (forward copies and the checkout) and TIME_F32_BWD
+    (backward copies and the checkout) in each tree in turns (the checkout,
+    each copy, then the same in reverse)."""
+    copies = list(F32_ABLATIONS.items()) + list(F32_BWD_ABLATIONS.items())
     trees = {"checkout": ROOT}
-    trees.update({name: copy_with(i, name, edits)
-                  for i, (name, edits) in enumerate(F32_ABLATIONS.items())})
-    for name, tree in trees.items():
-        rep = subprocess.run(
-            [sys.executable, "-c", "from llm_qat_tpu_torch.ops import _build; "
-             "print(_build.ptxas_report('flash_attention'))"],
-            cwd=tree, capture_output=True, text=True, timeout=900)
-        lines = rep.stdout.splitlines()
+    trees.update({name: copy_with(i, name, edits) for i, (name, edits) in enumerate(copies)})
+    builds = {name: subprocess.Popen(
+        [sys.executable, "-c", "from llm_qat_tpu_torch.ops import _build; "
+         "print(_build.ptxas_report('flash_attention'))"],
+        cwd=tree, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, tree in trees.items()}
+    for name, proc in builds.items():
+        lines = proc.communicate(timeout=900)[0].splitlines()
         for i, line in enumerate(lines):
-            if "flash_fwd_f32" in line and "Lb1E" in line and i + 2 < len(lines):
+            if (("flash_fwd_f32" in line and "Lb1E" in line)
+                    or re.search(r"flash_bwd_f32_(pair|dkdv)ILi64E", line)) and i + 2 < len(lines):
                 kernel = line.split("'")[1]
                 print(f"{name}: {kernel}: {lines[i + 1].strip()}; {lines[i + 2].strip()}",
                       flush=True)
     order = list(trees)
     for name in order + order[::-1]:
-        t = subprocess.run([sys.executable, "-c", TIME_F32], cwd=trees[name],
-                           capture_output=True, text=True, timeout=900)
-        if t.returncode:
-            print(t.stderr[-2000:], flush=True)
-            return 1
-        print(f"{name}: {t.stdout.strip().splitlines()[-1]}", flush=True)
+        scripts = ([TIME_F32] if name not in F32_BWD_ABLATIONS else []) + (
+            [TIME_F32_BWD] if name not in F32_ABLATIONS else [])
+        for script in scripts:
+            t = subprocess.run([sys.executable, "-c", script], cwd=trees[name],
+                               capture_output=True, text=True, timeout=900)
+            if t.returncode:
+                print(t.stderr[-2000:], flush=True)
+                return 1
+            print(f"{name}: {t.stdout.strip().splitlines()[-1]}", flush=True)
     return 0
 
 

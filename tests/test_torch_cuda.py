@@ -508,6 +508,144 @@ def test_flash_fwd_float32_rpi_shape_matches_plain(cuda_device, fn):
     assert (o - po).abs().max().item() <= 1e-5 * po.abs().max().item()
 
 
+def _f32_bwd_inputs(dev, shape, seed):
+    """float32 operands of kernel #6 and the forward's o and lse."""
+    q, k, v, do = (torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed + i),
+                               device=dev) for i in range(4))
+    o, lse = flash_fwd_lse(q, k, v)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 64), (8, 12, 1024, 64), (2, 3, 200, 64),
+                                   (2, 3, 200, 128)])
+def test_flash_bwd_float32_is_deterministic(cuda_device, shape):
+    """Repeat calls of the float32 backward give bit-equal dq, dk, dv at T =
+    1024 and the ragged 200, in the plan's orders ((2, 3, 1024, 64) and
+    (2, 3, 200, D) paired, (8, 12, 1024, 64) through the dS scratch): each
+    output element is summed by one block in a fixed order, with no
+    atomics."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    args = _f32_bwd_inputs(cuda_device, shape, seed=shape[2])
+    assert att.flash_bwd_plan(torch.float32, shape[2], shape[3]).route == "simt"
+    first = flash_bwd(*args)
+    for _ in range(2):
+        for a, b in zip(flash_bwd(*args), first):
+            assert torch.equal(a, b)
+
+
+def test_flash_bwd_float32_takes_unaligned_views(cuda_device):
+    """float32 operands that start 4 bytes past a 16-byte boundary
+    (contiguous views into a larger buffer) give the same bits as aligned
+    copies: the wrapper copies what the 16-byte asynchronous copies cannot
+    read."""
+    args = _f32_bwd_inputs(cuda_device, (2, 3, 200, 64), seed=5)
+    views = []
+    for t in args[:4] + args[5:]:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        views.append(view)
+    q, k, v, o, do = views
+    for a, b in zip(flash_bwd(q, k, v, o, args[4], do), flash_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 1024, 64), (2, 3, 65, 64), (2, 3, 129, 64),
+                                   (2, 3, 200, 64), (2, 3, 65, 128), (2, 3, 129, 128),
+                                   (2, 3, 200, 128)])
+def test_flash_bwd_float32_every_tile_and_order_matches_plain(cuda_device, shape):
+    """Each tile and order of the float32 backward, forced through its C
+    entry whatever the plan would pick, against `flash_bwd_plain` at #6's
+    float32 limit (dq, dk, dv within 1e-5 of max |plain|), at the RPI
+    importance's shape and at ragged lengths whose last tile is nearly
+    empty. The dS scratch is filled with NaN first: an entry the dQ pass
+    read unwritten would show."""
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+
+    lib = _build.load("flash_attention")
+    B, H, T, D = shape
+    q, k, v, o, lse, do = _f32_bwd_inputs(cuda_device, shape, seed=T + D)
+    want = flash_bwd_plain(q, k, v, o, lse, do)
+    dvec = torch.empty((B * H * T,), device=cuda_device)
+    for rows in att.F32_BWD_TILES[D]:
+        for mode, order in enumerate(att.F32_BWD_ORDERS):
+            ds = torch.full((att.f32_ds_floats(B * H, T, rows),), float("nan"), device=cuda_device)
+            got = tuple(torch.empty_like(q) for _ in range(3))
+            rc = lib.flash_bwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), ds.data_ptr(),
+                                   *(t.data_ptr() for t in got), B * H, T, D, rows, mode,
+                                   1.0 / math.sqrt(D), _build.stream(q))
+            assert rc == 0
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = (a - b).abs().max().item()
+                assert err <= 1e-5 * b.abs().max().item(), (rows, order, name, err)
+
+
+@pytest.mark.parametrize("shape,plan,kernels", [
+    ((1, 12, 1024, 64), (64, "paired"), ("flash_bwd_f32_pair<64, 4>",)),
+    ((8, 12, 1024, 64), (64, "scratch"),
+     ("flash_bwd_f32_dkdv<64, 4>", "flash_bwd_f32_dq_ds<64, 4>")),
+    ((2, 3, 200, 128), (32, "paired"), ("flash_bwd_f32_pair<128, 2>",))])
+def test_flash_bwd_float32_launches_the_new_kernels(cuda_device, shape, plan, kernels):
+    """A float32 call of #6 launches the row dots and the kernels of the
+    plan's tile and order once each (at the RPI importance's shape the
+    paired kernel, at the float32 trainer's the dS scratch's two passes),
+    and nothing else: never the old `flash_bwd_dkdv<float, ...>` or
+    `flash_bwd_dq<float, ...>`."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    B, H, T, D = shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert att.flash_bwd_f32_plan(T, B * H, D, sms) == plan
+    args = _f32_bwd_inputs(cuda_device, shape, seed=3)
+    flash_bwd(*args)  # warm: built and loaded
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        flash_bwd(*args)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    names = {e.key.split("(")[0].replace("void ", "").strip(): e.count for e in evs}
+    assert names == {f"flash_bwd_rowdot<float, {D}>": 1, **{n: 1 for n in kernels}}, names
+
+
+def test_flash_bwd_f32_entry_refuses(cuda_device):
+    """`flash_bwd_f32` refuses tiles outside the plan's set, orders it has
+    not, a missing or unaligned dS scratch for "scratch", and operands that
+    are not 16-byte aligned; it takes the plan's tiles."""
+    from llm_qat_tpu_torch.ops import _build
+    from llm_qat_tpu_torch.ops import attention as att
+
+    lib = _build.load("flash_attention")
+    q = torch.randn((1, 2, 128, 64), device=cuda_device)
+    stream = _build.stream(q)
+    lse = torch.zeros((2 * 128,), device=cuda_device)
+    dvec = torch.empty_like(lse)
+    ds = torch.empty((att.f32_ds_floats(2, 128, 32) + 4,), device=cuda_device)
+    outs = [torch.empty_like(q) for _ in range(3)]
+
+    def call(D=64, block=64, mode=0, ds_ptr=ds.data_ptr(), shift=0):
+        return lib.flash_bwd_f32(*(q.data_ptr() + shift,) * 5, lse.data_ptr(), dvec.data_ptr(),
+                                 ds_ptr, *(t.data_ptr() for t in outs), 2, 128, D, block, mode,
+                                 0.125, stream)
+
+    for D, block in ((64, 128), (64, 16), (128, 64), (96, 32)):
+        assert call(D=D, block=block) != 0
+    for mode in (-1, 2):
+        assert call(mode=mode) != 0
+    assert call(mode=1, ds_ptr=None) != 0
+    assert call(mode=1, ds_ptr=ds.data_ptr() + 4) != 0
+    assert call(shift=4) != 0
+    for block in (64, 32):
+        for mode in range(2):
+            assert call(block=block, mode=mode) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("T,flash", [(512, False), (1024, True)])
 def test_auto_attention_takes_flash_from_1024_on_the_card(cuda_device, T, flash):
     """attention_impl="auto" runs kernels #5 (forward) and #6 (backward)

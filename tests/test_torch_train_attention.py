@@ -368,3 +368,105 @@ def test_launch_fwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, 
         assert tile == ta.flash_fwd_plan(T, B * H, D, sms)
     else:
         assert tile == ta.jax_block_k(T)
+
+
+@pytest.mark.parametrize("T,BH,D,sms,rows,order", [
+    (1024, 12, 64, 132, 64, "paired"),    # the RPI importance, (1, 12, 1024, 64)
+    (1024, 96, 64, 132, 64, "scratch"),   # the float32 trainer, (8, 12, 1024, 64)
+    (1024, 12, 64, 114, 64, "paired"), (1024, 12, 64, 78, 64, "scratch"),
+    (512, 12, 64, 132, 64, "paired"), (512, 6, 64, 132, 32, "paired"),
+    (256, 12, 64, 132, 32, "paired"), (200, 6, 64, 132, 32, "paired"),
+    (1024, 24, 64, 132, 64, "scratch"), (1, 1, 64, 132, 32, "paired"),
+    (1024, 12, 128, 132, 32, "scratch"), (200, 6, 128, 132, 32, "paired")])
+def test_flash_bwd_f32_plan_picks_the_tile(T, BH, D, sms, rows, order):
+    """The float32 backward takes 64-row tiles where their blocks cover at
+    least half of the card's SMs, 32-row ones in a narrower call, and 32
+    rows at head_dim 128 always; one paired launch where the blocks fit in
+    one wave, the dS scratch's two launches beyond it."""
+    assert ta.flash_bwd_f32_plan(T, BH, D, sms) == (rows, order)
+    assert ta.flash_bwd_plan(torch.float32, T, D, BH, sms) == ("simt", -(-T // 128) * 128,
+                                                               rows, order)
+    if sms == 132:
+        assert ta.flash_bwd_f32_plan(T, BH, D) == (rows, order)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("T,BH", [(1024, 12), (1024, 96)])
+def test_flash_bwd_f32_plan_fills_the_card(sms, T, BH):
+    """The RPI importance's and the float32 trainer's backward launch at
+    least one block per SM, on an H100 SXM (132 SMs) and on smaller cards;
+    the paired launch only where its blocks fit in one wave, so no block
+    of it waits for a free SM."""
+    rows, order = ta.flash_bwd_f32_plan(T, BH, 64, sms)
+    assert rows in ta.F32_BWD_TILES[64] and order in ta.F32_BWD_ORDERS
+    blocks = BH * -(-T // rows)
+    assert blocks >= sms
+    assert (order == "paired") == (blocks <= ta.F32_BWD_BLOCKS_PER_SM[64, rows] * sms)
+
+
+@pytest.mark.parametrize("D", [32, 80, 96, 256])
+def test_flash_bwd_f32_plan_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.flash_bwd_f32_plan(1024, 96, D)
+    plan = ta.flash_bwd_plan(torch.float32, 1024, D, 96)
+    assert (plan.block, plan.order) == (0, "")
+
+
+@pytest.mark.parametrize("dtype,shape,sms,entry,tile,order", [
+    (torch.float32, (1, 4, 256, 64), 132, "flash_bwd_f32", 32, "paired"),
+    (torch.float32, (1, 4, 256, 64), 4, "flash_bwd_f32", 64, "scratch"),
+    (torch.float32, (2, 2, 200, 128), 4, "flash_bwd_f32", 32, "scratch"),
+    (torch.float32, (2, 2, 200, 128), 132, "flash_bwd_f32", 32, "paired"),
+    (torch.bfloat16, (1, 4, 256, 64), 4, "flash_bwd_wgmma", 0, ""),
+    (torch.bfloat16, (1, 4, 256, 128), 4, "flash_bwd", 0, "")])
+def test_launch_bwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, tile, order):
+    """`_launch_bwd` (behind `flash_bwd` on the card) calls one C entry, on
+    16-byte aligned copies of unaligned views: float32 operands
+    `flash_bwd_f32` with `flash_bwd_plan`'s tile and order for the card's
+    SM count (the order as the entry's mode, and a dS scratch of
+    `f32_ds_floats` only for "scratch"); bf16 the wgmma or SIMT entry. No
+    kernel runs here: the library is a recording stand-in."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(ta._build, "load", lambda name: lib)
+    monkeypatch.setattr(ta._build, "stream", lambda t: 0)
+    monkeypatch.setattr(ta._build, "sm_count", lambda index: sms)
+    B, H, T, D = shape
+    rng = np.random.default_rng(1)
+    views = []
+    for _ in range(5):
+        buf = torch.tensor(rng.normal(size=B * H * T * D + 1)).to(dtype)
+        views.append(buf[1:].view(shape))
+    assert all(t.data_ptr() % 16 for t in views)
+    q, k, v, o, do = views
+    lse = torch.zeros((B, H, T, 1))
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(ta.torch, "empty",
+                        lambda *a, **kw: made.append(a[0]) or real_empty(*a, **kw))
+    (dq, dk, dv), route = ta._launch_bwd(q, k, v, o, lse, do)
+    assert route == ta.flash_route(dtype, D)
+    assert all(t.shape == shape and t.dtype == dtype for t in (dq, dk, dv))
+    ((name, args),) = lib.calls
+    assert name == entry
+    assert all(p % 16 == 0 for p in args[:5]) and args[5] == lse.data_ptr()
+    if entry == "flash_bwd_f32":
+        assert (tile, order) == ta.flash_bwd_f32_plan(T, B * H, D, sms)
+        ds_ptr, outs = args[7], args[8:11]
+        assert args[11:16] == (B * H, T, D, tile, ta.F32_BWD_ORDERS.index(order))
+        assert (ds_ptr is None) == (order != "scratch")
+        if order == "scratch":
+            assert ds_ptr % 16 == 0
+            assert (ta.f32_ds_floats(B * H, T, tile),) in made
+    else:
+        outs = args[7:10]
+    assert outs == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+
+
+@pytest.mark.parametrize("BH,T,rows", [(12, 1024, 64), (6, 200, 32), (1, 65, 64), (2, 1, 32)])
+def test_f32_ds_floats_holds_every_causal_block(BH, T, rows):
+    """The dS scratch has a [32][rows] block for every (q tile of `rows`
+    rows, key tile of 32) of every head: at least the causal half of T x T
+    per head, and no more than the padded square."""
+    n = ta.f32_ds_floats(BH, T, rows)
+    assert n == BH * -(-T // rows) * rows * -(-T // 32) * 32
+    assert BH * T * (T + 1) // 2 <= n <= BH * (T + rows) * (T + 32)

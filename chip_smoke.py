@@ -55,15 +55,17 @@ counters set to 0 just before it and read just after:
   make_sp_train_step → 3 steps of one teacher and 7 student micro-steps,
   then clip + AdamW), twice from the same calibrated parameters: on the
   flat linear, which must go through the flash forward+LSE and flash
-  backward kernels once per layer and micro-step (with bf16 operands at
-  head_dim 64 both on their wgmma kernels), and on the fused QAT
+  backward kernels once per layer and micro-step (with bf16 operands both
+  on their wgmma kernels), and on the fused QAT
   linear (`linear_impl="fused"`), which must also go through the fused
   forward, dx and dW kernels once per linear, layer and micro-step (with
   bf16 operands the forward and dx each run the weight prologue first,
   which is held bit-equal to its plain version); after
   each, one step with the kernels against the same step on their plain
   versions, held against the floor the plain path sets against itself
-  under a few ulps of jitter.
+  under a few ulps of jitter;
+- bf16 at head_dim 128 (`head_dim_128_phase`), as `--head-dim-128` below
+  runs it but with HD128_DEFAULT_LAYERS layers.
 
 It times the kernels, their plain versions, the library yardsticks and
 both train iterations with CUDA events and the host clock (#14-#16 also by
@@ -76,17 +78,19 @@ of one wrapper call), profiles one iteration of each path, and prints:
   `csrc/flash_attention.cu`, `csrc/decode_attention.cu`,
   `csrc/mega_decode.cu` and `csrc/fused_decode.cu`, and a
   `ptxas_flash_wgmma` JSON line with the
-  registers, stack frame and spills of each forward of #2/#5 (wgmma with
-  and without the LSE, the float32 `flash_fwd_f32` by head_dim, q tile and
-  LSE, which must have no stack frame and no spill, and the bf16 SIMT
-  forward) and the wgmma kernels of #6;
+  registers, stack frame and spills of each forward of #2/#5 (wgmma by
+  head_dim, with and without the LSE; the float32 `flash_fwd_f32` by
+  head_dim, q tile and LSE) and the wgmma and float32 kernels of #6: the
+  float32 ones and the wgmma ones at head_dim 128 must have no stack frame
+  and no spill;
 - one line per comparison, its error beside its tolerance;
 - `main_sp_timings`, `cached_generate_timings`, `eval_sp_timings`,
   `main_cpt_timings`, `main_squad_timings`, `rpi_timings`, `timings`,
   `serving_timings`, `fused_decode_timings`,
   `decode_kernel_timings`, `int8_kernel_timings`, `train_profile`,
-  `fused_train_profile`, `train_timings`, `flash_serve_timings`,
-  `flash_timings` and `fused_kernel_timings` JSON lines and a `kernels` JSON line (all sixteen
+  `fused_train_profile`, `train_timings`, `head_dim_128_timings`,
+  `flash_serve_timings`, `flash_timings` and `fused_kernel_timings` JSON
+  lines and a `kernels` JSON line (all sixteen
   kernels; #11, which no model path runs, with the launches of its direct
   hold);
 - last, `{"ok": true, "device": {...}}`.
@@ -122,9 +126,26 @@ at (8, 12, 1024, 64), by events, graph replay and each kernel's profiler
 time beside SDPA's float32 forward and backward), `flash_f32_tile_sweep`
 (the float32 forward's q tiles, each held and timed beside the plan's
 choice) and `flash_f32_bwd_tile_sweep` (the float32 backward's tiles and
-orders, each held, repeated, and timed beside the plan's choice); the
-float32 forward and backward must build with no stack frame and no
-spill, as in the full run.
+orders, each held, repeated, and timed beside the plan's choice); then
+bf16 at head_dim 128: #2 at (8, 6, 128, 128) and T = 200, #5/#6 at (8,
+6, 1024, 128) and T = 200 held, and `flash_hd128_timings` (the kernels
+line's head_dim-128 rows: graph replay, events, plain, SDPA's, bound); the
+float32 forward and backward and the wgmma kernels at head_dim 128 must
+build with no stack frame and no spill, as in the full run.
+
+    python3 chip_smoke.py --head-dim-128
+
+runs only bf16 at head_dim 128 (`head_dim_128_phase`): GPT-2 124M's width
+d = 768 as 6 heads of 128, which the JAX package's flash takes. #2 at the
+served prefill's (8, 6, 128, 128), #5/#6 at the trainer's (8, 6, 1024,
+128), each also at T = 200, held against their plain versions on their
+wgmma kernels; then SP distillation training at that width with 12
+layers (B = 8, T = 1024, accum HD128_ACCUM, bf16, flat linear,
+attention_impl "auto", which takes flash): 3 steps with the counters set
+to 0 just before (#5 and #6 2·L times an iteration, all on wgmma), one
+step held against the same step on the plain flash within
+TRAIN_FLOOR_FACTOR x its jitter floor, 3 iterations timed, and #2/#5/#6
+timed beside SDPA. Prints `head_dim_128_timings`, then the result line.
 
     python3 chip_smoke.py --decode-attention
 
@@ -526,18 +547,18 @@ FLASH_SERVE_F32 = ((8, 128), (1, 128), (8, 512))
 FLASH_SERVE_BF16 = ((8, 128), (1, 128), (8, 200), (8, 384), (8, 512))
 
 
-def flash_serve_vs_plain(gen, dev, H, D, failures):
-    """Kernel #2 against its plain version: float32 within FLASH_ABS_TOL,
-    bf16 within #5's limits (`bf16_hold`). Returns the largest absolute
-    error at the served shape (8, H, 128, D) by dtype name: {"float32":
-    .., "bfloat16": ..}."""
+def flash_serve_vs_plain(gen, dev, H, D, failures, f32=FLASH_SERVE_F32, bf16=FLASH_SERVE_BF16):
+    """Kernel #2 against its plain version at (B, H, T, D) for the (B, T) of
+    `f32` and `bf16`: float32 within FLASH_ABS_TOL, bf16 within #5's limits
+    (`bf16_hold`). Returns the largest absolute error at the served shape
+    (8, H, 128, D) by dtype name: {"float32": .., "bfloat16": ..}."""
     import torch
 
     from llm_qat_tpu_torch.ops import attention as att
 
     served = {}
-    cases = [(B, T, torch.float32) for B, T in FLASH_SERVE_F32]
-    cases += [(B, T, torch.bfloat16) for B, T in FLASH_SERVE_BF16]
+    cases = [(B, T, torch.float32) for B, T in f32]
+    cases += [(B, T, torch.bfloat16) for B, T in bf16]
     for B, T, dt in cases:
         q, k, v = (torch.randn((B, H, T, D), generator=gen, device=dev).to(dt)
                    for _ in range(3))
@@ -560,9 +581,10 @@ def flash_serve_vs_plain(gen, dev, H, D, failures):
     return served
 
 
-def flash_serve_timings(dev, H, D):
-    """Kernel #2 at the served shapes (8, H, 128, D) and (1, H, 128, D) and
-    at (8, H, 512, D): bf16 and float32 by CUDA events (`*_ms`, the
+def flash_serve_timings(dev, H, D, shapes=((8, 128), (1, 128), (8, 512))):
+    """Kernel #2 at (B, H, T, D) for the (B, T) of `shapes` (the served
+    shapes (8, H, 128, D) and (1, H, 128, D) and (8, H, 512, D) by
+    default): bf16 and float32 by CUDA events (`*_ms`, the
     wrapper's host work included where it outlasts the kernel) and by graph
     replay (`*_device_ms`), each beside SDPA's forward on the same operands
     (events and graph replay) and the plain version (events)."""
@@ -573,7 +595,7 @@ def flash_serve_timings(dev, H, D):
 
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {}
-    for B, T in ((8, 128), (1, 128), (8, 512)):
+    for B, T in shapes:
         q, k, v = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         qf, kf, vf = (t.float() for t in (q, k, v))
@@ -803,21 +825,24 @@ def flash_f32_bwd_tile_sweep(dev, failures, shapes=FLASH_F32_BWD_SWEEP):
     return out
 
 
-def flash_train_vs_plain(gen, dev, B, H, D, failures):
-    """Kernels #5 and #6 against their plain versions at (B, H, T, D) for T
-    = 1024 and 256, bf16 and float32, at the ragged T = 200 in bf16 (the
-    wgmma kernels' masked tail), and in float32 at the RPI command's (1, H,
-    1024, D). Returns the largest absolute errors at the main path's shape
-    (T = 1024, bf16): {"flash_fwd_lse": .., "flash_bwd": ..}. With bf16 at
-    head_dim 64 both run their wgmma kernels."""
+def flash_train_vs_plain(gen, dev, B, H, D, failures, cases=None):
+    """Kernels #5 and #6 against their plain versions at (Bc, H, T, D) for
+    the (Bc, T, dtypes) of `cases`; by default T = 1024 and 256 at B, bf16
+    and float32, the ragged T = 200 in bf16 (the wgmma kernels' masked
+    tail), and in float32 the RPI command's (1, H, 1024, D). Returns the
+    largest absolute errors at the main path's shape (B, T = 1024, bf16):
+    {"flash_fwd_lse": .., "flash_bwd": ..}. With bf16 operands both run
+    their wgmma kernels."""
     import torch
 
     from llm_qat_tpu_torch.ops import attention as att
 
     errs = {}
-    for Bc, T, dts in ((B, 1024, (torch.bfloat16, torch.float32)),
-                       (B, 256, (torch.bfloat16, torch.float32)),
-                       (B, 200, (torch.bfloat16,)), (1, 1024, (torch.float32,))):
+    if cases is None:
+        cases = ((B, 1024, (torch.bfloat16, torch.float32)),
+                 (B, 256, (torch.bfloat16, torch.float32)),
+                 (B, 200, (torch.bfloat16,)), (1, 1024, (torch.float32,)))
+    for Bc, T, dts in cases:
         for dt in dts:
             q, k, v, do = (torch.randn((Bc, H, T, D), generator=gen, device=dev).to(dt)
                            for _ in range(4))
@@ -858,11 +883,133 @@ def flash_train_vs_plain(gen, dev, B, H, D, failures):
 LINEARS = ("c_attn", "attn_proj", "c_fc", "mlp_proj")
 
 
-def train_setup(dev, n_layer=12):
+# bf16 at head_dim 128 (#2/#5/#6 on the wgmma kernels): GPT-2 124M's width,
+# d = 768, as HD128_HEADS heads of 128, a config the JAX package's flash
+# takes (head_dim 64 or 128) though no published GPT-2 has it. Its train
+# path runs HD128_DEFAULT_LAYERS layers in the default run (for the time
+# limit; `--head-dim-128` runs 12), accum HD128_ACCUM (one teacher and one
+# student micro-step: #5 and #6 2·L times an iteration).
+HD128_HEADS = 6
+HD128_DEFAULT_LAYERS = 2
+HD128_ACCUM = 2
+
+
+def flash_rows_bf16(tt, st, B, H, T, T0, D):
+    """The bf16 entries of #2 (at the served (B, H, T0, D)) and of #5 and
+    #6 (at the trainer's (B, H, T, D)) for the kernels line, from
+    `flash_serve_timings` (st) and `flash_timings` (tt): graph-replay
+    device ms, events ms, the plain version's ms, SDPA's as the library's,
+    and the bound: bf16 operands read and outputs written once (and the
+    float32 LSE), or the causal products at the bf16 peak, the larger."""
+    rows = {}
+    serve_bytes, serve_flops = 4 * B * H * T0 * D * 2, 2 * B * H * D * T0 * (T0 + 1)
+    pairs, op_bytes, lse_bytes = B * H * T * (T + 1) // 2, B * H * T * D * 2, B * H * T * 4
+    for name, nbytes, flops, ms, ev_ms, plain, lib in (
+            ("flash_attention", serve_bytes, serve_flops, st["bf16_device_ms"], st["bf16_ms"],
+             st["bf16_plain_ms"], st["sdpa_bf16_device_ms"]),
+            ("flash_fwd_lse", 4 * op_bytes + lse_bytes, 2 * 2 * D * pairs,
+             tt["flash_fwd_lse_device_ms"], tt["flash_fwd_lse_ms"], tt["flash_fwd_lse_plain_ms"],
+             tt["sdpa_fwd_device_ms"]),
+            ("flash_bwd", 8 * op_bytes + lse_bytes, 5 * 2 * D * pairs,
+             tt["flash_bwd_device_ms"], tt["flash_bwd_ms"], tt["flash_bwd_plain_ms"],
+             tt["sdpa_bwd_device_ms"])):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        rows[name] = {"ms": ms, "events_ms": ev_ms, "plain_ms": plain,
+                      "bound_ms": 1e3 * max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": lib}
+    rows["flash_attention"]["cuda_kernels"] = [f"flash_fwd_wgmma<{D}, false>"]
+    rows["flash_fwd_lse"]["cuda_kernels"] = [f"flash_fwd_wgmma<{D}, true>"]
+    rows["flash_bwd"]["cuda_kernels"] = [f"flash_bwd_prep<{D}>", f"flash_bwd_dkdv_wgmma<{D}>",
+                                         f"flash_bwd_dq_wgmma<{D}>"]
+    if "flash_fwd_kernels_device_ms" in tt:
+        rows["flash_fwd_lse"]["kernels_device_ms"] = tt["flash_fwd_kernels_device_ms"]
+        rows["flash_bwd"]["kernels_device_ms"] = tt["flash_bwd_kernels_device_ms"]
+    return rows
+
+
+def hd128_kernels(dev, gen, failures):
+    """bf16 at head_dim 128: #2 at the served prefill's (8, 6, 128, 128) and
+    T = 200, #5/#6 at the trainer's (8, 6, 1024, 128) and T = 200, held
+    against their plain versions (`flash_serve_vs_plain`,
+    `flash_train_vs_plain`; #2's two holds must both take the wgmma route),
+    then timed beside SDPA (`flash_serve_timings`, `flash_timings`).
+    Returns (the largest errors by kernel, the kernels line's rows
+    (`flash_rows_bf16`), #2's and #5/#6's timing records)."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+
+    H, D, B = HD128_HEADS, 768 // HD128_HEADS, 8
+    att.flash_attention.route_launches.update(wgmma=0, simt=0)
+    served = flash_serve_vs_plain(gen, dev, H, D, failures, f32=(), bf16=((B, 128), (B, 200)))
+    hold2 = dict(att.flash_attention.route_launches)
+    check(hold2 == {"wgmma": 2, "simt": 0}, f"#2 bf16 at head_dim 128 on wgmma: {hold2}")
+    errs = flash_train_vs_plain(gen, dev, B, H, D, failures,
+                                cases=((B, 1024, (torch.bfloat16,)), (B, 200, (torch.bfloat16,))))
+    errs["flash_attention"] = served["bfloat16"]
+    st = flash_serve_timings(dev, H, D, shapes=((B, 128),))[f"{B}x128"]
+    tt = flash_timings(dev, B, H, 1024, D, cross=False)
+    rows = flash_rows_bf16(tt, st, B, H, 1024, 128, D)
+    for name, r in rows.items():
+        print(f"head_dim 128 {name}: {r['ms']:.5f} ms by graph replay ({r['events_ms']:.5f} "
+              f"by events), SDPA {r['library_ms']:.5f} ({r['ms'] / r['library_ms']:.2f}x), "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    return errs, rows, st, tt
+
+
+def head_dim_128_phase(dev, card, n_layer):
+    """bf16 at head_dim 128 on the wgmma kernels. #2 at the served
+    prefill's (8, 6, 128, 128) and a ragged T = 200, #5/#6 at the trainer's
+    (8, 6, 1024, 128) and T = 200, held against their plain versions
+    (`flash_serve_vs_plain`, `flash_train_vs_plain`) and timed beside SDPA
+    (`flash_serve_timings`, `flash_timings`). Then the SP distillation
+    train iteration at d = 768 with 6 heads of 128 (`n_layer` layers, B =
+    8, T = 1024, accum HD128_ACCUM, bf16, flat linear, attention_impl
+    "auto", which takes flash there): 3 steps from calibrated random
+    weights with the counters set to 0 just before (#5 and #6 2·L times an
+    iteration, all on their wgmma route), one step held against the same
+    step on the plain flash within TRAIN_FLOOR_FACTOR x its jitter floor
+    (`step_vs_plain`), and 3 iterations timed. Prints
+    `head_dim_128_timings`; returns (launches and errors by kernel, the
+    kernels line's head_dim-128 rows)."""
+    import torch
+
+    from llm_qat_tpu_torch.ops import attention as att
+
+    H, D = HD128_HEADS, 768 // HD128_HEADS
+    failures = []
+    errs, rows, st, tt = hd128_kernels(dev, torch.Generator(device=dev).manual_seed(11),
+                                       failures)
+    check(not failures, "; ".join(failures))
+    cfg, tcfg, params, batches, tgen = train_setup(dev, n_layer, H, HD128_ACCUM)
+    check(cfg.attention_impl == "auto" and cfg.model.head_dim == D
+          and att.flash_supported(tcfg.max_seq_length, D, None),
+          "attention_impl 'auto' takes flash at head_dim 128, T = 1024")
+    state, step, launches = train_path(cfg, tcfg, params, batches, tgen, "head_dim_128")
+    step_vs_plain(cfg, tcfg, state, batches, dev, failures, att,
+                  ("flash_fwd_lse", "flash_bwd"), ((2.0 ** -8, 2.0 ** -22), (2.0 ** -8,) * 3),
+                  "head_dim_128")
+    check(not failures, "; ".join(failures))
+    it, state = iteration_timings(state, step, batches, tcfg.gradient_accumulation_steps, tgen)
+    del state, params
+    rows["flash_attention"].update(launches=2, max_abs_err=errs["flash_attention"],
+                                   launches_by_path={"hold": 2})
+    for name in ("flash_fwd_lse", "flash_bwd"):
+        rows[name].update(launches=launches[name], max_abs_err=errs[name],
+                          launches_by_path={"train_head_dim_128": launches[name]})
+    print("head_dim_128_timings " + json.dumps({
+        "card": card, "layers": n_layer, "heads": H, "head_dim": D, "accum": HD128_ACCUM,
+        "train": it, "launches": launches, "kernels": rows, "flash_serve": st,
+        "flash_timings": tt}), flush=True)
+    return {"launches": launches, "errs": errs}, rows
+
+
+def train_setup(dev, n_layer=12, n_head=12, accum=8):
     """GPT-2 124M training config (bits 4/8/32, default kinds, rank 64, bf16
-    compute; `n_layer` blocks), B = 8, T = 1024, accum 8; random weights
-    from seed 0, calibrated by CalibrationManager on 3 batches. Returns
-    (cfg, tcfg, params, batches, generator)."""
+    compute; `n_layer` blocks of `n_head` heads), B = 8, T = 1024, accum
+    `accum`; random weights from seed 0, calibrated by CalibrationManager
+    on 3 batches. Returns (cfg, tcfg, params, batches, generator)."""
     import torch
 
     from llm_qat_tpu_torch.models.config import (
@@ -874,9 +1021,9 @@ def train_setup(dev, n_layer=12):
     from llm_qat_tpu_torch.models.sp_model import init_sp_params
     from llm_qat_tpu_torch.train.calibration_manager import CalibrationManager
 
-    cfg = SPModelConfig(model=GPT2Config(n_layer=n_layer),
+    cfg = SPModelConfig(model=GPT2Config(n_layer=n_layer, n_head=n_head),
                         quant=QuantConfig(bit_widths=(4, 8, 32)), compute_dtype="bfloat16")
-    tcfg = TrainConfig(batch_size=8, max_seq_length=1024, gradient_accumulation_steps=8)
+    tcfg = TrainConfig(batch_size=8, max_seq_length=1024, gradient_accumulation_steps=accum)
     m = cfg.model
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_sp_params(gen, cfg, device=dev)
@@ -918,7 +1065,8 @@ def train_path(cfg, tcfg, params, batches, gen, tag):
     counters = train_counters()
     for fn in counters + (fl.fq_weight,):
         fn.launches = 0
-    counters[0].route_launches.update(wgmma=0, simt=0)
+    for fn in counters[:2]:
+        fn.route_launches.update(wgmma=0, simt=0)
     metrics = []
     t = time.time()
     for i in range(3):
@@ -934,9 +1082,10 @@ def train_path(cfg, tcfg, params, batches, gen, tag):
             for fn in counters}
     check(launches == want, f"{tag} main path ran #5/#6 {per_iter} and #14-#16 {fused} "
           f"times each per iteration: {launches}")
-    check(counters[0].route_launches["wgmma"] == launches["flash_fwd_lse"],
-          f"{tag} main path ran #5 on its wgmma route (bf16 at head_dim 64): "
-          f"{counters[0].route_launches}")
+    for fn in counters[:2]:
+        check(fn.route_launches["wgmma"] == launches[fn.__name__],
+              f"{tag} main path ran {fn.__name__} on its wgmma route (bf16 at head_dim "
+              f"{cfg.model.head_dim}): {fn.route_launches}")
     # bf16 operands: one weight prologue per #14 and per #15 call
     check(fl.fq_weight.launches == 3 * 2 * fused,
           f"{tag} main path ran the weight prologue {2 * fused} times per iteration: "
@@ -1187,9 +1336,9 @@ def iteration_profile(state, train_step, batch, gen, it_ms, tag):
     return prof_out
 
 
-def flash_timings(dev, B, H, T, D):
-    """Kernels #5/#6, their plain versions, SDPA, and dense vs flash
-    attention at T = 256, 512, 1024. #5 and #6 by CUDA events, by graph
+def flash_timings(dev, B, H, T, D, cross=True):
+    """Kernels #5/#6, their plain versions, SDPA, and (with `cross`) dense
+    vs flash attention at T = 256, 512, 1024. #5 and #6 by CUDA events, by graph
     replay (`*_device_ms`) and each of their wgmma kernels' device time per
     launch by the profiler (`launch_ms`). SDPA's forward by events and by
     graph replay; its backward by CUDA events around `torch.autograd.grad`
@@ -1242,6 +1391,8 @@ def flash_timings(dev, B, H, T, D):
     tm["sdpa_bwd_device_ms"] = graph_ms(sdpa_fwd_bwd, 10) - graph_ms(
         lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), 10)
     tm["flash_bwd_over_sdpa_bwd"] = tm["flash_bwd_device_ms"] / tm["sdpa_bwd_device_ms"]
+    if not cross:
+        return tm
     cross = {}
     for Tc in (256, 512, 1024):
         qc, kc, vc, dc = (torch.randn((B, H, Tc, D), generator=gen, device=dev)
@@ -1402,22 +1553,23 @@ def fused_linear_phase(dev) -> int:
 
 # mangled-name pieces of the kernels of flash_attention.cu that the
 # `ptxas_flash_wgmma` line reports: the forwards of #2 and #5 (the wgmma
-# forward without and with the LSE; the float32 forward by head_dim, rows a
-# thread and LSE; the bf16 SIMT forward at head_dim 128), #6's float32
-# kernels (by head_dim and rows a thread: the paired kernel, the dK/dV pass
-# writing dS and the dQ pass from it) and #6's wgmma kernels
+# forward by head_dim, without and with the LSE; the float32 forward by
+# head_dim, rows a thread and LSE), #6's float32 kernels (by head_dim and
+# rows a thread: the paired kernel, the dK/dV pass writing dS and the dQ
+# pass from it) and #6's wgmma kernels by head_dim
 FLASH_F32_PTXAS = {
     **{f"flash_fwd_f32ILi{D}ELi{rm}ELb{lse}E":
        f"flash_fwd_f32<{D}, {rm}, {('no lse', 'lse')[lse]}>"
        for D, rm in ((64, 4), (64, 2), (128, 4)) for lse in (0, 1)},
     **{f"flash_bwd_f32_{kind}ILi{D}ELi{rm}EE": f"flash_bwd_f32_{kind}<{D}, {rm}>"
        for D, rm in ((64, 4), (64, 2), (128, 2)) for kind in ("pair", "dkdv", "dq_ds")}}
-FLASH_PTXAS_KERNELS = {
-    "flash_fwd_wgmmaILb0E": "flash_fwd_wgmma<no lse> (#2)",
-    "flash_fwd_wgmmaILb1E": "flash_fwd_wgmma<lse> (#5)",
-    **FLASH_F32_PTXAS,
-    "flash_fwdI13__nv_bfloat16Li128E": "flash_fwd<bf16, 128>",
-    "flash_bwd_dkdv_wgmma": "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma": "flash_bwd_dq_wgmma"}
+FLASH_WGMMA_PTXAS = {
+    **{f"flash_fwd_wgmmaILi{D}ELb{lse}E":
+       f"flash_fwd_wgmma<{D}, {('no lse', 'lse')[lse]}> ({('#2', '#5')[lse]})"
+       for D in (64, 128) for lse in (0, 1)},
+    **{f"{kind}ILi{D}E": f"{kind}<{D}>" for D in (64, 128)
+       for kind in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_prep")}}
+FLASH_PTXAS_KERNELS = {**FLASH_WGMMA_PTXAS, **FLASH_F32_PTXAS}
 
 
 def print_ptxas_wgmma_flash(_build):
@@ -1437,11 +1589,13 @@ def print_ptxas_wgmma_flash(_build):
     return out
 
 
-def ptxas_f32_failures(report):
-    """The float32 forward's and backward's instantiations that are missing
-    from the `ptxas_flash_wgmma` report or have a stack frame or spill."""
+def ptxas_flash_failures(report):
+    """The instantiations of the float32 forward and backward and of the
+    wgmma kernels at head_dim 128 that are missing from the
+    `ptxas_flash_wgmma` report or have a stack frame or spill."""
     bad = []
-    for name in FLASH_F32_PTXAS.values():
+    checked = [v for k, v in FLASH_WGMMA_PTXAS.items() if "ILi128E" in k]
+    for name in list(FLASH_F32_PTXAS.values()) + checked:
         r = report.get(name, {})
         if not r or any(r.get(key, 1) for key in ("stack_bytes", "spill_store_bytes",
                                                   "spill_load_bytes")):
@@ -1457,10 +1611,12 @@ def flash_phase(dev) -> int:
     `flash_timings`; their float32 routes at the evaluation, RPI and
     float32 trainer's shapes, `flash_f32_timings`), the float32 forward's
     q tiles and the float32 backward's tiles and orders swept
-    (`flash_f32_tile_sweep`, `flash_f32_bwd_tile_sweep`), with
-    flash_attention.cu's ptxas report, in which the float32 kernels must
-    have no stack frame and no spill. Prints no result line; returns 1 if a
-    hold failed."""
+    (`flash_f32_tile_sweep`, `flash_f32_bwd_tile_sweep`), then bf16 at
+    head_dim 128 held and timed as `head_dim_128_phase` does without its
+    train path (`flash_hd128_timings`), with flash_attention.cu's ptxas
+    report, in which the float32 kernels and the wgmma kernels at head_dim
+    128 must have no stack frame and no spill. Prints no result line;
+    returns 1 if a hold failed."""
     import torch
 
     from llm_qat_tpu_torch.ops import _build
@@ -1469,7 +1625,7 @@ def flash_phase(dev) -> int:
           flush=True)
     report = print_ptxas_wgmma_flash(_build)
     gen = torch.Generator(device=dev).manual_seed(0)
-    failures = ptxas_f32_failures(report)
+    failures = ptxas_flash_failures(report)
     flash_serve_vs_plain(gen, dev, 12, 64, failures)
     flash_train_vs_plain(gen, dev, 8, 12, 64, failures)
     print_flash_serve_timings(flash_serve_timings(dev, 12, 64))
@@ -1486,6 +1642,10 @@ def flash_phase(dev) -> int:
           f"{tt['sdpa_bwd_ms']:.4f} ms by events (host work included); device time by graph "
           f"replay {tt['flash_bwd_device_ms']:.4f} ms against SDPA backward "
           f"{tt['sdpa_bwd_device_ms']:.4f} ms: {tt['flash_bwd_over_sdpa_bwd']:.2f}x", flush=True)
+    # bf16 at head_dim 128: #2 at (8, 6, 128, 128), #5/#6 at (8, 6, 1024, 128)
+    _, rows, st, tt = hd128_kernels(dev, gen, failures)
+    print("flash_hd128_timings " + json.dumps({"kernels": rows, "flash_serve": st,
+                                               "flash_timings": tt}), flush=True)
     for f in failures:
         print(f"chip_smoke --flash: FAIL {f}", flush=True)
     return 1 if failures else 0
@@ -5714,6 +5874,10 @@ def main() -> int:
                     help="only run student_mode='vmap' training (bench.py's train "
                          "configuration, and #5/#6 and #14-#16 at T = 1024) at GPT-2 124M, "
                          "12 layers")
+    ap.add_argument("--head-dim-128", action="store_true",
+                    help="only run bf16 at head_dim 128: #2/#5/#6 held and timed on the "
+                         "wgmma kernels, then SP training at d = 768 as 6 heads of 128, "
+                         "12 layers, held against the plain flash")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5786,6 +5950,10 @@ def main() -> int:
         vmap_phase(dev, card, 12)
         print_result()
         return 0
+    if args.head_dim_128:
+        head_dim_128_phase(dev, card, 12)
+        print_result()
+        return 0
     if args.cached_generate or args.eval_sp:
         if args.cached_generate:
             cfg, params, gen = serve_setup(dev)
@@ -5798,7 +5966,7 @@ def main() -> int:
     for src in ("fused_linear", "quant_matmul", "flash_attention", "decode_attention",
                 "mega_decode", "fused_decode"):
         print(f"ptxas, csrc/{src}.cu:\n" + _build.ptxas_report(src), flush=True)
-    bad = ptxas_f32_failures(print_ptxas_wgmma_flash(_build))
+    bad = ptxas_flash_failures(print_ptxas_wgmma_flash(_build))
     check(not bad, "; ".join(bad))
 
     # the SP command line first: its dataset and states are freed before
@@ -5955,6 +6123,13 @@ def main() -> int:
                   ("fused_linear_fwd", "fused_linear_bwd_dx", "fused_linear_bwd_dw"),
                   ((FUSED_JITTER,), (FUSED_JITTER,) * 2, (FUSED_JITTER,)), "fused")
     check(not failures, "; ".join(failures))
+    torch.cuda.empty_cache()
+
+    # 4e. bf16 at head_dim 128: #2/#5/#6 on the wgmma kernels at d = 768 as
+    #     6 heads of 128, and the SP train path there at
+    #     HD128_DEFAULT_LAYERS layers
+    hd128, hd128_rows = head_dim_128_phase(dev, card, HD128_DEFAULT_LAYERS)
+    torch.cuda.empty_cache()
 
     # 5. time on the card
     timings = {}
@@ -6101,7 +6276,7 @@ def main() -> int:
     flash_kernels = []
     for b, routes in ((B, flash_routes), (1, cb_routes)):
         rows = att.flash_fwd_plan(T0, b * H, d // H, _build.sm_count(dev))
-        for route, name in (("wgmma", "flash_fwd_wgmma<false>"),
+        for route, name in (("wgmma", f"flash_fwd_wgmma<{d // H}, false>"),
                             ("simt", f"flash_fwd_f32<{d // H}, {rows // 16}, false>")):
             if routes[route] and name not in flash_kernels:
                 flash_kernels.append(name)
@@ -6128,7 +6303,7 @@ def main() -> int:
                       >= flash_flops / fpeak else "operations"),
          "library_ms": served[f"sdpa_{fdt}_device_ms"],
          "library_events_ms": served[f"sdpa_{fdt}_ms"],
-         "cuda_kernels": flash_kernels},
+         "cuda_kernels": flash_kernels, "head_dim_128": hd128_rows["flash_attention"]},
     ]
     # kernels #5/#6 at the training path's shape: (B, H, T, D) bf16
     Tt, Dh = tbatches[0].shape[1], d // H
@@ -6142,9 +6317,11 @@ def main() -> int:
     f32_bwd = {key: {**val, "cuda_kernels": list(val["kernels_device_ms"])}
                for key, val in f32_timings.items() if key.startswith("flash_bwd_simt_")}
     for name, line, n_tensors, n_products, lib, launched, f32 in (
-            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"], ["flash_fwd_wgmma"], f32_fwd),
+            ("flash_fwd_lse", 303, 4, 2, tt["sdpa_fwd_device_ms"],
+             [f"flash_fwd_wgmma<{Dh}, true>"], f32_fwd),
             ("flash_bwd", 359, 8, 5, tt["sdpa_bwd_device_ms"],
-             ["flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"], f32_bwd)):
+             [f"flash_bwd_prep<{Dh}>", f"flash_bwd_dkdv_wgmma<{Dh}>",
+              f"flash_bwd_dq_wgmma<{Dh}>"], f32_bwd)):
         nbytes = n_tensors * op_bytes + lse_bytes
         flops = n_products * 2 * Dh * pairs
         # #5 also runs in the evaluation and RPI commands, and #5 and #6 in
@@ -6157,6 +6334,7 @@ def main() -> int:
         by_path["tp_step"] = par_launches["tp_step"][name]
         by_path["pp_step"] = par_launches["pp_step"][name]
         by_path["vmap_train"] = sum(v["kernels"][name] for v in vmap_launches.values())
+        by_path["train_head_dim_128"] = hd128["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "llm_qat_tpu_torch/csrc/flash_attention.cu",
@@ -6167,7 +6345,8 @@ def main() -> int:
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS
                          else "operations"),
-            "library_ms": lib, "cuda_kernels": launched, "float32": f32})
+            "library_ms": lib, "cuda_kernels": launched, "float32": f32,
+            "head_dim_128": hd128_rows[name]})
     # kernels #14-#16 summed over the four linears of one layer at the
     # training path's shapes, at the 8-bit log slot (the dearest fake-quant);
     # ms by CUDA events around back-to-back wrapper calls (#14/#15: the

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: the TMA-fed
 // wgmma kernels of `csrc/fused_linear.cu` (#14-#16) and
-// `csrc/flash_attention.cu` (#5/#6 with bf16 operands), and the persistent
+// `csrc/flash_attention.cu` (#2/#5/#6 with bf16 operands), and the persistent
 // cooperative kernels of `csrc/mega_decode.cu` (#1/#3/#4) and
 // `csrc/fused_decode.cu` (#12/#13). PTX wrappers for mbarriers, TMA and
 // bulk copies into shared memory, the grid barrier and an L2 prefetch,
@@ -324,15 +324,17 @@ static int bf16_map(CUtensorMap* map, const void* ptr, int inner, int rows, int 
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The map of a bf16 tensor (outer, rows, 64) with rows of 64 contiguous
-// values (128 bytes), read in boxes of 64 values x box_rows rows x 1 with
-// the 128-byte swizzle. A box that reaches past `rows` is filled with zeros
-// there: it never reads the next outer index's rows.
-static int bf16_map3(CUtensorMap* map, const void* ptr, int rows, int outer, int box_rows) {
+// The map of a bf16 tensor (outer, rows, cols) with rows of cols contiguous
+// values (cols a multiple of 64), read in boxes of 64 values x box_rows rows
+// x 1 with the 128-byte swizzle (box h of a row at inner coordinate 64 h).
+// A box that reaches past `rows` is filled with zeros there: it never reads
+// the next outer index's rows.
+static int bf16_map3(CUtensorMap* map, const void* ptr, int cols, int rows, int outer,
+                     int box_rows) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {128, (cuuint64_t)rows * 128};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,

@@ -10,17 +10,17 @@ with its plain PyTorch version beside it:
 - `flash_bwd` (training backward) replaces `_flash_bwd_kernel`; plain
   version `flash_bwd_plain`.
 Both forwards are one kernel each route (`flash_route` picks, for the
-backward too): with bf16 operands at head_dim 64 the TMA-fed wgmma forward,
-otherwise a SIMT forward on the CUDA cores, for float32 operands the
-register-tiled `flash_fwd_f32` in the q tile of `flash_fwd_plan`;
-`flash_attention` runs it without the log-sum-exp rows. Both round P to
-v's dtype at the running maximum of the JAX kernel's k-blocks
-(`flash_blocks`, `jax_block_k`), as the JAX kernels do. The backward takes
-the wgmma kernels for bf16 at head_dim 64 and, for float32 operands, the
-register-tiled `flash_bwd_f32_*` kernels in the tile and order of
-`flash_bwd_plan` (`flash_bwd_f32_plan`). `flash_attention_trainable` joins
-the last two in an `autograd.Function`, and `causal_attention` dispatches
-between it and the dense reference.
+backward too): with bf16 operands (head_dim 64 or 128) the TMA-fed wgmma
+forward `flash_fwd_wgmma<D, LSE>`, with float32 operands the
+register-tiled `flash_fwd_f32` on the CUDA cores in the q tile of
+`flash_fwd_plan`; `flash_attention` runs it without the log-sum-exp rows.
+Both round P to v's dtype at the running maximum of the JAX kernel's
+k-blocks (`flash_blocks`, `jax_block_k`), as the JAX kernels do. The
+backward takes the wgmma kernels for bf16 operands and, for float32
+operands, the register-tiled `flash_bwd_f32_*` kernels in the tile and
+order of `flash_bwd_plan` (`flash_bwd_f32_plan`).
+`flash_attention_trainable` joins the last two in an `autograd.Function`,
+and `causal_attention` dispatches between it and the dense reference.
 
 A wrapper takes its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in `<fn>.launches`.
@@ -156,9 +156,10 @@ def flash_attention(q, k, v):
     (`jax_block_k`).
 
     CPU tensors take `flash_attention_plain`. CUDA tensors launch one kernel
-    (`flash_route`'s: the wgmma forward for bf16 at head_dim 64, otherwise
-    the SIMT forward, each without the log-sum-exp rows; each output row is
-    written by one block, which masks the ragged tail itself) or raise.
+    (`flash_route`'s: the wgmma forward for bf16, the float32 forward
+    `flash_fwd_f32` for float32, each without the log-sum-exp rows; each
+    output row is written by one block, which masks the ragged tail
+    itself) or raise.
     Counts its launches in `flash_attention.launches`, and by route in
     `flash_attention.route_launches`. DTensor operands run on their local
     shards (`sharded.local_call`: batch and heads stay sharded, the rest
@@ -243,13 +244,15 @@ def _check_operands(what, named, like):
 
 def flash_route(dtype, D: int) -> str:
     """The kernels #2, #5 and #6 run on the card for operands of `dtype` at
-    head_dim D: "wgmma" (bf16 at head_dim 64, every GPT-2 size: the TMA-fed
-    tensor-core kernels) or "simt" (float32 operands, which wgmma has no
-    exact product for, and bf16 at head_dim 128: float32 FMA on the CUDA
-    cores; the forward of float32 operands is `flash_fwd_f32`). One rule
+    head_dim D: "wgmma" for bf16 at head_dim 64 (every GPT-2 size) and 128,
+    the TMA-fed tensor-core kernels (`flash_fwd_wgmma<D, LSE>`;
+    `flash_bwd_prep<D>`, `flash_bwd_dkdv_wgmma<D>`,
+    `flash_bwd_dq_wgmma<D>`), or "simt" for float32 operands, which wgmma
+    has no exact product for: float32 FMA on the CUDA cores
+    (`flash_fwd_f32`; `flash_bwd_rowdot` and `flash_bwd_f32_*`). One rule
     for all three, so that the forwards and the backward change route
     together."""
-    return "wgmma" if dtype == torch.bfloat16 and D == 64 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
 
 
 # The float32 forward `flash_fwd_f32`: the q-tile rows it takes by head_dim,
@@ -279,8 +282,9 @@ def flash_fwd_plan(T: int, BH: int, D: int, sms: int = 132) -> int:
 
 def _launch_fwd(what, q, k, v, lse):
     """(o, route) from one launch of the forward kernel `flash_route` names
-    (float32: `flash_forward_f32` in `flash_fwd_plan`'s q tile; bf16: over
-    the JAX k-blocks for T, `jax_block_k`), after checking the operands;
+    (bf16: `flash_forward_wgmma` at head_dim D over the JAX k-blocks for T,
+    `jax_block_k`; float32: `flash_forward_f32` in `flash_fwd_plan`'s q
+    tile), after checking the operands;
     raises on a CUDA error. lse: a (B, H, T, 1) float32 tensor to write, or
     None."""
     _check_operands(what, (("q", q), ("k", k), ("v", v)), q)
@@ -293,14 +297,12 @@ def _launch_fwd(what, q, k, v, lse):
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if route == "wgmma":
         rc = lib.flash_forward_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                     lse_ptr, B * H, T, jax_block_k(T), scale, _build.stream(q))
-    elif q.dtype == torch.float32:
+                                     lse_ptr, B * H, T, D, jax_block_k(T), scale,
+                                     _build.stream(q))
+    else:
         rows = flash_fwd_plan(T, B * H, D, _build.sm_count(q.device.index))
         rc = lib.flash_forward_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                    lse_ptr, B * H, T, D, rows, scale, _build.stream(q))
-    else:
-        rc = lib.flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse_ptr, B * H, T, D, jax_block_k(T), scale, _build.stream(q))
     _build.check(lib, rc, what)
     return o, route
 
@@ -328,8 +330,8 @@ flash_fwd_lse.launches = 0
 flash_fwd_lse.route_launches = {"wgmma": 0, "simt": 0}
 
 
-# Kernel #6's wgmma kernels: a block owns BWD_TILE rows (two warpgroups of
-# 64) and streams tiles of 64 rows.
+# Kernel #6's wgmma kernels (bf16, head_dim 64 and 128): a block owns
+# BWD_TILE rows (two warpgroups of 64) and streams tiles of 64 rows.
 BWD_TILE = 128
 
 # Kernel #6's float32 kernels (`flash_bwd_f32_*`): the own-tile rows they
@@ -399,11 +401,11 @@ def flash_bwd_plan(dtype, T: int, D: int, BH: int = 1, sms: int = 132) -> FlashB
 
 def _launch_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) from one call of the C entry of `flash_bwd_plan`'s
-    route: `flash_bwd_wgmma` (bf16 at head_dim 64), `flash_bwd_f32` (float32,
-    in the plan's tile and order) or `flash_bwd` (bf16 at head_dim 128), on
-    16-byte aligned copies of unaligned operands (TMA and cp.async
-    read rows from 16-byte aligned addresses); raises on a CUDA error. The
-    operands are checked by the caller."""
+    route: `flash_bwd_wgmma` (bf16, at head_dim D) or `flash_bwd_f32`
+    (float32, in the plan's tile and order), on 16-byte aligned copies of
+    unaligned operands (TMA and cp.async read rows from 16-byte aligned
+    addresses); raises on a CUDA error. The operands are checked by the
+    caller."""
     B, H, T, D = q.shape
     plan = flash_bwd_plan(q.dtype, T, D, B * H, _build.sm_count(q.device.index))
     lib = _build.load("flash_attention")
@@ -415,18 +417,14 @@ def _launch_bwd(q, k, v, o, lse, do):
     if plan.route == "wgmma":
         aux = torch.empty((2, B * H, plan.t_pad), dtype=torch.float32, device=q.device)
         rc = lib.flash_bwd_wgmma(*ptrs, aux.data_ptr(), *(t.data_ptr() for t in out),
-                                 B * H, T, plan.t_pad, scale, _build.stream(q))
+                                 B * H, T, D, plan.t_pad, scale, _build.stream(q))
     else:
         dvec = torch.empty((B * H * T,), dtype=torch.float32, device=q.device)
-        if q.dtype == torch.float32:
-            ds = (torch.empty((f32_ds_floats(B * H, T, plan.block),), dtype=torch.float32,
-                              device=q.device) if plan.order == "scratch" else None)
-            rc = lib.flash_bwd_f32(*ptrs, dvec.data_ptr(), None if ds is None else ds.data_ptr(),
-                                   *(t.data_ptr() for t in out), B * H, T, D, plan.block,
-                                   F32_BWD_ORDERS.index(plan.order), scale, _build.stream(q))
-        else:
-            rc = lib.flash_bwd(*ptrs, dvec.data_ptr(), *(t.data_ptr() for t in out),
-                               B * H, T, D, 1, scale, _build.stream(q))
+        ds = (torch.empty((f32_ds_floats(B * H, T, plan.block),), dtype=torch.float32,
+                          device=q.device) if plan.order == "scratch" else None)
+        rc = lib.flash_bwd_f32(*ptrs, dvec.data_ptr(), None if ds is None else ds.data_ptr(),
+                               *(t.data_ptr() for t in out), B * H, T, D, plan.block,
+                               F32_BWD_ORDERS.index(plan.order), scale, _build.stream(q))
     _build.check(lib, rc, "flash_bwd")
     return out, plan.route
 

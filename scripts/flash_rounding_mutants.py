@@ -16,17 +16,14 @@ decode attention mutant, `csrc/decode_attention.cu`) are edited, as the
 tables below say (an edit whose line is not found once stops the script).
 The copies are removed at the end.
 
-Mutants remove or move one rounding to the operand type: P before P.V in
-the SIMT forward (bf16 at head_dim 128), P before dV, or dS before dQ and
-dK, in the SIMT backward (float32 operands, and bf16 at head_dim 128):
-caught by the bf16 cases at head_dim 128; in the wgmma kernels (bf16 at head_dim 64, whose
-products take bf16 operands, so a rounding cannot be removed, only
-changed) P or dS rounded toward zero instead of to nearest, dS taken from
-the rounded P instead of the float32 one, or the forward's row sum taken
-from the rounded P instead of the float32 one. Two more move the forward's
-rounding point: P rounded at the running max of each 64-key tile instead
-of the JAX k-block's (128 or 256 keys), in the wgmma forward and in the
-SIMT forward. The bf16 cases
+Mutants change one rounding to the operand type in the wgmma kernels (bf16
+operands at head_dim 64 and 128, whose products take bf16 operands, so a
+rounding cannot be removed, only changed): P or dS rounded toward zero
+instead of to nearest, dS taken from the rounded P instead of the float32
+one, or the forward's row sum taken from the rounded P instead of the
+float32 one. One more moves the forward's rounding point: P rounded at the
+running max of each 64-key tile instead of the JAX k-block's (128 or 256
+keys). The bf16 cases
 of `tests/test_torch_cuda.py::test_flash_train_kernels_match_plain` at
 head_dim 64 and 128 (T = 128 and 1024) must fail on every mutant. The
 script prints the test's own lines (largest error in bf16 ulps, share of
@@ -139,13 +136,6 @@ def _ds_edits(p0, p1, wrap):
 
 
 MUTANTS = {
-    "forward P": [("s[i][j] = round_to<T>(p);", "s[i][j] = p;")],
-    "SIMT backward P": [("Ps[r * PK + c] = round_to<T>(p);", "Ps[r * PK + c] = p;")],
-    "SIMT backward dS": [
-        ("dSs[r * PK + c] = round_to<T>(p * (dp[i][j] - d_s[r]));",
-         "dSs[r * PK + c] = p * (dp[i][j] - d_s[r]);"),
-        ("dSt[c * PQ + r] = round_to<T>(p * (dp[i][j] - d_s[r]));",
-         "dSt[c * PQ + r] = p * (dp[i][j] - d_s[r]);")],
     "wgmma backward P, toward zero": [
         ("pf[2 * j + h] = bf16x2(p0, p1);", f"pf[2 * j + h] = {_both(TRUNC, 'p0', 'p1')};")],
     "wgmma backward dS, toward zero": _ds_edits(
@@ -161,9 +151,6 @@ MUTANTS = {
     "wgmma forward P at the 64-key tile's running max": [
         ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
          "(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, 1, sm_scale);")],
-    "SIMT forward P at the 64-key tile's running max": [
-        ("static_cast<T*>(o), lse, seq, sm_scale, nb);",
-         "static_cast<T*>(o), lse, seq, sm_scale, 1);")],
 }
 SELECT = ("test_flash_train_kernels_match_plain and (64-128-dtype1 or 64-1024-dtype1 "
           "or 128-128-dtype1 or 128-1024-dtype1)")
@@ -179,7 +166,8 @@ EXPS = [("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), l2.x));", "sa[e]"),
         ("p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), l2.y));", "sa[e + 1]"),
         ("p0 = expf(__fsub_rn(__fmul_rn(sa[e], sm_scale), lr[h]));", "sa[e]"),
         ("p1 = expf(__fsub_rn(__fmul_rn(sa[e + 1], sm_scale), lr[h]));", "sa[e + 1]")]
-ISSUED = "      rs_accumulate({}, sf, {});\n      wgmma_commit();\n"
+ISSUED = "      rs_accumulate<{}>({}, sf, {});\n      wgmma_commit();\n"
+DKDV_B = " + box * SW128_BOX"  # the dK/dV kernel's box of the second products' B
 FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], mx[h]));", "corr[h] = 1.f;"),
             ("const float p[2] = {expf(__fsub_rn(sa[e], mr[h])), "
              "expf(__fsub_rn(sa[e + 1], mr[h]))};",
@@ -188,23 +176,24 @@ FWD_EXPS = [("corr[h] = expf(__fsub_rn(mr[h], mx[h]));", "corr[h] = 1.f;"),
 ABLATIONS = {
     "forward fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in FWD_EXPS],
     "forward no exp": FWD_EXPS,
-    "forward no P.V": [("  rs_accumulate(oa, pf, vs);\n", "")],
-    "forward one block per SM": [("__launch_bounds__(W_THREADS, 2)\nflash_fwd_wgmma",
+    "forward no P.V": [("  rs_accumulate<D>(oa, pf, vs);\n", "")],
+    "forward one block per SM": [("__launch_bounds__(W_THREADS, Wg<D>::BLOCKS)\nflash_fwd_wgmma",
                                   "__launch_bounds__(W_THREADS, 1)\nflash_fwd_wgmma")],
     "fast exp": [(old, old.replace("expf(", "__expf(")) for old, _ in EXPS],
     "no exp": [(old, old.split(" = ")[0] + f" = {s};") for old, s in EXPS],
     "no second products": [
-        ("      rs_accumulate(dva, pf, dos);\n      rs_accumulate(dka, sf, qs);\n", ""),
-        ("      rs_accumulate(dqa, sf, ks);\n", "")],
+        (f"      rs_accumulate<64>(dva, pf, dos{DKDV_B});\n"
+         f"      rs_accumulate<64>(dka, sf, qs{DKDV_B});\n", ""),
+        ("      rs_accumulate<D>(dqa, sf, ks);\n", "")],
     "second products K-major": [
-        ("wgmma_rs64<true>(d, a + 4 * kk, sdesc<true>(b, kk));",
-         "wgmma_rs64<false>(d, a + 4 * kk, sdesc<false>(b, kk));")],
+        ("wgmma_rs64<true>(d + 32 * h, a + 4 * kk, sdesc<true>(b + h * SW128_BOX, kk));",
+         "wgmma_rs64<false>(d + 32 * h, a + 4 * kk, sdesc<false>(b + h * SW128_BOX, kk));")],
     "second products not waited for": [
-        (ISSUED.format(a, b) + "      wgmma_wait<0>();\n", ISSUED.format(a, b))
-        for a, b in (("dka", "qs"), ("dqa", "ks"))],
+        (ISSUED.format(n, a, b) + "      wgmma_wait<0>();\n", ISSUED.format(n, a, b))
+        for n, a, b in (("64", "dka", "qs" + DKDV_B), ("D", "dqa", "ks"))],
     "light first": [
-        ("blockIdx.x, blockIdx.y * W_TILE, seq,",
-         "blockIdx.x, (gridDim.y - 1 - blockIdx.y) * W_TILE, seq,"),
+        ("blockIdx.x, blockIdx.y * Wg<D>::KEYS,",
+         "blockIdx.x, (gridDim.y - 1 - blockIdx.y) * Wg<D>::KEYS,"),
         ("const int y = gridDim.y - 1 - blockIdx.y;", "const int y = blockIdx.y;"),
         ("(gridDim.y - 1 - blockIdx.y) * W_TILE, seq, nb, sm_scale);",
          "blockIdx.y * W_TILE, seq, nb, sm_scale);")],

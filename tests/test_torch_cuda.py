@@ -10,6 +10,7 @@ tests). On a machine with a card:
 need not have.)
 """
 
+import collections
 import ctypes
 import importlib
 import math
@@ -49,6 +50,84 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Node kinds of the CUDA driver's CUgraphNodeType, by value
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
+               9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+               13: "conditional"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the driver API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _demangled(name: str) -> str:
+    """A kernel's C++ name as the profiler shows it, from its mangled one
+    (`__cxa_demangle` of the loaded libstdc++)."""
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.restype = ctypes.c_void_p
+    cxx.__cxa_demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int(-1)
+    ptr = cxx.__cxa_demangle(name.encode(), None, None, ctypes.byref(status))
+    if status.value != 0 or not ptr:
+        return name
+    out = ctypes.string_at(ptr).decode()
+    ctypes.CDLL(None).free(ctypes.c_void_p(ptr))
+    return out
+
+
+def graph_launches(fn):
+    """What one fn() call puts on the stream, node by node: a CUDA graph is
+    captured around it (after one call on a side stream, which builds and
+    loads what it needs) and its nodes are read back through the driver
+    API: a kernel node as its kernel's name in the profiler's form
+    ("flash_fwd_f32<64, 4, false>"), any other node as its kind ("memcpy",
+    "memset", ...). It counts launches and copies as torch.profiler's
+    kernel records do, and loses none, where the profiler on the card's
+    machine now and then keeps only the last kernel records of a window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        if kind.value != 0:
+            out.append(_NODE_KINDS.get(kind.value, f"node kind {kind.value}"))
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)) == 0
+        if params.func:
+            rc = cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            rc = cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern))
+        assert rc == 0 and name.value, rc
+        out.append(_demangled(name.value.decode()).split("(")[0].replace("void ", "").strip())
+    return out
+
+
+def launch_counts(fn, short=False):
+    """Counter of `graph_launches(fn)`, kernel names cut at their template
+    arguments with `short`."""
+    return collections.Counter(n.split("<")[0] if short else n for n in graph_launches(fn))
+
+
 @pytest.mark.parametrize("T", [64, 128, 200, 512])
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_kernel_matches_plain(cuda_device, T, D):
@@ -67,7 +146,7 @@ def test_flash_kernel_matches_plain(cuda_device, T, D):
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_kernel_bf16_matches_plain(cuda_device, T, D):
     """Kernel #2 with bf16 operands (the serving prefill's dtype; the wgmma
-    forward at head_dim 64, the SIMT forward at 128), ragged T = 200
+    forward at head_dim 64 and at 128), ragged T = 200
     included, its k-block JAX's for T (128 keys up to T = 256, 256 at
     T = 512): one launch a call, repeat calls bit-equal, and within #5's
     bf16 limits of its plain version over all rows: 2 bf16 ulps at the max
@@ -276,24 +355,26 @@ def test_flash_fwd_single_row_matches_plain(cuda_device, dtype, D):
         assert (o != po).float().mean().item() <= 2e-2
 
 
-def _bwd_inputs(dev, T, seed=0):
-    """bf16 (2, 3, T, 64) operands of kernel #6 and the forward's o and lse."""
+def _bwd_inputs(dev, T, seed=0, D=64):
+    """bf16 (2, 3, T, D) operands of kernel #6 and the forward's o and lse."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn((2, 3, T, 64), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn((2, 3, T, D), generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(4))
     o, lse = flash_fwd_lse(q, k, v)
     return q, k, v, o, lse, do
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("T", [1024, 200])
-def test_flash_bwd_bf16_is_deterministic(cuda_device, T):
-    """Repeat calls of the bf16 backward (the wgmma route) give bit-equal
-    dq, dk, dv, ragged T = 200 included: each output element is summed by
-    one block in a fixed order, with no atomics."""
+def test_flash_bwd_bf16_is_deterministic(cuda_device, T, D):
+    """Repeat calls of the bf16 backward (the wgmma route, at head_dim 64
+    and 128) give bit-equal dq, dk, dv, ragged T = 200 included: each
+    output element is summed by one block in a fixed order, with no
+    atomics."""
     from llm_qat_tpu_torch.ops import attention as att
 
-    args = _bwd_inputs(cuda_device, T, seed=T)
-    assert att.flash_bwd_plan(torch.bfloat16, T, 64).route == "wgmma"
+    args = _bwd_inputs(cuda_device, T, seed=T, D=D)
+    assert att.flash_bwd_plan(torch.bfloat16, T, D).route == "wgmma"
     first = flash_bwd(*args)
     for _ in range(2):
         for a, b in zip(flash_bwd(*args), first):
@@ -317,19 +398,43 @@ def test_flash_bwd_takes_unaligned_views(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("T", [1024, 200])
-def test_flash_fwd_bf16_is_deterministic(cuda_device, T):
-    """Repeat calls of the bf16 forward at head_dim 64 (the wgmma route)
-    give bit-equal o and lse, ragged T = 200 included: each output row is
-    written by one block in a fixed order, with no atomics."""
+def test_flash_fwd_bf16_is_deterministic(cuda_device, T, D):
+    """Repeat calls of the bf16 forward at head_dim 64 and 128 (the wgmma
+    route) give bit-equal o and lse, ragged T = 200 included: each output
+    row is written by one block in a fixed order, with no atomics."""
     from llm_qat_tpu_torch.ops import attention as att
 
-    q, k, v = _bwd_inputs(cuda_device, T, seed=T + 1)[:3]
-    assert att.flash_route(torch.bfloat16, 64) == "wgmma"
+    q, k, v = _bwd_inputs(cuda_device, T, seed=T + 1, D=D)[:3]
+    assert att.flash_route(torch.bfloat16, D) == "wgmma"
     first = flash_fwd_lse(q, k, v)
     for _ in range(2):
         for a, b in zip(flash_fwd_lse(q, k, v), first):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_launches_the_wgmma_kernels(cuda_device, D):
+    """With bf16 operands at head_dim 64 and 128, a call of #2 or #5 is one
+    launch of `flash_fwd_wgmma<D, LSE>` and a call of #6 one launch each of
+    `flash_bwd_prep<D>`, `flash_bwd_dkdv_wgmma<D>` and
+    `flash_bwd_dq_wgmma<D>`, with nothing beside them (no copy, no memset,
+    no CUDA-core flash kernel), each counted by its wrapper as "wgmma"."""
+    from llm_qat_tpu_torch.ops import attention as att
+
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 256, seed=D, D=D)
+    routes = [dict(getattr(att, n).route_launches)
+              for n in ("flash_attention", "flash_fwd_lse", "flash_bwd")]
+    assert list(graph_launches(lambda: flash_attention(q, k, v))) == [
+        f"flash_fwd_wgmma<{D}, false>"]
+    assert list(graph_launches(lambda: flash_fwd_lse(q, k, v))) == [
+        f"flash_fwd_wgmma<{D}, true>"]
+    assert sorted(graph_launches(lambda: flash_bwd(q, k, v, o, lse, do))) == [
+        f"flash_bwd_dkdv_wgmma<{D}>", f"flash_bwd_dq_wgmma<{D}>", f"flash_bwd_prep<{D}>"]
+    for n, before in zip(("flash_attention", "flash_fwd_lse", "flash_bwd"), routes):
+        after = getattr(att, n).route_launches
+        assert after["wgmma"] == before["wgmma"] + 2 and after["simt"] == before["simt"], n
 
 
 def test_flash_fwd_takes_unaligned_views(cuda_device):
@@ -362,25 +467,24 @@ def test_flash_train_wrappers_check_their_inputs(cuda_device):
     for fn in (flash_attention, flash_fwd_lse):
         with pytest.raises(ValueError, match="float32 CUDA"):
             fn(q, q.to(torch.bfloat16), q)
-    # the bf16 C entries take k-blocks of 64, 128 or 256 keys only (the SIMT
-    # one head_dim 128 only), the float32 one the q tiles it has kernels for
+    # the bf16 C entry takes k-blocks of 64, 128 or 256 keys and head_dims
+    # 64 and 128 only, the float32 one the q tiles it has kernels for
     from llm_qat_tpu_torch.ops import _build
 
     lib, qb = _build.load("flash_attention"), q.to(torch.bfloat16)
     qb128 = torch.randn((1, 2, 128, 128), device=cuda_device).to(torch.bfloat16)
     stream = _build.stream(q)
     for bk in (96, 512):
-        assert lib.flash_forward_wgmma(*(qb.data_ptr(),) * 4, None, 2, 128, bk, 0.125,
+        for t, D in ((qb, 64), (qb128, 128)):
+            assert lib.flash_forward_wgmma(*(t.data_ptr(),) * 4, None, 2, 128, D, bk, 0.125,
+                                           stream) != 0
+    for D in (32, 96, 256):
+        assert lib.flash_forward_wgmma(*(qb128.data_ptr(),) * 4, None, 2, 128, D, 128, 0.125,
                                        stream) != 0
-        assert lib.flash_forward(*(qb128.data_ptr(),) * 4, None, 2, 128, 128, bk, 0.125,
-                                 stream) != 0
-    assert lib.flash_forward(*(qb.data_ptr(),) * 4, None, 2, 128, 64, 128, 0.125, stream) != 0
-    assert lib.flash_forward_wgmma(qb.data_ptr(), qb.data_ptr(), qb.data_ptr(),
-                                   torch.empty_like(qb).data_ptr(), None, 2, 128, 64, 0.125,
-                                   stream) == 0
-    assert lib.flash_forward(qb128.data_ptr(), qb128.data_ptr(), qb128.data_ptr(),
-                             torch.empty_like(qb128).data_ptr(), None, 2, 128, 128, 128,
-                             0.125, stream) == 0
+    for t, D in ((qb, 64), (qb128, 128)):
+        assert lib.flash_forward_wgmma(t.data_ptr(), t.data_ptr(), t.data_ptr(),
+                                       torch.empty_like(t).data_ptr(), None, 2, 128, D, 128,
+                                       0.125, stream) == 0
     out = torch.empty_like(q)
     for D, rows in ((64, 128), (64, 16), (128, 32), (96, 64)):
         assert lib.flash_forward_f32(*(q.data_ptr(),) * 3, out.data_ptr(), None, 2, 128, D,
@@ -448,15 +552,7 @@ def test_flash_fwd_float32_launches_flash_fwd_f32(cuda_device, shape, rows):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert att.flash_fwd_plan(T, B * H, D, sms) == rows
     q, k, v = _f32_inputs(cuda_device, shape, seed=3)
-    flash_attention(q, k, v), flash_fwd_lse(q, k, v)  # warm: built and loaded
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        flash_attention(q, k, v)
-        flash_fwd_lse(q, k, v)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    names = {e.key.split("(")[0].replace("void ", "").strip(): e.count for e in evs}
+    names = launch_counts(lambda: (flash_attention(q, k, v), flash_fwd_lse(q, k, v)))
     want = {f"flash_fwd_f32<{D}, {rows // 16}, {lse}>": 1 for lse in ("false", "true")}
     assert names == want, names
 
@@ -602,14 +698,7 @@ def test_flash_bwd_float32_launches_the_new_kernels(cuda_device, shape, plan, ke
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert att.flash_bwd_f32_plan(T, B * H, D, sms) == plan
     args = _f32_bwd_inputs(cuda_device, shape, seed=3)
-    flash_bwd(*args)  # warm: built and loaded
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        flash_bwd(*args)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    names = {e.key.split("(")[0].replace("void ", "").strip(): e.count for e in evs}
+    names = launch_counts(lambda: flash_bwd(*args))
     assert names == {f"flash_bwd_rowdot<float, {D}>": 1, **{n: 1 for n in kernels}}, names
 
 
@@ -1090,8 +1179,9 @@ def test_fused_linear_student_kernels_match_plain(cuda_device, dtype, M, K, N, r
 def test_fused_linear_students_are_one_launch_each(cuda_device):
     """With S = 3 students each wrapper call is one launch of its kernel
     (bf16: #14 and #15 one `fl_fq_weight` and one GEMM each, #16 one
-    `fl_bwd_dw_wgmma`; profiled), and #16's sum over the students is one
-    reduction beside it: no launch per student."""
+    `fl_bwd_dw_wgmma`; counted in a CUDA graph captured around the calls),
+    and #16's sum over the students is one reduction beside it: no launch
+    per student."""
     from llm_qat_tpu_torch.ops import fused_linear as fl
 
     a = _fused_students(cuda_device, 1024, 768, 768, 64, torch.bfloat16, seed=1)
@@ -1100,15 +1190,7 @@ def test_fused_linear_students_are_one_launch_each(cuda_device):
     dx_args = (a["g"], a["w"], a["ws"], a["wz"], a["bq"], a["scalars"], True, 1e-5)
     calls = lambda: (fl.fused_linear_fwd(*fwd_args), fl.fused_linear_bwd_dx(*dx_args),
                      fl.fused_linear_bwd_dw(a["xq"], a["g"], a["scalars"]))
-    calls()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        calls()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    names = {e.key.split("(")[0].split("<")[0].replace("void ", "").strip(): e.count
-             for e in evs}
+    names = launch_counts(calls, short=True)
     ours = {n: c for n, c in names.items() if n.startswith("fl_")}
     assert ours == {"fl_fq_weight": 2, "fl_fwd_wgmma": 1, "fl_bwd_dx_wgmma": 1,
                     "fl_bwd_dw_wgmma": 1}, names
@@ -1379,15 +1461,8 @@ def test_mega_step_is_one_launch(cuda_device):
              lambda: md.mega_decode_step(h, mw, *f32, 50, **kw_f),
              lambda: md.mega_decode_step(h, mw, *bf16, 50, **kw_f))
     for step in steps:
-        step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-        names = [e.key.split("(")[0].split("<")[0].replace("void ", "").strip() for e in evs]
-        assert [(n, e.count) for n, e in zip(names, evs)] == [("k_mega", 1)], evs
+        names = launch_counts(step, short=True)
+        assert list(names.items()) == [("k_mega", 1)], names
 
 
 @pytest.mark.parametrize("layout,kv_bits", [("dense", 8), ("packed", 8), ("mega", 8),
@@ -1755,7 +1830,8 @@ def test_fused_decode_pads_odd_widths(cuda_device, lora):
 
 def test_fused_decode_is_one_launch_and_refuses_a_large_grid(cuda_device):
     """A call of #12 or #13 is one CUDA kernel launch (the persistent
-    k_fused; five calls profiled), with no copy or memset beside it; half
+    k_fused; five calls counted in a CUDA graph captured around them),
+    with no copy or memset beside it; half
     the plan's grid holds
     and repeats bit-equal; two blocks per SM, more than the card holds at
     once, is refused by the runtime and raises."""
@@ -1766,14 +1842,8 @@ def test_fused_decode_is_one_launch_and_refuses_a_large_grid(cuda_device):
     for kern, args in ((fd.fused_ln_qkv, qa), (fd.fused_post_attention, pa)):
         ref = kern(*args)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                kern(*args)
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-        names = [e.key.split("(")[0].split("<")[0].replace("void ", "").strip() for e in evs]
-        assert [(n, e.count) for n, e in zip(names, evs)] == [("k_fused", 5)], evs
+        names = launch_counts(lambda: [kern(*args) for _ in range(5)], short=True)
+        assert list(names.items()) == [("k_fused", 5)], names
         assert fd.fused_grid(cuda_device) == nsm
         half, again = kern(*args, grid=nsm // 2), kern(*args, grid=nsm // 2)
         torch.cuda.synchronize()

@@ -23,6 +23,12 @@ from llm_qat_tpu_torch.ops import attention as ta
 # outputs by one bf16 ulp of their own (measured 8.3e-6 of the largest
 # output at T = 256, 5.4e-8 for the gradients).
 TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -14}
+# At head_dim 128 such a move reaches larger outputs: at T = 128 2 of the
+# 65536 bf16 outputs of O take the neighbouring bf16 value, one of them a
+# quarter of its row's max (3.2e-4 of the largest output). There the
+# outputs that are adjacent bf16 values in the two packages are counted
+# apart: at most FLIP_SHARE of them, and every other output within TOL.
+FLIP_SHARE = 1e-3
 
 
 def _qkv(T, dtype, seed=0, D=64):
@@ -35,26 +41,42 @@ def _qkv(T, dtype, seed=0, D=64):
     return j, t
 
 
-def _close(got, want, dtype, what):
+def _close(got, want, dtype, what, flips=False):
+    """got within TOL[dtype] of max |want|; with `flips` (bf16 only), the
+    outputs that are adjacent bf16 values in both (one rounding step of
+    their own apart) are left out of that limit, and may be at most
+    FLIP_SHARE of them."""
+    if flips:
+        g16 = got.to(torch.bfloat16).view(torch.int16).numpy().astype(np.int32)
+        w16 = torch.tensor(np.asarray(want, np.float32)).to(torch.bfloat16).view(
+            torch.int16).numpy().astype(np.int32)
+        adjacent = (np.abs(g16 - w16) == 1) & ((g16 < 0) == (w16 < 0))
+        assert adjacent.mean() <= FLIP_SHARE, f"{what}: {adjacent.mean():.2e} flipped"
     got = got.float().numpy()
     want = np.asarray(want, np.float32)
-    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    diff = np.abs(got - want)
+    if flips:
+        diff = np.where(adjacent, 0.0, diff)
+    err = diff.max() / max(np.abs(want).max(), 1e-30)
     assert err <= TOL[dtype], f"{what}: rel err {err:.3e} > {TOL[dtype]:.3e}"
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T", [128, 256])
-def test_flash_fwd_lse_plain_matches_pallas(dtype, T):
+def test_flash_fwd_lse_plain_matches_pallas(dtype, T, D):
     """O and LSE of `flash_fwd_lse_plain` against `_flash_fwd_call` in
     interpret mode with the JAX package's own block sizes (at T = 256 the
-    K/V stream has two blocks). Errors relative to max |reference|."""
-    (q, k, v, _), (tq, tk, tv, _) = _qkv(T, dtype, seed=T)
+    K/V stream has two blocks), at both head_dims the JAX kernels take.
+    Errors relative to max |reference|; bf16 O at head_dim 128 with its
+    rounding flips counted apart (FLIP_SHARE)."""
+    (q, k, v, _), (tq, tk, tv, _) = _qkv(T, dtype, seed=T, D=D)
     bq, bk = ja.flash_blocks(T)
     jo, jl = ja._flash_fwd_call(q, k, v, bq, bk, True)
     to, tl = ta.flash_fwd_lse_plain(tq, tk, tv)
     assert to.dtype == tq.dtype and tl.dtype == torch.float32
     assert tuple(tl.shape) == jl.shape
-    _close(to, jo, dtype, "O")
+    _close(to, jo, dtype, "O", flips=dtype == "bfloat16" and D == 128)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-6, rtol=0)
 
 
@@ -117,12 +139,14 @@ def test_flash_wrappers_take_the_jax_k_block(T):
         assert not torch.equal((acc / l).to(torch.bfloat16), want)
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_bwd_plain_matches_pallas(dtype):
+def test_flash_bwd_plain_matches_pallas(dtype, D):
     """dq, dk, dv through the port's `flash_attention_trainable` (CPU: the
     plain versions) against `jax.vjp` of the JAX `flash_attention_trainable`
-    in interpret mode, with a cotangent in the operand dtype."""
-    (q, k, v, do), (tq, tk, tv, tdo) = _qkv(128, dtype, seed=7)
+    in interpret mode, with a cotangent in the operand dtype, at both
+    head_dims the JAX kernels take."""
+    (q, k, v, do), (tq, tk, tv, tdo) = _qkv(128, dtype, seed=7, D=D)
     out, vjp = jax.vjp(lambda a, b, c: ja.flash_attention_trainable(a, b, c, 128, 128, True),
                        q, k, v)
     want = vjp(do)
@@ -154,12 +178,12 @@ def test_flash_rule_and_constants_match_jax():
 
 
 @pytest.mark.parametrize("dtype,D,route", [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "simt"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
 def test_flash_bwd_plan_routes_by_dtype_and_head_dim(dtype, D, route):
     """Kernel #6 takes the wgmma kernels for bf16 at head_dim 64 (every
-    GPT-2 size); float32 (no exact float32 product on the tensor cores)
-    and bf16 at head_dim 128 take the float32 SIMT kernels."""
+    GPT-2 size) and 128; float32 (no exact float32 product on the tensor
+    cores) takes the float32 SIMT kernels."""
     assert ta.flash_bwd_plan(dtype, 1024, D).route == route
 
 
@@ -172,7 +196,7 @@ def test_flash_fwd_and_bwd_take_the_same_route(dtype, D):
     for T in (1, 200, 1024):
         assert ta.flash_route(dtype, D) == ta.flash_bwd_plan(dtype, T, D).route
     assert ta.flash_route(dtype, D) == (
-        "wgmma" if (dtype, D) == (torch.bfloat16, 64) else "simt")
+        "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt")
 
 
 @pytest.mark.parametrize("T", [1, 64, 128, 200, 1024])
@@ -331,14 +355,15 @@ class _RecordingLib:
     (torch.float32, (1, 4, 256, 64), 132, "flash_forward_f32", 32),
     (torch.float32, (2, 2, 200, 128), 4, "flash_forward_f32", 64),
     (torch.bfloat16, (1, 4, 256, 64), 4, "flash_forward_wgmma", 128),
-    (torch.bfloat16, (1, 4, 512, 128), 4, "flash_forward", 256)])
+    (torch.bfloat16, (1, 4, 512, 128), 4, "flash_forward_wgmma", 256)])
 @pytest.mark.parametrize("with_lse", [False, True])
 def test_launch_fwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, tile, with_lse):
     """`_launch_fwd` (behind `flash_attention` and `flash_fwd_lse` on the
     card) calls one C entry, on 16-byte aligned copies of unaligned views:
     float32 operands `flash_forward_f32` with `flash_fwd_plan`'s q tile for
-    the card's SM count; bf16 the wgmma or SIMT entry with JAX's k-block
-    for T. No kernel runs here: the library is a recording stand-in."""
+    the card's SM count; bf16 the wgmma entry with the head_dim and JAX's
+    k-block for T. No kernel runs here: the library is a recording
+    stand-in."""
     lib = _RecordingLib()
     monkeypatch.setattr(ta._build, "load", lambda name: lib)
     monkeypatch.setattr(ta._build, "stream", lambda t: 0)
@@ -359,10 +384,7 @@ def test_launch_fwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, 
     assert name == entry
     q, k, v, out, lse_ptr = args[:5]
     assert out == o.data_ptr() and lse_ptr == (None if lse is None else lse.data_ptr())
-    if entry == "flash_forward_wgmma":
-        assert args[5:8] == (B * H, T, tile)
-    else:
-        assert args[5:9] == (B * H, T, D, tile)
+    assert args[5:9] == (B * H, T, D, tile)
     assert all(p % 16 == 0 for p in (q, k, v))
     if dtype == torch.float32:
         assert tile == ta.flash_fwd_plan(T, B * H, D, sms)
@@ -418,14 +440,15 @@ def test_flash_bwd_f32_plan_refuses_other_head_dims(D):
     (torch.float32, (2, 2, 200, 128), 4, "flash_bwd_f32", 32, "scratch"),
     (torch.float32, (2, 2, 200, 128), 132, "flash_bwd_f32", 32, "paired"),
     (torch.bfloat16, (1, 4, 256, 64), 4, "flash_bwd_wgmma", 0, ""),
-    (torch.bfloat16, (1, 4, 256, 128), 4, "flash_bwd", 0, "")])
+    (torch.bfloat16, (1, 4, 256, 128), 4, "flash_bwd_wgmma", 0, "")])
 def test_launch_bwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, tile, order):
     """`_launch_bwd` (behind `flash_bwd` on the card) calls one C entry, on
     16-byte aligned copies of unaligned views: float32 operands
     `flash_bwd_f32` with `flash_bwd_plan`'s tile and order for the card's
     SM count (the order as the entry's mode, and a dS scratch of
-    `f32_ds_floats` only for "scratch"); bf16 the wgmma or SIMT entry. No
-    kernel runs here: the library is a recording stand-in."""
+    `f32_ds_floats` only for "scratch"); bf16 the wgmma entry with the
+    head_dim and the padded rows of the LSE and D vectors. No kernel runs
+    here: the library is a recording stand-in."""
     lib = _RecordingLib()
     monkeypatch.setattr(ta._build, "load", lambda name: lib)
     monkeypatch.setattr(ta._build, "stream", lambda t: 0)
@@ -459,6 +482,7 @@ def test_launch_bwd_passes_the_plan_tile(monkeypatch, dtype, shape, sms, entry, 
             assert (ta.f32_ds_floats(B * H, T, tile),) in made
     else:
         outs = args[7:10]
+        assert args[10:14] == (B * H, T, D, -(-T // 128) * 128)
     assert outs == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
 
 
